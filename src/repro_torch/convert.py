@@ -16,14 +16,12 @@
 from __future__ import annotations
 
 import dataclasses
-import json
-import pathlib
-import zlib
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import read_checkpoint
 from repro_torch.core.dsekl import DSEKLConfig, DSEKLState
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -61,51 +59,9 @@ def state_from_jax(arrays: Mapping[str, Any],
                       step=scalar("step"), epoch=scalar("epoch"))
 
 
-def _step_dir(directory: pathlib.Path, step: int) -> pathlib.Path:
-    return directory / f"step_{step:010d}"
-
-
-def _steps(directory: pathlib.Path):
-    out = []
-    for p in directory.iterdir():
-        name = p.name
-        if name.startswith("step_") and name[5:].isdigit():
-            out.append(int(name[5:]))
-    return sorted(out)
-
-
-def _manifest_if_valid(d: pathlib.Path) -> Optional[Dict[str, Any]]:
-    man_p, npz_p = d / "manifest.json", d / "arrays.npz"
-    if not (man_p.is_file() and npz_p.is_file()):
-        return None
-    try:
-        man = json.loads(man_p.read_text())
-    except (OSError, ValueError):
-        return None
-    if not isinstance(man, dict) or man.get("crc32") != zlib.crc32(
-            npz_p.read_bytes()):
-        return None
-    return man
-
-
 def read_jax_checkpoint(directory, step: Optional[int] = None
                         ) -> Tuple[int, Dict[str, np.ndarray], Dict]:
     """Returns ``(step, flat arrays, extra)`` of the newest valid step (or
-    of ``step``, which must be valid)."""
-    directory = pathlib.Path(directory)
-    if step is None:
-        for s in reversed(_steps(directory)):
-            man = _manifest_if_valid(_step_dir(directory, s))
-            if man is not None:
-                step = s
-                break
-        else:
-            raise FileNotFoundError(f"no valid checkpoint in {directory}")
-    else:
-        man = _manifest_if_valid(_step_dir(directory, step))
-        if man is None:
-            raise ValueError(f"checkpoint step {step} is corrupt/missing")
-    npz = _step_dir(directory, step) / "arrays.npz"
-    with np.load(npz, allow_pickle=False) as z:
-        flat = {k: z[k] for k in z.files}
-    return step, flat, man.get("extra", {})
+    of ``step``, which must be valid).  The port's checkpoints share the
+    layout, so this is ``checkpoint.read_checkpoint``."""
+    return read_checkpoint(directory, step)

@@ -1,10 +1,20 @@
-"""DSEKL model configuration, state and prediction (port of
-``repro/core/dsekl.py``; the serving subset).
+"""DSEKL model configuration, state, Algorithm 1's step and prediction
+(port of ``repro/core/dsekl.py``; Algorithm 2, the mesh hooks and
+EigenPro are not ported yet).
 
 ``DSEKLConfig`` carries every field of the JAX config, so a JAX config maps
-onto it 1:1 (``repro_torch.convert.config_from_jax``); fields that only the
-training paths read are kept for that mapping and used by the training
-slice.  Prediction is the empirical kernel map over any expansion set:
+onto it 1:1 (``repro_torch.convert.config_from_jax``); fields of paths not
+ported yet (``n_workers``, ``compress_bits``, ``precondition_*``,
+``bcd_*``) are kept for that mapping.
+
+Algorithm 1 (serial): every step takes two index sets, I (gradient points)
+and J (kernel-map expansion points), computes the dual gradient on the
+sampled K_{I,J} block (``grad_block``: the fused train pass, the two-pass
+matvec + vecmat, or the streamed ref pass) and scatters it into alpha_J
+(``apply_update``).  The state updates are out of place, as in JAX, so a
+caller holding the previous alpha keeps it.
+
+Prediction is the empirical kernel map over any expansion set:
 ``f(x) = K(x, X_train) @ alpha``.
 """
 from __future__ import annotations
@@ -14,6 +24,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.core import losses as losses_lib
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.dsekl import ops as kops
 
@@ -69,6 +80,148 @@ def init_state(n: int, dtype=torch.float32,
         step=torch.zeros((), dtype=torch.int32, device=dev),
         epoch=torch.zeros((), dtype=torch.int32, device=dev),
     )
+
+
+# ---------------------------------------------------------------------------
+# Block computation (Algorithm 1's step body).
+# ---------------------------------------------------------------------------
+
+def _block_f(cfg: DSEKLConfig, xi: Tensor, xj: Tensor, aj: Tensor,
+             n: int) -> Tensor:
+    """Partial decision values f_I from one expansion block (matvec)."""
+    f = kops.kernel_matvec(xi, xj, aj, kernel_name=cfg.kernel,
+                           kernel_params=cfg.kernel_params, impl=cfg.impl)
+    if cfg.unbiased_scaling:
+        f = f * (n / xj.shape[0])
+    return f
+
+
+def _block_grad(cfg: DSEKLConfig, xi: Tensor, xj: Tensor, aj: Tensor,
+                v: Tensor) -> Tensor:
+    """g_J = K_{I,J}^T v + lam * alpha_J for one block (vecmat)."""
+    g = kops.kernel_vecmat(xi, xj, v, kernel_name=cfg.kernel,
+                           kernel_params=cfg.kernel_params, impl=cfg.impl)
+    return g + cfg.lam * aj
+
+
+def _fused_f_and_grad(cfg: DSEKLConfig, xi: Tensor, yi: Tensor, xj: Tensor,
+                      aj: Tensor, n: int) -> Tuple[Tensor, Tensor]:
+    """f_I and g_J = K^T dloss/df + lam*alpha_J with K_{I,J} evaluated ONCE
+    (the fused train pass; the two-pass path evaluates K per product)."""
+    f_scale = (n / xj.shape[0]) if cfg.unbiased_scaling else 1.0
+    f, g = kops.kernel_dual_pass(
+        xi, xj, aj, yi, kernel_name=cfg.kernel,
+        kernel_params=cfg.kernel_params, loss=cfg.loss, f_scale=f_scale,
+        impl=cfg.impl)
+    return f, g + cfg.lam * aj
+
+
+def streaming_train_pass(cfg: DSEKLConfig, xi: Tensor, yi: Tensor,
+                         xj: Tensor, aj: Tensor, n: int, *,
+                         row_block: int) -> Tuple[Tensor, Tensor]:
+    """The fused step body consuming K_{I,J} in (row_block, |J|) tiles of
+    the gradient batch, each evaluated ONCE:
+
+        f_b = f_scale * K_b @ a_J;  v_b = dloss/df(f_b, y_b);  g += K_b^T v_b
+
+    so the peak kernel-block intermediate is O(row_block * |J|).  Zero-
+    padded tail rows get their v masked to zero.  Returns ``(f (|I|,),
+    g (|J|,))``, g without the lam*alpha_J term.  (The JAX function's
+    ``f_reduce`` hook serves the mesh step, which is not ported yet.)"""
+    loss = losses_lib.get_loss(cfg.loss)
+    n_i = xi.shape[0]
+    f_scale = (n / xj.shape[0]) if cfg.unbiased_scaling else 1.0
+    xi_t = kops.tile_rows(xi, row_block)                    # (nb, rb, D)
+    yi_t = kops.tile_rows(yi, row_block)                    # (nb, rb)
+    valid = kops.tile_rows(
+        torch.ones((n_i,), dtype=torch.float32, device=xi.device), row_block)
+    g = torch.zeros((xj.shape[0],), dtype=torch.float32, device=xj.device)
+    fs = []
+    for xb, yb, mb in zip(xi_t, yi_t, valid):
+        kb = kops.kernel_block(xb, xj, kernel_name=cfg.kernel,
+                               kernel_params=cfg.kernel_params)   # ONCE
+        fb = f_scale * (kb @ aj)
+        vb = loss.grad_f(fb, yb) * mb
+        g = g + kb.T @ vb
+        fs.append(fb)
+    return torch.cat(fs)[:n_i], g
+
+
+def _lr(cfg: DSEKLConfig, state: "DSEKLState") -> Tensor:
+    """The step's learning rate as a 0-d float32 tensor on the state's
+    device (no host synchronisation); read after ``step`` is incremented."""
+    if cfg.schedule == "inv_t":
+        return cfg.lr0 / torch.clamp_min(state.step.to(torch.float32), 1.0)
+    if cfg.schedule == "inv_epoch":
+        return cfg.lr0 / torch.clamp_min(state.epoch.to(torch.float32), 1.0)
+    if cfg.schedule in ("const", "adagrad"):
+        return torch.full((), cfg.lr0, dtype=torch.float32,
+                          device=state.alpha.device)
+    raise ValueError(f"unknown schedule {cfg.schedule!r}")
+
+
+def _grad_block_with_f(cfg: DSEKLConfig, xi: Tensor, yi: Tensor, xj: Tensor,
+                       aj: Tensor, n: int) -> Tuple[Tensor, Tensor]:
+    """``grad_block``'s body, also returning the decision values f_I."""
+    stream = (cfg.stream_row_block > 0
+              and kops.resolve_impl(cfg.impl, cfg.kernel, xi.device) == "ref")
+    if stream:
+        # The CUDA train pass streams K through its stash already, so the
+        # streamed form applies to the ref path only.
+        f, g = streaming_train_pass(cfg, xi, yi, xj, aj, n,
+                                    row_block=cfg.stream_row_block)
+        return f, g + cfg.lam * aj
+    if cfg.fuse_dual_pass:
+        return _fused_f_and_grad(cfg, xi, yi, xj, aj, n)
+    f = _block_f(cfg, xi, xj, aj, n)
+    v = losses_lib.get_loss(cfg.loss).grad_f(f, yi)
+    return f, _block_grad(cfg, xi, xj, aj, v)
+
+
+def grad_block(cfg: DSEKLConfig, xi: Tensor, yi: Tensor, xj: Tensor,
+               aj: Tensor, n: int = 0) -> Tensor:
+    """Alg.-1 dual gradient g_J (incl. lam*alpha_J) for one gathered block:
+    xi (n_grad, D), yi (n_grad,), xj (n_expand, D), aj (n_expand,).  ``n``
+    is read only under ``cfg.unbiased_scaling`` (the N/|J| scale)."""
+    _, g = _grad_block_with_f(cfg, xi, yi, xj, aj, n)
+    return g
+
+
+def apply_update(cfg: DSEKLConfig, state: DSEKLState, idx_j: Tensor,
+                 g: Tensor) -> DSEKLState:
+    """Scatter one Alg.-1 block gradient into the O(N) state, out of place.
+
+    J is sampled with replacement: ``index_add`` adds duplicate indices
+    together, as JAX's ``.at[idx].add`` does (``alpha[idx] += g`` would
+    keep one of them).  Under adagrad the accumulator takes every g_j^2
+    first, then each duplicate reads back the accumulated value."""
+    state = state._replace(step=state.step + 1)
+    if cfg.schedule == "adagrad":
+        accum = state.accum.index_add(0, idx_j, g * g)
+        damp = torch.rsqrt(accum[idx_j])
+        alpha = state.alpha.index_add(0, idx_j, -_lr(cfg, state) * damp * g)
+        return state._replace(alpha=alpha, accum=accum)
+    alpha = state.alpha.index_add(0, idx_j, -_lr(cfg, state) * g)
+    return state._replace(alpha=alpha)
+
+
+def scale_n(cfg: DSEKLConfig, n: int) -> int:
+    """The ``n`` a gradient core needs: the dataset size when
+    ``unbiased_scaling`` is on, else 0."""
+    return n if cfg.unbiased_scaling else 0
+
+
+def step_serial(cfg: DSEKLConfig, state: DSEKLState, x: Tensor, y: Tensor,
+                idx_i: Tensor, idx_j: Tensor) -> DSEKLState:
+    """One Alg.-1 iteration on the index sets ``idx_i`` (n_grad,) and
+    ``idx_j`` (n_expand,) (``sampler.sample_uniform`` draws them; the JAX
+    step draws them from its key).  x (N, D), y (N,) on the state's
+    device: gather the blocks, compute the block gradient, scatter."""
+    n = x.shape[0]
+    xi, yi = x[idx_i], y[idx_i]
+    xj, aj = x[idx_j], state.alpha[idx_j]
+    g = grad_block(cfg, xi, yi, xj, aj, scale_n(cfg, n))
+    return apply_update(cfg, state, idx_j, g)
 
 
 # ---------------------------------------------------------------------------

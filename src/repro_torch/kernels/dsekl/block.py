@@ -1,22 +1,32 @@
-"""The serving kernel f = K(x, z) @ a: its Hopper kernel and its plain
-version (port of ``repro/kernels/dsekl/block.py``'s tile evaluators and
-``kernel_matvec_pallas``).
+"""The DSEKL kernel ops on Hopper and their plain versions (port of
+``repro/kernels/dsekl/block.py``'s tile evaluators and its four Pallas
+kernels).
 
 * ``TILE_FNS`` / ``make_tile_fn`` — plain-torch (bi, bj) tile evaluators for
   the seven registry kernels, step for step as the Pallas tiles compute
   them (``|x|^2 + |z|^2 - 2 x.z`` clamped at 0 from the row norms; a
   per-feature loop for the Laplacian's L1 distance).
-* ``kernel_matvec_plain`` — the plain version: the tile evaluator over
-  ``block``-row tiles of z, contracted with a.  The CPU tests use it, and
-  the chip smoke holds the kernel against it on the card.
-* ``kernel_matvec_cuda`` — the wrapper of the hand-written kernel
-  ``csrc/dsekl_matvec.cu``.  It takes CUDA tensors only and launches the
-  kernel or raises; ``kernel_matvec_cuda.launches`` counts its launches.
+* Plain versions, each a tile evaluator over row blocks, each K tile
+  evaluated once: ``kernel_matvec_plain`` (f = K @ a),
+  ``kernel_vecmat_plain`` (g = K^T @ v), ``dual_pass_plain`` (both, v
+  given) and ``train_pass_plain`` (f = s K @ a, v = loss_grad(f, y),
+  g = K^T v).  The CPU tests use them, and the chip smoke holds the
+  kernels against them on the card.
+* CUDA wrappers, each with its own ``.launches`` counter, CUDA tensors
+  only (a launch or a raise, no CPU form):
+  ``kernel_matvec_cuda`` (``csrc/dsekl_matvec.cu``, replaces
+  ``kernel_matvec_pallas``), ``kernel_vecmat_cuda`` (the same kernel with
+  the operands swapped, replaces ``kernel_vecmat_pallas``),
+  ``dual_pass_cuda`` and ``train_pass_cuda`` (``csrc/dsekl_train.cu``,
+  replace ``dual_pass_pallas`` and ``train_pass_pallas``).  The train and
+  dual pass stash K in an (I, J) float32 scratch of at most
+  ``STASH_BUDGET`` bytes.
 
-The TPU module's ``mxu_dtype`` (bf16 cross-term) is not carried over: the
-serving path never asks for it.  Nor are ``choose_blocks`` /
-``choose_predict_blocks``: their VMEM budget means nothing here, and the
-kernel picks its own tiles.
+The TPU module's ``mxu_dtype`` (bf16 cross-term) is not carried over: no
+op asks for it.  Nor are ``choose_blocks`` / ``choose_predict_blocks`` /
+``train_pass_blocks``: their VMEM budget means nothing here, and the
+kernels pick their own tiles (``STASH_BUDGET`` takes the place of the
+train pass's budget).
 """
 from __future__ import annotations
 
@@ -27,13 +37,19 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core import losses as losses_lib
 from repro_torch.core.kernels_fn import SQRT3, SQRT5, integer_pow
 from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
 
-# Support rows per plain-version tile: bounds its (I, block) intermediate.
+# Rows per plain-version tile: bounds its (block, n) intermediate.
 PLAIN_BLOCK = 8192
+# Bytes of the (I, J) float32 K stash that dual_pass_cuda / train_pass_cuda
+# may use.  32 MiB keeps the stash inside the H100's 50 MB L2; above it
+# ops.kernel_dual_pass falls back to matvec then vecmat (K evaluated
+# twice), as the JAX op does when train_pass_blocks returns None.
+STASH_BUDGET = 32 << 20
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +169,7 @@ def full_fp32_matmul() -> None:
 
 
 # ---------------------------------------------------------------------------
-# f = K(x, z) @ a: plain version and CUDA kernel.
+# Plain versions: tile evaluators over row blocks, each K tile once.
 # ---------------------------------------------------------------------------
 
 def kernel_matvec_plain(x: Tensor, z: Tensor, a: Tensor, *,
@@ -174,6 +190,78 @@ def kernel_matvec_plain(x: Tensor, z: Tensor, a: Tensor, *,
     return f
 
 
+def kernel_vecmat_plain(x: Tensor, z: Tensor, v: Tensor, *,
+                        kernel_name: str = "rbf",
+                        params: Optional[Dict[str, Any]] = None,
+                        block: int = PLAIN_BLOCK) -> Tensor:
+    """g = K(x, z)^T @ v with the tile evaluator over ``block``-row tiles
+    of x.  x (I, D), z (J, D), v (I,) -> (J,) float32."""
+    if x.is_cuda:
+        full_fp32_matmul()
+    tile_fn = make_tile_fn(kernel_name, params)
+    z = z.to(torch.float32)
+    g = torch.zeros((z.shape[0],), dtype=torch.float32, device=z.device)
+    for start in range(0, x.shape[0], block):
+        xt = x[start:start + block].to(torch.float32)
+        vt = v[start:start + block].to(torch.float32)
+        g = g + tile_fn(xt, z).T @ vt
+    return g
+
+
+def _row_block_pass(x: Tensor, z: Tensor, a: Tensor,
+                    v_of: Callable[[Tensor, int, int], Tensor], *,
+                    kernel_name: str, params: Optional[Dict[str, Any]],
+                    f_scale: float, block: int) -> Tuple[Tensor, Tensor]:
+    """Per ``block``-row tile of x: K_b evaluated once, f_b = f_scale *
+    K_b @ a, v_b = v_of(f_b, start, stop), g += K_b^T v_b."""
+    if x.is_cuda:
+        full_fp32_matmul()
+    tile_fn = make_tile_fn(kernel_name, params)
+    z = z.to(torch.float32)
+    a = a.to(torch.float32)
+    g = torch.zeros((z.shape[0],), dtype=torch.float32, device=z.device)
+    fs = []
+    for start in range(0, x.shape[0], block):
+        stop = min(start + block, x.shape[0])
+        kb = tile_fn(x[start:stop].to(torch.float32), z)
+        fb = f_scale * (kb @ a)
+        g = g + kb.T @ v_of(fb, start, stop)
+        fs.append(fb)
+    f = (torch.cat(fs) if fs else
+         torch.zeros((0,), dtype=torch.float32, device=x.device))
+    return f, g
+
+
+def dual_pass_plain(x: Tensor, z: Tensor, a: Tensor, v: Tensor, *,
+                    kernel_name: str = "rbf",
+                    params: Optional[Dict[str, Any]] = None,
+                    f_scale: float = 1.0, block: int = PLAIN_BLOCK
+                    ) -> Tuple[Tensor, Tensor]:
+    """(f, g) = (f_scale * K @ a, K^T @ v), each K tile evaluated once."""
+    v = v.to(torch.float32)
+    return _row_block_pass(x, z, a, lambda fb, s, e: v[s:e],
+                           kernel_name=kernel_name, params=params,
+                           f_scale=f_scale, block=block)
+
+
+def train_pass_plain(x: Tensor, z: Tensor, a: Tensor, y: Tensor, *,
+                     loss: str = "hinge", kernel_name: str = "rbf",
+                     params: Optional[Dict[str, Any]] = None,
+                     f_scale: float = 1.0, block: int = PLAIN_BLOCK
+                     ) -> Tuple[Tensor, Tensor]:
+    """(f, g) with f = f_scale * K @ a, v = loss_grad(f, y), g = K^T @ v,
+    each K tile evaluated once."""
+    grad = losses_lib.get_loss(loss).grad_f
+    y = y.to(torch.float32)
+    return _row_block_pass(x, z, a, lambda fb, s, e: grad(fb, y[s:e]),
+                           kernel_name=kernel_name, params=params,
+                           f_scale=f_scale, block=block)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels: libraries, argument checks, wrappers.
+# ---------------------------------------------------------------------------
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("dsekl_matvec")
     fn = lib.dsekl_kernel_matvec
@@ -186,6 +274,21 @@ def _lib() -> ctypes.CDLL:
         lib.dsekl_blocks_per_sm.restype = ctypes.c_int
         lib.dsekl_error_string.argtypes = [ctypes.c_int]
         lib.dsekl_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _train_lib() -> ctypes.CDLL:
+    lib = _build.load("dsekl_train")
+    fn = lib.dsekl_train_pass
+    if fn.argtypes is None:
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, f, f, f, i,
+                       i, f, i, f, vp]
+        fn.restype = ctypes.c_int
+        lib.dsekl_train_scratch_floats.argtypes = [i, i]
+        lib.dsekl_train_scratch_floats.restype = ctypes.c_longlong
+        lib.dsekl_train_error_string.argtypes = [i]
+        lib.dsekl_train_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -216,46 +319,61 @@ def _resident_blocks(kind: int, device_index: int) -> int:
     return per_sm * n_sms
 
 
-def _check_cuda_args(x: Tensor, z: Tensor, a: Tensor) -> None:
-    for name, t in (("x", x), ("z", z), ("a", a)):
-        if not t.is_cuda:
-            raise ValueError(f"kernel_matvec_cuda: {name} is on {t.device}; "
-                             "the CUDA kernel takes CUDA tensors only")
-        if t.device != x.device:
-            raise ValueError("kernel_matvec_cuda: x, z, a on different devices")
-        if t.dtype != torch.float32:
-            raise TypeError(f"kernel_matvec_cuda: {name} is {t.dtype}, "
-                            "expected torch.float32")
-        if not t.is_contiguous():
-            raise ValueError(f"kernel_matvec_cuda: {name} is not contiguous")
-    if x.dim() != 2 or z.dim() != 2 or a.dim() != 1:
-        raise ValueError("kernel_matvec_cuda: expected x (I, D), z (J, D), "
-                         f"a (J,); got {tuple(x.shape)}, {tuple(z.shape)}, "
-                         f"{tuple(a.shape)}")
-    if x.shape[1] != z.shape[1] or a.shape[0] != z.shape[0]:
-        raise ValueError("kernel_matvec_cuda: shape mismatch x "
-                         f"{tuple(x.shape)}, z {tuple(z.shape)}, a "
-                         f"{tuple(a.shape)}")
-    if x.shape[1] == 0:
-        raise ValueError("kernel_matvec_cuda: D must be positive")
-    if max(x.numel(), z.numel()) >= 2 ** 31:
-        raise ValueError("kernel_matvec_cuda: more than 2**31 elements")
-
-
-def kernel_matvec_cuda(x: Tensor, z: Tensor, a: Tensor, *,
-                       kernel_name: str = "rbf",
-                       params: Optional[Dict[str, Any]] = None) -> Tensor:
-    """f = K(x, z) @ a by the hand-written Hopper kernel.
-
-    x (I, D), z (J, D), a (J,): contiguous float32 CUDA tensors on one
-    device.  Launches on the current stream without synchronising and
-    raises if the launch is refused.  There is no CPU form."""
+def _kind(fn: str, kernel_name: str) -> int:
     kind = KINDS.get(kernel_name)
     if kind is None:
-        raise ValueError(f"no CUDA kernel for {kernel_name!r}; "
+        raise ValueError(f"{fn}: no CUDA kernel for {kernel_name!r}; "
                          f"available: {sorted(KINDS)}")
-    p = tile_params(kernel_name, params)
-    _check_cuda_args(x, z, a)
+    return kind
+
+
+def _check_cuda_args(fn: str, x: Tensor, z: Tensor,
+                     **vecs: Tuple[Tensor, str]) -> None:
+    """x (I, D), z (J, D) and each named vector, whose length must be I
+    (``"I"``) or J (``"J"``): contiguous float32 CUDA tensors on one
+    device, D > 0, fewer than 2**31 elements each."""
+    named = [("x", x), ("z", z)] + [(k, t) for k, (t, _) in vecs.items()]
+    for name, t in named:
+        if not t.is_cuda:
+            raise ValueError(f"{fn}: {name} is on {t.device}; "
+                             "the CUDA kernel takes CUDA tensors only")
+        if t.device != x.device:
+            raise ValueError(f"{fn}: arguments on different devices")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{fn}: {name} is {t.dtype}, "
+                            "expected torch.float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} is not contiguous")
+    def shapes():
+        return ", ".join(f"{n} {tuple(t.shape)}" for n, t in named)
+
+    if (x.dim() != 2 or z.dim() != 2
+            or any(t.dim() != 1 for t, _ in vecs.values())):
+        raise ValueError(f"{fn}: expected x (I, D), z (J, D) and vectors; "
+                         f"got {shapes()}")
+    lengths = {"I": x.shape[0], "J": z.shape[0]}
+    if x.shape[1] != z.shape[1] or any(
+            t.shape[0] != lengths[axis] for t, axis in vecs.values()):
+        raise ValueError(f"{fn}: shape mismatch {shapes()}")
+    if x.shape[1] == 0:
+        raise ValueError(f"{fn}: D must be positive")
+    if max(x.numel(), z.numel()) >= 2 ** 31:
+        raise ValueError(f"{fn}: more than 2**31 elements")
+
+
+def _kernel_scalars(p: Dict[str, Any]) -> Tuple:
+    """(gamma, coef0, degree, int_degree, degree_i, length_scale) as the C
+    entry points take them."""
+    degree = float(p.get("degree", 0))
+    int_degree = degree.is_integer()
+    return (float(p.get("gamma", 1.0)), float(p.get("coef0", 0.0)), degree,
+            int(int_degree), int(degree) if int_degree else 0,
+            float(p.get("length_scale", 1.0)))
+
+
+def _launch_matvec(fn: str, x: Tensor, z: Tensor, a: Tensor, kind: int,
+                   p: Dict[str, Any]) -> Tensor:
+    """K(x, z) @ a by dsekl_matvec.cu; no launch when x has no rows."""
     n_i, d = x.shape
     n_j = z.shape[0]
     out = torch.empty((n_i,), dtype=torch.float32, device=x.device)
@@ -267,22 +385,140 @@ def kernel_matvec_cuda(x: Tensor, z: Tensor, a: Tensor, *,
                                    else torch.cuda.current_device()))
     scratch = torch.empty((n_split * n_i + n_i + n_j,), dtype=torch.float32,
                           device=x.device)
-    degree = float(p.get("degree", 0))
-    int_degree = degree.is_integer()
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.dsekl_kernel_matvec(
             x.data_ptr(), z.data_ptr(), a.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), n_i, n_j, d, kind,
-            float(p.get("gamma", 1.0)), float(p.get("coef0", 0.0)), degree,
-            int(int_degree), int(degree) if int_degree else 0,
-            float(p.get("length_scale", 1.0)), n_split, per, stream)
+            scratch.data_ptr(), n_i, n_j, d, kind, *_kernel_scalars(p),
+            n_split, per, stream)
     if err != 0:
-        raise RuntimeError("dsekl_kernel_matvec launch failed: "
+        raise RuntimeError(f"{fn}: dsekl_kernel_matvec launch failed: "
                            + lib.dsekl_error_string(err).decode())
-    kernel_matvec_cuda.launches += 1
+    return out
+
+
+def kernel_matvec_cuda(x: Tensor, z: Tensor, a: Tensor, *,
+                       kernel_name: str = "rbf",
+                       params: Optional[Dict[str, Any]] = None) -> Tensor:
+    """f = K(x, z) @ a by the hand-written Hopper kernel.
+
+    x (I, D), z (J, D), a (J,): contiguous float32 CUDA tensors on one
+    device.  Launches on the current stream without synchronising and
+    raises if the launch is refused.  There is no CPU form."""
+    fn = "kernel_matvec_cuda"
+    kind = _kind(fn, kernel_name)
+    p = tile_params(kernel_name, params)
+    _check_cuda_args(fn, x, z, a=(a, "J"))
+    out = _launch_matvec(fn, x, z, a, kind, p)
+    kernel_matvec_cuda.launches += bool(x.shape[0])
     return out
 
 
 kernel_matvec_cuda.launches = 0
+
+
+def kernel_vecmat_cuda(x: Tensor, z: Tensor, v: Tensor, *,
+                       kernel_name: str = "rbf",
+                       params: Optional[Dict[str, Any]] = None) -> Tensor:
+    """g = K(x, z)^T @ v by the matvec kernel with the operands swapped
+    (K(x, z)^T v == K(z, x) v bit for bit: every registry kernel is
+    symmetric and the kernel's epilogue is bit-symmetric; see
+    ``csrc/dsekl_matvec.cu``).  Counted in its own ``launches``.
+
+    x (I, D), z (J, D), v (I,): contiguous float32 CUDA tensors on one
+    device.  There is no CPU form."""
+    fn = "kernel_vecmat_cuda"
+    kind = _kind(fn, kernel_name)
+    p = tile_params(kernel_name, params)
+    _check_cuda_args(fn, x, z, v=(v, "I"))
+    out = _launch_matvec(fn, z, x, v, kind, p)
+    kernel_vecmat_cuda.launches += bool(z.shape[0])
+    return out
+
+
+kernel_vecmat_cuda.launches = 0
+
+
+def fits_stash(n_i: int, n_j: int) -> bool:
+    """Whether the (n_i, n_j) K stash fits ``STASH_BUDGET``."""
+    return 4 * n_i * n_j <= STASH_BUDGET
+
+
+def _launch_train(fn: str, x: Tensor, z: Tensor, a: Tensor, vy: Tensor,
+                  loss_code: int, kernel_name: str,
+                  params: Optional[Dict[str, Any]], f_scale: float
+                  ) -> Tuple[Tensor, Tensor]:
+    """(f, g) by dsekl_train.cu; no launch (f empty, g zero) when x has no
+    rows."""
+    kind = _kind(fn, kernel_name)
+    p = tile_params(kernel_name, params)
+    _check_cuda_args(fn, x, z, a=(a, "J"), vy=(vy, "I"))
+    n_i, d = x.shape
+    n_j = z.shape[0]
+    if n_i == 0:
+        return (torch.empty((0,), dtype=torch.float32, device=x.device),
+                torch.zeros((n_j,), dtype=torch.float32, device=x.device))
+    if not fits_stash(n_i, n_j):
+        raise ValueError(
+            f"{fn}: the ({n_i}, {n_j}) K stash is over STASH_BUDGET "
+            f"({STASH_BUDGET} bytes); ops.kernel_dual_pass falls back to "
+            "matvec then vecmat there")
+    lib = _train_lib()
+    f = torch.empty((n_i,), dtype=torch.float32, device=x.device)
+    g = torch.empty((n_j,), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((lib.dsekl_train_scratch_floats(n_i, n_j),),
+                          dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.dsekl_train_pass(
+            x.data_ptr(), z.data_ptr(), a.data_ptr(), vy.data_ptr(),
+            f.data_ptr(), g.data_ptr(), scratch.data_ptr(), n_i, n_j, d,
+            kind, *_kernel_scalars(p), loss_code, float(f_scale), stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: dsekl_train_pass launch failed: "
+                           + lib.dsekl_train_error_string(err).decode())
+    return f, g
+
+
+def dual_pass_cuda(x: Tensor, z: Tensor, a: Tensor, v: Tensor, *,
+                   kernel_name: str = "rbf",
+                   params: Optional[Dict[str, Any]] = None,
+                   f_scale: float = 1.0) -> Tuple[Tensor, Tensor]:
+    """(f, g) = (f_scale * K @ a, K^T @ v) by the hand-written Hopper
+    kernel, each K value evaluated once (``csrc/dsekl_train.cu``).
+
+    x (I, D), z (J, D), a (J,), v (I,): contiguous float32 CUDA tensors on
+    one device, with the (I, J) stash within ``STASH_BUDGET``.  There is
+    no CPU form."""
+    f, g = _launch_train("dual_pass_cuda", x, z, a, v, -1, kernel_name,
+                         params, f_scale)
+    dual_pass_cuda.launches += bool(x.shape[0])
+    return f, g
+
+
+dual_pass_cuda.launches = 0
+
+
+def train_pass_cuda(x: Tensor, z: Tensor, a: Tensor, y: Tensor, *,
+                    loss: str = "hinge", kernel_name: str = "rbf",
+                    params: Optional[Dict[str, Any]] = None,
+                    f_scale: float = 1.0) -> Tuple[Tensor, Tensor]:
+    """(f, g) with f = f_scale * K @ a, v = loss_grad(f, y), g = K^T @ v by
+    the hand-written Hopper kernel, each K value evaluated once, the loss
+    gradient fused (``csrc/dsekl_train.cu``).
+
+    x (I, D), z (J, D), a (J,), y (I,): contiguous float32 CUDA tensors on
+    one device, with the (I, J) stash within ``STASH_BUDGET``.  There is
+    no CPU form."""
+    if loss not in losses_lib.LOSS_CODES:
+        raise ValueError(f"train_pass_cuda: unknown loss {loss!r}; "
+                         f"available: {sorted(losses_lib.LOSS_CODES)}")
+    f, g = _launch_train("train_pass_cuda", x, z, a, y,
+                         losses_lib.LOSS_CODES[loss], kernel_name, params,
+                         f_scale)
+    train_pass_cuda.launches += bool(x.shape[0])
+    return f, g
+
+
+train_pass_cuda.launches = 0

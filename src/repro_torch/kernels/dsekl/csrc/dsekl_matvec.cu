@@ -3,6 +3,8 @@
 // Replaces the TPU kernel src/repro/kernels/dsekl/block.py::kernel_matvec_pallas
 // (with its tile evaluators TILE_FNS): x (I, D) queries, z (J, D) support
 // rows, a (J,) dual weights -> f (I,).  K is never written to memory.
+// With its operands swapped it also replaces kernel_vecmat_pallas (the
+// last bullet below).
 //
 // Bound on this card.  The work is 2*I*J*D fp32 operations for the cross
 // term (or the L1 sum of the Laplacian kernel) plus about eight per (i, j)
@@ -36,103 +38,20 @@
 //  * Ragged edges are masked in the kernel: a support row past J adds
 //    exactly 0, a query row past I is not stored.
 //  * Row norms come from a first small pass (one warp per row).
-#include <cuda_runtime.h>
-
-#include <type_traits>
+//  * The tile machinery (kinds, epilogues, staging loop, row norms) lives
+//    in dsekl_tile.cuh, shared with dsekl_train.cu.
+//  * The same kernel computes g = K(x, z)^T @ v (block.py's
+//    kernel_vecmat_cuda, replacing kernel_vecmat_pallas) with the operands
+//    swapped: every registry kernel is symmetric and this epilogue is
+//    bit-symmetric (xn + zn is a commutative add, the fmaf chain runs in
+//    the same k order, |x - z| == |z - x|), so K(x, z)^T v == K(z, x) v bit
+//    for bit, and the support split becomes a split over x's rows.  At
+//    the two-pass training step's shape (I = J = 1024, D = 54) either
+//    product is ~1.2e8 operations, 1.8 us at 67 TFLOP/s, against 0.23 MB
+//    of bytes: the launches, not the card, set its time there.
+#include "dsekl_tile.cuh"
 
 namespace {
-
-constexpr int BM = 64;                         // query rows per block
-constexpr int BN = 64;                         // support rows per tile
-constexpr int BK = 32;                         // feature slice per stage
-constexpr int TM = 4;                          // micro-tile rows per thread
-constexpr int TN = 4;                          // micro-tile cols per thread
-constexpr int TX = BN / TN;                    // 16 threads across columns
-constexpr int THREADS = (BM / TM) * TX;        // 256
-constexpr int LDS = BM + 4;                    // padded smem row (16B aligned)
-static_assert(BM == BN, "staging assumes square tiles");
-static_assert((BM * BK) % THREADS == 0, "staging loop must be exact");
-
-enum Kind : int {
-  RBF = 0, LAPLACIAN = 1, LINEAR = 2, POLYNOMIAL = 3, SIGMOID = 4,
-  MATERN32 = 5, MATERN52 = 6,
-};
-
-struct Params {
-  float gamma;
-  float coef0;
-  float degree;        // used by POLYNOMIAL when !int_degree
-  float length_scale;
-  int int_degree;      // nonzero: degree is integral, use repeated products
-  int degree_i;        // the integral degree
-};
-
-__host__ __device__ constexpr bool euclidean(int k) {
-  return k == RBF || k == MATERN32 || k == MATERN52;
-}
-
-// jax.lax.integer_pow: binary exponentiation in the same order, reciprocal
-// for a negative exponent.  Defined for negative bases.
-__device__ __forceinline__ float integer_pow(float x, int y) {
-  if (y == 0) return 1.0f;
-  const bool recip = y < 0;
-  if (recip) y = -y;
-  float acc = 0.0f;
-  bool have = false;
-  while (y > 0) {
-    if (y & 1) {
-      acc = have ? acc * x : x;
-      have = true;
-    }
-    y >>= 1;
-    if (y > 0) x = x * x;
-  }
-  return recip ? 1.0f / acc : acc;
-}
-
-// k(x_i, z_j) from the accumulated cross term (or L1 sum) and row norms.
-template <int KIND>
-__device__ __forceinline__ float tile_value(float acc, float xn, float zn,
-                                            const Params& p) {
-  if constexpr (KIND == LINEAR) {
-    return acc;
-  } else if constexpr (KIND == LAPLACIAN) {
-    return expf(-p.gamma * acc);
-  } else if constexpr (KIND == POLYNOMIAL) {
-    const float b = p.gamma * acc + p.coef0;
-    return p.int_degree ? integer_pow(b, p.degree_i) : powf(b, p.degree);
-  } else if constexpr (KIND == SIGMOID) {
-    return tanhf(p.gamma * acc + p.coef0);
-  } else {
-    const float d2 = fmaxf(xn + zn - 2.0f * acc, 0.0f);
-    if constexpr (KIND == RBF) {
-      return expf(-p.gamma * d2);
-    } else {
-      const float d = sqrtf(d2 + 1e-12f) / p.length_scale;
-      if constexpr (KIND == MATERN32) {
-        const float s = 1.7320508075688772f * d;     // f32(sqrt(3))
-        return (1.0f + s) * expf(-s);
-      } else {
-        const float s = 2.2360679774997896f * d;     // f32(sqrt(5))
-        return (1.0f + s + s * s / 3.0f) * expf(-s);
-      }
-    }
-  }
-}
-
-// out[r] = sum_d v[r, d]^2, one warp per row, fixed shuffle order.
-__global__ void row_norms(const float* __restrict__ v, int n, int d,
-                          float* __restrict__ out) {
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (warp >= n) return;
-  const float* row = v + static_cast<size_t>(warp) * d;
-  float s = 0.0f;
-  for (int k = lane; k < d; k += 32) s = fmaf(row[k], row[k], s);
-  for (int off = 16; off > 0; off >>= 1)
-    s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) out[warp] = s;
-}
 
 // partials[split, row] = sum over this block's support range of
 // k(x_row, z_j) * a_j.
@@ -170,52 +89,13 @@ matvec_tiles(const float* __restrict__ x, const float* __restrict__ z,
     const int col0 = t * BN;
     const int buf = t & 1;
     float acc[TM][TN];
-#pragma unroll
-    for (int m = 0; m < TM; ++m)
-#pragma unroll
-      for (int n = 0; n < TN; ++n) acc[m][n] = 0.0f;
-
-    for (int k0 = 0; k0 < D; k0 += BK) {
-      // Stage x[row0:+BM, k0:+BK] and z[col0:+BN, k0:+BK], transposed so
-      // that a thread's TM rows / TN cols are one float4 each; zero-fill
-      // past the edges.
-#pragma unroll
-      for (int it = 0; it < (BM * BK) / THREADS; ++it) {
-        const int e = tid + it * THREADS;
-        const int r = e / BK;
-        const int c = e % BK;
-        const int k = k0 + c;
-        const int xr = row0 + r;
-        const int zr = col0 + r;
-        xs[c][r] = (xr < I && k < D) ? x[static_cast<size_t>(xr) * D + k] : 0.0f;
-        zs[c][r] = (zr < J && k < D) ? z[static_cast<size_t>(zr) * D + k] : 0.0f;
-      }
-      if (k0 == 0 && tid < BN) {
+    accumulate_tile<KIND>(x, z, I, J, D, row0, col0, xs, zs, acc, [&] {
+      if (tid < BN) {
         const int j = col0 + tid;
         a_s[buf][tid] = j < J ? a[j] : 0.0f;
         zn_s[buf][tid] = (euclidean(KIND) && j < J) ? znorm[j] : 0.0f;
       }
-      __syncthreads();
-
-      const int kmax = min(BK, D - k0);
-#pragma unroll 8
-      for (int kk = 0; kk < kmax; ++kk) {
-        const float4 xv = *reinterpret_cast<const float4*>(&xs[kk][ty * TM]);
-        const float4 zv = *reinterpret_cast<const float4*>(&zs[kk][tx * TN]);
-        const float xr[TM] = {xv.x, xv.y, xv.z, xv.w};
-        const float zr[TN] = {zv.x, zv.y, zv.z, zv.w};
-#pragma unroll
-        for (int m = 0; m < TM; ++m)
-#pragma unroll
-          for (int n = 0; n < TN; ++n) {
-            if constexpr (KIND == LAPLACIAN)
-              acc[m][n] += fabsf(xr[m] - zr[n]);
-            else
-              acc[m][n] = fmaf(xr[m], zr[n], acc[m][n]);
-          }
-      }
-      __syncthreads();
-    }
+    });
 
     // Epilogue: fold this tile into the row partials.
 #pragma unroll
@@ -248,33 +128,6 @@ matvec_tiles(const float* __restrict__ x, const float* __restrict__ z,
   }
 }
 
-// out[r] = sum_s partials[s, r], in split order.
-__global__ void sum_partials(const float* __restrict__ partials, int n_split,
-                             int I, float* __restrict__ out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= I) return;
-  float s = 0.0f;
-  for (int k = 0; k < n_split; ++k)
-    s += partials[static_cast<size_t>(k) * I + r];
-  out[r] = s;
-}
-
-// Calls f(std::integral_constant<int, KIND>{}) for a runtime kernel kind;
-// false for an unknown kind.  The one place that maps kinds to templates.
-template <typename F>
-bool with_kind(int kind, F&& f) {
-  switch (kind) {
-    case RBF: f(std::integral_constant<int, RBF>{}); return true;
-    case LAPLACIAN: f(std::integral_constant<int, LAPLACIAN>{}); return true;
-    case LINEAR: f(std::integral_constant<int, LINEAR>{}); return true;
-    case POLYNOMIAL: f(std::integral_constant<int, POLYNOMIAL>{}); return true;
-    case SIGMOID: f(std::integral_constant<int, SIGMOID>{}); return true;
-    case MATERN32: f(std::integral_constant<int, MATERN32>{}); return true;
-    case MATERN52: f(std::integral_constant<int, MATERN52>{}); return true;
-    default: return false;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -300,10 +153,8 @@ int dsekl_kernel_matvec(const float* x, const float* z, const float* a,
   float* xn = scratch + static_cast<size_t>(n_split) * I;
   float* zn = xn + I;
   if (euclidean(kind)) {
-    constexpr int NT = 256;                     // 8 rows per block
-    row_norms<<<(I + NT / 32 - 1) / (NT / 32), NT, 0, s>>>(x, I, D, xn);
-    if (J > 0)
-      row_norms<<<(J + NT / 32 - 1) / (NT / 32), NT, 0, s>>>(z, J, D, zn);
+    launch_row_norms(x, I, D, xn, s);
+    if (J > 0) launch_row_norms(z, J, D, zn, s);
   }
   const dim3 grid((I + BM - 1) / BM, n_split);
   const bool known = with_kind(kind, [&](auto k) {
@@ -328,9 +179,6 @@ int dsekl_blocks_per_sm(int kind) {
   return e == cudaSuccess ? n : -1;
 }
 
-const char* dsekl_error_string(int code) {
-  return code < 0 ? "bad argument"
-                  : cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+const char* dsekl_error_string(int code) { return error_string(code); }
 
 }  // extern "C"

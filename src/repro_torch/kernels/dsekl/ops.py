@@ -1,11 +1,11 @@
 """Public kernel ops of the port (counterpart of
-``repro/kernels/dsekl/ops.py``; the serving subset).
+``repro/kernels/dsekl/ops.py``).
 
 ``impl`` selects the backend:
   * ``"ref"``  — the plain-torch oracle (``ref.py``), on whatever device the
                  tensors are on;
-  * ``"cuda"`` — the hand-written Hopper kernel (``block.kernel_matvec_cuda``);
-                 CUDA tensors only, it raises for CPU tensors;
+  * ``"cuda"`` — the hand-written Hopper kernels (``block.*_cuda``); CUDA
+                 tensors only, they raise for CPU tensors;
   * ``"auto"`` — ``cuda`` for CUDA tensors, ``ref`` for CPU tensors.
 
 ``"auto"`` honours the ``REPRO_TORCH_IMPL`` env override (``REPRO_IMPL``
@@ -15,6 +15,11 @@ unknown kernel name raises.
 
 Ops:
   * ``kernel_matvec``       — f = K(x, z) @ a
+  * ``kernel_vecmat``       — g = K(x, z)^T @ v
+  * ``kernel_dual_pass``    — both products from ONE evaluation of K; with
+    ``loss=...`` the loss gradient v = dloss/df(f, y) is fused between the
+    two products (the doubly stochastic training step in one op).  Above
+    ``block.STASH_BUDGET`` the CUDA path falls back to matvec then vecmat.
   * ``kernel_matvec_tiled`` — the same, consuming z in ``z_block``-row tiles
     on the ref path (peak intermediate O(|x| * z_block)); the CUDA kernel
     streams z itself and ignores ``z_block``.  The engine's serve function
@@ -24,11 +29,12 @@ Ops:
 from __future__ import annotations
 
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core import kernels_fn
+from repro_torch.core import losses as losses_lib
 from repro_torch.kernels.dsekl import block as _blk
 from repro_torch.kernels.dsekl import ref as _ref
 
@@ -93,6 +99,62 @@ def kernel_matvec(x: Tensor, z: Tensor, a: Tensor, *,
                                       x, z, a)
     return _blk.kernel_matvec_cuda(_f32(x), _f32(z), _f32(a),
                                    kernel_name=kernel_name, params=params)
+
+
+def kernel_vecmat(x: Tensor, z: Tensor, v: Tensor, *,
+                  kernel_name: str = "rbf",
+                  kernel_params: tuple = (("gamma", 1.0),),
+                  impl: str = "auto") -> Tensor:
+    """g = K(x, z)^T @ v; on the CUDA path K is never materialized."""
+    params: Dict[str, Any] = dict(kernel_params)
+    if resolve_impl(impl, kernel_name, x.device) == "ref":
+        return _ref.ref_kernel_vecmat(_ref_kernel(kernel_name, params, x),
+                                      x, z, v)
+    return _blk.kernel_vecmat_cuda(_f32(x), _f32(z), _f32(v),
+                                   kernel_name=kernel_name, params=params)
+
+
+def kernel_dual_pass(x: Tensor, z: Tensor, a: Tensor, vy: Tensor, *,
+                     kernel_name: str = "rbf",
+                     kernel_params: tuple = (("gamma", 1.0),),
+                     loss: Optional[str] = None, f_scale: float = 1.0,
+                     impl: str = "auto") -> Tuple[Tensor, Tensor]:
+    """Both products of K(x, z) from ONE kernel-block evaluation.
+
+    * ``loss=None``: ``vy`` is the dual-gradient vector v (i,).  Returns
+      ``(f, g) = (f_scale * K @ a, K^T @ vy)``.
+    * ``loss="hinge"`` (etc.): ``vy`` is the label vector y (i,).  Returns
+      ``(f, g)`` with ``f = f_scale * K @ a`` and ``g = K^T @ v`` for
+      ``v = loss.grad_f(f, y)``: paper Alg. 1 lines 4-5 in one op.
+
+    ``f_scale`` (the unbiased N/|J| scaling) is applied after the product
+    and, with a loss, *before* the loss gradient is taken.  On the CUDA
+    path a K stash over ``block.STASH_BUDGET`` falls back to matvec then
+    vecmat, K evaluated twice (the JAX op's fallback when
+    ``train_pass_blocks`` returns None)."""
+    params: Dict[str, Any] = dict(kernel_params)
+    loss_grad = losses_lib.get_loss(loss).grad_f if loss is not None else None
+    if resolve_impl(impl, kernel_name, x.device) == "ref":
+        k = _ref_kernel(kernel_name, params, x)
+        if loss_grad is None:
+            f, g = _ref.ref_kernel_dual_pass(k, x, z, a, vy)
+            return f_scale * f, g
+        return _ref.ref_kernel_train_pass(k, x, z, a, vy, loss_grad,
+                                          f_scale=f_scale)
+    x, z, a, vy = _f32(x), _f32(z), _f32(a), _f32(vy)
+    if not _blk.fits_stash(x.shape[0], z.shape[0]):
+        f = f_scale * _blk.kernel_matvec_cuda(x, z, a, kernel_name=kernel_name,
+                                              params=params)
+        v = vy if loss_grad is None else loss_grad(f, vy)
+        g = _blk.kernel_vecmat_cuda(x, z, v.contiguous(),
+                                    kernel_name=kernel_name, params=params)
+        return f, g
+    if loss is None:
+        return _blk.dual_pass_cuda(x, z, a, vy, kernel_name=kernel_name,
+                                   params=params, f_scale=f_scale)
+    return _blk.train_pass_cuda(x, z, a, vy, loss=loss,
+                                kernel_name=kernel_name, params=params,
+                                f_scale=f_scale)
 
 
 def kernel_matvec_tiled(x: Tensor, z: Tensor, a: Tensor, *,

@@ -1,18 +1,22 @@
-"""The port's hand-written CUDA kernel on the card (marker ``cuda``; every
-test skips where ``torch.cuda.is_available()`` is False).  This file
+"""The port's hand-written CUDA kernels on the card (marker ``cuda``;
+every test skips where ``torch.cuda.is_available()`` is False).  This file
 imports neither JAX nor the JAX package, so it runs on a machine that has
 only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The kernel is held against its plain version (``kernel_matvec_plain``) at
-the JAX suite's float32 tolerance: rtol 2e-4, atol 1e-5 x max(1,
-|oracle|_inf).
+Each kernel is held against its plain version (``block.*_plain``) at the
+JAX suite's float32 tolerance: rtol 2e-4, atol 1e-5 x max(1,
+|oracle|_inf).  A short fit on the card is held against the same fit with
+``impl="ref"`` on the same plans at rtol 1e-3, atol 1e-4 x max(1,
+|oracle|_inf): two epochs of float32 sums in another order, and
+duplicate J indices scattered by atomics on the card.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import fit, sampler
 from repro_torch.core.dsekl import DSEKLConfig, decision_function
 from repro_torch.kernels.dsekl import block, ops
 from repro_torch.serving import DSEKLPredictionEngine, EngineConfig
@@ -123,3 +127,137 @@ def test_engine_on_cuda_matches_ref_engine(cuda):
         assert o.device.type == "cuda"
         _close(o, r)
     assert block.kernel_matvec_cuda.launches - before == eng.serve_calls
+
+
+LOSSES = ("hinge", "squared_hinge", "square", "logistic")
+TRAIN_SHAPES = [(1, 1, 1), (65, 64, 33), (1000, 5003, 54), (130, 700, 784),
+                (1024, 1024, 54)]
+
+
+def _train_data(shape, device, seed=0):
+    x, z, a = _data(shape, device, seed)
+    rng = np.random.default_rng(seed + 7)
+    v = torch.tensor(rng.standard_normal(shape[0]), dtype=torch.float32,
+                     device=device)
+    y = torch.where(v >= 0, 1.0, -1.0)
+    return x, z, a, v, y
+
+
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+@pytest.mark.parametrize("kernel,params", KERNEL_CASES, ids=IDS)
+def test_vecmat_and_dual_pass_match_plain(cuda, kernel, params, shape):
+    x, z, a, v, _ = _train_data(shape, cuda)
+    kw = dict(kernel_name=kernel, params=dict(params))
+    before = block.kernel_vecmat_cuda.launches
+    _close(block.kernel_vecmat_cuda(x, z, v, **kw),
+           block.kernel_vecmat_plain(x, z, v, **kw))
+    assert block.kernel_vecmat_cuda.launches == before + 1
+    before = block.dual_pass_cuda.launches
+    got = block.dual_pass_cuda(x, z, a, v, f_scale=1.5, **kw)
+    assert block.dual_pass_cuda.launches == before + 1
+    for g, w in zip(got, block.dual_pass_plain(x, z, a, v, f_scale=1.5,
+                                               **kw)):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+@pytest.mark.parametrize("loss", LOSSES)
+@pytest.mark.parametrize("kernel,params", KERNEL_CASES, ids=IDS)
+def test_train_pass_matches_plain(cuda, kernel, params, loss, shape):
+    x, z, a, v, y = _train_data(shape, cuda, seed=1)
+    vy = v if loss == "square" else y
+    kw = dict(kernel_name=kernel, params=dict(params), loss=loss,
+              f_scale=2.0)
+    before = block.train_pass_cuda.launches
+    got = block.train_pass_cuda(x, z, a, vy, **kw)
+    torch.cuda.synchronize()
+    assert block.train_pass_cuda.launches == before + 1
+    for g, w in zip(got, block.train_pass_plain(x, z, a, vy, **kw)):
+        _close(g, w)
+
+
+def test_train_and_dual_pass_are_bit_stable(cuda):
+    """Every sum in a fixed order, no float atomics in the kernels."""
+    x, z, a, v, y = _train_data((1024, 3000, 54), cuda, seed=2)
+    first = block.train_pass_cuda(x, z, a, y)
+    dual = block.dual_pass_cuda(x, z, a, v)
+    for _ in range(3):
+        again = block.train_pass_cuda(x, z, a, y)
+        assert all(torch.equal(p, q) for p, q in zip(again, first))
+        again = block.dual_pass_cuda(x, z, a, v)
+        assert all(torch.equal(p, q) for p, q in zip(again, dual))
+
+
+def test_vecmat_is_the_transposed_matvec_bit_for_bit(cuda):
+    x, z, _, v, _ = _train_data((300, 500, 20), cuda, seed=3)
+    for kernel, params in KERNEL_CASES:
+        kw = dict(kernel_name=kernel, params=dict(params))
+        assert torch.equal(block.kernel_vecmat_cuda(x, z, v, **kw),
+                           block.kernel_matvec_cuda(z, x, v, **kw))
+
+
+def test_train_wrappers_reject_bad_arguments(cuda, monkeypatch):
+    x, z, a, v, y = _train_data((16, 32, 4), cuda)
+    counters = (block.kernel_vecmat_cuda, block.dual_pass_cuda,
+                block.train_pass_cuda)
+    before = [c.launches for c in counters]
+    with pytest.raises(TypeError):
+        block.train_pass_cuda(x, z, a.double(), y)
+    with pytest.raises(ValueError):
+        block.dual_pass_cuda(x.T, z, a, v)                   # not contiguous
+    with pytest.raises(ValueError):
+        block.train_pass_cuda(x, z, a[:5].contiguous(), y)   # a is not (J,)
+    with pytest.raises(ValueError):
+        block.kernel_vecmat_cuda(x, z, a)                    # v is not (I,)
+    with pytest.raises(ValueError):
+        block.train_pass_cuda(x, z, a, y, kernel_name="cosine")
+    with pytest.raises(ValueError, match="unknown loss"):
+        block.train_pass_cuda(x, z, a, y, loss="huber")
+    monkeypatch.setattr(block, "STASH_BUDGET", 0)
+    with pytest.raises(ValueError, match="STASH_BUDGET"):
+        block.train_pass_cuda(x, z, a, y)
+    assert [c.launches for c in counters] == before
+    f, g = block.train_pass_cuda(x[:0], z, a, y[:0])
+    assert f.shape == (0,) and g.shape == (32,) and not g.any()
+
+
+def test_ops_launch_on_cuda_and_fall_back_over_budget(cuda, monkeypatch):
+    x, z, a, v, y = _train_data((37, 300, 5), cuda, seed=4)
+    kw = dict(loss="hinge", f_scale=3.0)
+    want = ops.kernel_dual_pass(x, z, a, y, impl="ref", **kw)
+    counts = [c.launches for c in (block.train_pass_cuda,
+                                   block.kernel_matvec_cuda,
+                                   block.kernel_vecmat_cuda)]
+    for g, w in zip(ops.kernel_dual_pass(x, z, a, y, **kw), want):
+        _close(g, w)
+    monkeypatch.setattr(block, "STASH_BUDGET", 0)
+    for g, w in zip(ops.kernel_dual_pass(x, z, a, y, **kw), want):
+        _close(g, w)
+    torch.cuda.synchronize()
+    assert [c.launches for c in (block.train_pass_cuda,
+                                 block.kernel_matvec_cuda,
+                                 block.kernel_vecmat_cuda)] == [
+        counts[0] + 1, counts[1] + 1, counts[2] + 1]
+    _close(ops.kernel_vecmat(x, z, v), ops.kernel_vecmat(x, z, v, impl="ref"))
+
+
+def test_short_fit_on_the_card_matches_ref(cuda):
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((4096, 6)).astype(np.float32)
+    y = np.where(x[:, 0] * x[:, 1] > 0, 1.0, -1.0).astype(np.float32)
+    cfg = DSEKLConfig(n_grad=256, n_expand=256, loss="square",
+                      schedule="adagrad", lam=1e-4)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    plans = [sampler.epoch_plan(gen, 4096, 256, 256, 16) for _ in range(2)]
+    before = block.train_pass_cuda.launches
+    card = fit(cfg, x, y, plans=plans, n_epochs=2, tol=0.0, x_val=x[:512],
+               y_val=y[:512], device=cuda)
+    assert block.train_pass_cuda.launches == before + 32
+    ref = fit(cfg.replace(impl="ref"), x, y, plans=plans, n_epochs=2,
+              tol=0.0, device=cuda)
+    want = ref.state.alpha.double().cpu().numpy()
+    np.testing.assert_allclose(card.state.alpha.double().cpu().numpy(), want,
+                               rtol=1e-3,
+                               atol=1e-4 * max(1.0, float(np.abs(want).max())))
+    assert int(card.state.step) == 32
+    assert all(0.0 <= h["val_error"] <= 1.0 for h in card.history)

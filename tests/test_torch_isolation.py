@@ -5,7 +5,8 @@ fallback.
   process where ``jax`` and ``repro`` cannot be imported;
 * an AST scan of ``src/repro_torch/`` and ``chip_smoke.py`` finds no
   ``jax`` / ``repro`` import;
-* an entry point called with no ``device`` raises when CUDA is missing;
+* an entry point (serving, ``fit``, the training launcher) called with no
+  ``device`` raises when CUDA is missing;
 * ``impl="cuda"`` on CPU tensors raises (the kernel has no CPU form);
 * ``chip_smoke.py`` fails, printing no result, without a card or alone.
 """
@@ -85,10 +86,11 @@ def test_no_jax_or_reference_imports(path):
 
 def test_entry_points_need_cuda_without_a_device(monkeypatch):
     from repro_torch.convert import state_from_jax
+    from repro_torch.core import fit
     from repro_torch.core.dsekl import DSEKLConfig, init_state
     from repro_torch.data import make_covertype_like
     from repro_torch.device import resolve_device
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.serving import DSEKLPredictionEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -104,6 +106,10 @@ def test_entry_points_need_cuda_without_a_device(monkeypatch):
         lambda: state_from_jax(arrays),
         lambda: serve.serve_dsekl(serve.parser().parse_args(
             ["--dsekl", "--n-train", "8", "--queries", "4"])),
+        lambda: fit(DSEKLConfig(n_grad=2, n_expand=2), x, np.ones(4),
+                    torch.Generator(), n_epochs=1),
+        lambda: train.train_dsekl(train.parser().parse_args(
+            ["--dsekl", "--n", "64", "--epochs", "1"])),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

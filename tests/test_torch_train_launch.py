@@ -1,0 +1,63 @@
+"""The port's training launcher end to end on the CPU at a small size:
+``python -m repro_torch.launch.train --dsekl --device cpu`` trains, prints
+its per-epoch validation errors and the JAX launcher's summary lines, and
+refuses the modes the port does not have yet, naming them."""
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+from repro_torch.launch import train
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SMALL = ["--dsekl", "--device", "cpu", "--n", "2048", "--epochs", "2",
+         "--n-grad", "128", "--n-expand", "128"]
+
+
+def test_train_cli_runs_end_to_end():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          *SMALL], env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.splitlines()
+    assert sum(line.startswith("[dsekl] epoch") and "val_err=" in line
+               for line in lines) == 2
+    assert any(line.startswith("[train-dsekl] 2 epochs in") for line in lines)
+    assert any(line.startswith("[train-dsekl] val error") for line in lines)
+
+
+def test_train_dsekl_result_and_hold_out(capsys):
+    args = train.parser().parse_args(SMALL)
+    out = train.train_dsekl(args)
+    res = out["result"]
+    n_val = max(min(2048, 2048 // 8), 1)
+    assert out["x_val"].shape == (n_val, 54)
+    assert out["x"].shape == (2048 - n_val, 54)
+    assert int(res.state.step) == 2 * ((2048 - n_val) // 128)
+    assert out["cfg"].schedule == "adagrad" and out["cfg"].lam == 1e-4
+    assert out["cfg"].loss == "hinge"
+    errs = [h["val_error"] for h in res.history]
+    assert len(errs) == 2 and all(0.0 <= e <= 1.0 for e in errs)
+    assert "val error" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("extra,named", [
+    (["--data", "mmap"], "--data mmap"),
+    (["--algorithm", "parallel"], "--algorithm parallel"),
+    (["--execution", "mesh"], "--execution mesh"),
+    (["--precondition-k", "8"], "--precondition-k"),
+])
+def test_unported_modes_exit_naming_them(extra, named, capsys):
+    with pytest.raises(SystemExit) as exc:
+        train.main(SMALL + extra)
+    assert exc.value.code != 0
+    assert named in capsys.readouterr().err
+
+
+def test_lm_path_is_refused(capsys):
+    with pytest.raises(SystemExit):
+        train.main(["--device", "cpu"])
+    assert "LM path" in capsys.readouterr().err
