@@ -4,27 +4,33 @@
     python3 chip_smoke.py
 
 Drives the port's main paths on the card — serving a DSEKL model
-through ``repro_torch.launch.serve.serve_dsekl``, and training one through
-``repro_torch.launch.train.train_dsekl`` then serving it — with every
-kernel built from this checkout's sources and held against its plain
-PyTorch version.  Phases (any failure exits non-zero and prints no
-result):
+through ``repro_torch.launch.serve.serve_dsekl``, training one through
+``repro_torch.launch.train.train_dsekl`` then serving it, and serving the
+jamba-v0.1-52b language model at full width through
+``repro_torch.launch.serve.serve_lm`` — with every kernel built from this
+checkout's sources and held against its plain PyTorch version.  Phases
+(any failure exits non-zero and prints no result):
 
   1. device  — name, compute capability, ``nvidia-smi`` name and power
                limit; requires sm_90.
   2. build   — nvcc builds every kernel source (build seconds, ptxas).
-  3. parity  — each kernel vs its plain version on the card, 7 kernels x
-               D in {3, 54, 784} at ragged I=1000, J=5003: matvec,
-               vecmat, the dual pass, the train pass for the 4 losses at
-               f_scale 1 and N/|J|, and ops.kernel_dual_pass's
+  3. parity  — each DSEKL kernel vs its plain version on the card, 7
+               kernels x D in {3, 54, 784} at ragged I=1000, J=5003:
+               matvec, vecmat, the dual pass, the train pass for the 4
+               losses at f_scale 1 and N/|J|, and ops.kernel_dual_pass's
                matvec-then-vecmat fallback under a forced small stash
                budget; each launch counter must go up by one per call.
-  4. serve   — the serving path at the covertype scale: 559,890 x 54
-               training rows, RBF, ~50% support, 16,384 queries in
+  4. lm-parity — flash attention (causal and not, window 64 and 0, GQA
+               32/8 and 4/1, D 64 and 128, ragged S; float32 and
+               bfloat16) and the SSD scan (n 16 and 128, hd 64, chunk 256
+               and 128, ragged S) vs their plain versions; counters +1 per
+               call.
+  5. serve   — the DSEKL serving path at the covertype scale: 559,890 x
+               54 training rows, RBF, ~50% support, 16,384 queries in
                requests of 64, query_block 1024, through flush_async and
                flush; answers checked against the plain path; the
                kernel's launches must equal the serve calls.
-  5. train   — the training path at full width: ``train_dsekl`` on the
+  6. train   — the training path at full width: ``train_dsekl`` on the
                covertype protocol (559,890 x 54 training rows after the
                2,048-row hold-out, |I| = |J| = 1024, hinge, adagrad, 2
                epochs = 1,092 steps); train-pass launches must equal the
@@ -32,24 +38,51 @@ result):
                the all-zero model's; then the trained model is served
                through ``engine_from_fit`` and its error must equal the
                fit's, up to labels whose |f| is within tolerance of 0.
-  6. train-cuda-vs-ref — 16 Alg.-1 steps on one shared plan at the main
+  7. train-cuda-vs-ref — 16 Alg.-1 steps on one shared plan at the main
                shape (square loss) with impl "cuda" and "ref": alpha and
                accum must agree.
-  7. train-two-pass — a fit with fuse_dual_pass=False (N = 65,536, one
+  8. train-two-pass — a fit with fuse_dual_pass=False (N = 65,536, one
                epoch of 64 steps): vecmat launches must equal the steps.
-  8. profile — torch.profiler over 32 steps of the training path: device
+  9. profile — torch.profiler over 32 steps of the training path: device
                time by kernel and the device's busy share.
-  9. times   — each kernel at its main path's shape: its device time per
-               call (torch.profiler, 2 x 25 calls), its bound, the plain
+ 10. times   — each DSEKL kernel at its main path's shape (and the RBF
+               delegation of row 5): its device time per call
+               (``device_ms``: CUDA events around 25 calls enqueued
+               behind a spin kernel, two readings), its bound, the plain
                version's and the fp32 cross-term GEMM yardstick's device
                time, and one call of kernel and plain by CUDA events (the
                host's enqueue included), in ms.
+ 11. serve-jamba — the LM main path: jamba-v0.1-52b at full width cut to
+               one period of 8 layers (7 mamba + 1 attention, 4 MoE FFNs),
+               bf16, random weights from a seed, 4 random prompts of 2,048
+               tokens, 32 greedy tokens each (cache 2,080); the flash and
+               SSD counters must read 1 and 7 per prefill (none in
+               decode); prefill and decode times on the host clock; the
+               timed prefill's flash and SSD launches, their inputs and
+               outputs kept at the model's call sites, are each held
+               against the plain version on those activations; then the
+               same model's prefill logits with impl "ref" must match
+               within 2e-2 x max|ref|, and the greedy-token agreement is
+               printed.
+ 12. lm-times — flash attention and the SSD scan at their served shapes
+               (flash also in float32 against its plain version):
+               device time, one call by events, the plain version's
+               device time, the bound (products at the bf16 tensor-core
+               peak, the rest at fp32), and for flash SDPA's device time
+               on the same bf16 values (a yardstick the port never calls).
 
-The kernel tolerance is the JAX suite's float32 one
+The DSEKL kernel tolerance is the JAX suite's float32 one
 (tests/test_dual_pass.py ``_tols``): rtol 2e-4, atol 1e-5 * max(1,
 |oracle|_inf).  The 16-step cuda-vs-ref trajectory is held at rtol 1e-3,
 atol 1e-4 * max(1, |oracle|_inf): sixteen steps of float32 sums taken in
 another order, and duplicate J indices scattered by atomics on the card.
+Flash attention and the SSD scan in float32 are held at the JAX suite's
+tolerances (tests/test_kernels_models.py): flash 2e-6, SSD 1e-4, each atol
+times max(1, |oracle|_inf) as above.  Given bfloat16 inputs, which the
+kernels convert at load, each is held against its plain version on the
+same values in float32: the bfloat16 output at rtol 8e-3 (one rounding)
+with atol 1e-5 (flash) or 1e-4 (SSD) times max(1, |oracle|_inf), the
+SSD's float32 final state at its float32 tolerance.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -93,12 +126,13 @@ TRAIN_STEPS = 2 * (TRAIN_N // 1024)          # 1,092
 TWO_PASS_N = 65536                           # one epoch of 64 steps
 TRAJ_RTOL, TRAJ_ATOL = 1e-3, 1e-4
 LOSSES = ("hinge", "squared_hinge", "square", "logistic")
-# fp32 outside the tensor cores and HBM bandwidth (NVIDIA data sheets).
-PEAKS = [  # (name substring, fp32 FLOP/s, bytes/s)
-    ("H100 PCIe", 51.2e12, 2.0e12),
-    ("H100 NVL", 60.0e12, 3.9e12),
-    ("H200", 67.0e12, 4.8e12),
-    ("H100", 67.0e12, 3.35e12),
+# fp32 outside the tensor cores, dense bf16 on the tensor cores and HBM
+# bandwidth (NVIDIA data sheets).
+PEAKS = [  # (name substring, fp32 FLOP/s, bf16 tensor FLOP/s, bytes/s)
+    ("H100 PCIe", 51.2e12, 756e12, 2.0e12),
+    ("H100 NVL", 60.0e12, 835e12, 3.9e12),
+    ("H200", 67.0e12, 989e12, 4.8e12),
+    ("H100", 67.0e12, 989e12, 3.35e12),
 ]
 
 
@@ -128,15 +162,15 @@ def compare(got, want, rtol: float = RTOL, atol: float = ATOL) -> float:
     bad = err > atol + rtol * want.abs()
     check(not bool(bad.any()),
           f"{int(bad.sum())} of {got.numel()} values out of tolerance; max "
-          f"abs err {float(err.max()):.3e} (atol {atol:.3e}, rtol {RTOL})")
+          f"abs err {float(err.max()):.3e} (atol {atol:.3e}, rtol {rtol})")
     return float(err.max()) if err.numel() else 0.0
 
 
 def peaks(device_name: str):
-    """(fp32 FLOP/s, bytes/s) of the named card."""
-    for key, flops, bw in PEAKS:
+    """(fp32 FLOP/s, bf16 tensor FLOP/s, bytes/s) of the named card."""
+    for key, flops, tensor, bw in PEAKS:
         if key in device_name:
-            return flops, bw
+            return flops, tensor, bw
     raise SmokeFailure(f"no data-sheet peaks for {device_name!r}")
 
 
@@ -155,25 +189,74 @@ def _device_rows(prof) -> list:
     return rows
 
 
-def device_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Device time of one call in ms: the profiler's kernel time over
-    ``reps`` calls, divided by ``reps``.  Unlike CUDA events around a
-    call, it leaves out the host's enqueue (argument checks, allocation,
-    the launch itself), which at a few us of device work is most of the
-    call."""
+# GPU clock cycles per ms of ``torch.cuda._sleep``'s spin (measured once),
+# and the readings of ``device_ms``: kept, taken again behind a longer
+# spin, and kept though the host paced them.
+SPIN = {"cycles_per_ms": None}
+READINGS = {"kept": 0, "retaken": 0, "host_paced": 0}
+
+
+def _spin(ms: float) -> None:
+    """Keep the current stream busy for about ``ms`` ms (a spin kernel)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    if SPIN["cycles_per_ms"] is None:
+        torch.cuda._sleep(1_000_000)                     # warm-up
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        end.synchronize()
+        SPIN["cycles_per_ms"] = 20_000_000 / start.elapsed_time(end)
+    torch.cuda._sleep(int(ms * SPIN["cycles_per_ms"]))
+
+
+def device_ms(fn, reps: int = 25, warmup: int = 3, readings: int = 2,
+              max_spin_ms: float = 1000.0) -> float:
+    """Device time of one call in ms: the mean of ``readings`` readings,
+    each CUDA events around ``reps`` calls enqueued back to back behind a
+    spin kernel, over ``reps``.  The spin lasts twice the host's enqueue
+    of ``reps`` calls (timed in the warm-up), so the host has enqueued
+    every call before the device reaches the first: a reading leaves out
+    the enqueue (argument checks, allocation, the launch itself), which
+    at a few us of device work is most of a call, and keeps the device's
+    own gaps between kernels.  A reading whose start event the device
+    passed before the host had enqueued every call is taken again behind
+    a spin twice as long; past ``max_spin_ms`` it is kept and counted as
+    paced by the host (a function of many small launches that fill the
+    launch queue).  No event can be lost: torch.profiler, which timed
+    these rows before, dropped kernel events from its readings on the
+    card."""
+    import torch
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / max(warmup, 1) * reps
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    spin_ms = min(max(2.0 * host_ms, 1.0), max_spin_ms)
+    kept = []
+    while len(kept) < readings:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        _spin(spin_ms)
+        start.record()
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    total_us = sum(r[0] for r in _device_rows(prof))
-    check(total_us > 0, "torch.profiler recorded no device time")
-    return total_us / 1e3 / reps
+        end.record()
+        overtaken = start.query()
+        end.synchronize()
+        if overtaken and spin_ms < max_spin_ms:
+            spin_ms = min(2.0 * spin_ms, max_spin_ms)
+            READINGS["retaken"] += 1
+            continue
+        if overtaken:
+            READINGS["host_paced"] += 1
+            print(f"[device_ms] {fn.__qualname__}: the device reached the "
+                  f"calls before the host had enqueued them, behind a "
+                  f"{spin_ms:.0f} ms spin; the reading is paced by the host")
+        kept.append(start.elapsed_time(end) / reps)
+    READINGS["kept"] += readings
+    return statistics.mean(kept)
 
 
 def time_ms(fn, reps: int = 25, warmup: int = 3) -> list:
@@ -513,13 +596,17 @@ def phase_profile(out):
 
 
 def _row(name, source, replaces, t, ops_count, bytes_count, device_name,
-         err, t_gemm):
+         err, t_gemm=None, library=None, tensor_ops=0):
     """One row of the kernels line from ``_timed``'s readings ``t``.
     ``ms`` and ``plain_ms`` are device time per call; ``wall_ms`` and
     ``plain_wall_ms`` are one call by CUDA events, the host's enqueue
-    included."""
-    flop_peak, byte_peak = peaks(device_name)
-    t_ops = ops_count / flop_peak * 1e3
+    included; ``library_ms`` is one PyTorch call of the same function, where
+    there is one, and ``gemm_ms`` the DSEKL kernels' cross-term GEMM.
+    ``ops_count`` runs at the fp32 peak; ``tensor_ops``, the products that
+    bf16 inputs allow on the tensor cores, at the bf16 tensor peak, and
+    the two times add up."""
+    flop_peak, tensor_peak, byte_peak = peaks(device_name)
+    t_ops = (ops_count / flop_peak + tensor_ops / tensor_peak) * 1e3
     t_bytes = bytes_count / byte_peak * 1e3
     return {
         "name": name, "route": "cuda", "source": source,
@@ -528,16 +615,16 @@ def _row(name, source, replaces, t, ops_count, bytes_count, device_name,
         "plain_ms": statistics.mean(t["plain"]),
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None, "gemm_ms": t_gemm,
+        "library_ms": library, "gemm_ms": t_gemm,
         "wall_ms": statistics.median(t["kernel_wall"]),
         "plain_wall_ms": statistics.median(t["plain_wall"]),
     }
 
 
 def _timed(kernel, plain) -> dict:
-    """Device ms per call (``device_ms``, 25 calls a reading) in turns
-    plain, kernel, kernel, plain; then 25 CUDA-event timings of one call
-    of each."""
+    """Device ms per call (``device_ms``: the mean of two readings of 25
+    calls) in turns plain, kernel, kernel, plain; then 25 CUDA-event
+    timings of one call of each."""
     t = {"plain": [device_ms(plain)], "kernel": [device_ms(kernel)]}
     t["kernel"].append(device_ms(kernel))
     t["plain"].append(device_ms(plain))
@@ -607,17 +694,31 @@ def phase_train_times(out, device_name: str):
     return rows
 
 
-def phase_times(res, device_name: str):
-    import torch
+def _serve_inputs(res):
+    """One serve call's operands: a query block and the padded support."""
     from repro_torch.core.dsekl import truncate
-    from repro_torch.kernels.dsekl import block, ops
+    from repro_torch.kernels.dsekl import ops
     eng = res["engine"]
     a_sv, x_sv = truncate(res["alpha"], res["x_train"])
     x_sv = ops.pad_rows_to_block(x_sv, eng.sv_block).contiguous()
     a_sv = ops.pad_rows_to_block(a_sv, eng.sv_block).contiguous()
     check(x_sv.shape[0] == eng.n_sv_padded, "support geometry mismatch")
     xq = res["queries"][:eng.engine_cfg.query_block].to(DEVICE).contiguous()
-    params = dict(eng.cfg.kernel_params)
+    return xq, x_sv, a_sv, dict(eng.cfg.kernel_params)
+
+
+def _matvec_work(n_i: int, n_j: int, d: int):
+    """(operations, bytes) of one RBF matvec: the cross term, the row
+    norms, and the epilogue per (i, j): |x|^2+|z|^2-2xz, clamp, scale,
+    exp, *a, +."""
+    return (2 * n_i * n_j * d + 2 * d * (n_i + n_j) + 8 * n_i * n_j,
+            4 * (n_i * d + n_j * d + n_j + n_i))
+
+
+def phase_times(res, device_name: str):
+    import torch
+    from repro_torch.kernels.dsekl import block
+    xq, x_sv, a_sv, params = _serve_inputs(res)
     n_i, d = xq.shape
     n_j = x_sv.shape[0]
 
@@ -636,10 +737,7 @@ def phase_times(res, device_name: str):
     err = compare(kernel(), plain())
     t = _timed(kernel, plain)
     t_gemm = device_ms(gemm)
-    # Work of this call: the cross term, the row norms, and the RBF
-    # epilogue per (i, j): |x|^2+|z|^2-2xz, clamp, scale, exp, *a, +.
-    ops_count = 2 * n_i * n_j * d + 2 * d * (n_i + n_j) + 8 * n_i * n_j
-    bytes_count = 4 * (n_i * d + n_j * d + n_j + n_i)
+    ops_count, bytes_count = _matvec_work(n_i, n_j, d)
     row = _row("kernel_matvec",
                "src/repro_torch/kernels/dsekl/csrc/dsekl_matvec.cu",
                "src/repro/kernels/dsekl/block.py:252", t, ops_count,
@@ -649,6 +747,487 @@ def phase_times(res, device_name: str):
     print("[times] clocks.sm,power.draw,power.limit,temperature.gpu: "
           + nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
     return row
+
+
+def phase_rbf_times(res, device_name: str):
+    """Row 5: ``rbf_block.rbf_matvec``, the RBF delegation, at the serving
+    shape.  It launches the matvec kernel (counted there) and has no
+    caller on any main path, so its ``launches`` are 0."""
+    import torch
+    from repro_torch.kernels.dsekl import block, rbf_block
+    xq, x_sv, a_sv, params = _serve_inputs(res)
+    gamma = params["gamma"]
+
+    def kernel():
+        return rbf_block.rbf_matvec(xq, x_sv, a_sv, gamma=gamma)
+
+    def plain():
+        return block.kernel_matvec_plain(xq, x_sv, a_sv, kernel_name="rbf",
+                                         params=params)
+
+    err = compare(kernel(), plain())
+    t = _timed(kernel, plain)
+    ops_count, bytes_count = _matvec_work(xq.shape[0], x_sv.shape[0],
+                                          xq.shape[1])
+    row = _row("rbf_matvec",
+               "src/repro_torch/kernels/dsekl/rbf_block.py",
+               "src/repro/kernels/dsekl/rbf_block.py:26", t, ops_count,
+               bytes_count, device_name, err,
+               device_ms(lambda: torch.matmul(xq, x_sv.T)))
+    _print_row(row, t, f"I={xq.shape[0]} J={x_sv.shape[0]} D={xq.shape[1]}",
+               ops_count, bytes_count, "torch.matmul(xq, x_sv.T)")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# The LM serving slice: flash attention and the SSD scan.
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # (b, s, t, h, kv, d, causal, window)
+    (2, 256, 256, 32, 8, 128, True, 1 << 30),    # jamba's GQA 32/8, D 128
+    (2, 256, 256, 4, 1, 64, False, 1 << 30),     # 4/1, non-causal, D 64
+    (1, 256, 256, 8, 2, 64, True, 64),           # sliding window 64
+    (2, 200, 200, 32, 8, 128, True, 1 << 30),    # ragged S
+    (1, 200, 333, 4, 1, 64, False, 64),          # ragged S != T
+    (1, 130, 130, 4, 2, 128, True, 0),           # window 0: mean(v)
+]
+FLASH_TOL = 2e-6                    # float32, tests/test_kernels_models.py
+# bfloat16 inputs are converted to float32 at load, so a kernel given them
+# is held against its plain version on the same values in float32: the
+# output differs by one bfloat16 rounding (rtol 8e-3) and float32
+# summation order (flash: atol 1e-5 x max(1, |want|_inf), five times its
+# float32 tolerance; SSD: its own SSD_ATOL).
+BF16_RTOL, FLASH_BF16_ATOL = 8e-3, 1e-5
+SSD_CASES = [
+    # (b, s, nh, hd, g, n, chunk)
+    (2, 512, 16, 64, 1, 16, 256),                # jamba's n, chunk 256
+    (1, 600, 8, 64, 1, 128, 128),                # mamba2's n, ragged S
+    (2, 300, 8, 64, 2, 16, 256),                 # one partial chunk, g 2
+    (1, 1000, 4, 64, 1, 128, 256),               # ragged last chunk
+]
+SSD_RTOL, SSD_ATOL = 1e-4, 1e-4                  # x max(1, |want|_inf)
+# The main path: jamba-v0.1-52b at full width, cut to one period of 8
+# layers (7 mamba, 1 attention; 4 MoE and 4 dense FFNs), bf16, 4 prompts of
+# 2,048 tokens, 32 greedy tokens each.
+JAMBA = dict(batch=4, prompt_len=2048, new_tokens=32, cache_len=2080,
+             seed=0)
+JAMBA_LAYERS = 8
+LOGITS_TOL = 2e-2                                # x max|ref|, bf16 model
+# The kernels' shapes on the main path: the attention layer's prefill
+# (B, S, H, Kv, D) and a mamba layer's scan (B, S, nh, hd, g, n, chunk).
+FLASH_SERVED = (4, 2048, 32, 8, 128)
+SSD_SERVED = (4, 2048, 128, 64, 1, 16, 256)
+
+
+def _rand(shape, gen, device, dtype):
+    import torch
+    return torch.randn(shape, generator=gen).to(device=device, dtype=dtype)
+
+
+def _flash_inputs(case, dtype, seed=0):
+    import torch
+    b, s, t, h, kv, d = case[:6]
+    gen = torch.Generator().manual_seed(seed + s + t + h + d)
+    return [_rand(sh, gen, DEVICE, dtype)
+            for sh in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d))]
+
+
+def _ssd_inputs(case, dtype, seed=0):
+    import torch
+    b, s, nh, hd, g, n = case[:6]
+    gen = torch.Generator().manual_seed(seed + sum(case))
+    x = _rand((b, s, nh, hd), gen, DEVICE, dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, nh), generator=gen)).to(DEVICE, dtype)
+    a = -torch.exp(torch.randn((nh,), generator=gen) * 0.5).to(DEVICE)
+    bm = _rand((b, s, g, n), gen, DEVICE, dtype)
+    cm = _rand((b, s, g, n), gen, DEVICE, dtype)
+    return x, dt, a, bm, cm
+
+
+def phase_lm_parity():
+    """Flash attention and the SSD scan vs their plain versions."""
+    import torch
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd import ssd_chunked
+    worst = {}
+    for dname, dtype, rtol, atol in (
+            ("float32", torch.float32, FLASH_TOL, FLASH_TOL),
+            ("bfloat16", torch.bfloat16, BF16_RTOL, FLASH_BF16_ATOL)):
+        for case in FLASH_CASES:
+            q, k, v = _flash_inputs(case, dtype)
+            kw = dict(causal=case[6], window=case[7])
+            got = _counted(lambda: fk.flash_attention_cuda(q, k, v, **kw),
+                           fk.flash_attention_cuda, f"flash {case}")
+            check(got.dtype == dtype, f"flash output is {got.dtype}")
+            want = flash_attention(q.float(), k.float(), v.float(),
+                                   impl="ref", **kw)
+            err = compare(got.float(), want, rtol, atol)
+            worst[f"flash {dname}"] = max(worst.get(f"flash {dname}", 0.0),
+                                          err)
+    for case in SSD_CASES:
+        args = _ssd_inputs(case, torch.float32)
+        got = _counted(lambda: sk.ssd_cuda(*args, chunk=case[6]),
+                       sk.ssd_cuda, f"ssd {case}")
+        want = ssd_chunked(*args, chunk=case[6], impl="ref")
+        for g, w in zip(got, want):
+            err = compare(g, w, SSD_RTOL, SSD_ATOL)
+            worst["ssd float32"] = max(worst.get("ssd float32", 0.0),
+                                       err / max(1.0, float(w.abs().max())))
+    print(f"[lm-parity] {len(FLASH_CASES)} flash cases x 2 dtypes, "
+          f"{len(SSD_CASES)} ssd cases; worst max abs err: "
+          + ", ".join(f"{k} {e:.3e}" for k, e in worst.items())
+          + " (ssd: / max(1, |want|_inf))")
+
+
+def _greedy(engine, tokens, n_new):
+    """(prefill logits, greedy tokens (B, n_new)) with the engine's model
+    as it is set up (impl)."""
+    import torch
+    logits, cache = engine.prefill(tokens)
+    out = [torch.argmax(logits, dim=-1)]
+    for i in range(n_new - 1):
+        step, cache = engine.decode_step(out[-1], cache,
+                                         tokens.shape[1] + i)
+        out.append(torch.argmax(step, dim=-1))
+    return logits, torch.stack(out, dim=1)
+
+
+def _recorder(module, name: str, store: list, per_prefill: int):
+    """Wrap the op ``module.name`` at a model's call site so that each call
+    keeps its arguments and output in ``store``, which holds one prefill's
+    ``per_prefill`` calls (the last); returns the undo."""
+    op = getattr(module, name)
+
+    def recorded(*args, **kw):
+        out = op(*args, **kw)
+        if len(store) == per_prefill:
+            store.clear()
+        store.append((args, kw, out))
+        return out
+
+    setattr(module, name, recorded)
+    return lambda: setattr(module, name, op)
+
+
+def _held_bytes(calls) -> int:
+    """Device bytes that the recorded calls keep alive (storages, once)."""
+    import torch
+    seen = {}
+    for args, _, out in calls:
+        outs = out if isinstance(out, tuple) else (out,)
+        for t in (*args, *outs):
+            if isinstance(t, torch.Tensor):
+                st = t.untyped_storage()
+                seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def _hold_main_path(flash_calls, ssd_calls) -> None:
+    """Each recorded launch of the main path against its plain version on
+    the activations it was given, in float32: bfloat16 outputs at
+    BF16_RTOL with atol FLASH_BF16_ATOL (flash) or SSD_ATOL (SSD), float32
+    ones and the SSD's final state at the float32 tolerances."""
+    import torch
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.ssd import ssd_chunked
+    worst = {"flash": 0.0, "ssd y": 0.0, "ssd final": 0.0}
+    bf16 = torch.bfloat16
+    for args, kw, out in flash_calls:
+        q, k, v = (t.float() for t in args)
+        want = flash_attention(q, k, v, causal=kw["causal"],
+                               window=kw["window"], impl="ref")
+        rtol, atol = ((BF16_RTOL, FLASH_BF16_ATOL) if out.dtype == bf16
+                      else (FLASH_TOL, FLASH_TOL))
+        worst["flash"] = max(worst["flash"],
+                             compare(out.float(), want, rtol, atol))
+        del q, k, v, want
+    for args, kw, (y, final) in ssd_calls:
+        x, dt, a, bm, cm = (t.float() for t in args)
+        wy, wf = ssd_chunked(x, dt, a, bm, cm, chunk=kw["chunk"],
+                             impl="ref")
+        rtol = BF16_RTOL if y.dtype == bf16 else SSD_RTOL
+        worst["ssd y"] = max(worst["ssd y"],
+                             compare(y.float(), wy, rtol, SSD_ATOL))
+        worst["ssd final"] = max(worst["ssd final"],
+                                 compare(final, wf, SSD_RTOL, SSD_ATOL))
+        del x, dt, a, bm, cm, wy, wf
+    print(f"[serve-jamba] the timed prefill's {len(flash_calls)} flash and "
+          f"{len(ssd_calls)} ssd launches vs their plain versions on the "
+          "activations they were given (float32): max abs err "
+          + ", ".join(f"{k} {e:.3e}" for k, e in worst.items())
+          + f" (bf16 outputs at rtol {BF16_RTOL}, atol x max(1, |want|)"
+          f" flash {FLASH_BF16_ATOL}, ssd {SSD_ATOL}; final state "
+          f"{SSD_RTOL} / {SSD_ATOL})")
+
+
+def phase_serve_jamba():
+    """The main path: serve_lm on jamba-v0.1-52b at full width."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.launch import serve
+    from repro_torch.models import attention, moe, ssm
+    cfg = get_config("jamba-v0.1-52b").replace(n_layers=JAMBA_LAYERS)
+    n_attn = cfg.layer_pattern.count("attn")
+    n_mamba = cfg.layer_pattern.count("mamba")
+    # The kernels' inputs and outputs at the model's call sites, kept for
+    # the last (timed) prefill: each launch is held against its plain
+    # version on the activations it was given.
+    flash_calls, ssd_calls = [], []
+    undo = [_recorder(attention, "flash_attention", flash_calls, n_attn),
+            _recorder(ssm, "ssd_chunked", ssd_calls, n_mamba)]
+    fk.flash_attention_cuda.launches = 0          # the main path starts here
+    sk.ssd_cuda.launches = 0
+    try:
+        res = serve.serve_lm(cfg, device=DEVICE, **JAMBA)
+    finally:
+        for fn in undo:
+            fn()
+    flash_n = fk.flash_attention_cuda.launches    # ... and ends here
+    ssd_n = sk.ssd_cuda.launches
+    model, engine = res["model"], res["engine"]
+    out, logits = res["out"], res["logits"]
+    n_params = sum(p.numel() for p in model.parameters())
+    held = _held_bytes(flash_calls + ssd_calls)
+    print(f"[serve-jamba] {cfg.name}: {cfg.n_layers} layers "
+          f"({n_mamba} mamba, {n_attn} attn), d_model {cfg.d_model}, "
+          f"{n_params:,} parameters in {cfg.param_dtype}; init "
+          f"{res['init_s']:.2f}s; peak {res['peak_bytes'] / 2**30:.2f} GiB "
+          f"(timed prefill + decode), of which up to {held / 2**30:.2f} GiB"
+          " are the kernels' inputs and outputs kept for the check")
+    print(f"[serve-jamba] {res['prefills']} prefills (1 warm-up): "
+          f"flash launches={flash_n}, ssd launches={ssd_n}")
+    check(flash_n == n_attn * res["prefills"] and
+          ssd_n == n_mamba * res["prefills"],
+          f"launches flash {flash_n} ssd {ssd_n}, expected {n_attn} and "
+          f"{n_mamba} per prefill, none in decode")
+    check(len(flash_calls) == n_attn and len(ssd_calls) == n_mamba,
+          f"recorded {len(flash_calls)} flash and {len(ssd_calls)} ssd "
+          "calls in the last prefill")
+    check(tuple(out.shape) == (JAMBA["batch"], JAMBA["new_tokens"]),
+          f"generated {tuple(out.shape)}")
+    check(bool(torch.isfinite(logits.float()).all()), "non-finite logits")
+    check(int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
+          "token ids out of range")
+    print(f"[serve-jamba] prefill {res['prefill_s'] * 1e3:.3f} ms = "
+          f"{res['prefill_tokens_per_s']:.1f} tokens/s; decode "
+          f"{res['decode_ms_per_step']:.4f} ms/step = "
+          f"{res['decode_tokens_per_s']:.2f} tokens/s (host clock, each "
+          "ending in a device synchronisation; warm-up excluded)")
+    _hold_main_path(flash_calls, ssd_calls)
+    del flash_calls, ssd_calls
+    # A second gate: the same model's prefill with the plain versions.  Both
+    # runs record each MoE layer's top-k expert sets, to count the tokens
+    # routed elsewhere (a near-tie in the router flips on a rounding
+    # difference, and the token's FFN output changes wholesale).
+    routes = []
+    moe_forward = moe.moe_forward
+
+    def recording(p, c, x):
+        logits = x.reshape(-1, x.shape[-1]).float() @ p.router.float()
+        routes.append(torch.topk(logits, c.top_k, dim=-1)[1].sort(-1)[0])
+        return moe_forward(p, c, x)
+
+    moe.moe_forward = recording
+    try:
+        again, _ = engine.prefill(res["tokens"])
+        n_moe = len(routes)
+        t0 = time.perf_counter()
+        model.impl = "ref"
+        ref_logits, ref_out = _greedy(engine, res["tokens"],
+                                      JAMBA["new_tokens"])
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+    finally:
+        moe.moe_forward = moe_forward
+        model.impl = "auto"
+    rerouted = [int((c != r).any(-1).sum())
+                for c, r in zip(routes[:n_moe], routes[n_moe:2 * n_moe])]
+    scale = float(ref_logits.float().abs().max())
+    err = float((logits.float() - ref_logits.float()).abs().max())
+    agree = float((out == ref_out).float().mean())
+    first = float((out[:, 0] == ref_out[:, 0]).float().mean())
+    print(f"[serve-jamba] cuda vs ref prefill logits: max abs err {err:.4e} "
+          f"(tolerance {LOGITS_TOL} x max|ref| = {LOGITS_TOL * scale:.4e}); "
+          f"greedy tokens agree {agree:.1%} (first token {first:.0%}); "
+          f"tokens routed to another expert set, per MoE layer, of "
+          f"{out.shape[0] * res['tokens'].shape[1]}: {rerouted}; a second "
+          f"cuda prefill differs by {float((again - logits).abs().max()):.1e};"
+          f" ref generate {ref_s:.2f}s")
+    check(err <= LOGITS_TOL * scale, "cuda and ref prefill logits differ")
+    _profile_jamba(engine, res["tokens"])
+    return {"flash": flash_n, "ssd": ssd_n, "res": res}
+
+
+def _profile_jamba(engine, tokens, steps: int = 8):
+    """torch.profiler over one prefill, then over ``steps`` decode steps:
+    wall, device busy, and device time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    s = tokens.shape[1]
+    for what in ("prefill", "decode"):
+        logits, cache = engine.prefill(tokens)
+        tok = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if what == "prefill":
+                engine.prefill(tokens)
+            else:
+                for i in range(steps):
+                    step, cache = engine.decode_step(tok, cache, s + i)
+                    tok = torch.argmax(step, dim=-1)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = _device_rows(prof)
+        total = sum(r[0] for r in rows) / 1e3
+        per = 1 if what == "prefill" else steps
+        print(f"[profile-jamba] {what} ({per} call{'s' * (per > 1)}): wall "
+              f"{wall:.3f} ms (profiler on), device busy {total:.3f} ms = "
+              f"{total / wall:.1%} of the wall; {len(rows)} kernel names")
+        for dev_us, key, count in rows[:10]:
+            print(f"[profile-jamba]   {dev_us / 1e3 / per:9.3f} ms/call "
+                  f"{count // per:5d}x {key[:90]}")
+
+
+def _pairs(s: int, t: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the flash mask keeps."""
+    total = 0
+    for q in range(s):
+        lo = max(0, q - window + 1)
+        hi = min(q, t - 1) if causal else t - 1
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def _ssd_ops(s: int, chunk: int, n: int, hd: int):
+    """(tensor-core products, fp32 operations) of the chunked scan for one
+    (b, h).  Products: per chunk of L the intra pairs j <= i (the C.B dot
+    and the score times the x dt row), per position the inter product
+    C.state and its absorption into the state.  fp32: per pair the decay
+    (subtract, exp, multiply), per position x dt, the sum of intra and
+    inter and the cumsum, per chunk the state's decay."""
+    tensor = fp32 = 0
+    for c0 in range(0, s, chunk):
+        ln = min(chunk, s - c0)
+        pairs = ln * (ln + 1) // 2
+        tensor += pairs * (2 * n + 2 * hd) + ln * 4 * n * hd
+        fp32 += pairs * 3 + ln * (2 * hd + 4) + n * hd
+    return tensor, fp32
+
+
+def phase_lm_times(device_name: str):
+    """Flash and SSD at the served shapes: device time per call
+    (``device_ms``), one call by CUDA events, the plain version's device
+    time, the bound, and (flash) SDPA on the same bf16 values."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd import ssd_chunked
+    rows = []
+    # Flash at the served shape, causal, bf16.
+    b, s, h, kv, d = FLASH_SERVED
+    q, k, v = _flash_inputs((b, s, s, h, kv, d), torch.bfloat16, seed=11)
+
+    def kernel():
+        return fk.flash_attention_cuda(q, k, v, causal=True)
+
+    def plain():
+        return flash_attention(q, k, v, causal=True, impl="ref")
+
+    got = kernel()
+    err = compare(got.float(), flash_attention(
+        q.float(), k.float(), v.float(), causal=True, impl="ref"),
+        BF16_RTOL, FLASH_BF16_ATOL)
+    # The same shape in float32, at the float32 tolerance.
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    err32 = compare(fk.flash_attention_cuda(q32, k32, v32, causal=True),
+                    flash_attention(q32, k32, v32, causal=True, impl="ref"),
+                    FLASH_TOL, FLASH_TOL)
+    del q32, k32, v32
+    t = {"plain": [device_ms(plain, reps=5)], "kernel": [device_ms(kernel)]}
+    t["kernel"].append(device_ms(kernel))
+    t["plain"].append(device_ms(plain, reps=5))
+    t["kernel_wall"], t["plain_wall"] = time_ms(kernel), time_ms(plain, 5)
+    # SDPA on the same values, kv heads expanded beforehand, (B, H, S, D).
+    qt = q.transpose(1, 2).contiguous()
+    kt = torch.repeat_interleave(k, h // kv, dim=2).transpose(1, 2).contiguous()
+    vt = torch.repeat_interleave(v, h // kv, dim=2).transpose(1, 2).contiguous()
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    lib_err = float((library().transpose(1, 2).float() - got.float())
+                    .abs().max())
+    lib_ms = statistics.mean([device_ms(library), device_ms(library)])
+    # Per kept (query, key) pair: QK^T and PV, 4D products of bf16 values
+    # on the tensor cores; scale, max-subtract and exp, 3 in fp32.
+    pairs = _pairs(s, s, True, 1 << 30) * b * h
+    n_tensor, n_ops = pairs * 4 * d, pairs * 3
+    n_bytes = 2 * (2 * b * s * h * d + 2 * b * s * kv * d)
+    rows.append(_row(
+        "flash_attention", "src/repro_torch/kernels/flash_attn/csrc/"
+        "flash_attn.cu", "src/repro/kernels/flash_attn/kernel.py:72", t,
+        n_ops, n_bytes, device_name, err, library=lib_ms,
+        tensor_ops=n_tensor))
+    print(f"[times] flash_attention B={b} H={h} Kv={kv} S=T={s} D={d} causal"
+          f" bf16: device {rows[-1]['ms']:.4f} ms ({t['kernel'][0]:.4f}, "
+          f"{t['kernel'][1]:.4f}); by events {rows[-1]['wall_ms']:.4f} ms; "
+          f"plain device {rows[-1]['plain_ms']:.4f} ms; bound "
+          f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}: "
+          f"{n_tensor:.3e} bf16 tensor ops + {n_ops:.3e} fp32 ops, "
+          f"{n_bytes:.3e} B); SDPA device {lib_ms:.4f} ms (max abs diff to "
+          f"the kernel {lib_err:.3e}); vs plain on float32 values: max abs "
+          f"err {err:.3e}, in float32 {err32:.3e}")
+    del q, k, v, qt, kt, vt, got
+    # SSD at the served shape (B x nh = 512 (b, h) blocks), bf16.
+    case = SSD_SERVED
+    args = _ssd_inputs(case, torch.bfloat16, seed=12)
+
+    def skernel():
+        return sk.ssd_cuda(*args, chunk=case[6])
+
+    def splain():
+        return ssd_chunked(*args, chunk=case[6], impl="ref")
+
+    gy, gf = skernel()
+    wy, wf = ssd_chunked(*(a.float() for a in args), chunk=case[6],
+                         impl="ref")
+    err = max(compare(gy.float(), wy, BF16_RTOL, SSD_ATOL),
+              compare(gf, wf, SSD_RTOL, SSD_ATOL))
+    # The plain version is a loop of ~20,000 launches: one call a reading,
+    # paced by the host (``device_ms`` says so).
+    t = {"plain": [device_ms(splain, reps=1, warmup=1)],
+         "kernel": [device_ms(skernel)]}
+    t["kernel"].append(device_ms(skernel))
+    t["plain"].append(device_ms(splain, reps=1, warmup=1))
+    t["kernel_wall"] = time_ms(skernel)
+    t["plain_wall"] = time_ms(splain, reps=2, warmup=0)
+    b, s, nh, hd, g, n, chunk = case
+    n_tensor, n_ops = (b * nh * x for x in _ssd_ops(s, chunk, n, hd))
+    n_bytes = (2 * (2 * b * s * nh * hd + b * s * nh + 2 * b * s * g * n)
+               + 4 * nh + 4 * b * nh * hd * n)
+    rows.append(_row(
+        "ssd", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        "src/repro/kernels/ssd/kernel.py:74", t, n_ops, n_bytes,
+        device_name, err, tensor_ops=n_tensor))
+    print(f"[times] ssd B*nh={b * nh} S={s} hd={hd} n={n} chunk={chunk} "
+          f"bf16: device {rows[-1]['ms']:.4f} ms ({t['kernel'][0]:.4f}, "
+          f"{t['kernel'][1]:.4f}); by events {rows[-1]['wall_ms']:.4f} ms; "
+          f"plain device {rows[-1]['plain_ms']:.4f} ms (the sequential "
+          f"recurrence); bound {rows[-1]['bound_ms']:.4f} ms "
+          f"({rows[-1]['bound_by']}: {n_tensor:.3e} bf16 tensor ops + "
+          f"{n_ops:.3e} fp32 ops, {n_bytes:.3e} B); no single PyTorch call "
+          "computes it")
+    return rows
 
 
 def main() -> int:
@@ -668,19 +1247,36 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+
+    def elapsed(what: str) -> None:
+        print(f"[elapsed] {what}: {time.perf_counter() - t0:.1f}s")
+
     name, smi = phase_device()
     phase_build()
+    elapsed("build")
     phase_parity()
+    phase_lm_parity()
+    elapsed("parity, lm-parity")
     res, launches = phase_serve()
     trained = phase_train()
     phase_train_cuda_vs_ref(trained["out"])
     vecmat_launches = phase_train_two_pass(trained["out"]["cfg"])
     step_device_ms = phase_profile(trained["out"])
-    rows = [phase_times(res, name)] + phase_train_times(trained["out"],
-                                                         name)
-    launches = {"kernel_matvec": launches, "kernel_vecmat": vecmat_launches,
+    elapsed("serve, train, train-cuda-vs-ref, train-two-pass, profile")
+    rows = [phase_times(res, name), phase_rbf_times(res, name)]
+    rows += phase_train_times(trained["out"], name)
+    del res, trained["out"]
+    elapsed("times")
+    jamba = phase_serve_jamba()
+    del jamba["res"]
+    elapsed("serve-jamba")
+    rows += phase_lm_times(name)
+    elapsed("lm-times")
+    launches = {"kernel_matvec": launches, "rbf_matvec": 0,
+                "kernel_vecmat": vecmat_launches,
                 "dual_pass": trained["dual_launches"],
-                "train_pass": trained["launches"]}
+                "train_pass": trained["launches"],
+                "flash_attention": jamba["flash"], "ssd": jamba["ssd"]}
     for row in rows:
         row["launches"] = launches[row["name"]]
     train = next(r for r in rows if r["name"] == "train_pass")
@@ -691,6 +1287,9 @@ def main() -> int:
           f" of the step, one call of its wrapper {train['wall_ms']:.4f} ms "
           f"by events = {train['wall_ms'] / step_ms:.1%}; device busy "
           f"{step_device_ms:.4f} ms/step (profiler)")
+    print(f"[device_ms] {READINGS['kept']} readings kept, "
+          f"{READINGS['retaken']} taken again behind a longer spin, "
+          f"{READINGS['host_paced']} paced by the host")
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,0 +1,12 @@
+"""internlm2-20b [dense] — GQA, arXiv:2403.17297.
+
+48L d_model=6144 48H (GQA kv=8) d_ff=16384 vocab=92544.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="internlm2-20b", family="dense",
+    n_layers=48, d_model=6144, n_heads=48, n_kv_heads=8, d_ff=16_384,
+    vocab_size=92_544, head_dim=128,
+    layer_pattern=("attn",),
+)

@@ -12,16 +12,23 @@
   step is valid only if both files exist and the npz's crc32 matches the
   manifest; with ``step=None`` the newest valid step is read and corrupt
   ones are skipped.
+* ``lm_params_from_jax(cfg, params)`` — the ``state_dict`` of the port's
+  ``LanguageModel`` from the JAX LM's param tree (nested dicts of arrays,
+  ``np.asarray``-able): parameters keep their shapes, and the period stack
+  ``stack/scan/pos{i}`` (leading axis = period index ``p``) is unstacked
+  into ``layers.{p * period + i}``, the remainder ``stack/rem/pos{i}``
+  following as ``layers.{n_periods * period + i}``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.checkpoint.manager import read_checkpoint
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dsekl import DSEKLConfig, DSEKLState
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -65,3 +72,39 @@ def read_jax_checkpoint(directory, step: Optional[int] = None
     of ``step``, which must be valid).  The port's checkpoints share the
     layout, so this is ``checkpoint.read_checkpoint``."""
     return read_checkpoint(directory, step)
+
+
+def _flat(tree: Mapping[str, Any], prefix: str = ""
+          ) -> Iterator[Tuple[str, Any]]:
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            yield from _flat(val, name + ".")
+        else:
+            yield name, val
+
+
+def lm_params_from_jax(cfg: ModelConfig, params: Mapping[str, Any]
+                       ) -> Dict[str, torch.Tensor]:
+    """The port's ``LanguageModel`` state_dict (CPU tensors, the arrays'
+    own dtypes) from the JAX ``LanguageModel`` param tree."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(name, arr):
+        out[name] = torch.from_numpy(np.array(arr))
+
+    for name, arr in _flat({k: v for k, v in params.items() if k != "stack"}):
+        put(name, arr)
+    stack = params.get("stack", {})
+    base = cfg.n_periods * cfg.period
+    for pos, sub in stack.get("scan", {}).items():
+        i = int(pos[len("pos"):])
+        for name, arr in _flat(sub):
+            arr = np.asarray(arr)
+            for p in range(arr.shape[0]):
+                put(f"layers.{p * cfg.period + i}.{name}", arr[p])
+    for pos, sub in stack.get("rem", {}).items():
+        i = int(pos[len("pos"):])
+        for name, arr in _flat(sub):
+            put(f"layers.{base + i}.{name}", arr)
+    return out

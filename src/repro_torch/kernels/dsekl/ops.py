@@ -1,17 +1,11 @@
 """Public kernel ops of the port (counterpart of
 ``repro/kernels/dsekl/ops.py``).
 
-``impl`` selects the backend:
-  * ``"ref"``  — the plain-torch oracle (``ref.py``), on whatever device the
-                 tensors are on;
-  * ``"cuda"`` — the hand-written Hopper kernels (``block.*_cuda``); CUDA
-                 tensors only, they raise for CPU tensors;
-  * ``"auto"`` — ``cuda`` for CUDA tensors, ``ref`` for CPU tensors.
-
-``"auto"`` honours the ``REPRO_TORCH_IMPL`` env override (``REPRO_IMPL``
-belongs to the JAX package's CI legs).  There is no silent fallback: a CUDA
-tensor under ``auto`` or ``cuda`` always launches the kernel, and an
-unknown kernel name raises.
+``impl`` selects the backend as ``repro_torch.kernels.resolve_backend``
+does: ``"ref"`` is the plain-torch oracle (``ref.py``), ``"cuda"`` the
+hand-written Hopper kernels (``block.*_cuda``).  A CUDA tensor under
+``auto`` or ``cuda`` always launches the kernel, and an unknown kernel
+name raises.
 
 Ops:
   * ``kernel_matvec``       — f = K(x, z) @ a
@@ -28,33 +22,23 @@ Ops:
 """
 from __future__ import annotations
 
-import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core import kernels_fn
 from repro_torch.core import losses as losses_lib
+from repro_torch.kernels import resolve_backend
 from repro_torch.kernels.dsekl import block as _blk
 from repro_torch.kernels.dsekl import ref as _ref
 
 Tensor = torch.Tensor
 
-_IMPLS = ("auto", "ref", "cuda")
-ENV_IMPL = "REPRO_TORCH_IMPL"
-
 
 def resolve_impl(impl: str, kernel_name: str, device: torch.device) -> str:
     """Resolve ``impl`` to the backend that will run for tensors on
     ``device``: ``"ref"`` or ``"cuda"``."""
-    if impl not in _IMPLS:
-        raise ValueError(f"impl={impl!r} is not one of {_IMPLS}")
-    if impl == "auto":
-        impl = os.environ.get(ENV_IMPL, "auto") or "auto"
-        if impl not in _IMPLS:
-            raise ValueError(f"{ENV_IMPL}={impl!r} is not one of {_IMPLS}")
-    if impl == "auto":
-        impl = "cuda" if torch.device(device).type == "cuda" else "ref"
+    impl = resolve_backend(impl, device)
     if impl == "cuda" and kernel_name not in _blk.KINDS:
         raise ValueError(f"no CUDA kernel for {kernel_name!r}; "
                          f"available: {sorted(_blk.KINDS)}")

@@ -1,0 +1,165 @@
+"""Mamba-2 (SSD) block (port of ``repro/models/ssm.py``).
+
+The full-sequence block runs its chunked scan through the SSD op
+(``kernels/ssd``) where JAX runs ``models/ssm.ssd``, its XLA form of the
+same chunked scan.  Decode is the plain one-token recurrence, in torch.
+
+Layout: x (B, S, D); inner width di = expand * D; heads nh = di / hd;
+state n = ssm_state; groups g (B/C shared across nh/g heads).  The conv
+frontend is a causal depthwise conv of width w over the (x, B, C)
+channels.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ssd import ssd_chunked
+from repro_torch.nn.module import Param, ParamTree
+
+Tensor = torch.Tensor
+
+
+def _dims(cfg: ModelConfig):
+    di = cfg.d_inner
+    nh = cfg.ssm_heads
+    n = cfg.ssm_state
+    g = cfg.ssm_ngroups
+    conv_ch = di + 2 * g * n
+    return di, nh, n, g, conv_ch
+
+
+def mamba_specs(cfg: ModelConfig) -> Dict[str, Param]:
+    """The in-projection split per role (z / x / BC / dt), as in JAX."""
+    d = cfg.d_model
+    di, nh, n, g, conv_ch = _dims(cfg)
+    return {
+        "w_z": Param((d, di), init="fan_in"),
+        "w_x": Param((d, di), init="fan_in"),
+        "w_bc": Param((d, 2 * g * n), init="fan_in"),
+        "w_dt": Param((d, nh), init="fan_in"),
+        "conv_w": Param((cfg.ssm_conv_width, conv_ch), init="fan_in",
+                        scale=1.0),
+        "conv_b": Param((conv_ch,), init="zeros"),
+        "a_log": Param((nh,), init="zeros"),
+        "dt_bias": Param((nh,), init="zeros"),
+        "d_skip": Param((nh,), init="ones"),
+        "norm": Param((di,), init="ones"),
+        "w_out": Param((di, d), init="fan_in"),
+    }
+
+
+class MambaCache(NamedTuple):
+    conv: Tensor    # (B, w-1, conv_ch) most recent inputs to the conv
+    state: Tensor   # (B, nh, hd, n) recurrent SSD state, f32
+
+
+def init_mamba_cache(cfg: ModelConfig, batch: int, device: torch.device,
+                     dtype=None) -> MambaCache:
+    di, nh, n, g, conv_ch = _dims(cfg)
+    dtype = dtype or cfg.cdtype
+    return MambaCache(
+        conv=torch.zeros((batch, cfg.ssm_conv_width - 1, conv_ch),
+                         dtype=dtype, device=device),
+        state=torch.zeros((batch, nh, cfg.ssm_head_dim, n),
+                          dtype=torch.float32, device=device),
+    )
+
+
+def _causal_conv(xbc: Tensor, w: Tensor, b: Tensor) -> Tensor:
+    """Depthwise causal conv along seq.  xbc (B,S,C), w (W,C)."""
+    width, s = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, width - 1, 0))
+    out = pad[:, 0:s, :] * w[0][None, None, :]
+    for i in range(1, width):
+        out = out + pad[:, i:i + s, :] * w[i][None, None, :]
+    return F.silu(out + b[None, None, :])
+
+
+def _gated_norm(y: Tensor, z: Tensor, scale: Tensor, eps: float) -> Tensor:
+    h = y * F.silu(z)
+    hf = h.to(torch.float32)
+    var = torch.mean(hf * hf, dim=-1, keepdim=True)
+    return (hf * torch.rsqrt(var + eps) * scale.to(torch.float32)
+            ).to(y.dtype)
+
+
+def _dt_a(p: ParamTree, dt_raw: Tensor) -> Tuple[Tensor, Tensor]:
+    dt = F.softplus(dt_raw.to(torch.float32) + p.dt_bias.to(torch.float32))
+    return dt, -torch.exp(p.a_log.to(torch.float32))
+
+
+def mamba_forward(p: ParamTree, cfg: ModelConfig, x: Tensor,
+                  impl: str = "auto") -> Tuple[Tensor, MambaCache]:
+    """Full-sequence mamba-2 block.  x (B,S,D) -> (y (B,S,D), cache)."""
+    b, s, d = x.shape
+    di, nh, n, g, conv_ch = _dims(cfg)
+    hd = cfg.ssm_head_dim
+
+    z = x @ p.w_z                                        # (B,S,di)
+    x_raw = x @ p.w_x                                    # (B,S,di)
+    bc_raw = x @ p.w_bc                                  # (B,S,2gn)
+    dt_raw = x @ p.w_dt                                  # (B,S,nh)
+    x_conv = _causal_conv(x_raw, p.conv_w[:, :di], p.conv_b[:di])
+    bc_conv = _causal_conv(bc_raw, p.conv_w[:, di:], p.conv_b[di:])
+    x_ssm = x_conv.reshape(b, s, nh, hd)
+    bmat = bc_conv[..., :g * n].reshape(b, s, g, n)
+    cmat = bc_conv[..., g * n:].reshape(b, s, g, n)
+    dt, a = _dt_a(p, dt_raw)
+
+    # dt goes into the scan in x's dtype, as JAX's mamba_forward casts it:
+    # in bf16 that rounding is part of the function.
+    y, final_state = ssd_chunked(x_ssm, dt.to(x.dtype), a, bmat, cmat,
+                                 chunk=cfg.ssm_chunk, impl=impl)
+    y = y.to(x.dtype)
+    y = y + p.d_skip.to(y.dtype)[None, None, :, None] * x_ssm
+    y = _gated_norm(y.reshape(b, s, di), z, p.norm, cfg.norm_eps)
+    out = y @ p.w_out
+
+    xbc_raw = torch.cat([x_raw, bc_raw], dim=-1)         # cache layout
+    keep = cfg.ssm_conv_width - 1
+    conv_tail = torch.cat(
+        [xbc_raw.new_zeros((b, max(keep - s, 0), conv_ch)),
+         xbc_raw[:, max(s - keep, 0):, :]], dim=1)
+    return out, MambaCache(conv=conv_tail.to(cfg.cdtype), state=final_state)
+
+
+def mamba_decode(p: ParamTree, cfg: ModelConfig, x: Tensor,
+                 cache: MambaCache) -> Tuple[Tensor, MambaCache]:
+    """One-token recurrence.  x (B,1,D)."""
+    b = x.shape[0]
+    di, nh, n, g, conv_ch = _dims(cfg)
+    hd = cfg.ssm_head_dim
+
+    x0 = x[:, 0]
+    z = x0 @ p.w_z                                       # (B, di)
+    xbc_raw = torch.cat([x0 @ p.w_x, x0 @ p.w_bc], dim=-1)   # (B, conv_ch)
+    dt_raw = x0 @ p.w_dt
+    window = torch.cat([cache.conv.to(xbc_raw.dtype), xbc_raw[:, None, :]],
+                       dim=1)                            # (B,W,C)
+    conv_out = torch.einsum("bwc,wc->bc", window, p.conv_w)
+    xbc = F.silu(conv_out + p.conv_b[None])
+    x_ssm = xbc[:, :di].reshape(b, nh, hd)
+    hpg = nh // g
+    bh = torch.repeat_interleave(xbc[:, di:di + g * n].reshape(b, g, n),
+                                 hpg, dim=1)             # (B,nh,n)
+    chh = torch.repeat_interleave(xbc[:, di + g * n:].reshape(b, g, n),
+                                  hpg, dim=1)
+
+    dt, a = _dt_a(p, dt_raw)
+    da = torch.exp(dt * a[None])                         # (B,nh)
+    xdt = (x_ssm * dt[..., None].to(x_ssm.dtype)).to(torch.float32)
+    upd = torch.einsum("bhn,bhp->bhpn", bh.to(torch.float32), xdt)
+    state = cache.state * da[..., None, None] + upd
+    y = torch.einsum("bhpn,bhn->bhp", state, chh.to(torch.float32))
+    y = y.to(x.dtype)
+    y = y + p.d_skip.to(y.dtype)[None, :, None] * x_ssm
+    y = _gated_norm(y.reshape(b, di), z, p.norm, cfg.norm_eps)
+    out = (y @ p.w_out)[:, None, :]
+
+    new_conv = torch.cat([cache.conv[:, 1:, :],
+                          xbc_raw[:, None, :].to(cache.conv.dtype)], dim=1)
+    return out, MambaCache(conv=new_conv, state=state)

@@ -10,7 +10,13 @@ JAX suite's float32 tolerance: rtol 2e-4, atol 1e-5 x max(1,
 |oracle|_inf).  A short fit on the card is held against the same fit with
 ``impl="ref"`` on the same plans at rtol 1e-3, atol 1e-4 x max(1,
 |oracle|_inf): two epochs of float32 sums in another order, and
-duplicate J indices scattered by atomics on the card.
+duplicate J indices scattered by atomics on the card.  Flash attention
+and the SSD scan are held against their plain versions at the JAX
+suite's float32 tolerances (``tests/test_kernels_models.py``): flash
+2e-6, SSD rtol 1e-4 and atol 1e-4 x max(1, |oracle|_inf).  Given
+bfloat16 inputs, which they convert at load, they are held against the
+plain version on the same values in float32 at rtol 8e-3, one bfloat16
+rounding of the output.
 """
 import numpy as np
 import pytest
@@ -261,3 +267,144 @@ def test_short_fit_on_the_card_matches_ref(cuda):
                                atol=1e-4 * max(1.0, float(np.abs(want).max())))
     assert int(card.state.step) == 32
     assert all(0.0 <= h["val_error"] <= 1.0 for h in card.history)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention and the SSD scan (the LM prefill's kernels).
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # (b, s, t, h, kv, d, causal, window)
+    (2, 128, 128, 4, 2, 64, True, 1 << 30),
+    (1, 256, 256, 2, 2, 32, True, 64),
+    (2, 128, 256, 4, 1, 64, False, 1 << 30),
+    (1, 128, 128, 2, 2, 128, True, 1 << 30),
+    (1, 200, 200, 32, 8, 128, True, 1 << 30),    # ragged, jamba's GQA 32/8
+    (2, 200, 333, 4, 1, 64, False, 64),           # ragged S != T
+    (1, 130, 130, 4, 4, 16, True, 0),             # no valid key: mean(v)
+    (1, 130, 130, 4, 2, 48, False, 0),
+    (1, 24, 24, 4, 1, 16, True, 16),
+]
+
+
+def _flash_data(case, device, dtype, seed=0):
+    b, s, t, h, kv, d = case[:6]
+    g = torch.Generator(device="cpu").manual_seed(seed + s + t + h + d)
+    return [torch.randn(sh, generator=g).to(device=device, dtype=dtype)
+            for sh in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d))]
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 2e-6, 2e-6),
+                                             (torch.bfloat16, 8e-3, 1e-5)],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_attention_matches_plain(cuda, case, dtype, rtol, atol):
+    """float32: the JAX suite's 2e-6.  bfloat16 inputs are converted to
+    float32 at load, so the kernel is held against the plain version on
+    the same values in float32: one bfloat16 rounding of the output (rtol
+    8e-3) and float32 summation order (atol 1e-5 x max(1, |oracle|_inf))."""
+    from repro_torch.kernels.flash_attn import flash_attention, kernel
+    causal, window = case[6], case[7]
+    q, k, v = _flash_data(case, cuda, dtype)
+    before = kernel.flash_attention_cuda.launches
+    got = kernel.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kernel.flash_attention_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention(q.float(), k.float(), v.float(), causal=causal,
+                           window=window, impl="ref").cpu().numpy()
+    scale = max(1.0, float(np.abs(want).max())) if dtype == torch.bfloat16 \
+        else 1.0
+    np.testing.assert_allclose(got.float().cpu().numpy(), want, rtol=rtol,
+                               atol=atol * scale)
+
+
+def test_flash_wrapper_rejects_bad_arguments(cuda):
+    from repro_torch.kernels.flash_attn import kernel
+    q, k, v = _flash_data(FLASH_CASES[0], cuda, torch.float32)
+    before = kernel.flash_attention_cuda.launches
+    with pytest.raises(TypeError):
+        kernel.flash_attention_cuda(q.double(), k, v)
+    with pytest.raises(ValueError):
+        kernel.flash_attention_cuda(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError):
+        kernel.flash_attention_cuda(q[:, :, :3].contiguous(), k, v)  # 3 % 2
+    with pytest.raises(ValueError):
+        big = torch.zeros((1, 8, 2, 160), device=cuda)
+        kernel.flash_attention_cuda(big, big, big)
+    assert kernel.flash_attention_cuda.launches == before
+
+
+SSD_CASES = [
+    # (b, s, nh, hd, g, n, chunk)
+    (2, 64, 4, 16, 2, 8, 16),
+    (1, 128, 2, 32, 1, 16, 32),
+    (2, 512, 8, 64, 1, 16, 256),       # jamba's hd / n
+    (1, 300, 4, 64, 1, 128, 128),      # mamba2's n, a ragged last chunk
+    (2, 200, 4, 64, 2, 16, 256),       # one partial chunk
+    (1, 1000, 2, 64, 1, 128, 256),
+]
+
+
+def _ssd_data(case, device, seed=0):
+    b, s, nh, hd, g, n = case[:6]
+    gen = torch.Generator(device="cpu").manual_seed(seed + sum(case))
+    x = torch.randn((b, s, nh, hd), generator=gen)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, nh), generator=gen))
+    a = -torch.exp(torch.randn((nh,), generator=gen) * 0.5)
+    bmat = torch.randn((b, s, g, n), generator=gen)
+    cmat = torch.randn((b, s, g, n), generator=gen)
+    return [t.to(device) for t in (x, dt, a, bmat, cmat)]
+
+
+def _ssd_close(got, want):
+    """The JAX suite's tolerance, rtol 1e-4 and atol 1e-4, with atol taken
+    relative to max(1, |want|_inf): y grows with n and S (|y| ~ 100 at
+    n = 128, S = 1000), and the chunked sums then differ from the
+    sequential ones by ~1e-6 of that scale, 2e-4 in absolute terms."""
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+def test_ssd_matches_plain(cuda, case):
+    from repro_torch.kernels.ssd import kernel, ssd_chunked
+    args = _ssd_data(case, cuda)
+    before = kernel.ssd_cuda.launches
+    y, final = kernel.ssd_cuda(*args, chunk=case[6])
+    torch.cuda.synchronize()
+    assert kernel.ssd_cuda.launches == before + 1
+    wy, wf = ssd_chunked(*args, chunk=case[6], impl="ref")
+    _ssd_close(y, wy)
+    _ssd_close(final, wf)
+
+
+def test_ssd_bfloat16_matches_plain_on_the_same_values(cuda):
+    """bfloat16 inputs are converted to float32 at load, so the kernel is
+    held against the plain version on the same values in float32; y comes
+    back in bfloat16 (one rounding: rtol 8e-3)."""
+    from repro_torch.kernels.ssd import kernel, ssd_chunked
+    x, dt, a, bm, cm = _ssd_data((2, 300, 8, 64, 1, 16, 256), cuda)
+    x, dt, bm, cm = (t.to(torch.bfloat16) for t in (x, dt, bm, cm))
+    y, final = kernel.ssd_cuda(x, dt, a, bm, cm, chunk=256)
+    assert y.dtype == torch.bfloat16
+    wy, wf = ssd_chunked(x.float(), dt.float(), a, bm.float(), cm.float(),
+                         impl="ref")
+    np.testing.assert_allclose(y.float().cpu().numpy(), wy.cpu().numpy(),
+                               rtol=8e-3, atol=1e-3)
+    _ssd_close(final, wf)
+
+
+def test_ssd_wrapper_rejects_bad_arguments(cuda):
+    from repro_torch.kernels.ssd import kernel
+    x, dt, a, bm, cm = _ssd_data(SSD_CASES[0], cuda)
+    before = kernel.ssd_cuda.launches
+    with pytest.raises(TypeError):
+        kernel.ssd_cuda(x.double(), dt, a, bm, cm)
+    with pytest.raises(ValueError):
+        kernel.ssd_cuda(x, dt, a, bm[:, :, :1].contiguous(),
+                        cm[:, :, :1].contiguous(), chunk=0)
+    with pytest.raises(ValueError):
+        kernel.ssd_cuda(x, dt, a, bm[:, :, :, :3], cm)     # not contiguous
+    assert kernel.ssd_cuda.launches == before

@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, nothing of the JAX package, no quiet CPU
 fallback.
 
-* every module of ``repro_torch`` imports, and a CPU predict runs, in a
-  process where ``jax`` and ``repro`` cannot be imported;
+* every module of ``repro_torch`` imports, and a CPU predict and an LM
+  prefill run, in a process where ``jax`` and ``repro`` cannot be
+  imported;
 * an AST scan of ``src/repro_torch/`` and ``chip_smoke.py`` finds no
   ``jax`` / ``repro`` import;
 * an entry point (serving, ``fit``, the training launcher) called with no
@@ -54,6 +55,16 @@ def test_imports_and_predicts_without_jax():
         eng.submit(x[:7])
         (f,) = eng.flush_async()
         assert f.shape == (7,) and bool(f.isfinite().all())
+        import torch
+        from repro_torch.configs import get_config
+        from repro_torch.models.model import LanguageModel
+        cfg = get_config("jamba-v0.1-52b", reduced=True)
+        lm = LanguageModel(cfg, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        logits, cache = lm.prefill(torch.randint(0, cfg.vocab_size, (2, 20)),
+                                   24)
+        assert logits.shape == (2, cfg.vocab_size)
+        assert bool(logits.isfinite().all()) and len(cache) == cfg.n_layers
         assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                        for m, v in sys.modules.items() if v is not None)
         assert "triton" not in sys.modules
@@ -90,7 +101,9 @@ def test_entry_points_need_cuda_without_a_device(monkeypatch):
     from repro_torch.core.dsekl import DSEKLConfig, init_state
     from repro_torch.data import make_covertype_like
     from repro_torch.device import resolve_device
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve, train
+    from repro_torch.models.model import LanguageModel
     from repro_torch.serving import DSEKLPredictionEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -110,6 +123,9 @@ def test_entry_points_need_cuda_without_a_device(monkeypatch):
                     torch.Generator(), n_epochs=1),
         lambda: train.train_dsekl(train.parser().parse_args(
             ["--dsekl", "--n", "64", "--epochs", "1"])),
+        lambda: LanguageModel(get_config("jamba-v0.1-52b", reduced=True)),
+        lambda: serve.serve_lm(get_config("mamba2-780m", reduced=True), 1, 4,
+                               2, 8),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
