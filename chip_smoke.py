@@ -13,7 +13,10 @@ checkout's sources and held against its plain PyTorch version.  Phases
 
   1. device  — name, compute capability, ``nvidia-smi`` name and power
                limit; requires sm_90.
-  2. build   — nvcc builds every kernel source (build seconds, ptxas).
+  2. build   — nvcc builds every kernel source (build seconds, ptxas);
+               the sm90 flash library's ptxas registers, shared memory,
+               spills and warnings, and its SASS counts of HGMMA (wgmma)
+               and UTMALDG / UTMASTG (TMA) by cuobjdump: each must be > 0.
   3. parity  — each DSEKL kernel vs its plain version on the card, 7
                kernels x D in {3, 54, 784} at ragged I=1000, J=5003:
                matvec, vecmat, the dual pass, the train pass for the 4
@@ -21,10 +24,13 @@ checkout's sources and held against its plain PyTorch version.  Phases
                matvec-then-vecmat fallback under a forced small stash
                budget; each launch counter must go up by one per call.
   4. lm-parity — flash attention (causal and not, window 64 and 0, GQA
-               32/8 and 4/1, D 64 and 128, ragged S; float32 and
-               bfloat16) and the SSD scan (n 16 and 128, hd 64, chunk 256
-               and 128, ragged S) vs their plain versions; counters +1 per
-               call.
+               32/8 and 4/1, D 64 and 128, ragged S, S != T, and lengths at
+               the 128-row tiles' edges: 127, 128, 129, 255, 257) in
+               float32 through the fp32 route and in bfloat16 through the
+               sm90 route (and bf16 at D 48 through the fp32 route), twice
+               each with the same bits, and the SSD scan (n 16 and 128, hd
+               64, chunk 256 and 128, ragged S) vs their plain versions;
+               counters +1 per call, on the expected route.
   5. serve   — the DSEKL serving path at the covertype scale: 559,890 x
                54 training rows, RBF, ~50% support, 16,384 queries in
                requests of 64, query_block 1024, through flush_async and
@@ -57,19 +63,22 @@ checkout's sources and held against its plain PyTorch version.  Phases
                bf16, random weights from a seed, 4 random prompts of 2,048
                tokens, 32 greedy tokens each (cache 2,080); the flash and
                SSD counters must read 1 and 7 per prefill (none in
-               decode); prefill and decode times on the host clock; the
+               decode), every flash launch on the sm90 route; prefill and
+               decode times on the host clock; the
                timed prefill's flash and SSD launches, their inputs and
                outputs kept at the model's call sites, are each held
                against the plain version on those activations; then the
                same model's prefill logits with impl "ref" must match
                within 2e-2 x max|ref|, and the greedy-token agreement is
                printed.
- 12. lm-times — flash attention and the SSD scan at their served shapes
-               (flash also in float32 against its plain version):
-               device time, one call by events, the plain version's
-               device time, the bound (products at the bf16 tensor-core
-               peak, the rest at fp32), and for flash SDPA's device time
-               on the same bf16 values (a yardstick the port never calls).
+ 12. lm-times — flash attention (the sm90 route) and the SSD scan at their
+               served shapes: device time, one call by events, the plain
+               version's device time, the bound (products at the bf16
+               tensor-core peak, the rest at fp32), and for flash SDPA's
+               device time on the same bf16 values in the same call (a
+               yardstick the port never calls); then the fp32 route at
+               the same shape in float32 against its plain version, on a
+               line of its own.
 
 The DSEKL kernel tolerance is the JAX suite's float32 one
 (tests/test_dual_pass.py ``_tols``): rtol 2e-4, atol 1e-5 * max(1,
@@ -82,7 +91,9 @@ times max(1, |oracle|_inf) as above.  Given bfloat16 inputs, which the
 kernels convert at load, each is held against its plain version on the
 same values in float32: the bfloat16 output at rtol 8e-3 (one rounding)
 with atol 1e-5 (flash) or 1e-4 (SSD) times max(1, |oracle|_inf), the
-SSD's float32 final state at its float32 tolerance.
+SSD's float32 final state at its float32 tolerance.  The sm90 flash kernel
+is held to that same check: it splits P into two bf16 terms so that its
+P @ V keeps float32's function.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -308,7 +319,32 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
     print(f"[build] all sources in {wall:.1f}s")
+    _inspect_sm90(records["flash_attn_sm90"])
     return records
+
+
+def _inspect_sm90(rec) -> None:
+    """The sm90 flash library: ptxas's registers, shared memory, spills
+    and warnings for each kernel, and the SASS instructions that prove the
+    tensor-core and TMA path (cuobjdump, where the toolkit has it)."""
+    from repro_torch.kernels import _build
+    for line in rec.log.splitlines():
+        if any(w in line for w in ("registers", "spill", "smem", "warning",
+                                   "C75", "setmaxnreg")):
+            print(f"[build] sm90 {line.strip()[:200]}")
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    if not os.path.isfile(cuobjdump):
+        print(f"[build] sm90: no cuobjdump at {cuobjdump}; SASS not counted")
+        return
+    sass = subprocess.run([cuobjdump, "-sass", str(rec.path)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout.splitlines()
+    counts = {op: sum(op in line for line in sass)
+              for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+    print("[build] sm90 SASS (both head dims): " + ", ".join(
+        f"{op} {n}" for op, n in counts.items()))
+    check(all(counts.values()),
+          f"the sm90 library lacks wgmma or TMA instructions: {counts}")
 
 
 def _counted(fn, counter, what: str):
@@ -792,6 +828,13 @@ FLASH_CASES = [
     (1, 200, 333, 4, 1, 64, False, 64),          # ragged S != T
     (1, 130, 130, 4, 2, 128, True, 0),           # window 0: mean(v)
 ]
+# Lengths at the edges of the sm90 kernel's 128-row tiles: causal S = T at
+# jamba's GQA 32/8, D 128, and non-causal S != T at 4/1, D 64.
+FLASH_EDGE_CASES = [c for n in (127, 128, 129, 255, 257) for c in (
+    (1, n, n, 32, 8, 128, True, 1 << 30), (1, n, n + 3, 4, 1, 64, False,
+                                           1 << 30))]
+# bf16 at a head dim the sm90 kernel does not take: the fp32 route.
+FLASH_FP32_BF16_CASE = (1, 130, 130, 4, 2, 48, False, 0)
 FLASH_TOL = 2e-6                    # float32, tests/test_kernels_models.py
 # bfloat16 inputs are converted to float32 at load, so a kernel given them
 # is held against its plain version on the same values in float32: the
@@ -854,20 +897,31 @@ def phase_lm_parity():
     from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.kernels.ssd import ssd_chunked
     worst = {}
-    for dname, dtype, rtol, atol in (
-            ("float32", torch.float32, FLASH_TOL, FLASH_TOL),
-            ("bfloat16", torch.bfloat16, BF16_RTOL, FLASH_BF16_ATOL)):
-        for case in FLASH_CASES:
-            q, k, v = _flash_inputs(case, dtype)
-            kw = dict(causal=case[6], window=case[7])
-            got = _counted(lambda: fk.flash_attention_cuda(q, k, v, **kw),
-                           fk.flash_attention_cuda, f"flash {case}")
-            check(got.dtype == dtype, f"flash output is {got.dtype}")
-            want = flash_attention(q.float(), k.float(), v.float(),
-                                   impl="ref", **kw)
-            err = compare(got.float(), want, rtol, atol)
-            worst[f"flash {dname}"] = max(worst.get(f"flash {dname}", 0.0),
-                                          err)
+    runs = [(dtype, case) for dtype in (torch.float32, torch.bfloat16)
+            for case in FLASH_CASES + FLASH_EDGE_CASES]
+    runs.append((torch.bfloat16, FLASH_FP32_BF16_CASE))
+    for dtype, case in runs:
+        q, k, v = _flash_inputs(case, dtype)
+        kw = dict(causal=case[6], window=case[7])
+        route = fk.select_route(dtype, case[5], case[3], case[4])
+        check(route == ("sm90" if dtype == torch.bfloat16 and case[5] in
+                        (64, 128) else "fp32"), f"flash {case}: route {route}")
+        by_route = dict(fk.flash_attention_cuda.launches_by_route)
+        got = _counted(lambda: fk.flash_attention_cuda(q, k, v, **kw),
+                       fk.flash_attention_cuda, f"flash {case}")
+        by_route[route] += 1
+        check(fk.flash_attention_cuda.launches_by_route == by_route,
+              f"flash {case}: not launched on the {route} route")
+        check(got.dtype == dtype, f"flash output is {got.dtype}")
+        again = fk.flash_attention_cuda(q, k, v, **kw)
+        check(torch.equal(again, got), f"flash {case}: two runs differ")
+        want = flash_attention(q.float(), k.float(), v.float(),
+                               impl="ref", **kw)
+        rtol, atol = ((BF16_RTOL, FLASH_BF16_ATOL) if dtype == torch.bfloat16
+                      else (FLASH_TOL, FLASH_TOL))
+        err = compare(got.float(), want, rtol, atol)
+        key = f"flash {str(dtype)[6:]} {route}"
+        worst[key] = max(worst.get(key, 0.0), err)
     for case in SSD_CASES:
         args = _ssd_inputs(case, torch.float32)
         got = _counted(lambda: sk.ssd_cuda(*args, chunk=case[6]),
@@ -877,8 +931,10 @@ def phase_lm_parity():
             err = compare(g, w, SSD_RTOL, SSD_ATOL)
             worst["ssd float32"] = max(worst.get("ssd float32", 0.0),
                                        err / max(1.0, float(w.abs().max())))
-    print(f"[lm-parity] {len(FLASH_CASES)} flash cases x 2 dtypes, "
-          f"{len(SSD_CASES)} ssd cases; worst max abs err: "
+    print(f"[lm-parity] {len(FLASH_CASES) + len(FLASH_EDGE_CASES)} flash "
+          f"cases x 2 dtypes + 1 bf16 case at D 48, {len(SSD_CASES)} ssd "
+          "cases; routes by launches "
+          f"{fk.flash_attention_cuda.launches_by_route}; worst max abs err: "
           + ", ".join(f"{k} {e:.3e}" for k, e in worst.items())
           + " (ssd: / max(1, |want|_inf))")
 
@@ -982,6 +1038,7 @@ def phase_serve_jamba():
     undo = [_recorder(attention, "flash_attention", flash_calls, n_attn),
             _recorder(ssm, "ssd_chunked", ssd_calls, n_mamba)]
     fk.flash_attention_cuda.launches = 0          # the main path starts here
+    fk.flash_attention_cuda.launches_by_route = dict.fromkeys(fk.ROUTES, 0)
     sk.ssd_cuda.launches = 0
     try:
         res = serve.serve_lm(cfg, device=DEVICE, **JAMBA)
@@ -989,6 +1046,7 @@ def phase_serve_jamba():
         for fn in undo:
             fn()
     flash_n = fk.flash_attention_cuda.launches    # ... and ends here
+    flash_routes = dict(fk.flash_attention_cuda.launches_by_route)
     ssd_n = sk.ssd_cuda.launches
     model, engine = res["model"], res["engine"]
     out, logits = res["out"], res["logits"]
@@ -1001,7 +1059,11 @@ def phase_serve_jamba():
           f"(timed prefill + decode), of which up to {held / 2**30:.2f} GiB"
           " are the kernels' inputs and outputs kept for the check")
     print(f"[serve-jamba] {res['prefills']} prefills (1 warm-up): "
-          f"flash launches={flash_n}, ssd launches={ssd_n}")
+          f"flash launches={flash_n} (by route {flash_routes}), ssd "
+          f"launches={ssd_n}")
+    check(flash_routes["sm90"] == flash_n and flash_n > 0,
+          f"the prefill's flash launches did not all take the sm90 route: "
+          f"{flash_routes}")
     check(flash_n == n_attn * res["prefills"] and
           ssd_n == n_mamba * res["prefills"],
           f"launches flash {flash_n} ssd {ssd_n}, expected {n_attn} and "
@@ -1066,7 +1128,8 @@ def phase_serve_jamba():
 
 def _profile_jamba(engine, tokens, steps: int = 8):
     """torch.profiler over one prefill, then over ``steps`` decode steps:
-    wall, device busy, and device time by kernel."""
+    wall, device busy, and device time by kernel (the ten largest and the
+    port's own)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     s = tokens.shape[1]
@@ -1091,9 +1154,13 @@ def _profile_jamba(engine, tokens, steps: int = 8):
         print(f"[profile-jamba] {what} ({per} call{'s' * (per > 1)}): wall "
               f"{wall:.3f} ms (profiler on), device busy {total:.3f} ms = "
               f"{total / wall:.1%} of the wall; {len(rows)} kernel names")
-        for dev_us, key, count in rows[:10]:
-            print(f"[profile-jamba]   {dev_us / 1e3 / per:9.3f} ms/call "
-                  f"{count // per:5d}x {key[:90]}")
+        # The ten largest, and those in a top-level anonymous namespace
+        # wherever they rank: the port's kernels and a few of PyTorch's.
+        for rank, (dev_us, key, count) in enumerate(rows):
+            if rank < 10 or key.startswith(("void (anonymous namespace)::",
+                                            "(anonymous namespace)::")):
+                print(f"[profile-jamba]   {dev_us / 1e3 / per:9.3f} ms/call "
+                      f"{count // per:5d}x {key[:90]}")
 
 
 def _pairs(s: int, t: int, causal: bool, window: int) -> int:
@@ -1125,7 +1192,8 @@ def _ssd_ops(s: int, chunk: int, n: int, hd: int):
 def phase_lm_times(device_name: str):
     """Flash and SSD at the served shapes: device time per call
     (``device_ms``), one call by CUDA events, the plain version's device
-    time, the bound, and (flash) SDPA on the same bf16 values."""
+    time, the bound, and (flash) SDPA on the same bf16 values; then the
+    flash kernel's fp32 route at the same shape in float32."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import flash_attention
@@ -1133,9 +1201,11 @@ def phase_lm_times(device_name: str):
     from repro_torch.kernels.ssd import kernel as sk
     from repro_torch.kernels.ssd import ssd_chunked
     rows = []
-    # Flash at the served shape, causal, bf16.
+    # Flash at the served shape, causal, bf16: the sm90 route.
     b, s, h, kv, d = FLASH_SERVED
     q, k, v = _flash_inputs((b, s, s, h, kv, d), torch.bfloat16, seed=11)
+    check(fk.select_route(q.dtype, d, h, kv) == "sm90",
+          "the served shape does not take the sm90 route")
 
     def kernel():
         return fk.flash_attention_cuda(q, k, v, causal=True)
@@ -1143,16 +1213,13 @@ def phase_lm_times(device_name: str):
     def plain():
         return flash_attention(q, k, v, causal=True, impl="ref")
 
+    sm90_before = fk.flash_attention_cuda.launches_by_route["sm90"]
     got = kernel()
+    check(fk.flash_attention_cuda.launches_by_route["sm90"] ==
+          sm90_before + 1, "the served shape's launch missed the sm90 route")
     err = compare(got.float(), flash_attention(
         q.float(), k.float(), v.float(), causal=True, impl="ref"),
         BF16_RTOL, FLASH_BF16_ATOL)
-    # The same shape in float32, at the float32 tolerance.
-    q32, k32, v32 = (x.float() for x in (q, k, v))
-    err32 = compare(fk.flash_attention_cuda(q32, k32, v32, causal=True),
-                    flash_attention(q32, k32, v32, causal=True, impl="ref"),
-                    FLASH_TOL, FLASH_TOL)
-    del q32, k32, v32
     t = {"plain": [device_ms(plain, reps=5)], "kernel": [device_ms(kernel)]}
     t["kernel"].append(device_ms(kernel))
     t["plain"].append(device_ms(plain, reps=5))
@@ -1175,19 +1242,50 @@ def phase_lm_times(device_name: str):
     n_bytes = 2 * (2 * b * s * h * d + 2 * b * s * kv * d)
     rows.append(_row(
         "flash_attention", "src/repro_torch/kernels/flash_attn/csrc/"
-        "flash_attn.cu", "src/repro/kernels/flash_attn/kernel.py:72", t,
-        n_ops, n_bytes, device_name, err, library=lib_ms,
+        "flash_attn_sm90.cu", "src/repro/kernels/flash_attn/kernel.py:72",
+        t, n_ops, n_bytes, device_name, err, library=lib_ms,
         tensor_ops=n_tensor))
-    print(f"[times] flash_attention B={b} H={h} Kv={kv} S=T={s} D={d} causal"
-          f" bf16: device {rows[-1]['ms']:.4f} ms ({t['kernel'][0]:.4f}, "
-          f"{t['kernel'][1]:.4f}); by events {rows[-1]['wall_ms']:.4f} ms; "
-          f"plain device {rows[-1]['plain_ms']:.4f} ms; bound "
-          f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}: "
+    row = rows[-1]
+    print(f"[times] flash_attention sm90 route, B={b} H={h} Kv={kv} S=T={s} "
+          f"D={d} causal bf16: device {row['ms']:.4f} ms "
+          f"({t['kernel'][0]:.4f}, {t['kernel'][1]:.4f}) = "
+          f"{row['bound_ms'] / row['ms']:.1%} of the bound; by events "
+          f"{row['wall_ms']:.4f} ms; plain device {row['plain_ms']:.4f} ms; "
+          f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
           f"{n_tensor:.3e} bf16 tensor ops + {n_ops:.3e} fp32 ops, "
-          f"{n_bytes:.3e} B); SDPA device {lib_ms:.4f} ms (max abs diff to "
-          f"the kernel {lib_err:.3e}); vs plain on float32 values: max abs "
-          f"err {err:.3e}, in float32 {err32:.3e}")
-    del q, k, v, qt, kt, vt, got
+          f"{n_bytes:.3e} B; the P split's extra 2D products a pair not "
+          f"counted); SDPA device {lib_ms:.4f} ms = "
+          f"{row['bound_ms'] / lib_ms:.1%} of the bound, the kernel "
+          f"{row['ms'] / lib_ms:.2f}x SDPA (max abs diff to the kernel "
+          f"{lib_err:.3e}); vs plain on float32 values: max abs err "
+          f"{err:.3e}")
+    del qt, kt, vt, got
+    # The fp32 route at the same shape in float32, at the float32
+    # tolerance, against its plain version.
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    del q, k, v
+
+    def kernel32():
+        return fk.flash_attention_cuda(q32, k32, v32, causal=True)
+
+    def plain32():
+        return flash_attention(q32, k32, v32, causal=True, impl="ref")
+
+    fp32_before = fk.flash_attention_cuda.launches_by_route["fp32"]
+    err32 = compare(kernel32(), plain32(), FLASH_TOL, FLASH_TOL)
+    check(fk.flash_attention_cuda.launches_by_route["fp32"] ==
+          fp32_before + 1, "the float32 launch missed the fp32 route")
+    t32 = [device_ms(kernel32), device_ms(kernel32)]
+    p32 = [device_ms(plain32, reps=5), device_ms(plain32, reps=5)]
+    flop_peak, _, byte_peak = peaks(device_name)
+    bound32 = max((n_tensor + n_ops) / flop_peak, 2 * n_bytes / byte_peak)
+    print(f"[times] flash_attention fp32 route, the same shape in float32 "
+          f"(csrc/flash_attn.cu): device {statistics.mean(t32):.4f} ms "
+          f"({t32[0]:.4f}, {t32[1]:.4f}); plain device "
+          f"{statistics.mean(p32):.4f} ms; bound {bound32 * 1e3:.4f} ms (all "
+          f"{n_tensor + n_ops:.3e} operations at the fp32 peak); vs plain: "
+          f"max abs err {err32:.3e} (tolerance {FLASH_TOL})")
+    del q32, k32, v32
     # SSD at the served shape (B x nh = 512 (b, h) blocks), bf16.
     case = SSD_SERVED
     args = _ssd_inputs(case, torch.bfloat16, seed=12)

@@ -1,9 +1,18 @@
-"""The flash-attention forward on Hopper: the CUDA wrapper of
-``csrc/flash_attn.cu`` (replaces ``flash_attention_pallas`` of
-``repro/kernels/flash_attn/kernel.py``).
+"""The flash-attention forward on Hopper: the CUDA wrapper of two
+hand-written kernels that replace ``flash_attention_pallas`` of
+``repro/kernels/flash_attn/kernel.py``.
+
+Two routes, chosen by shape (``select_route``), never as a fallback:
+
+- ``"sm90"`` — ``csrc/flash_attn_sm90.cu``: bfloat16 q, k, v with head dim
+  64 or 128 (every config's attention), TMA-fed ``wgmma`` on the bf16
+  tensor cores, P split into two bf16 terms so that P @ V keeps float32's
+  function;
+- ``"fp32"`` — ``csrc/flash_attn.cu``: float32 inputs, and bfloat16 with
+  any other head dim up to 128, on the fp32 CUDA cores.
 
 ``flash_attention_cuda`` takes the model's GQA layout as it is — q
-(B, S, H, D), k/v (B, T, Kv, D) — and the kernel reads kv head
+(B, S, H, D), k/v (B, T, Kv, D) — and both kernels read kv head
 ``h // (H // Kv)`` for query head ``h``, so neither the heads nor the
 (B*H, S, D) transposes of the JAX wrapper are materialized.  CUDA tensors
 only: there is no CPU form (the plain version is ``ref.ref_attention``).
@@ -21,18 +30,47 @@ Tensor = torch.Tensor
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+ROUTES = ("sm90", "fp32")
+LIBS = {"sm90": "flash_attn_sm90", "fp32": "flash_attn"}   # csrc/<name>.cu
+SM90_HEAD_DIMS = (64, 128)
+SM90_ALIGN = 16                 # bytes: TMA's base-address alignment
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attn")
-    fn = lib.flash_attn_fwd
+def select_route(dtype: torch.dtype, head_dim: int, n_heads: int,
+                 n_kv_heads: int) -> str:
+    """The kernel that serves q, k, v of ``dtype`` with ``head_dim``,
+    ``n_heads`` query and ``n_kv_heads`` kv heads: ``"sm90"`` for bfloat16
+    with head dim 64 or 128, else ``"fp32"``.  The head counts choose
+    nothing (both kernels read kv head ``h // (H // Kv)``); they must
+    divide."""
+    if n_kv_heads < 1 or n_heads < 1 or n_heads % n_kv_heads:
+        raise ValueError(f"select_route: {n_heads} query heads do not split "
+                         f"over {n_kv_heads} kv heads")
+    if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
+        return "sm90"
+    return "fp32"
+
+
+def _lib(route: str) -> ctypes.CDLL:
+    """The loaded library of ``route`` with its C functions typed."""
+    return typed(_build.load(LIBS[route]), route)
+
+
+def typed(lib: ctypes.CDLL, route: str) -> ctypes.CDLL:
+    """``lib``, a library built from ``route``'s source, with its C
+    functions' argument types set."""
+    name = LIBS[route]
+    fn = getattr(lib, f"{name}_fwd")
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i,
-                       ctypes.c_longlong, ctypes.c_float, vp]
+        # (dtype for fp32,) B, S, T, H, Kv, D, causal; window, scale, stream
+        ints = [i] * (8 if route == "fp32" else 7)
+        fn.argtypes = [vp, vp, vp, vp, *ints, ctypes.c_longlong,
+                       ctypes.c_float, vp]
         fn.restype = ctypes.c_int
-        lib.flash_attn_error_string.argtypes = [i]
-        lib.flash_attn_error_string.restype = ctypes.c_char_p
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [i]
+        err.restype = ctypes.c_char_p
     return lib
 
 
@@ -66,33 +104,68 @@ def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
         raise ValueError(f"{fn}: shape {tuple(q.shape)} is too large")
 
 
+def _check_sm90(q: Tensor, k: Tensor, v: Tensor) -> None:
+    """TMA reads and writes whole 16-byte units: every row stride (a
+    multiple of D, checked contiguous above) and base address must be
+    16-byte aligned.  The kernel's positions are 32-bit: S + T < 2**30."""
+    if q.shape[1] + k.shape[1] >= 2 ** 30:
+        raise ValueError(f"flash_attention_cuda: S + T = "
+                         f"{q.shape[1] + k.shape[1]} is too large")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % SM90_ALIGN:
+            raise ValueError(f"flash_attention_cuda: {name} is not "
+                             f"{SM90_ALIGN}-byte aligned (the sm90 route "
+                             "reads it by TMA)")
+
+
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
                          causal: bool = True, window: int = 1 << 30
                          ) -> Tensor:
     """q (B,S,H,D); k/v (B,T,Kv,D) with H % Kv == 0 -> (B,S,H,D) in q's
-    dtype, by the hand-written kernel.  q, k, v: contiguous CUDA tensors
-    of one dtype, float32 or bfloat16; D <= 128.  Launches on the current
-    stream without synchronising and raises if the launch is refused."""
+    dtype, by the hand-written kernel of ``select_route``: bfloat16 with
+    D in {64, 128} on the ``sm90`` tensor-core kernel (16-byte aligned
+    tensors), anything else on the ``fp32`` one.  q, k, v: contiguous CUDA
+    tensors of one dtype, float32 or bfloat16; D <= 128.  Launches on the
+    current stream without synchronising and raises if the launch is
+    refused.  ``.launches`` counts every launch, ``.launches_by_route``
+    each route's."""
     _check(q, k, v)
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
+    route = select_route(q.dtype, d, h, kv)
+    if route == "sm90":
+        _check_sm90(q, k, v)
     out = torch.empty_like(q)
     if b * h * s == 0:
         return out
     if t == 0:
         raise ValueError("flash_attention_cuda: no keys (T = 0)")
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            DTYPE_CODES[q.dtype], b, s, t, h, kv, d, int(bool(causal)),
-            int(window), 1.0 / math.sqrt(d), stream)
-    if err != 0:
-        raise RuntimeError("flash_attention_cuda: launch failed: "
-                           + lib.flash_attn_error_string(err).decode())
+    launch(_lib(route), route, q, k, v, out, causal=causal, window=window)
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches_by_route[route] += 1
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def launch(lib: ctypes.CDLL, route: str, q: Tensor, k: Tensor, v: Tensor,
+           out: Tensor, *, causal: bool, window: int) -> None:
+    """Launch ``route``'s kernel from ``lib`` (see ``typed``) on checked
+    tensors, writing ``out``; raise if the launch is refused.  Counts
+    nothing: ``flash_attention_cuda`` does."""
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    name = LIBS[route]
+    dims = (b, s, t, h, kv, d)
+    if route == "fp32":
+        dims = (DTYPE_CODES[q.dtype], *dims)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, f"{name}_fwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *dims,
+            int(bool(causal)), int(window), 1.0 / math.sqrt(d), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_cuda ({route}): launch failed: "
+                           + getattr(lib, f"{name}_error_string")(err).decode())

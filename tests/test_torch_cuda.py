@@ -14,9 +14,10 @@ duplicate J indices scattered by atomics on the card.  Flash attention
 and the SSD scan are held against their plain versions at the JAX
 suite's float32 tolerances (``tests/test_kernels_models.py``): flash
 2e-6, SSD rtol 1e-4 and atol 1e-4 x max(1, |oracle|_inf).  Given
-bfloat16 inputs, which they convert at load, they are held against the
-plain version on the same values in float32 at rtol 8e-3, one bfloat16
-rounding of the output.
+bfloat16 inputs they are held against the plain version on the same
+values in float32 at rtol 8e-3, one bfloat16 rounding of the output.
+bf16 flash with head dim 64 or 128 runs on the sm90 tensor-core route,
+every other flash call on the fp32 route (``kernel.select_route``).
 """
 import numpy as np
 import pytest
@@ -317,6 +318,76 @@ def test_flash_attention_matches_plain(cuda, case, dtype, rtol, atol):
         else 1.0
     np.testing.assert_allclose(got.float().cpu().numpy(), want, rtol=rtol,
                                atol=atol * scale)
+
+
+# bf16 cases of the sm90 route (D 64 and 128): GQA 32/8 and 4/1, causal
+# and not, window 64 and 0 (the mean-of-v rows), ragged S, S != T, and
+# lengths at the edges of the kernel's 128-row tiles.
+SM90_CASES = [
+    # (b, s, t, h, kv, d, causal, window)
+    (2, 256, 256, 32, 8, 128, True, 1 << 30),
+    (2, 256, 256, 4, 1, 64, False, 1 << 30),
+    (1, 256, 256, 8, 2, 64, True, 64),
+    (1, 300, 300, 4, 1, 128, False, 64),
+    (1, 130, 130, 4, 2, 128, True, 0),           # no valid key: mean(v)
+    (1, 130, 130, 4, 1, 64, False, 0),
+    (2, 200, 200, 32, 8, 128, True, 1 << 30),    # ragged S
+    (2, 200, 333, 4, 1, 64, False, 1 << 30),     # S != T
+    (1, 333, 200, 4, 1, 128, True, 1 << 30),     # S > T
+] + [c for n in (127, 128, 129, 255, 257) for c in (
+    (1, n, n, 32, 8, 128, True, 1 << 30),
+    (1, n, n + 3, 4, 1, 64, False, 1 << 30))]
+
+
+@pytest.mark.parametrize("case", SM90_CASES, ids=str)
+def test_flash_sm90_route_matches_plain(cuda, case):
+    """The tensor-core kernel on bf16 inputs, held against the plain
+    version on the same values in float32 at the bf16 tolerance above
+    (rtol 8e-3, atol 1e-5 x max(1, |oracle|_inf)); launched on the sm90
+    route, and bit-stable over two runs."""
+    from repro_torch.kernels.flash_attn import flash_attention, kernel
+    causal, window = case[6], case[7]
+    q, k, v = _flash_data(case, cuda, torch.bfloat16)
+    assert kernel.select_route(q.dtype, case[5], case[3], case[4]) == "sm90"
+    before = dict(kernel.flash_attention_cuda.launches_by_route)
+    got = kernel.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    again = kernel.flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window)
+    torch.cuda.synchronize()
+    after = kernel.flash_attention_cuda.launches_by_route
+    assert after["sm90"] == before["sm90"] + 2
+    assert after["fp32"] == before["fp32"]
+    assert torch.equal(got, again)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    want = flash_attention(q.float(), k.float(), v.float(), causal=causal,
+                           window=window, impl="ref").cpu().numpy()
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(got.float().cpu().numpy(), want, rtol=8e-3,
+                               atol=1e-5 * scale)
+
+
+def test_flash_sm90_wrapper_refuses_and_routes_by_shape(cuda):
+    """Misaligned or strided bf16 input raises without a launch; a bf16
+    head dim other than 64 or 128 goes to the fp32 route."""
+    from repro_torch.kernels.flash_attn import kernel
+    fn = kernel.flash_attention_cuda
+    q, k, v = _flash_data((1, 128, 128, 4, 2, 64), cuda, torch.bfloat16)
+    before = fn.launches
+    flat = torch.zeros(q.numel() + 8, device=cuda, dtype=torch.bfloat16)
+    shifted = flat[1:1 + q.numel()].view(q.shape)      # 2 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        fn(shifted, k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(q, k[:, ::2], v[:, ::2])
+    assert fn.launches == before
+    q, k, v = _flash_data((1, 130, 130, 4, 2, 48), cuda, torch.bfloat16)
+    by_route = dict(fn.launches_by_route)
+    fn(q, k, v, causal=False, window=0)
+    torch.cuda.synchronize()
+    assert fn.launches_by_route["fp32"] == by_route["fp32"] + 1
+    assert fn.launches_by_route["sm90"] == by_route["sm90"]
 
 
 def test_flash_wrapper_rejects_bad_arguments(cuda):
