@@ -14,15 +14,19 @@ checkout's sources and held against its plain PyTorch version.  Phases
   1. device  — name, compute capability, ``nvidia-smi`` name and power
                limit; requires sm_90.
   2. build   — nvcc builds every kernel source (build seconds, ptxas);
-               the sm90 flash library's ptxas registers, shared memory,
-               spills and warnings, and its SASS counts of HGMMA (wgmma)
-               and UTMALDG / UTMASTG (TMA) by cuobjdump: each must be > 0.
+               the two tensor-core libraries' ptxas registers, shared
+               memory, spills and warnings, and their SASS counts by
+               cuobjdump: HGMMA (wgmma) and, for flash, UTMALDG / UTMASTG
+               (TMA) must be > 0; the sm90 matvec must spill nothing.
   3. parity  — each DSEKL kernel vs its plain version on the card, 7
                kernels x D in {3, 54, 784} at ragged I=1000, J=5003:
                matvec, vecmat, the dual pass, the train pass for the 4
                losses at f_scale 1 and N/|J|, and ops.kernel_dual_pass's
                matvec-then-vecmat fallback under a forced small stash
-               budget; each launch counter must go up by one per call.
+               budget; each launch counter must go up by one per call,
+               and the matvec and vecmat on their route
+               (``block.select_matvec_route``: sm90 for the six
+               cross-term kinds at D <= 64, fp32 for the rest).
   4. lm-parity — flash attention (causal and not, window 64 and 0, GQA
                32/8 and 4/1, D 64 and 128, ragged S, S != T, and lengths at
                the 128-row tiles' edges: 127, 128, 129, 255, 257) in
@@ -35,7 +39,8 @@ checkout's sources and held against its plain PyTorch version.  Phases
                54 training rows, RBF, ~50% support, 16,384 queries in
                requests of 64, query_block 1024, through flush_async and
                flush; answers checked against the plain path; the
-               kernel's launches must equal the serve calls.
+               kernel's launches must equal the serve calls, all on the
+               sm90 route.
   6. train   — the training path at full width: ``train_dsekl`` on the
                covertype protocol (559,890 x 54 training rows after the
                2,048-row hold-out, |I| = |J| = 1024, hinge, adagrad, 2
@@ -48,16 +53,21 @@ checkout's sources and held against its plain PyTorch version.  Phases
                shape (square loss) with impl "cuda" and "ref": alpha and
                accum must agree.
   8. train-two-pass — a fit with fuse_dual_pass=False (N = 65,536, one
-               epoch of 64 steps): vecmat launches must equal the steps.
+               epoch of 64 steps): vecmat launches must equal the steps,
+               on the sm90 route (and the validation evals of phase 6).
   9. profile — torch.profiler over 32 steps of the training path: device
                time by kernel and the device's busy share.
  10. times   — each DSEKL kernel at its main path's shape (and the RBF
                delegation of row 5): its device time per call
                (``device_ms``: CUDA events around 25 calls enqueued
-               behind a spin kernel, two readings), its bound, the plain
-               version's and the fp32 cross-term GEMM yardstick's device
-               time, and one call of kernel and plain by CUDA events (the
-               host's enqueue included), in ms.
+               behind a spin kernel, two readings), its bound (the matvec
+               and vecmat on the sm90 route: products at the TF32 tensor
+               peak, the rest at fp32), the plain version's and the fp32
+               cross-term GEMM yardstick's device time, and one call of
+               kernel and plain by CUDA events (the host's enqueue
+               included), in ms; for row 1 also the TF32 cross-term GEMM
+               (a second yardstick, not the same function) and the fp32
+               route at the same shape, on a line of its own.
  11. serve-jamba — the LM main path: jamba-v0.1-52b at full width cut to
                one period of 8 layers (7 mamba + 1 attention, 4 MoE FFNs),
                bf16, random weights from a seed, 4 random prompts of 2,048
@@ -82,8 +92,10 @@ checkout's sources and held against its plain PyTorch version.  Phases
 
 The DSEKL kernel tolerance is the JAX suite's float32 one
 (tests/test_dual_pass.py ``_tols``): rtol 2e-4, atol 1e-5 * max(1,
-|oracle|_inf).  The 16-step cuda-vs-ref trajectory is held at rtol 1e-3,
-atol 1e-4 * max(1, |oracle|_inf): sixteen steps of float32 sums taken in
+|oracle|_inf), on both matvec routes (the sm90 one splits its TF32
+products three ways to keep float32's function).  The 16-step
+cuda-vs-ref trajectory is held at rtol 1e-3, atol 1e-4 * max(1,
+|oracle|_inf): sixteen steps of float32 sums taken in
 another order, and duplicate J indices scattered by atomics on the card.
 Flash attention and the SSD scan in float32 are held at the JAX suite's
 tolerances (tests/test_kernels_models.py): flash 2e-6, SSD 1e-4, each atol
@@ -137,13 +149,13 @@ TRAIN_STEPS = 2 * (TRAIN_N // 1024)          # 1,092
 TWO_PASS_N = 65536                           # one epoch of 64 steps
 TRAJ_RTOL, TRAJ_ATOL = 1e-3, 1e-4
 LOSSES = ("hinge", "squared_hinge", "square", "logistic")
-# fp32 outside the tensor cores, dense bf16 on the tensor cores and HBM
-# bandwidth (NVIDIA data sheets).
-PEAKS = [  # (name substring, fp32 FLOP/s, bf16 tensor FLOP/s, bytes/s)
-    ("H100 PCIe", 51.2e12, 756e12, 2.0e12),
-    ("H100 NVL", 60.0e12, 835e12, 3.9e12),
-    ("H200", 67.0e12, 989e12, 4.8e12),
-    ("H100", 67.0e12, 989e12, 3.35e12),
+# fp32 outside the tensor cores, dense TF32 and bf16 on the tensor cores
+# and HBM bandwidth (NVIDIA data sheets; TF32 is half the bf16 rate).
+PEAKS = [  # (name substring, fp32, tf32 tensor, bf16 tensor FLOP/s, bytes/s)
+    ("H100 PCIe", 51.2e12, 378e12, 756e12, 2.0e12),
+    ("H100 NVL", 60.0e12, 417.5e12, 835e12, 3.9e12),
+    ("H200", 67.0e12, 494.5e12, 989e12, 4.8e12),
+    ("H100", 67.0e12, 494.5e12, 989e12, 3.35e12),
 ]
 
 
@@ -177,11 +189,12 @@ def compare(got, want, rtol: float = RTOL, atol: float = ATOL) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
-def peaks(device_name: str):
-    """(fp32 FLOP/s, bf16 tensor FLOP/s, bytes/s) of the named card."""
-    for key, flops, tensor, bw in PEAKS:
+def peaks(device_name: str) -> dict:
+    """The named card's peaks: FLOP/s "fp32", "tf32" and "bf16" (tensor
+    cores, dense), and "bytes"/s."""
+    for key, *rates in PEAKS:
         if key in device_name:
-            return flops, tensor, bw
+            return dict(zip(("fp32", "tf32", "bf16", "bytes"), rates))
     raise SmokeFailure(f"no data-sheet peaks for {device_name!r}")
 
 
@@ -319,32 +332,46 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
     print(f"[build] all sources in {wall:.1f}s")
-    _inspect_sm90(records["flash_attn_sm90"])
+    _inspect_sm90(records["flash_attn_sm90"], "flash sm90",
+                  ("HGMMA", "UTMALDG", "UTMASTG"))
+    _inspect_sm90(records["dsekl_matvec_sm90"], "matvec sm90", ("HGMMA",))
+    _check_no_spills(records["dsekl_matvec_sm90"], "matvec sm90")
     return records
 
 
-def _inspect_sm90(rec) -> None:
-    """The sm90 flash library: ptxas's registers, shared memory, spills
-    and warnings for each kernel, and the SASS instructions that prove the
-    tensor-core and TMA path (cuobjdump, where the toolkit has it)."""
+def _check_no_spills(rec, what: str) -> None:
+    """ptxas must report 0 bytes spilled for every kernel of ``rec``."""
+    spills = [ln.strip() for ln in rec.log.splitlines()
+              if "spill" in ln and not (" 0 bytes spill stores" in ln
+                                        and " 0 bytes spill loads" in ln)]
+    check(not spills, f"{what}: ptxas spilled registers: {spills[:3]}")
+    print(f"[build] {what}: 0 bytes spilled in every kernel")
+
+
+def _inspect_sm90(rec, what: str, required) -> None:
+    """A tensor-core library: ptxas's registers, shared memory, spills and
+    warnings for each kernel, and the SASS instructions that prove the
+    tensor-core (and TMA) path (cuobjdump, where the toolkit has it): each
+    of ``required`` must be > 0."""
     from repro_torch.kernels import _build
     for line in rec.log.splitlines():
         if any(w in line for w in ("registers", "spill", "smem", "warning",
                                    "C75", "setmaxnreg")):
-            print(f"[build] sm90 {line.strip()[:200]}")
+            print(f"[build] {what} {line.strip()[:200]}")
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     if not os.path.isfile(cuobjdump):
-        print(f"[build] sm90: no cuobjdump at {cuobjdump}; SASS not counted")
+        print(f"[build] {what}: no cuobjdump at {cuobjdump}; SASS not "
+              "counted")
         return
     sass = subprocess.run([cuobjdump, "-sass", str(rec.path)],
                           capture_output=True, text=True, timeout=120,
                           check=True).stdout.splitlines()
     counts = {op: sum(op in line for line in sass)
-              for op in ("HGMMA", "UTMALDG", "UTMASTG")}
-    print("[build] sm90 SASS (both head dims): " + ", ".join(
+              for op in ("HGMMA", "UTMALDG", "UTMASTG", "UBLKCP", "MUFU.EX2")}
+    print(f"[build] {what} SASS (every instantiation): " + ", ".join(
         f"{op} {n}" for op, n in counts.items()))
-    check(all(counts.values()),
-          f"the sm90 library lacks wgmma or TMA instructions: {counts}")
+    check(all(counts[op] for op in required),
+          f"the {what} library lacks {required}: {counts}")
 
 
 def _counted(fn, counter, what: str):
@@ -372,6 +399,7 @@ def phase_parity():
 
     for d in PARITY_DIMS:
         worst.clear()
+        routes_before = dict(block.kernel_matvec_cuda.launches_by_route)
         rng = np.random.default_rng(d)
         scale = 1.0 / np.sqrt(d)
 
@@ -386,14 +414,26 @@ def phase_parity():
         y_reg = dev(rng.standard_normal(n_i))            # square loss
         for name, params in PARITY_CASES:
             kw = dict(kernel_name=name, params=dict(params))
+            # The matvec and vecmat: on the tensor-core route for the six
+            # cross-term kinds at D <= 64, else on the fp32 one.
+            route = block.select_matvec_route(name, d)
+            check(route == ("sm90" if name != "laplacian"
+                            and d <= block.SM90_MAX_D else "fp32"),
+                  f"{name} D={d}: route {route}")
+            wrappers = (block.kernel_matvec_cuda, block.kernel_vecmat_cuda)
+            by_route = [dict(f.launches_by_route) for f in wrappers]
             got = _counted(lambda: block.kernel_matvec_cuda(x, z, a, **kw),
                            block.kernel_matvec_cuda, name)
             want = block.kernel_matvec_plain(x, z, a, **kw)
-            held("kernel_matvec", got, want)
+            held(f"kernel_matvec {route}", got, want)
             got = _counted(lambda: block.kernel_vecmat_cuda(x, z, v, **kw),
                            block.kernel_vecmat_cuda, name)
-            held("kernel_vecmat", got, block.kernel_vecmat_plain(x, z, v,
-                                                                 **kw))
+            held(f"kernel_vecmat {route}", got,
+                 block.kernel_vecmat_plain(x, z, v, **kw))
+            for f, before in zip(wrappers, by_route):
+                before[route] += 1
+                check(f.launches_by_route == before,
+                      f"{name} D={d}: not launched on the {route} route")
             gf, gg = _counted(lambda: block.dual_pass_cuda(x, z, a, v, **kw),
                               block.dual_pass_cuda, name)
             wf, wg = block.dual_pass_plain(x, z, a, v, **kw)
@@ -431,8 +471,10 @@ def phase_parity():
                                             f_scale=TRAIN_N / n_j, **kw)
             held("fallback", gf, wf)
             held("fallback", gg, wg)
-        print(f"[parity] D={d:<4d} 7 kernels, worst max abs err / max(1, "
-              "|want|_inf): "
+        routes = {r: n - routes_before[r] for r, n in
+                  block.kernel_matvec_cuda.launches_by_route.items()}
+        print(f"[parity] D={d:<4d} 7 kernels, matvec launches by route "
+              f"{routes}, worst max abs err / max(1, |want|_inf): "
               + ", ".join(f"{k} {e:.3e}" for k, e in worst.items()))
 
 
@@ -441,12 +483,15 @@ def phase_serve():
     from repro_torch.kernels.dsekl import block, ops
     from repro_torch.launch import serve
     block.kernel_matvec_cuda.launches = 0        # the main path starts here
+    block.kernel_matvec_cuda.launches_by_route = dict.fromkeys(
+        block.MATVEC_ROUTES, 0)
     runs = {}
     for mode, extra in (("flush_async", []), ("flush", ["--sync"])):
         args = serve.parser().parse_args(
             SERVE_ARGS + ["--device", DEVICE] + extra)
         runs[mode] = serve.serve_dsekl(args)
     launches = block.kernel_matvec_cuda.launches  # ... and ends here
+    by_route = dict(block.kernel_matvec_cuda.launches_by_route)
     serve_calls = 0
     for mode, res in runs.items():
         eng = res["engine"]
@@ -464,10 +509,12 @@ def phase_serve():
               f"{res['queries_per_s']:.1f} queries/s, serve_calls="
               f"{eng.serve_calls}, first 1024 vs plain: max abs err "
               f"{err:.3e} (max|f| {float(want.abs().max()):.3e})")
-    print(f"[serve] kernel_matvec launches={launches} serve_calls="
-          f"{serve_calls}")
+    print(f"[serve] kernel_matvec launches={launches} (by route "
+          f"{by_route}) serve_calls={serve_calls}")
     check(launches > 0 and launches == serve_calls,
           f"launches {launches} != serve calls {serve_calls}")
+    check(by_route["sm90"] == launches,
+          f"the serve launches did not all take the sm90 route: {by_route}")
     return runs["flush_async"], launches
 
 
@@ -481,10 +528,13 @@ def phase_train():
     args = train.parser().parse_args(TRAIN_ARGS + ["--device", DEVICE])
     block.train_pass_cuda.launches = 0         # the training path starts
     block.kernel_matvec_cuda.launches = 0
+    block.kernel_matvec_cuda.launches_by_route = dict.fromkeys(
+        block.MATVEC_ROUTES, 0)
     block.dual_pass_cuda.launches = 0
     out = train.train_dsekl(args)
     train_launches = block.train_pass_cuda.launches   # ... and ends here
     eval_launches = block.kernel_matvec_cuda.launches
+    eval_routes = dict(block.kernel_matvec_cuda.launches_by_route)
     dual_launches = block.dual_pass_cuda.launches
     res, cfg = out["result"], out["cfg"]
     x, x_val, y_val = out["x"], out["x_val"], out["y_val"]
@@ -492,11 +542,13 @@ def phase_train():
     steps = res.epochs_run * max(x.shape[0] // cfg.n_grad, 1)
     print(f"[train] {res.epochs_run} epochs, {steps} steps: train_pass "
           f"launches={train_launches}, kernel_matvec launches (validation "
-          f"evals)={eval_launches}, dual_pass launches={dual_launches}")
+          f"evals)={eval_launches} (by route {eval_routes}), dual_pass "
+          f"launches={dual_launches}")
     check(train_launches == steps and steps == TRAIN_STEPS,
           f"train_pass launches {train_launches} != steps {steps}")
-    check(eval_launches == 2, f"{eval_launches} eval matvec launches, "
-          "expected one per epoch's eval")
+    check(eval_launches == 2 and eval_routes["sm90"] == 2,
+          f"{eval_launches} eval matvec launches ({eval_routes}), expected "
+          "one per epoch's eval, on the sm90 route")
     # A fit with a loss takes the fused train pass; the dual pass
     # (loss=None) is the op's own path, driven by the parity phase.
     check(dual_launches == 0, f"{dual_launches} dual_pass launches in a "
@@ -569,20 +621,26 @@ def phase_train_two_pass(cfg):
     from repro_torch.kernels.dsekl import block
     x, y = make_covertype_like(TWO_PASS_N, 54, seed=1, device=DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(2)
-    block.kernel_vecmat_cuda.launches = 0      # the two-pass path starts
-    block.kernel_matvec_cuda.launches = 0
+    for f in (block.kernel_vecmat_cuda, block.kernel_matvec_cuda):
+        f.launches = 0                         # the two-pass path starts
+        f.launches_by_route = dict.fromkeys(block.MATVEC_ROUTES, 0)
     res = fit(cfg.replace(fuse_dual_pass=False), x, y, gen, n_epochs=1,
               tol=0.0, device=DEVICE)
     vecmat = block.kernel_vecmat_cuda.launches  # ... and ends here
     matvec = block.kernel_matvec_cuda.launches
+    routes = {"vecmat": dict(block.kernel_vecmat_cuda.launches_by_route),
+              "matvec": dict(block.kernel_matvec_cuda.launches_by_route)}
     check(bool(torch.isfinite(res.state.alpha).all()), "non-finite alpha")
     steps = TWO_PASS_N // 1024
     print(f"[train-two-pass] {TWO_PASS_N} x 54, 1 epoch of {steps} steps: "
           f"kernel_vecmat launches={vecmat}, kernel_matvec launches="
-          f"{matvec}, {res.history[0]['seconds'] * 1e3:.3f} ms")
+          f"{matvec} (by route {routes}), "
+          f"{res.history[0]['seconds'] * 1e3:.3f} ms")
     check(vecmat == steps and matvec == steps,
           f"two-pass launches vecmat={vecmat} matvec={matvec}, expected "
           f"{steps}")
+    check(all(r["sm90"] == steps for r in routes.values()),
+          f"two-pass launches off the sm90 route: {routes}")
     return vecmat
 
 
@@ -632,18 +690,18 @@ def phase_profile(out):
 
 
 def _row(name, source, replaces, t, ops_count, bytes_count, device_name,
-         err, t_gemm=None, library=None, tensor_ops=0):
+         err, t_gemm=None, library=None, tensor_ops=0, tensor="bf16"):
     """One row of the kernels line from ``_timed``'s readings ``t``.
     ``ms`` and ``plain_ms`` are device time per call; ``wall_ms`` and
     ``plain_wall_ms`` are one call by CUDA events, the host's enqueue
     included; ``library_ms`` is one PyTorch call of the same function, where
     there is one, and ``gemm_ms`` the DSEKL kernels' cross-term GEMM.
-    ``ops_count`` runs at the fp32 peak; ``tensor_ops``, the products that
-    bf16 inputs allow on the tensor cores, at the bf16 tensor peak, and
-    the two times add up."""
-    flop_peak, tensor_peak, byte_peak = peaks(device_name)
-    t_ops = (ops_count / flop_peak + tensor_ops / tensor_peak) * 1e3
-    t_bytes = bytes_count / byte_peak * 1e3
+    ``ops_count`` runs at the fp32 peak; ``tensor_ops``, the products the
+    kernel runs on the tensor cores, at the ``tensor`` ("bf16" or "tf32")
+    tensor peak, and the two times add up."""
+    peak = peaks(device_name)
+    t_ops = (ops_count / peak["fp32"] + tensor_ops / peak[tensor]) * 1e3
+    t_bytes = bytes_count / peak["bytes"] * 1e3
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": None, "max_abs_err": err,
@@ -695,27 +753,32 @@ def phase_train_times(out, device_name: str):
     t_gemm = device_ms(lambda: torch.matmul(xi, xj.T))
     cross, norms, epi = 2 * n_i * n_j * d, 2 * d * (n_i + n_j), 8 * n_i * n_j
     src = "src/repro_torch/kernels/dsekl/csrc/"
+    route = block.select_matvec_route("rbf", d)
+    check(route == "sm90", f"the step's vecmat takes the {route} route")
     rows = []
+    # (name, source, replaces, kernel, plain, fp32 ops, TF32 tensor-core
+    # products, bytes): the vecmat runs its products on the tensor cores.
     cases = [
-        ("kernel_vecmat", src + "dsekl_matvec.cu",
+        ("kernel_vecmat", src + "dsekl_matvec_sm90.cu",
          "src/repro/kernels/dsekl/block.py:280",
          lambda: block.kernel_vecmat_cuda(xi, xj, v),
          lambda: block.kernel_vecmat_plain(xi, xj, v),
-         cross + norms + epi, 4 * (n_i * d + n_j * d + n_i + n_j)),
+         norms + epi, cross, 4 * (n_i * d + n_j * d + n_i + n_j)),
         ("dual_pass", src + "dsekl_train.cu",
          "src/repro/kernels/dsekl/block.py:330",
          lambda: block.dual_pass_cuda(xi, xj, aj, v),
          lambda: block.dual_pass_plain(xi, xj, aj, v),
-         cross + norms + epi + 2 * n_i * n_j,
+         cross + norms + epi + 2 * n_i * n_j, 0,
          4 * (n_i * d + n_j * d + n_j + n_i + n_i + n_j)),
         ("train_pass", src + "dsekl_train.cu",
          "src/repro/kernels/dsekl/block.py:432",
          lambda: block.train_pass_cuda(xi, xj, aj, yi, loss="hinge"),
          lambda: block.train_pass_plain(xi, xj, aj, yi, loss="hinge"),
-         cross + norms + epi + 2 * n_i * n_j + 4 * n_i,
+         cross + norms + epi + 2 * n_i * n_j + 4 * n_i, 0,
          4 * (n_i * d + n_j * d + n_j + n_i + n_i + n_j)),
     ]
-    for name, source, replaces, kernel, plain, n_ops, n_bytes in cases:
+    for name, source, replaces, kernel, plain, n_ops, n_tensor, n_bytes \
+            in cases:
         got, want = kernel(), plain()
         if isinstance(got, tuple):
             err = max(compare(got[0], want[0]), compare(got[1], want[1]))
@@ -723,10 +786,12 @@ def phase_train_times(out, device_name: str):
             err = compare(got, want)
         t = _timed(kernel, plain)
         row = _row(name, source, replaces, t, n_ops, n_bytes, device_name,
-                   err, t_gemm)
+                   err, t_gemm, tensor_ops=n_tensor, tensor="tf32")
+        if name == "kernel_vecmat":
+            row["matvec_route"] = route
         rows.append(row)
-        _print_row(row, t, f"I={n_i} J={n_j} D={d}", n_ops, n_bytes,
-                   "torch.matmul(xi, xj.T)")
+        _print_row(row, t, f"I={n_i} J={n_j} D={d}", n_ops + n_tensor,
+                   n_bytes, "torch.matmul(xi, xj.T)")
     return rows
 
 
@@ -744,19 +809,25 @@ def _serve_inputs(res):
 
 
 def _matvec_work(n_i: int, n_j: int, d: int):
-    """(operations, bytes) of one RBF matvec: the cross term, the row
-    norms, and the epilogue per (i, j): |x|^2+|z|^2-2xz, clamp, scale,
-    exp, *a, +."""
-    return (2 * n_i * n_j * d + 2 * d * (n_i + n_j) + 8 * n_i * n_j,
+    """(products, other operations, bytes) of one RBF matvec: the cross
+    term's products; the row norms and the epilogue per (i, j):
+    |x|^2+|z|^2-2xz, clamp, scale, exp, *a, +."""
+    return (2 * n_i * n_j * d, 2 * d * (n_i + n_j) + 8 * n_i * n_j,
             4 * (n_i * d + n_j * d + n_j + n_i))
 
 
 def phase_times(res, device_name: str):
+    """Row 1 at the serve call's shape on the sm90 route (its bound: the
+    products at the TF32 tensor peak, the rest at fp32), the fp32 and TF32
+    cross-term GEMMs as yardsticks, then the fp32 route at the same shape
+    on a line of its own."""
     import torch
     from repro_torch.kernels.dsekl import block
     xq, x_sv, a_sv, params = _serve_inputs(res)
     n_i, d = xq.shape
     n_j = x_sv.shape[0]
+    check(block.select_matvec_route("rbf", d) == "sm90",
+          "the serve shape does not take the sm90 route")
 
     def kernel():
         return block.kernel_matvec_cuda(xq, x_sv, a_sv, kernel_name="rbf",
@@ -770,16 +841,56 @@ def phase_times(res, device_name: str):
         return torch.matmul(xq, x_sv.T)
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    err = compare(kernel(), plain())
+    before = block.kernel_matvec_cuda.launches_by_route["sm90"]
+    got = kernel()
+    check(block.kernel_matvec_cuda.launches_by_route["sm90"] == before + 1,
+          "the serve shape's launch missed the sm90 route")
+    want = plain()
+    err = compare(got, want)
     t = _timed(kernel, plain)
     t_gemm = device_ms(gemm)
-    ops_count, bytes_count = _matvec_work(n_i, n_j, d)
+    torch.backends.cuda.matmul.allow_tf32 = True      # the TF32 yardstick
+    try:
+        t_gemm_tf32 = statistics.mean([device_ms(gemm), device_ms(gemm)])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    products, ops_count, bytes_count = _matvec_work(n_i, n_j, d)
     row = _row("kernel_matvec",
-               "src/repro_torch/kernels/dsekl/csrc/dsekl_matvec.cu",
+               "src/repro_torch/kernels/dsekl/csrc/dsekl_matvec_sm90.cu",
                "src/repro/kernels/dsekl/block.py:252", t, ops_count,
-               bytes_count, device_name, err, t_gemm)
-    _print_row(row, t, f"I={n_i} J={n_j} D={d}", ops_count, bytes_count,
-               "torch.matmul(xq, x_sv.T)")
+               bytes_count, device_name, err, t_gemm, tensor_ops=products,
+               tensor="tf32")
+    row["matvec_route"] = "sm90"
+    row["gemm_tf32_ms"] = t_gemm_tf32
+    _print_row(row, t, f"I={n_i} J={n_j} D={d}", products + ops_count,
+               bytes_count, "torch.matmul(xq, x_sv.T), fp32,")
+    print(f"[times] kernel_matvec sm90 route: "
+          f"{row['bound_ms'] / row['ms']:.1%} of its bound ({products:.3e} TF32 tensor-core products + "
+          f"{ops_count:.3e} fp32 ops; the split's 3x products not counted); "
+          f"the TF32 GEMM yardstick (torch.matmul, allow_tf32, one product "
+          f"and the (I, J) output written) device {t_gemm_tf32:.4f} ms; the "
+          f"kernel {row['ms'] / t_gemm:.3f}x the fp32 GEMM, "
+          f"{row['ms'] / t_gemm_tf32:.3f}x the TF32 one")
+    # The fp32 route at the same shape, against the same plain answer.
+    lib32 = block._lib("fp32")
+    kind, p = block.KINDS["rbf"], block.tile_params("rbf", params)
+
+    def kernel32():
+        return block.launch_matvec(lib32, "fp32", xq, x_sv, a_sv, kind, p)
+
+    err32 = compare(kernel32(), want)
+    t32 = [device_ms(kernel32), device_ms(kernel32)]
+    peak = peaks(device_name)
+    bound32 = max((products + ops_count) / peak["fp32"],
+                  bytes_count / peak["bytes"]) * 1e3
+    print(f"[times] kernel_matvec fp32 route, the same shape "
+          f"(csrc/dsekl_matvec.cu): device {statistics.mean(t32):.4f} ms "
+          f"({t32[0]:.4f}, {t32[1]:.4f}); bound {bound32:.4f} ms (all "
+          f"{products + ops_count:.3e} operations at the fp32 peak) = "
+          f"{bound32 / statistics.mean(t32):.1%}; vs plain: max abs err "
+          f"{err32:.3e}; sm90 is {statistics.mean(t32) / row['ms']:.2f}x "
+          "faster")
+    row["fp32_route_ms"] = statistics.mean(t32)
     print("[times] clocks.sm,power.draw,power.limit,temperature.gpu: "
           + nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
     return row
@@ -803,15 +914,19 @@ def phase_rbf_times(res, device_name: str):
 
     err = compare(kernel(), plain())
     t = _timed(kernel, plain)
-    ops_count, bytes_count = _matvec_work(xq.shape[0], x_sv.shape[0],
-                                          xq.shape[1])
+    route = block.select_matvec_route("rbf", xq.shape[1])
+    products, ops_count, bytes_count = _matvec_work(
+        xq.shape[0], x_sv.shape[0], xq.shape[1])
     row = _row("rbf_matvec",
                "src/repro_torch/kernels/dsekl/rbf_block.py",
                "src/repro/kernels/dsekl/rbf_block.py:26", t, ops_count,
                bytes_count, device_name, err,
-               device_ms(lambda: torch.matmul(xq, x_sv.T)))
+               device_ms(lambda: torch.matmul(xq, x_sv.T)),
+               tensor_ops=products, tensor="tf32")
+    row["matvec_route"] = route
     _print_row(row, t, f"I={xq.shape[0]} J={x_sv.shape[0]} D={xq.shape[1]}",
-               ops_count, bytes_count, "torch.matmul(xq, x_sv.T)")
+               products + ops_count, bytes_count,
+               f"torch.matmul(xq, x_sv.T) ({route} route)")
     return row
 
 
@@ -1277,8 +1392,9 @@ def phase_lm_times(device_name: str):
           fp32_before + 1, "the float32 launch missed the fp32 route")
     t32 = [device_ms(kernel32), device_ms(kernel32)]
     p32 = [device_ms(plain32, reps=5), device_ms(plain32, reps=5)]
-    flop_peak, _, byte_peak = peaks(device_name)
-    bound32 = max((n_tensor + n_ops) / flop_peak, 2 * n_bytes / byte_peak)
+    peak = peaks(device_name)
+    bound32 = max((n_tensor + n_ops) / peak["fp32"],
+                  2 * n_bytes / peak["bytes"])
     print(f"[times] flash_attention fp32 route, the same shape in float32 "
           f"(csrc/flash_attn.cu): device {statistics.mean(t32):.4f} ms "
           f"({t32[0]:.4f}, {t32[1]:.4f}); plain device "

@@ -14,13 +14,18 @@ kernels).
   kernels against them on the card.
 * CUDA wrappers, each with its own ``.launches`` counter, CUDA tensors
   only (a launch or a raise, no CPU form):
-  ``kernel_matvec_cuda`` (``csrc/dsekl_matvec.cu``, replaces
-  ``kernel_matvec_pallas``), ``kernel_vecmat_cuda`` (the same kernel with
-  the operands swapped, replaces ``kernel_vecmat_pallas``),
-  ``dual_pass_cuda`` and ``train_pass_cuda`` (``csrc/dsekl_train.cu``,
-  replace ``dual_pass_pallas`` and ``train_pass_pallas``).  The train and
-  dual pass stash K in an (I, J) float32 scratch of at most
-  ``STASH_BUDGET`` bytes.
+  ``kernel_matvec_cuda`` (replaces ``kernel_matvec_pallas``) and
+  ``kernel_vecmat_cuda`` (the same kernels with the operands swapped,
+  replaces ``kernel_vecmat_pallas``) on two routes chosen by shape
+  (``select_matvec_route``), each counted in ``.launches_by_route``:
+  ``"sm90"`` (``csrc/dsekl_matvec_sm90.cu``: the six cross-term kinds
+  with D <= ``SM90_MAX_D``, the cross term on the TF32 tensor cores split
+  three ways) and ``"fp32"`` (``csrc/dsekl_matvec.cu``: the Laplacian
+  and wider D, fp32 CUDA cores); ``dual_pass_cuda`` and
+  ``train_pass_cuda`` (``csrc/dsekl_train.cu``, replace
+  ``dual_pass_pallas`` and ``train_pass_pallas``).  The train and dual
+  pass stash K in an (I, J) float32 scratch of at most ``STASH_BUDGET``
+  bytes.
 
 The TPU module's ``mxu_dtype`` (bf16 cross-term) is not carried over: no
 op asks for it.  Nor are ``choose_blocks`` / ``choose_predict_blocks`` /
@@ -262,18 +267,61 @@ def train_pass_plain(x: Tensor, z: Tensor, a: Tensor, y: Tensor, *,
 # CUDA kernels: libraries, argument checks, wrappers.
 # ---------------------------------------------------------------------------
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("dsekl_matvec")
-    fn = lib.dsekl_kernel_matvec
+# The matvec's routes (select_matvec_route) and their sources, csrc/<name>.cu.
+MATVEC_ROUTES = ("sm90", "fp32")
+MATVEC_LIBS = {"sm90": "dsekl_matvec_sm90", "fp32": "dsekl_matvec"}
+# Support (and query) rows a tile of each route's kernel.
+MATVEC_TILE = {"sm90": 128, "fp32": 64}
+# The kinds whose tile is a function of the cross term x.z: the sm90
+# kernel runs their products on the tensor cores.  The Laplacian's L1 sum
+# has no product.
+CROSS_TERM_KINDS = ("rbf", "linear", "polynomial", "sigmoid", "matern32",
+                    "matern52")
+# The widest D of the sm90 kernel: two 128-byte panels of 32 floats, which
+# its three-stage ring of split support tiles fits in shared memory.
+SM90_MAX_D = 64
+
+
+def select_matvec_route(kernel_name: str, d: int) -> str:
+    """The kernel that computes ``K(x, z) @ a`` for ``kernel_name`` at
+    width ``d``: ``"sm90"`` for the six cross-term kinds with 1 <= d <=
+    ``SM90_MAX_D``, else ``"fp32"``.  Chosen by shape, never as a
+    fallback; raises for an unknown kernel."""
+    if kernel_name not in KINDS:
+        raise ValueError(f"select_matvec_route: no CUDA kernel for "
+                         f"{kernel_name!r}; available: {sorted(KINDS)}")
+    if kernel_name in CROSS_TERM_KINDS and 1 <= d <= SM90_MAX_D:
+        return "sm90"
+    return "fp32"
+
+
+def _lib(route: str) -> ctypes.CDLL:
+    """The loaded library of the matvec ``route`` with its C functions
+    typed."""
+    return typed_matvec_lib(_build.load(MATVEC_LIBS[route]), route)
+
+
+def typed_matvec_lib(lib: ctypes.CDLL, route: str) -> ctypes.CDLL:
+    """``lib``, a library built from ``route``'s source, with its C
+    functions' argument types set.  Both routes take the same arguments."""
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if route == "sm90":
+        fn, per_sm, err = (lib.dsekl_matvec_sm90,
+                           lib.dsekl_matvec_sm90_blocks_per_sm,
+                           lib.dsekl_matvec_sm90_error_string)
+        per_sm_args = [i, i]                     # kind, D
+    else:
+        fn, per_sm, err = (lib.dsekl_kernel_matvec, lib.dsekl_blocks_per_sm,
+                           lib.dsekl_error_string)
+        per_sm_args = [i]                        # kind
     if fn.argtypes is None:
-        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, f, f, f, i, i, f,
                        i, i, vp]
         fn.restype = ctypes.c_int
-        lib.dsekl_blocks_per_sm.argtypes = [ctypes.c_int]
-        lib.dsekl_blocks_per_sm.restype = ctypes.c_int
-        lib.dsekl_error_string.argtypes = [ctypes.c_int]
-        lib.dsekl_error_string.restype = ctypes.c_char_p
+        per_sm.argtypes = per_sm_args
+        per_sm.restype = ctypes.c_int
+        err.argtypes = [i]
+        err.restype = ctypes.c_char_p
     return lib
 
 
@@ -309,13 +357,17 @@ def split_support(n_rows: int, n_cols: int, resident_blocks: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_blocks(kind: int, device_index: int) -> int:
-    """Tile-kernel blocks resident on the whole card at once."""
+def _resident_blocks(route: str, kind: int, d: int, device_index: int) -> int:
+    """Blocks of the ``route`` kernel for ``kind`` (and, on sm90, width
+    ``d``) resident on the whole card at once."""
     n_sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     with torch.cuda.device(device_index):
-        per_sm = _lib().dsekl_blocks_per_sm(kind)
+        lib = _lib(route)
+        per_sm = (lib.dsekl_matvec_sm90_blocks_per_sm(kind, d)
+                  if route == "sm90" else lib.dsekl_blocks_per_sm(kind))
     if per_sm <= 0:
-        raise RuntimeError(f"dsekl_blocks_per_sm({kind}) failed: {per_sm}")
+        raise RuntimeError(f"blocks per SM of the {route} matvec kernel "
+                           f"(kind {kind}, D {d}) failed: {per_sm}")
     return per_sm * n_sms
 
 
@@ -371,60 +423,75 @@ def _kernel_scalars(p: Dict[str, Any]) -> Tuple:
             float(p.get("length_scale", 1.0)))
 
 
-def _launch_matvec(fn: str, x: Tensor, z: Tensor, a: Tensor, kind: int,
-                   p: Dict[str, Any]) -> Tensor:
-    """K(x, z) @ a by dsekl_matvec.cu; no launch when x has no rows."""
+def launch_matvec(lib: ctypes.CDLL, route: str, x: Tensor, z: Tensor,
+                  a: Tensor, kind: int, p: Dict[str, Any],
+                  fn: str = "launch_matvec") -> Tensor:
+    """K(x, z) @ a by ``route``'s kernel from ``lib`` (see
+    ``typed_matvec_lib``) on checked tensors; no launch when x has no
+    rows.  Raises if the launch is refused.  Counts nothing: the wrappers
+    do."""
     n_i, d = x.shape
     n_j = z.shape[0]
     out = torch.empty((n_i,), dtype=torch.float32, device=x.device)
     if n_i == 0:
         return out
-    n_split, per = split_support(
-        n_i, n_j, _resident_blocks(kind, x.device.index
-                                   if x.device.index is not None
-                                   else torch.cuda.current_device()))
+    dev = (x.device.index if x.device.index is not None
+           else torch.cuda.current_device())
+    n_split, per = split_support(n_i, n_j,
+                                 _resident_blocks(route, kind, d, dev),
+                                 MATVEC_TILE[route])
     scratch = torch.empty((n_split * n_i + n_i + n_j,), dtype=torch.float32,
                           device=x.device)
-    lib = _lib()
+    entry, err_string = ((lib.dsekl_matvec_sm90,
+                          lib.dsekl_matvec_sm90_error_string)
+                         if route == "sm90" else
+                         (lib.dsekl_kernel_matvec, lib.dsekl_error_string))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.dsekl_kernel_matvec(
-            x.data_ptr(), z.data_ptr(), a.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), n_i, n_j, d, kind, *_kernel_scalars(p),
-            n_split, per, stream)
+        err = entry(x.data_ptr(), z.data_ptr(), a.data_ptr(), out.data_ptr(),
+                    scratch.data_ptr(), n_i, n_j, d, kind,
+                    *_kernel_scalars(p), n_split, per, stream)
     if err != 0:
-        raise RuntimeError(f"{fn}: dsekl_kernel_matvec launch failed: "
-                           + lib.dsekl_error_string(err).decode())
+        raise RuntimeError(f"{fn} ({route}): matvec launch failed: "
+                           + err_string(err).decode())
     return out
 
 
 def kernel_matvec_cuda(x: Tensor, z: Tensor, a: Tensor, *,
                        kernel_name: str = "rbf",
                        params: Optional[Dict[str, Any]] = None) -> Tensor:
-    """f = K(x, z) @ a by the hand-written Hopper kernel.
+    """f = K(x, z) @ a by the hand-written Hopper kernel of
+    ``select_matvec_route``: the six cross-term kinds with D <=
+    ``SM90_MAX_D`` on the ``sm90`` tensor-core kernel, the Laplacian and
+    wider D on the ``fp32`` one.
 
     x (I, D), z (J, D), a (J,): contiguous float32 CUDA tensors on one
     device.  Launches on the current stream without synchronising and
-    raises if the launch is refused.  There is no CPU form."""
+    raises if the build or the launch fails.  ``.launches`` counts every
+    launch, ``.launches_by_route`` each route's.  There is no CPU form."""
     fn = "kernel_matvec_cuda"
     kind = _kind(fn, kernel_name)
     p = tile_params(kernel_name, params)
     _check_cuda_args(fn, x, z, a=(a, "J"))
-    out = _launch_matvec(fn, x, z, a, kind, p)
+    route = select_matvec_route(kernel_name, x.shape[1])
+    out = launch_matvec(_lib(route), route, x, z, a, kind, p, fn)
     kernel_matvec_cuda.launches += bool(x.shape[0])
+    kernel_matvec_cuda.launches_by_route[route] += bool(x.shape[0])
     return out
 
 
 kernel_matvec_cuda.launches = 0
+kernel_matvec_cuda.launches_by_route = dict.fromkeys(MATVEC_ROUTES, 0)
 
 
 def kernel_vecmat_cuda(x: Tensor, z: Tensor, v: Tensor, *,
                        kernel_name: str = "rbf",
                        params: Optional[Dict[str, Any]] = None) -> Tensor:
-    """g = K(x, z)^T @ v by the matvec kernel with the operands swapped
-    (K(x, z)^T v == K(z, x) v bit for bit: every registry kernel is
-    symmetric and the kernel's epilogue is bit-symmetric; see
-    ``csrc/dsekl_matvec.cu``).  Counted in its own ``launches``.
+    """g = K(x, z)^T @ v by the matvec kernels with the operands swapped,
+    on the route ``select_matvec_route`` gives (K(x, z)^T v == K(z, x) v
+    bit for bit: every registry kernel is symmetric, and both kernels
+    compute K(z, x) v as the matvec call would).  Counted in its own
+    ``launches`` and ``launches_by_route``.
 
     x (I, D), z (J, D), v (I,): contiguous float32 CUDA tensors on one
     device.  There is no CPU form."""
@@ -432,12 +499,15 @@ def kernel_vecmat_cuda(x: Tensor, z: Tensor, v: Tensor, *,
     kind = _kind(fn, kernel_name)
     p = tile_params(kernel_name, params)
     _check_cuda_args(fn, x, z, v=(v, "I"))
-    out = _launch_matvec(fn, z, x, v, kind, p)
+    route = select_matvec_route(kernel_name, x.shape[1])
+    out = launch_matvec(_lib(route), route, z, x, v, kind, p, fn)
     kernel_vecmat_cuda.launches += bool(z.shape[0])
+    kernel_vecmat_cuda.launches_by_route[route] += bool(z.shape[0])
     return out
 
 
 kernel_vecmat_cuda.launches = 0
+kernel_vecmat_cuda.launches_by_route = dict.fromkeys(MATVEC_ROUTES, 0)
 
 
 def fits_stash(n_i: int, n_j: int) -> bool:

@@ -1,10 +1,13 @@
-// f = K(x, z) @ a for the seven DSEKL kernels, float32, on Hopper (sm_90a).
+// f = K(x, z) @ a for the seven DSEKL kernels, float32, on Hopper (sm_90a):
+// the matvec's "fp32" route.
 //
 // Replaces the TPU kernel src/repro/kernels/dsekl/block.py::kernel_matvec_pallas
 // (with its tile evaluators TILE_FNS): x (I, D) queries, z (J, D) support
 // rows, a (J,) dual weights -> f (I,).  K is never written to memory.
 // With its operands swapped it also replaces kernel_vecmat_pallas (the
-// last bullet below).
+// last bullet below).  The wrapper (block.py::select_matvec_route) sends
+// it the Laplacian and D > 64; the six cross-term kinds at D <= 64 go to
+// the tensor-core kernel of dsekl_matvec_sm90.cu.
 //
 // Bound on this card.  The work is 2*I*J*D fp32 operations for the cross
 // term (or the L1 sum of the Laplacian kernel) plus about eight per (i, j)
@@ -12,8 +15,9 @@
 // the serving shape (I = 1024 queries, J ~ 283k padded support rows,
 // D = 54) that is ~3.4e10 operations (0.50 ms at the H100 SXM's 67 TFLOP/s
 // fp32) against ~62 MB (0.02 ms at 3.35 TB/s), so the kernel is bound by
-// fp32 throughput on the CUDA cores (TF32 tensor cores would break the
-// f32 tolerance), not by memory.  The support set is re-read once per
+// fp32 throughput on the CUDA cores, not by memory.  (One TF32 product
+// would break the f32 tolerance; three, on split operands, keep it:
+// dsekl_matvec_sm90.cu.)  The support set is re-read once per
 // 64-row query tile, but blocks that run together share one support
 // range, so the re-reads are served from L2.
 //

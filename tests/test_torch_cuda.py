@@ -17,8 +17,14 @@ suite's float32 tolerances (``tests/test_kernels_models.py``): flash
 bfloat16 inputs they are held against the plain version on the same
 values in float32 at rtol 8e-3, one bfloat16 rounding of the output.
 bf16 flash with head dim 64 or 128 runs on the sm90 tensor-core route,
-every other flash call on the fp32 route (``kernel.select_route``).
+every other flash call on the fp32 route (``kernel.select_route``).  The
+matvec and vecmat of the six cross-term kinds with D <= 64 run on the sm90
+TF32 tensor-core route (the cross term split three ways), the Laplacian
+and wider D on the fp32 route (``block.select_matvec_route``), held to
+the same float32 tolerance.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -181,6 +187,72 @@ def test_train_pass_matches_plain(cuda, kernel, params, loss, shape):
     assert block.train_pass_cuda.launches == before + 1
     for g, w in zip(got, block.train_pass_plain(x, z, a, vy, **kw)):
         _close(g, w)
+
+
+# The sm90 matvec route: I below one 128-row tile, ragged last support
+# tiles (J % 128 in 1, 1, 11, 0, 1), D at 1, 3, 20, 33, 54 and the limit.
+SM90_SHAPES = [(1, 1, 1), (8, 8, 3), (1000, 5003, 54), (65, 129, 64),
+               (1024, 17664, 54), (37, 1000, 20), (130, 257, 33)]
+SM90_IDS = [i for i, (k, _) in enumerate(KERNEL_CASES) if k != "laplacian"]
+
+
+@pytest.mark.parametrize("shape", SM90_SHAPES, ids=str)
+@pytest.mark.parametrize("case", SM90_IDS,
+                         ids=[IDS[i] for i in SM90_IDS])
+def test_matvec_sm90_route_matches_plain(cuda, case, shape):
+    """The six cross-term kinds at D <= 64 launch the tensor-core kernel,
+    matvec and vecmat alike, and meet the float32 tolerance."""
+    kernel, params = KERNEL_CASES[case]
+    kw = dict(kernel_name=kernel, params=dict(params))
+    assert block.select_matvec_route(kernel, shape[2]) == "sm90"
+    x, z, a = _data(shape, cuda)
+    v = torch.tensor(np.random.default_rng(5).standard_normal(shape[0]),
+                     dtype=torch.float32, device=cuda)
+    fns = (block.kernel_matvec_cuda, block.kernel_vecmat_cuda)
+    before = [dict(f.launches_by_route) for f in fns]
+    got = block.kernel_matvec_cuda(x, z, a, **kw)
+    got_t = block.kernel_vecmat_cuda(x, z, v, **kw)
+    torch.cuda.synchronize()
+    for f, b in zip(fns, before):
+        assert f.launches_by_route == {"sm90": b["sm90"] + 1,
+                                       "fp32": b["fp32"]}
+    _close(got, block.kernel_matvec_plain(x, z, a, **kw))
+    _close(got_t, block.kernel_vecmat_plain(x, z, v, **kw))
+
+
+def test_matvec_sm90_route_on_covertype_like_data(cuda):
+    """RBF with gamma 1 on covertype-like rows (|x|^2 ~ 16.6), queries near
+    support rows: one TF32 product would miss the tolerance here."""
+    from repro_torch.data import make_covertype_like
+    z, _ = make_covertype_like(20000, 54, seed=3, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = z[torch.randint(0, 20000, (1024,), generator=g, device=cuda)].clone()
+    x[:, :10] += 0.3 * torch.randn((1024, 10), generator=g, device=cuda)
+    a = torch.randn(20000, generator=g, device=cuda)
+    kw = dict(kernel_name="rbf", params={"gamma": 1.0})
+    before = block.kernel_matvec_cuda.launches_by_route["sm90"]
+    got = block.kernel_matvec_cuda(x, z, a, **kw)
+    assert block.kernel_matvec_cuda.launches_by_route["sm90"] == before + 1
+    _close(got, block.kernel_matvec_plain(x, z, a, **kw))
+
+
+@pytest.mark.parametrize("kernel,d", [("laplacian", 54), ("laplacian", 3),
+                                      ("rbf", 65), ("polynomial", 784)])
+def test_matvec_fp32_route_takes_the_rest(cuda, kernel, d):
+    x, z, a = _data((100, 300, d), cuda)
+    assert block.select_matvec_route(kernel, d) == "fp32"
+    before = dict(block.kernel_matvec_cuda.launches_by_route)
+    got = block.kernel_matvec_cuda(x, z, a, kernel_name=kernel)
+    torch.cuda.synchronize()
+    assert block.kernel_matvec_cuda.launches_by_route == {
+        "sm90": before["sm90"], "fp32": before["fp32"] + 1}
+    _close(got, block.kernel_matvec_plain(x, z, a, kernel_name=kernel))
+
+
+def test_matvec_sm90_library_agrees_on_its_limit(cuda):
+    lib = block._lib("sm90")
+    lib.dsekl_matvec_sm90_max_d.restype = ctypes.c_int
+    assert lib.dsekl_matvec_sm90_max_d() == block.SM90_MAX_D
 
 
 def test_train_and_dual_pass_are_bit_stable(cuda):
