@@ -14,10 +14,11 @@ checkout's sources and held against its plain PyTorch version.  Phases
   1. device  — name, compute capability, ``nvidia-smi`` name and power
                limit; requires sm_90.
   2. build   — nvcc builds every kernel source (build seconds, ptxas);
-               the two tensor-core libraries' ptxas registers, shared
+               the three tensor-core libraries' ptxas registers, shared
                memory, spills and warnings, and their SASS counts by
-               cuobjdump: HGMMA (wgmma) and, for flash, UTMALDG / UTMASTG
-               (TMA) must be > 0; the sm90 matvec must spill nothing.
+               cuobjdump: HGMMA (wgmma) and, for flash and the SSD scan,
+               UTMALDG (TMA) must be > 0; the sm90 matvec must spill
+               nothing.
   3. parity  — each DSEKL kernel vs its plain version on the card, 7
                kernels x D in {3, 54, 784} at ragged I=1000, J=5003:
                matvec, vecmat, the dual pass, the train pass for the 4
@@ -33,8 +34,11 @@ checkout's sources and held against its plain PyTorch version.  Phases
                float32 through the fp32 route and in bfloat16 through the
                sm90 route (and bf16 at D 48 through the fp32 route), twice
                each with the same bits, and the SSD scan (n 16 and 128, hd
-               64, chunk 256 and 128, ragged S) vs their plain versions;
-               counters +1 per call, on the expected route.
+               64, chunk 256 and 128, ragged S) in float32 through the fp32
+               route and in bfloat16 through the sm90 route (lengths at the
+               chunk's edges, g 2, a fast decay; twice each with the same
+               bits) vs their plain versions; counters +1 per call, on the
+               expected route.
   5. serve   — the DSEKL serving path at the covertype scale: 559,890 x
                54 training rows, RBF, ~50% support, 16,384 queries in
                requests of 64, query_block 1024, through flush_async and
@@ -73,22 +77,25 @@ checkout's sources and held against its plain PyTorch version.  Phases
                bf16, random weights from a seed, 4 random prompts of 2,048
                tokens, 32 greedy tokens each (cache 2,080); the flash and
                SSD counters must read 1 and 7 per prefill (none in
-               decode), every flash launch on the sm90 route; prefill and
+               decode), every flash and SSD launch on the sm90 route;
+               prefill and
                decode times on the host clock; the
                timed prefill's flash and SSD launches, their inputs and
                outputs kept at the model's call sites, are each held
                against the plain version on those activations; then the
                same model's prefill logits with impl "ref" must match
                within 2e-2 x max|ref|, and the greedy-token agreement is
-               printed.
- 12. lm-times — flash attention (the sm90 route) and the SSD scan at their
-               served shapes: device time, one call by events, the plain
-               version's device time, the bound (products at the bf16
+               printed; then torch.profiler over one prefill and 8
+               decode steps: device time by kernel (the SSD scan and the
+               MoE dispatch's scan among them).
+ 12. lm-times — flash attention and the SSD scan (both on the sm90 route)
+               at their served shapes: device time, one call by events, the
+               plain version's device time, the bound (products at the bf16
                tensor-core peak, the rest at fp32), and for flash SDPA's
                device time on the same bf16 values in the same call (a
-               yardstick the port never calls); then the fp32 route at
-               the same shape in float32 against its plain version, on a
-               line of its own.
+               yardstick the port never calls); then each kernel's fp32
+               route at the same shape in float32 against its plain
+               version, on a line of its own.
 
 The DSEKL kernel tolerance is the JAX suite's float32 one
 (tests/test_dual_pass.py ``_tols``): rtol 2e-4, atol 1e-5 * max(1,
@@ -103,9 +110,10 @@ times max(1, |oracle|_inf) as above.  Given bfloat16 inputs, which the
 kernels convert at load, each is held against its plain version on the
 same values in float32: the bfloat16 output at rtol 8e-3 (one rounding)
 with atol 1e-5 (flash) or 1e-4 (SSD) times max(1, |oracle|_inf), the
-SSD's float32 final state at its float32 tolerance.  The sm90 flash kernel
-is held to that same check: it splits P into two bf16 terms so that its
-P @ V keeps float32's function.
+SSD's float32 final state at its float32 tolerance.  The sm90 flash and
+SSD kernels are held to that same check: each splits its float32 factors
+into bf16 terms (flash's P into two; the SSD's P into three, its state and
+B o w into two) so that its products keep float32's function.
 It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
@@ -334,6 +342,7 @@ def phase_build():
     print(f"[build] all sources in {wall:.1f}s")
     _inspect_sm90(records["flash_attn_sm90"], "flash sm90",
                   ("HGMMA", "UTMALDG", "UTMASTG"))
+    _inspect_sm90(records["ssd_sm90"], "ssd sm90", ("HGMMA", "UTMALDG"))
     _inspect_sm90(records["dsekl_matvec_sm90"], "matvec sm90", ("HGMMA",))
     _check_no_spills(records["dsekl_matvec_sm90"], "matvec sm90")
     return records
@@ -964,6 +973,17 @@ SSD_CASES = [
     (2, 300, 8, 64, 2, 16, 256),                 # one partial chunk, g 2
     (1, 1000, 4, 64, 1, 128, 256),               # ragged last chunk
 ]
+# bf16 cases of the SSD's sm90 route: lengths at the chunk's edges, g 2,
+# and a fast decay (dt x 10: exp(cum) underflows within a chunk).
+SSD_SM90_CASES = [
+    # (b, s, nh, hd, g, n, chunk, dt_scale)
+    (2, 255, 16, 64, 1, 16, 256, 1.0),
+    (2, 257, 16, 64, 1, 16, 256, 1.0),
+    (1, 1000, 8, 64, 2, 16, 128, 1.0),
+    (1, 600, 8, 64, 1, 128, 128, 1.0),
+    (1, 1000, 4, 64, 1, 128, 256, 1.0),
+    (1, 520, 8, 64, 1, 16, 256, 10.0),
+]
 SSD_RTOL, SSD_ATOL = 1e-4, 1e-4                  # x max(1, |want|_inf)
 # The main path: jamba-v0.1-52b at full width, cut to one period of 8
 # layers (7 mamba, 1 attention; 4 MoE and 4 dense FFNs), bf16, 4 prompts of
@@ -991,13 +1011,13 @@ def _flash_inputs(case, dtype, seed=0):
             for sh in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d))]
 
 
-def _ssd_inputs(case, dtype, seed=0):
+def _ssd_inputs(case, dtype, seed=0, dt_scale=1.0):
     import torch
     b, s, nh, hd, g, n = case[:6]
     gen = torch.Generator().manual_seed(seed + sum(case))
     x = _rand((b, s, nh, hd), gen, DEVICE, dtype)
-    dt = torch.nn.functional.softplus(
-        torch.randn((b, s, nh), generator=gen)).to(DEVICE, dtype)
+    dt = (torch.nn.functional.softplus(torch.randn((b, s, nh), generator=gen))
+          * dt_scale).to(DEVICE, dtype)
     a = -torch.exp(torch.randn((nh,), generator=gen) * 0.5).to(DEVICE)
     bm = _rand((b, s, g, n), gen, DEVICE, dtype)
     cm = _rand((b, s, g, n), gen, DEVICE, dtype)
@@ -1037,21 +1057,41 @@ def phase_lm_parity():
         err = compare(got.float(), want, rtol, atol)
         key = f"flash {str(dtype)[6:]} {route}"
         worst[key] = max(worst.get(key, 0.0), err)
-    for case in SSD_CASES:
-        args = _ssd_inputs(case, torch.float32)
-        got = _counted(lambda: sk.ssd_cuda(*args, chunk=case[6]),
+    ssd_runs = ([(torch.float32, case + (1.0,)) for case in SSD_CASES]
+                + [(torch.bfloat16, case) for case in SSD_SM90_CASES])
+    for dtype, case in ssd_runs:
+        x, dt, a, bm, cm = _ssd_inputs(case[:7], dtype,
+                                       dt_scale=case[7])
+        chunk = case[6]
+        route = sk.select_route(dtype, case[3], case[5], chunk)
+        check(route == ("sm90" if dtype == torch.bfloat16 else "fp32"),
+              f"ssd {case} {dtype}: route {route}")
+        by_route = dict(sk.ssd_cuda.launches_by_route)
+        got = _counted(lambda: sk.ssd_cuda(x, dt, a, bm, cm, chunk=chunk),
                        sk.ssd_cuda, f"ssd {case}")
-        want = ssd_chunked(*args, chunk=case[6], impl="ref")
-        for g, w in zip(got, want):
-            err = compare(g, w, SSD_RTOL, SSD_ATOL)
-            worst["ssd float32"] = max(worst.get("ssd float32", 0.0),
-                                       err / max(1.0, float(w.abs().max())))
+        by_route[route] += 1
+        check(sk.ssd_cuda.launches_by_route == by_route,
+              f"ssd {case}: not launched on the {route} route")
+        again = sk.ssd_cuda(x, dt, a, bm, cm, chunk=chunk)
+        check(all(torch.equal(u, v) for u, v in zip(got, again)),
+              f"ssd {case}: two runs differ")
+        want = ssd_chunked(x.float(), dt.float(), a, bm.float(), cm.float(),
+                           chunk=chunk, impl="ref")
+        key = f"ssd {str(dtype)[6:]} {route}"
+        for g, w, rtol in zip(got, want, (
+                BF16_RTOL if dtype == torch.bfloat16 else SSD_RTOL,
+                SSD_RTOL)):
+            err = compare(g.float(), w, rtol, SSD_ATOL)
+            worst[key] = max(worst.get(key, 0.0),
+                             err / max(1.0, float(w.abs().max())))
     print(f"[lm-parity] {len(FLASH_CASES) + len(FLASH_EDGE_CASES)} flash "
           f"cases x 2 dtypes + 1 bf16 case at D 48, {len(SSD_CASES)} ssd "
-          "cases; routes by launches "
-          f"{fk.flash_attention_cuda.launches_by_route}; worst max abs err: "
+          f"cases in float32 + {len(SSD_SM90_CASES)} in bfloat16; routes by "
+          f"launches flash {fk.flash_attention_cuda.launches_by_route}, ssd "
+          f"{sk.ssd_cuda.launches_by_route}; worst max abs err: "
           + ", ".join(f"{k} {e:.3e}" for k, e in worst.items())
-          + " (ssd: / max(1, |want|_inf))")
+          + " (ssd: / max(1, |want|_inf); bf16 y at rtol "
+          f"{BF16_RTOL}, the final state at {SSD_RTOL})")
 
 
 def _greedy(engine, tokens, n_new):
@@ -1155,6 +1195,7 @@ def phase_serve_jamba():
     fk.flash_attention_cuda.launches = 0          # the main path starts here
     fk.flash_attention_cuda.launches_by_route = dict.fromkeys(fk.ROUTES, 0)
     sk.ssd_cuda.launches = 0
+    sk.ssd_cuda.launches_by_route = dict.fromkeys(sk.ROUTES, 0)
     try:
         res = serve.serve_lm(cfg, device=DEVICE, **JAMBA)
     finally:
@@ -1163,6 +1204,7 @@ def phase_serve_jamba():
     flash_n = fk.flash_attention_cuda.launches    # ... and ends here
     flash_routes = dict(fk.flash_attention_cuda.launches_by_route)
     ssd_n = sk.ssd_cuda.launches
+    ssd_routes = dict(sk.ssd_cuda.launches_by_route)
     model, engine = res["model"], res["engine"]
     out, logits = res["out"], res["logits"]
     n_params = sum(p.numel() for p in model.parameters())
@@ -1175,10 +1217,13 @@ def phase_serve_jamba():
           " are the kernels' inputs and outputs kept for the check")
     print(f"[serve-jamba] {res['prefills']} prefills (1 warm-up): "
           f"flash launches={flash_n} (by route {flash_routes}), ssd "
-          f"launches={ssd_n}")
+          f"launches={ssd_n} (by route {ssd_routes})")
     check(flash_routes["sm90"] == flash_n and flash_n > 0,
           f"the prefill's flash launches did not all take the sm90 route: "
           f"{flash_routes}")
+    check(ssd_routes["sm90"] == ssd_n and ssd_n > 0,
+          f"the prefill's ssd launches did not all take the sm90 route: "
+          f"{ssd_routes}")
     check(flash_n == n_attn * res["prefills"] and
           ssd_n == n_mamba * res["prefills"],
           f"launches flash {flash_n} ssd {ssd_n}, expected {n_attn} and "
@@ -1269,11 +1314,13 @@ def _profile_jamba(engine, tokens, steps: int = 8):
         print(f"[profile-jamba] {what} ({per} call{'s' * (per > 1)}): wall "
               f"{wall:.3f} ms (profiler on), device busy {total:.3f} ms = "
               f"{total / wall:.1%} of the wall; {len(rows)} kernel names")
-        # The ten largest, and those in a top-level anonymous namespace
-        # wherever they rank: the port's kernels and a few of PyTorch's.
+        # The ten largest, and wherever they rank those in a top-level
+        # anonymous namespace (the port's kernels and a few of PyTorch's)
+        # and the scans (the MoE dispatch's cumsum).
         for rank, (dev_us, key, count) in enumerate(rows):
             if rank < 10 or key.startswith(("void (anonymous namespace)::",
-                                            "(anonymous namespace)::")):
+                                            "(anonymous namespace)::")) or (
+                    "scan" in key.lower()):
                 print(f"[profile-jamba]   {dev_us / 1e3 / per:9.3f} ms/call "
                       f"{count // per:5d}x {key[:90]}")
 
@@ -1307,8 +1354,8 @@ def _ssd_ops(s: int, chunk: int, n: int, hd: int):
 def phase_lm_times(device_name: str):
     """Flash and SSD at the served shapes: device time per call
     (``device_ms``), one call by CUDA events, the plain version's device
-    time, the bound, and (flash) SDPA on the same bf16 values; then the
-    flash kernel's fp32 route at the same shape in float32."""
+    time, the bound, and (flash) SDPA on the same bf16 values; then each
+    kernel's fp32 route at the same shape in float32."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import flash_attention
@@ -1402,9 +1449,12 @@ def phase_lm_times(device_name: str):
           f"{n_tensor + n_ops:.3e} operations at the fp32 peak); vs plain: "
           f"max abs err {err32:.3e} (tolerance {FLASH_TOL})")
     del q32, k32, v32
-    # SSD at the served shape (B x nh = 512 (b, h) blocks), bf16.
+    # SSD at the served shape (B x nh = 512 (b, h) blocks), bf16: the sm90
+    # route.
     case = SSD_SERVED
     args = _ssd_inputs(case, torch.bfloat16, seed=12)
+    check(sk.select_route(torch.bfloat16, case[3], case[5], case[6]) ==
+          "sm90", "the served SSD shape does not take the sm90 route")
 
     def skernel():
         return sk.ssd_cuda(*args, chunk=case[6])
@@ -1412,7 +1462,10 @@ def phase_lm_times(device_name: str):
     def splain():
         return ssd_chunked(*args, chunk=case[6], impl="ref")
 
+    sm90_before = sk.ssd_cuda.launches_by_route["sm90"]
     gy, gf = skernel()
+    check(sk.ssd_cuda.launches_by_route["sm90"] == sm90_before + 1,
+          "the served SSD launch missed the sm90 route")
     wy, wf = ssd_chunked(*(a.float() for a in args), chunk=case[6],
                          impl="ref")
     err = max(compare(gy.float(), wy, BF16_RTOL, SSD_ATOL),
@@ -1430,17 +1483,50 @@ def phase_lm_times(device_name: str):
     n_bytes = (2 * (2 * b * s * nh * hd + b * s * nh + 2 * b * s * g * n)
                + 4 * nh + 4 * b * nh * hd * n)
     rows.append(_row(
-        "ssd", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        "ssd", "src/repro_torch/kernels/ssd/csrc/ssd_sm90.cu",
         "src/repro/kernels/ssd/kernel.py:74", t, n_ops, n_bytes,
         device_name, err, tensor_ops=n_tensor))
-    print(f"[times] ssd B*nh={b * nh} S={s} hd={hd} n={n} chunk={chunk} "
-          f"bf16: device {rows[-1]['ms']:.4f} ms ({t['kernel'][0]:.4f}, "
-          f"{t['kernel'][1]:.4f}); by events {rows[-1]['wall_ms']:.4f} ms; "
-          f"plain device {rows[-1]['plain_ms']:.4f} ms (the sequential "
-          f"recurrence); bound {rows[-1]['bound_ms']:.4f} ms "
-          f"({rows[-1]['bound_by']}: {n_tensor:.3e} bf16 tensor ops + "
-          f"{n_ops:.3e} fp32 ops, {n_bytes:.3e} B); no single PyTorch call "
-          "computes it")
+    row = rows[-1]
+    print(f"[times] ssd sm90 route, B*nh={b * nh} S={s} hd={hd} n={n} "
+          f"chunk={chunk} bf16: device {row['ms']:.4f} ms "
+          f"({t['kernel'][0]:.4f}, {t['kernel'][1]:.4f}) = "
+          f"{row['bound_ms'] / row['ms']:.1%} of the bound; by events "
+          f"{row['wall_ms']:.4f} ms; plain device {row['plain_ms']:.4f} ms "
+          f"(the sequential recurrence); bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}: {n_tensor:.3e} bf16 tensor ops + "
+          f"{n_ops:.3e} fp32 ops, {n_bytes:.3e} B; the splits' extra "
+          f"products not counted); no single PyTorch call computes it; vs "
+          f"plain on float32 values: max abs err {err:.3e}")
+    # The fp32 route at the same shape in float32, at the float32
+    # tolerance, against its plain version.
+    args32 = [t.float() for t in args]
+    del args, gy, gf
+
+    def skernel32():
+        return sk.ssd_cuda(*args32, chunk=chunk)
+
+    def splain32():
+        return ssd_chunked(*args32, chunk=chunk, impl="ref")
+
+    fp32_before = sk.ssd_cuda.launches_by_route["fp32"]
+    gy, gf = skernel32()
+    check(sk.ssd_cuda.launches_by_route["fp32"] == fp32_before + 1,
+          "the float32 SSD launch missed the fp32 route")
+    err32 = max(compare(gy, wy, SSD_RTOL, SSD_ATOL),
+                compare(gf, wf, SSD_RTOL, SSD_ATOL))
+    t32 = [device_ms(skernel32), device_ms(skernel32)]
+    p32 = device_ms(splain32, reps=1, warmup=1, readings=1)
+    peak = peaks(device_name)
+    bytes32 = 2 * n_bytes - 4 * nh - 4 * b * nh * hd * n
+    bound32 = max((n_tensor + n_ops) / peak["fp32"], bytes32 / peak["bytes"])
+    print(f"[times] ssd fp32 route, the same shape in float32 "
+          f"(csrc/ssd.cu): device {statistics.mean(t32):.4f} ms "
+          f"({t32[0]:.4f}, {t32[1]:.4f}) = "
+          f"{bound32 * 1e3 / statistics.mean(t32):.1%} of its bound; plain "
+          f"device {p32:.4f} ms (one reading); bound {bound32 * 1e3:.4f} ms "
+          f"(all {n_tensor + n_ops:.3e} operations at the fp32 peak, "
+          f"{bytes32:.3e} B); vs plain: max abs err {err32:.3e} (tolerance "
+          f"{SSD_RTOL} / {SSD_ATOL} x max(1, |want|_inf))")
     return rows
 
 

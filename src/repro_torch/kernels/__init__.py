@@ -14,6 +14,7 @@ belongs to the JAX package's CI legs).  There is no silent fallback.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -34,3 +35,16 @@ def resolve_backend(impl: str, device: torch.device) -> str:
     if impl == "auto":
         impl = "cuda" if torch.device(device).type == "cuda" else "ref"
     return impl
+
+
+@contextlib.contextmanager
+def full_fp32_matmul():
+    """float32 products in full float32 (no TF32) inside the block, on any
+    device: TF32 keeps ~3 decimal digits.  The process's
+    ``torch.backends.cuda.matmul.allow_tf32`` is restored on the way out."""
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag

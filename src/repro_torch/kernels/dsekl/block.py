@@ -44,7 +44,7 @@ import torch
 
 from repro_torch.core import losses as losses_lib
 from repro_torch.core.kernels_fn import SQRT3, SQRT5, integer_pow
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, full_fp32_matmul
 
 Tensor = torch.Tensor
 
@@ -167,12 +167,6 @@ def _f32_col(x: Tensor, block: int) -> Tensor:
     return _pad_rows(x.to(torch.float32)[:, None], block)
 
 
-def full_fp32_matmul() -> None:
-    """Plain versions on the card run their products in full float32
-    (PyTorch's default, set explicitly): TF32 keeps ~3 decimal digits."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-
 # ---------------------------------------------------------------------------
 # Plain versions: tile evaluators over row blocks, each K tile once.
 # ---------------------------------------------------------------------------
@@ -182,16 +176,16 @@ def kernel_matvec_plain(x: Tensor, z: Tensor, a: Tensor, *,
                         params: Optional[Dict[str, Any]] = None,
                         block: int = PLAIN_BLOCK) -> Tensor:
     """f = K(x, z) @ a with the tile evaluator over ``block``-row tiles of
-    z.  x (I, D), z (J, D), a (J,) -> (I,) float32."""
-    if x.is_cuda:
-        full_fp32_matmul()
+    z.  x (I, D), z (J, D), a (J,) -> (I,) float32.  Products in full
+    float32; the caller's TF32 setting is restored."""
     tile_fn = make_tile_fn(kernel_name, params)
     x = x.to(torch.float32)
     f = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
-    for start in range(0, z.shape[0], block):
-        zt = z[start:start + block].to(torch.float32)
-        at = a[start:start + block].to(torch.float32)
-        f = f + tile_fn(x, zt) @ at
+    with full_fp32_matmul():
+        for start in range(0, z.shape[0], block):
+            zt = z[start:start + block].to(torch.float32)
+            at = a[start:start + block].to(torch.float32)
+            f = f + tile_fn(x, zt) @ at
     return f
 
 
@@ -200,16 +194,16 @@ def kernel_vecmat_plain(x: Tensor, z: Tensor, v: Tensor, *,
                         params: Optional[Dict[str, Any]] = None,
                         block: int = PLAIN_BLOCK) -> Tensor:
     """g = K(x, z)^T @ v with the tile evaluator over ``block``-row tiles
-    of x.  x (I, D), z (J, D), v (I,) -> (J,) float32."""
-    if x.is_cuda:
-        full_fp32_matmul()
+    of x.  x (I, D), z (J, D), v (I,) -> (J,) float32.  Products in full
+    float32; the caller's TF32 setting is restored."""
     tile_fn = make_tile_fn(kernel_name, params)
     z = z.to(torch.float32)
     g = torch.zeros((z.shape[0],), dtype=torch.float32, device=z.device)
-    for start in range(0, x.shape[0], block):
-        xt = x[start:start + block].to(torch.float32)
-        vt = v[start:start + block].to(torch.float32)
-        g = g + tile_fn(xt, z).T @ vt
+    with full_fp32_matmul():
+        for start in range(0, x.shape[0], block):
+            xt = x[start:start + block].to(torch.float32)
+            vt = v[start:start + block].to(torch.float32)
+            g = g + tile_fn(xt, z).T @ vt
     return g
 
 
@@ -218,20 +212,20 @@ def _row_block_pass(x: Tensor, z: Tensor, a: Tensor,
                     kernel_name: str, params: Optional[Dict[str, Any]],
                     f_scale: float, block: int) -> Tuple[Tensor, Tensor]:
     """Per ``block``-row tile of x: K_b evaluated once, f_b = f_scale *
-    K_b @ a, v_b = v_of(f_b, start, stop), g += K_b^T v_b."""
-    if x.is_cuda:
-        full_fp32_matmul()
+    K_b @ a, v_b = v_of(f_b, start, stop), g += K_b^T v_b.  Products in
+    full float32; the caller's TF32 setting is restored."""
     tile_fn = make_tile_fn(kernel_name, params)
     z = z.to(torch.float32)
     a = a.to(torch.float32)
     g = torch.zeros((z.shape[0],), dtype=torch.float32, device=z.device)
     fs = []
-    for start in range(0, x.shape[0], block):
-        stop = min(start + block, x.shape[0])
-        kb = tile_fn(x[start:stop].to(torch.float32), z)
-        fb = f_scale * (kb @ a)
-        g = g + kb.T @ v_of(fb, start, stop)
-        fs.append(fb)
+    with full_fp32_matmul():
+        for start in range(0, x.shape[0], block):
+            stop = min(start + block, x.shape[0])
+            kb = tile_fn(x[start:stop].to(torch.float32), z)
+            fb = f_scale * (kb @ a)
+            g = g + kb.T @ v_of(fb, start, stop)
+            fs.append(fb)
     f = (torch.cat(fs) if fs else
          torch.zeros((0,), dtype=torch.float32, device=x.device))
     return f, g

@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.core import kernels_fn
 from repro_torch.core import losses as losses_lib
-from repro_torch.kernels import resolve_backend
+from repro_torch.kernels import full_fp32_matmul, resolve_backend
 from repro_torch.kernels.dsekl import block as _blk
 from repro_torch.kernels.dsekl import ref as _ref
 
@@ -64,14 +64,6 @@ def _f32(t: Tensor) -> Tensor:
     return t.to(torch.float32).contiguous()
 
 
-def _ref_kernel(kernel_name: str, params: Dict[str, Any], x: Tensor):
-    """The registry kernel for a ref evaluation (full float32 products on
-    the card)."""
-    if x.is_cuda:
-        _blk.full_fp32_matmul()
-    return kernels_fn.get_kernel(kernel_name, **params)
-
-
 def kernel_matvec(x: Tensor, z: Tensor, a: Tensor, *,
                   kernel_name: str = "rbf",
                   kernel_params: tuple = (("gamma", 1.0),),
@@ -79,8 +71,9 @@ def kernel_matvec(x: Tensor, z: Tensor, a: Tensor, *,
     """f = K(x, z) @ a; on the CUDA path K is never materialized."""
     params: Dict[str, Any] = dict(kernel_params)
     if resolve_impl(impl, kernel_name, x.device) == "ref":
-        return _ref.ref_kernel_matvec(_ref_kernel(kernel_name, params, x),
-                                      x, z, a)
+        with full_fp32_matmul():
+            return _ref.ref_kernel_matvec(
+                kernels_fn.get_kernel(kernel_name, **params), x, z, a)
     return _blk.kernel_matvec_cuda(_f32(x), _f32(z), _f32(a),
                                    kernel_name=kernel_name, params=params)
 
@@ -92,8 +85,9 @@ def kernel_vecmat(x: Tensor, z: Tensor, v: Tensor, *,
     """g = K(x, z)^T @ v; on the CUDA path K is never materialized."""
     params: Dict[str, Any] = dict(kernel_params)
     if resolve_impl(impl, kernel_name, x.device) == "ref":
-        return _ref.ref_kernel_vecmat(_ref_kernel(kernel_name, params, x),
-                                      x, z, v)
+        with full_fp32_matmul():
+            return _ref.ref_kernel_vecmat(
+                kernels_fn.get_kernel(kernel_name, **params), x, z, v)
     return _blk.kernel_vecmat_cuda(_f32(x), _f32(z), _f32(v),
                                    kernel_name=kernel_name, params=params)
 
@@ -119,12 +113,13 @@ def kernel_dual_pass(x: Tensor, z: Tensor, a: Tensor, vy: Tensor, *,
     params: Dict[str, Any] = dict(kernel_params)
     loss_grad = losses_lib.get_loss(loss).grad_f if loss is not None else None
     if resolve_impl(impl, kernel_name, x.device) == "ref":
-        k = _ref_kernel(kernel_name, params, x)
-        if loss_grad is None:
-            f, g = _ref.ref_kernel_dual_pass(k, x, z, a, vy)
-            return f_scale * f, g
-        return _ref.ref_kernel_train_pass(k, x, z, a, vy, loss_grad,
-                                          f_scale=f_scale)
+        k = kernels_fn.get_kernel(kernel_name, **params)
+        with full_fp32_matmul():
+            if loss_grad is None:
+                f, g = _ref.ref_kernel_dual_pass(k, x, z, a, vy)
+                return f_scale * f, g
+            return _ref.ref_kernel_train_pass(k, x, z, a, vy, loss_grad,
+                                              f_scale=f_scale)
     x, z, a, vy = _f32(x), _f32(z), _f32(a), _f32(vy)
     if not _blk.fits_stash(x.shape[0], z.shape[0]):
         f = f_scale * _blk.kernel_matvec_cuda(x, z, a, kernel_name=kernel_name,
@@ -154,16 +149,19 @@ def kernel_matvec_tiled(x: Tensor, z: Tensor, a: Tensor, *,
     if resolve_impl(impl, kernel_name, x.device) == "cuda":
         return _blk.kernel_matvec_cuda(_f32(x), _f32(z), _f32(a),
                                        kernel_name=kernel_name, params=params)
-    k = _ref_kernel(kernel_name, params, x)
+    k = kernels_fn.get_kernel(kernel_name, **params)
     z_tiles = tile_rows(z, z_block)
     a_tiles = tile_rows(a.to(torch.float32), z_block)
     f = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
-    for zt, at in zip(z_tiles, a_tiles):
-        f = f + _ref.ref_kernel_matvec(k, x, zt, at)
+    with full_fp32_matmul():
+        for zt, at in zip(z_tiles, a_tiles):
+            f = f + _ref.ref_kernel_matvec(k, x, zt, at)
     return f
 
 
 def kernel_block(x: Tensor, z: Tensor, *, kernel_name: str = "rbf",
                  kernel_params: tuple = (("gamma", 1.0),)) -> Tensor:
-    """K(x, z) materialized (the engine's cache-miss path)."""
-    return _ref_kernel(kernel_name, dict(kernel_params), x)(x, z)
+    """K(x, z) materialized (the engine's cache-miss path), in full
+    float32."""
+    with full_fp32_matmul():
+        return kernels_fn.get_kernel(kernel_name, **dict(kernel_params))(x, z)

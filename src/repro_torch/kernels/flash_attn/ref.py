@@ -2,26 +2,15 @@
 ``repro/kernels/flash_attn/ref.py``)."""
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
 
+from repro_torch.kernels import full_fp32_matmul
+
 Tensor = torch.Tensor
 
 NEG_INF = -1e30
-
-
-@contextlib.contextmanager
-def _full_fp32_matmul():
-    """float32 products in full float32 (no TF32) inside the block; the
-    process's setting is restored on the way out."""
-    flag = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = flag
 
 
 def ref_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
@@ -32,7 +21,7 @@ def ref_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     Scores are float32 with masked entries at -1e30, as in the JAX oracle,
     so a row with no valid key gets the mean of v over all T keys."""
     s, t, d = q.shape[1], k.shape[1], q.shape[-1]
-    with _full_fp32_matmul():
+    with full_fp32_matmul():
         scores = torch.einsum("bshd,bthd->bhst", q.float(), k.float())
     scores = scores * (1.0 / math.sqrt(d))
     qpos = torch.arange(s, device=q.device)[:, None]
@@ -43,6 +32,6 @@ def ref_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     scores = torch.where(valid[None, None], scores,
                          torch.tensor(NEG_INF, device=q.device))
     p = torch.softmax(scores, dim=-1)
-    with _full_fp32_matmul():
+    with full_fp32_matmul():
         out = torch.einsum("bhst,bthd->bshd", p, v.float())
     return out.to(q.dtype)

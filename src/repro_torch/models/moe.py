@@ -42,7 +42,13 @@ def _dispatch_tables(top_ids: Tensor, top_probs: Tensor, e_start: int,
                      e_loc: int, capacity: int, n_tokens: int
                      ) -> Tuple[Tensor, Tensor]:
     """(E_loc, C) token-index and prob tables for the local experts; empty
-    slots hold token ``n_tokens`` (a zero row) with prob 0."""
+    slots hold token ``n_tokens`` (a zero row) with prob 0.
+
+    The slot of each (token, choice) in its expert is a running count in
+    int32, as in JAX, scanned along the contiguous axis of the (E_loc,
+    T*k) one-hot.  Dropped choices (another expert's, or past the
+    capacity) are written to one trash slot past the table, so the tables
+    are built without a boolean mask (no host synchronisation)."""
     k = top_ids.shape[-1]
     dev = top_ids.device
     flat_e = top_ids.reshape(-1)                                 # (T*k,)
@@ -51,16 +57,19 @@ def _dispatch_tables(top_ids: Tensor, top_probs: Tensor, e_start: int,
     flat_p = top_probs.reshape(-1)
     local = (flat_e >= e_start) & (flat_e < e_start + e_loc)
     le = torch.where(local, flat_e - e_start, e_loc)             # trash bucket
-    onehot = le[:, None] == torch.arange(e_loc, device=dev)[None, :]
-    pos = torch.cumsum(onehot.to(torch.int64), dim=0) - 1
-    pos = torch.sum(pos * onehot, dim=1)                         # slot in expert
+    onehot = le[None, :] == torch.arange(e_loc, device=dev)[:, None]
+    pos = torch.cumsum(onehot.to(torch.int32), dim=1, dtype=torch.int32) - 1
+    pos = torch.sum(pos * onehot, dim=0, dtype=torch.int32)      # slot in expert
     keep = local & (pos < capacity)                              # drop overflow
-    table = torch.full((e_loc, capacity), n_tokens, dtype=torch.int64,
+    slot = torch.where(keep, le * capacity + pos, e_loc * capacity)
+    table = torch.full((e_loc * capacity + 1,), n_tokens, dtype=torch.int64,
                        device=dev)
-    table[le[keep], pos[keep]] = flat_t[keep]
-    ptable = torch.zeros((e_loc, capacity), dtype=flat_p.dtype, device=dev)
-    ptable[le[keep], pos[keep]] = flat_p[keep]
-    return table, ptable
+    table[slot] = flat_t
+    ptable = torch.zeros((e_loc * capacity + 1,), dtype=flat_p.dtype,
+                         device=dev)
+    ptable[slot] = flat_p
+    return (table[:-1].view(e_loc, capacity),
+            ptable[:-1].view(e_loc, capacity))
 
 
 def _moe_inner(xt: Tensor, top_ids: Tensor, top_probs: Tensor,

@@ -539,6 +539,103 @@ def test_ssd_bfloat16_matches_plain_on_the_same_values(cuda):
     _ssd_close(final, wf)
 
 
+# bf16 cases of the sm90 route (hd 64, n a multiple of 16 up to 128, chunk
+# 64..256): lengths at the chunk's edges and one no chunk divides, chunk
+# 128 and 256 (and 192, 64), g 1, 2 and 4, n 16, 48, 64 and 128, S under
+# one chunk, and a fast decay (dt x 10: exp(cum) underflows within a
+# chunk).
+SSD_SM90_CASES = [
+    # (b, s, nh, hd, g, n, chunk, dt_scale)
+    (2, 255, 8, 64, 1, 16, 256, 1.0),
+    (2, 256, 8, 64, 1, 16, 256, 1.0),
+    (2, 257, 8, 64, 1, 16, 256, 1.0),
+    (1, 1000, 4, 64, 1, 16, 256, 1.0),
+    (1, 1000, 4, 64, 1, 128, 256, 1.0),
+    (1, 255, 4, 64, 1, 128, 128, 1.0),
+    (1, 257, 4, 64, 1, 128, 128, 1.0),
+    (2, 600, 8, 64, 2, 16, 128, 1.0),
+    (1, 600, 8, 64, 4, 64, 192, 1.0),
+    (1, 300, 4, 64, 1, 48, 64, 1.0),
+    (1, 100, 4, 64, 1, 16, 256, 1.0),
+    (1, 520, 4, 64, 1, 16, 256, 10.0),
+    (1, 520, 4, 64, 1, 128, 256, 10.0),
+    (4, 2048, 16, 64, 1, 16, 256, 1.0),          # jamba's served S
+]
+
+
+@pytest.mark.parametrize("case", SSD_SM90_CASES, ids=str)
+def test_ssd_sm90_route_matches_plain(cuda, case):
+    """The tensor-core kernel on bf16 inputs, held against the plain
+    version on the same values in float32: y at rtol 8e-3, atol 1e-4 x
+    max(1, |oracle|_inf) (one bf16 rounding), the float32 final state at
+    the float32 tolerance; launched on the sm90 route, and bit-stable over
+    two runs."""
+    from repro_torch.kernels.ssd import kernel, ssd_chunked
+    b, s, nh, hd, g, n, chunk, dt_scale = case
+    x, dt, a, bm, cm = _ssd_data(case[:7], cuda)
+    x, dt, bm, cm = (t.to(torch.bfloat16) for t in (x, dt * dt_scale, bm, cm))
+    assert kernel.select_route(x.dtype, hd, n, chunk) == "sm90"
+    before = dict(kernel.ssd_cuda.launches_by_route)
+    y, final = kernel.ssd_cuda(x, dt, a, bm, cm, chunk=chunk)
+    y2, final2 = kernel.ssd_cuda(x, dt, a, bm, cm, chunk=chunk)
+    torch.cuda.synchronize()
+    after = kernel.ssd_cuda.launches_by_route
+    assert after["sm90"] == before["sm90"] + 2
+    assert after["fp32"] == before["fp32"]
+    assert torch.equal(y, y2) and torch.equal(final, final2)
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+    wy, wf = ssd_chunked(x.float(), dt.float(), a, bm.float(), cm.float(),
+                         chunk=chunk, impl="ref")
+    want = wy.cpu().numpy()
+    np.testing.assert_allclose(y.float().cpu().numpy(), want, rtol=8e-3,
+                               atol=1e-4 * max(1.0, float(np.abs(want).max())))
+    _ssd_close(final, wf)
+
+
+def test_ssd_sm90_wrapper_refuses_and_routes_by_shape(cuda):
+    """Misaligned bf16 input raises without a launch; bf16 at a shape the
+    sm90 kernel does not take goes to the fp32 route."""
+    from repro_torch.kernels.ssd import kernel
+    fn = kernel.ssd_cuda
+    x, dt, a, bm, cm = (t.to(torch.bfloat16) if t.dim() > 1 else t
+                        for t in _ssd_data((1, 128, 4, 64, 1, 16, 128), cuda))
+    before = fn.launches
+    flat = torch.zeros(x.numel() + 8, device=cuda, dtype=torch.bfloat16)
+    shifted = flat[1:1 + x.numel()].view(x.shape)       # 2 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        fn(shifted, dt, a, bm, cm, chunk=128)
+    assert fn.launches == before
+    for chunk, case in ((100, (1, 128, 4, 64, 1, 16, 100)),
+                        (128, (1, 128, 4, 32, 1, 16, 128)),
+                        (128, (1, 128, 4, 64, 1, 8, 128))):
+        x, dt, a, bm, cm = (t.to(torch.bfloat16) if t.dim() > 1 else t
+                            for t in _ssd_data(case, cuda))
+        by_route = dict(fn.launches_by_route)
+        fn(x, dt, a, bm, cm, chunk=chunk)
+        torch.cuda.synchronize()
+        assert fn.launches_by_route["fp32"] == by_route["fp32"] + 1
+        assert fn.launches_by_route["sm90"] == by_route["sm90"]
+
+
+@pytest.mark.parametrize("flag", [True, False])
+def test_ref_calls_on_the_card_restore_the_tf32_setting(cuda, flag):
+    """A plain (``impl="ref"``) DSEKL or SSD call on CUDA tensors leaves
+    the process's TF32 setting as it found it."""
+    from repro_torch.kernels.ssd import ssd_chunked
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = flag
+    try:
+        x, z, a = _data((64, 100, 5), cuda)
+        ops.kernel_matvec(x, z, a, impl="ref")
+        assert torch.backends.cuda.matmul.allow_tf32 is flag
+        block.kernel_matvec_plain(x, z, a)
+        assert torch.backends.cuda.matmul.allow_tf32 is flag
+        ssd_chunked(*_ssd_data(SSD_CASES[0], cuda), chunk=16, impl="ref")
+        assert torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 def test_ssd_wrapper_rejects_bad_arguments(cuda):
     from repro_torch.kernels.ssd import kernel
     x, dt, a, bm, cm = _ssd_data(SSD_CASES[0], cuda)

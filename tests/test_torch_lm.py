@@ -92,6 +92,33 @@ def test_moe_forward_matches_jax(name, capacity_factor, drops):
             > cap) == drops
 
 
+@pytest.mark.parametrize("n_tokens,k,e_loc,e_start,capacity,drops", [
+    (40, 2, 8, 0, 5, True),      # experts past their capacity: dropped
+    (40, 2, 8, 0, 80, False),    # room for every choice
+    (33, 3, 4, 4, 7, True),      # local experts 4..7 of 12, over capacity
+    (33, 3, 4, 4, 99, False),    # the other experts' choices left out
+    (1, 1, 16, 0, 1, False),
+])
+def test_dispatch_tables_match_jax(n_tokens, k, e_loc, e_start, capacity,
+                                   drops):
+    """The (E_loc, C) token and prob tables, built with an int32 scan,
+    equal JAX's on the same seeded expert ids and probs, drops included."""
+    rng = np.random.default_rng(n_tokens * 7 + capacity)
+    n_experts = e_start + e_loc + (4 if e_start else 0)
+    ids = np.stack([rng.choice(n_experts, k, replace=False)
+                    for _ in range(n_tokens)])
+    probs = rng.random((n_tokens, k)).astype(np.float32)
+    want = jax_moe._dispatch_tables(jnp.asarray(ids), jnp.asarray(probs),
+                                    e_start, e_loc, capacity, n_tokens)
+    got = moe._dispatch_tables(torch.from_numpy(ids), torch.from_numpy(probs),
+                               e_start, e_loc, capacity, n_tokens)
+    local = ids[(ids >= e_start) & (ids < e_start + e_loc)] - e_start
+    per_expert = np.bincount(local, minlength=e_loc)
+    assert (per_expert.max() > capacity) == drops
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
 def _jax_layer_cache(cfg, jcache, layer):
     p, i = divmod(layer, cfg.period)
     if p < cfg.n_periods:
