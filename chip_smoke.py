@@ -27,7 +27,14 @@ checkout's sources and held against its plain PyTorch version.  Phases
                budget; each launch counter must go up by one per call,
                and the matvec and vecmat on their route
                (``block.select_matvec_route``: sm90 for the six
-               cross-term kinds at D <= 64, fp32 for the rest).
+               cross-term kinds at D <= 64, fp32 for the rest).  The
+               dual and train passes on both train routes
+               (``block.select_train_route``: J = 5003 on the fp32 one,
+               the ragged J = 1000 on the sm90 one), and the indexed
+               train pass (rows read by index from the 5003, duplicates
+               among them, lam 1e-4) against its plain version and,
+               bit for bit, against the same kernel on the rows gathered
+               beforehand.
   4. lm-parity — flash attention (causal and not, window 64 and 0, GQA
                32/8 and 4/1, D 64 and 128, ragged S, S != T, and lengths at
                the 128-row tiles' edges: 127, 128, 129, 255, 257) in
@@ -48,8 +55,11 @@ checkout's sources and held against its plain PyTorch version.  Phases
   6. train   — the training path at full width: ``train_dsekl`` on the
                covertype protocol (559,890 x 54 training rows after the
                2,048-row hold-out, |I| = |J| = 1024, hinge, adagrad, 2
-               epochs = 1,092 steps); train-pass launches must equal the
-               steps, alpha be finite and the last validation error beat
+               epochs = 1,092 steps); the indexed train pass's launches
+               must equal the steps, all on the sm90 route (no launch of
+               the contiguous train pass), two more steps under a
+               TorchFunctionMode must index none of x, y and alpha in
+               Python, alpha be finite and the last validation error beat
                the all-zero model's; then the trained model is served
                through ``engine_from_fit`` and its error must equal the
                fit's, up to labels whose |f| is within tolerance of 0.
@@ -60,7 +70,8 @@ checkout's sources and held against its plain PyTorch version.  Phases
                epoch of 64 steps): vecmat launches must equal the steps,
                on the sm90 route (and the validation evals of phase 6).
   9. profile — torch.profiler over 32 steps of the training path: device
-               time by kernel and the device's busy share.
+               time by kernel, device kernels launched a step and the
+               device's busy share.
  10. times   — each DSEKL kernel at its main path's shape (and the RBF
                delegation of row 5): its device time per call
                (``device_ms``: CUDA events around 25 calls enqueued
@@ -71,7 +82,12 @@ checkout's sources and held against its plain PyTorch version.  Phases
                kernel and plain by CUDA events (the host's enqueue
                included), in ms; for row 1 also the TF32 cross-term GEMM
                (a second yardstick, not the same function) and the fp32
-               route at the same shape, on a line of its own.
+               route at the same shape, on a line of its own; rows 3 and 4
+               on the sm90 train route (row 4 as the step calls it: rows
+               by index, lam), the contiguous sm90 train pass, and both on
+               the fp32 route at the same shape, each on a line of its
+               own.  Every route of every kernel is a row of the
+               kernels line (``kernel_route``).
  11. serve-jamba — the LM main path: jamba-v0.1-52b at full width cut to
                one period of 8 layers (7 mamba + 1 attention, 4 MoE FFNs),
                bf16, random weights from a seed, 4 random prompts of 2,048
@@ -131,6 +147,7 @@ SRC = os.path.join(ROOT, "src")
 DEVICE = "cuda"
 RTOL, ATOL = 2e-4, 1e-5
 PARITY_SHAPE = (1000, 5003)
+SM90_PARITY_J = 1000                     # the ragged J of the sm90 train route
 PARITY_DIMS = (3, 54, 784)
 PARITY_CASES = [
     ("rbf", (("gamma", 0.7),)),
@@ -383,6 +400,17 @@ def _inspect_sm90(rec, what: str, required) -> None:
           f"the {what} library lacks {required}: {counts}")
 
 
+def _routed(fn, counter, route: str, what: str):
+    """Call ``fn`` and check that ``counter`` counted one launch, on
+    ``route``."""
+    before = dict(counter.launches_by_route)
+    out = _counted(fn, counter, what)
+    before[route] += 1
+    check(counter.launches_by_route == before,
+          f"{what}: not launched on the {route} route")
+    return out
+
+
 def _counted(fn, counter, what: str):
     """Call ``fn`` and check that ``counter.launches`` went up by one."""
     import torch
@@ -421,6 +449,12 @@ def phase_parity():
         v = dev(rng.standard_normal(n_i))
         y = dev(np.where(rng.standard_normal(n_i) >= 0, 1.0, -1.0))
         y_reg = dev(rng.standard_normal(n_i))            # square loss
+        # The indexed train pass: labels for the 5003 rows, and I and J
+        # drawn with replacement (duplicates among them).
+        y_n = dev(np.where(rng.standard_normal(n_j) >= 0, 1.0, -1.0))
+        idx_i = torch.tensor(rng.integers(0, n_j, n_i), device=DEVICE)
+        idx_j = torch.tensor(rng.integers(0, n_j, SM90_PARITY_J),
+                             device=DEVICE)
         for name, params in PARITY_CASES:
             kw = dict(kernel_name=name, params=dict(params))
             # The matvec and vecmat: on the tensor-core route for the six
@@ -443,22 +477,50 @@ def phase_parity():
                 before[route] += 1
                 check(f.launches_by_route == before,
                       f"{name} D={d}: not launched on the {route} route")
-            gf, gg = _counted(lambda: block.dual_pass_cuda(x, z, a, v, **kw),
-                              block.dual_pass_cuda, name)
-            wf, wg = block.dual_pass_plain(x, z, a, v, **kw)
-            held("dual_pass", gf, wf)
-            held("dual_pass", gg, wg)
-            for loss in LOSSES:
-                yl = y_reg if loss == "square" else y
-                for f_scale in (1.0, TRAIN_N / n_j):
-                    gf, gg = _counted(
-                        lambda: block.train_pass_cuda(
-                            x, z, a, yl, loss=loss, f_scale=f_scale, **kw),
-                        block.train_pass_cuda, f"{name} {loss}")
-                    wf, wg = block.train_pass_plain(
-                        x, z, a, yl, loss=loss, f_scale=f_scale, **kw)
-                    held("train_pass", gf, wf)
-                    held("train_pass", gg, wg)
+            # The dual and train passes on both train routes: the fp32
+            # one at J = 5003, the sm90 one at the ragged J = 1000.
+            for zz, aa in ((z, a), (z[:SM90_PARITY_J], a[:SM90_PARITY_J])):
+                troute = block.select_train_route(n_i, zz.shape[0], d, name)
+                check(troute == ("sm90" if zz.shape[0] <= block.SM90_TRAIN_MAX_J
+                                 else "fp32"),
+                      f"{name} D={d} J={zz.shape[0]}: train route {troute}")
+                gf, gg = _routed(
+                    lambda: block.dual_pass_cuda(x, zz, aa, v, **kw),
+                    block.dual_pass_cuda, troute, name)
+                wf, wg = block.dual_pass_plain(x, zz, aa, v, **kw)
+                held(f"dual_pass {troute}", gf, wf)
+                held(f"dual_pass {troute}", gg, wg)
+                for loss in LOSSES:
+                    yl = y_reg if loss == "square" else y
+                    for f_scale in (1.0, TRAIN_N / zz.shape[0]):
+                        gf, gg = _routed(
+                            lambda: block.train_pass_cuda(
+                                x, zz, aa, yl, loss=loss, f_scale=f_scale,
+                                **kw),
+                            block.train_pass_cuda, troute, f"{name} {loss}")
+                        wf, wg = block.train_pass_plain(
+                            x, zz, aa, yl, loss=loss, f_scale=f_scale, **kw)
+                        held(f"train_pass {troute}", gf, wf)
+                        held(f"train_pass {troute}", gg, wg)
+            # The indexed train pass: rows of the J = 5003 block read by
+            # index, as the step reads them from the training rows.
+            ikw = dict(kw, loss="hinge", f_scale=TRAIN_N / SM90_PARITY_J,
+                       lam=1e-4)
+            gf, gg = _routed(
+                lambda: block.train_pass_indexed_cuda(z, y_n, a, idx_i,
+                                                      idx_j, **ikw),
+                block.train_pass_indexed_cuda, "sm90", name)
+            wf, wg = block.train_pass_indexed_plain(z, y_n, a, idx_i, idx_j,
+                                                    **ikw)
+            held("train_pass indexed", gf, wf)
+            held("train_pass indexed", gg, wg)
+            bf, bg = block.train_pass_cuda(
+                z[idx_i], z[idx_j], a[idx_j], y_n[idx_i], loss="hinge",
+                f_scale=TRAIN_N / SM90_PARITY_J, **kw)
+            check(torch.equal(gf, bf)
+                  and torch.equal(gg, bg + 1e-4 * a[idx_j]),
+                  f"{name} D={d}: the indexed train pass differs from the "
+                  "gathered one")
             # The over-budget fallback: matvec then vecmat, no stash.
             budget, block.STASH_BUDGET = block.STASH_BUDGET, 0
             try:
@@ -484,7 +546,9 @@ def phase_parity():
                   block.kernel_matvec_cuda.launches_by_route.items()}
         print(f"[parity] D={d:<4d} 7 kernels, matvec launches by route "
               f"{routes}, worst max abs err / max(1, |want|_inf): "
-              + ", ".join(f"{k} {e:.3e}" for k, e in worst.items()))
+              + ", ".join(f"{k} {e:.3e}" for k, e in worst.items())
+              + "; the indexed train pass equals the gathered one bit for "
+              "bit")
 
 
 def phase_serve():
@@ -535,13 +599,17 @@ def phase_train():
     from repro_torch.launch import train
     from repro_torch.serving import engine_from_fit
     args = train.parser().parse_args(TRAIN_ARGS + ["--device", DEVICE])
-    block.train_pass_cuda.launches = 0         # the training path starts
+    indexed = block.train_pass_indexed_cuda
+    for f in (indexed, block.train_pass_cuda, block.dual_pass_cuda):
+        f.launches = 0                         # the training path starts
+        f.launches_by_route = dict.fromkeys(block.TRAIN_ROUTES, 0)
     block.kernel_matvec_cuda.launches = 0
     block.kernel_matvec_cuda.launches_by_route = dict.fromkeys(
         block.MATVEC_ROUTES, 0)
-    block.dual_pass_cuda.launches = 0
     out = train.train_dsekl(args)
-    train_launches = block.train_pass_cuda.launches   # ... and ends here
+    train_launches = indexed.launches                 # ... and ends here
+    train_routes = dict(indexed.launches_by_route)
+    contiguous_launches = block.train_pass_cuda.launches
     eval_launches = block.kernel_matvec_cuda.launches
     eval_routes = dict(block.kernel_matvec_cuda.launches_by_route)
     dual_launches = block.dual_pass_cuda.launches
@@ -549,12 +617,18 @@ def phase_train():
     x, x_val, y_val = out["x"], out["x_val"], out["y_val"]
     check(tuple(x.shape) == (TRAIN_N, 54), f"training rows {tuple(x.shape)}")
     steps = res.epochs_run * max(x.shape[0] // cfg.n_grad, 1)
-    print(f"[train] {res.epochs_run} epochs, {steps} steps: train_pass "
-          f"launches={train_launches}, kernel_matvec launches (validation "
-          f"evals)={eval_launches} (by route {eval_routes}), dual_pass "
-          f"launches={dual_launches}")
+    print(f"[train] {res.epochs_run} epochs, {steps} steps: indexed "
+          f"train_pass launches={train_launches} (by route {train_routes}),"
+          f" contiguous train_pass launches={contiguous_launches}, "
+          f"kernel_matvec launches (validation evals)={eval_launches} (by "
+          f"route {eval_routes}), dual_pass launches={dual_launches}")
     check(train_launches == steps and steps == TRAIN_STEPS,
           f"train_pass launches {train_launches} != steps {steps}")
+    check(train_routes == {"sm90": steps, "fp32": 0},
+          f"the train-pass launches did not all take the sm90 route: "
+          f"{train_routes}")
+    check(contiguous_launches == 0, f"{contiguous_launches} launches of the "
+          "contiguous train pass in a fit: the step gathered its rows")
     check(eval_launches == 2 and eval_routes["sm90"] == 2,
           f"{eval_launches} eval matvec launches ({eval_routes}), expected "
           "one per epoch's eval, on the sm90 route")
@@ -571,6 +645,7 @@ def phase_train():
           f"model {zero_err:.6f}, n_sv {int((alpha.abs() > 1e-8).sum())}")
     check(last < zero_err, f"val error {last} does not beat the all-zero "
           f"model's {zero_err}")
+    _check_no_python_gathers(out)
     ep2 = res.history[-1]["seconds"]
     per = max(x.shape[0] // cfg.n_grad, 1)
     print(f"[train] epoch 2: {ep2 * 1e3:.3f} ms for {per} steps = "
@@ -592,6 +667,58 @@ def phase_train():
     return {"out": out, "launches": train_launches,
             "dual_launches": dual_launches, "ms_per_step": ep2 / per * 1e3,
             "steps_per_s": per / ep2}
+
+
+# The torch functions that gather rows by index.
+GATHERS = ("__getitem__", "index_select", "take", "gather", "index")
+
+
+def _check_no_python_gathers(out) -> None:
+    """Two more Alg.-1 steps of the trained fit under a TorchFunctionMode
+    that records every gather, by the tensor it reads: none may read x,
+    y or alpha (the kernel reads their rows by index); the scatter's read
+    of the adagrad accumulator is counted."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+    from repro_torch.core import dsekl, sampler
+    cfg, x, y = out["cfg"], out["x"], out["y"]
+    st = out["result"].state
+    watched = {x.data_ptr(): "x", y.data_ptr(): "y",
+               st.alpha.data_ptr(): "alpha"}
+    seen = []
+
+    class Gathers(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            name = getattr(func, "__name__", "")
+            if (name in GATHERS and args
+                    and isinstance(args[0], torch.Tensor)):
+                seen.append(watched.get(args[0].data_ptr(),
+                                        f"{tuple(args[0].shape)}"))
+            return func(*args, **(kwargs or {}))
+
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    idx_i, idx_j = sampler.epoch_plan(gen, x.shape[0], cfg.n_grad,
+                                      cfg.n_expand, 2)
+    idx_i, idx_j = list(idx_i), list(idx_j)       # rows taken outside
+    before = _indexed_launches()
+    with Gathers():
+        for t in range(2):
+            st = dsekl.step_serial(cfg, st, x, y, idx_i[t], idx_j[t])
+            watched[st.alpha.data_ptr()] = "alpha"
+    torch.cuda.synchronize()
+    block_launches = _indexed_launches() - before
+    bad = [n for n in seen if n in ("x", "y", "alpha")]
+    print(f"[train] 2 steps under a gather watch: {block_launches} indexed "
+          f"train-pass launches; gathers in Python {seen} (none of x, y, "
+          "alpha)")
+    check(not bad and block_launches == 2,
+          f"the step gathered {bad} in Python, or launched the indexed "
+          f"train pass {block_launches} times for 2 steps")
+
+
+def _indexed_launches() -> int:
+    from repro_torch.kernels.dsekl import block
+    return block.train_pass_indexed_cuda.launches_by_route["sm90"]
 
 
 def phase_train_cuda_vs_ref(out):
@@ -654,7 +781,9 @@ def phase_train_two_pass(cfg):
 
 
 def _step_inputs(out):
-    """One step's blocks from the trained model: I = J = 1024 rows."""
+    """One step's operands from the trained model: the training rows x, y
+    and alpha, I = J = 1024 indices into them drawn with replacement, and
+    the rows they pick, gathered."""
     import torch
     x, y, alpha = out["x"], out["y"], out["result"].state.alpha
     gen = torch.Generator(device=DEVICE).manual_seed(3)
@@ -662,8 +791,9 @@ def _step_inputs(out):
                           device=DEVICE)
     idx_j = torch.randint(0, x.shape[0], (1024,), generator=gen,
                           device=DEVICE)
-    return (x[idx_i].contiguous(), x[idx_j].contiguous(),
-            alpha[idx_j].contiguous(), y[idx_i].contiguous())
+    return {"x": x, "y": y, "alpha": alpha, "idx_i": idx_i, "idx_j": idx_j,
+            "xi": x[idx_i].contiguous(), "xj": x[idx_j].contiguous(),
+            "aj": alpha[idx_j].contiguous(), "yi": y[idx_i].contiguous()}
 
 
 def phase_profile(out):
@@ -689,13 +819,16 @@ def phase_profile(out):
     total = sum(r[0] for r in rows)
     check(total > 0, "torch.profiler recorded no device time")
     ours = sum(r[0] for r in rows if "(anonymous namespace)" in r[1])
+    per_step = sum(r[2] for r in rows) / 32
     print(f"[profile] 32 steps: wall {wall * 1e3:.3f} ms (profiler on), "
           f"device busy {total / 1e3:.3f} ms = "
           f"{total / 1e3 / (wall * 1e3):.1%} of the wall; the train pass's "
-          f"kernels {ours / 32:.1f} us a step of {total / 32:.1f}")
-    for dev_us, key, count in rows[:12]:
+          f"kernels {ours / 32:.1f} us a step of {total / 32:.1f}; "
+          f"{per_step:.2f} device kernels (and copies, fills) a step")
+    for dev_us, key, count in rows[:16]:
         print(f"[profile]   {dev_us / 1e3:9.3f} ms {count:5d}x {key[:90]}")
-    return total / 1e3 / 32
+    return {"busy_ms": total / 1e3 / 32, "kernels": per_step,
+            "busy_share": total / 1e3 / (wall * 1e3)}
 
 
 def _row(name, source, replaces, t, ops_count, bytes_count, device_name,
@@ -724,6 +857,19 @@ def _row(name, source, replaces, t, ops_count, bytes_count, device_name,
     }
 
 
+def _route_row(name, source, replaces, ms, plain_ms, ops_ms, bytes_ms,
+               err, library=None) -> dict:
+    """A row of the kernels line for a kernel's fp32 route, timed at its
+    sm90 route's shape (``ms``, ``plain_ms``: device ms a call; ``ops_ms``,
+    ``bytes_ms``: the two halves of the bound)."""
+    return {"name": name, "route": "cuda", "kernel_route": "fp32",
+            "source": source, "replaces": replaces, "launches": None,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": library}
+
+
 def _timed(kernel, plain) -> dict:
     """Device ms per call (``device_ms``: the mean of two readings of 25
     calls) in turns plain, kernel, kernel, plain; then 25 CUDA-event
@@ -749,13 +895,18 @@ def _print_row(row, t, shape: str, n_ops: float, n_bytes: float,
 
 
 def phase_train_times(out, device_name: str):
-    """vecmat, dual pass and train pass at the training step's shape."""
+    """The vecmat, the dual pass and the train pass at the training step's
+    shape: rows 3 and 4 on the sm90 train route (row 4 as the step calls
+    it, rows by index with lam), the contiguous sm90 train pass on a line
+    of its own, and both passes on the fp32 route as rows of their own."""
     import torch
-    from repro_torch.core.losses import get_loss
+    from repro_torch.core.losses import LOSS_CODES, get_loss
     from repro_torch.kernels.dsekl import block
-    xi, xj, aj, yi = _step_inputs(out)
+    st = _step_inputs(out)
+    xi, xj, aj, yi = st["xi"], st["xj"], st["aj"], st["yi"]
     n_i, d = xi.shape
     n_j = xj.shape[0]
+    lam = out["cfg"].lam
     # The step's own v: the hinge gradient at its decision values.
     f, _ = block.train_pass_plain(xi, xj, aj, yi, loss="hinge")
     v = get_loss("hinge").grad_f(f, yi).contiguous()
@@ -764,30 +915,61 @@ def phase_train_times(out, device_name: str):
     src = "src/repro_torch/kernels/dsekl/csrc/"
     route = block.select_matvec_route("rbf", d)
     check(route == "sm90", f"the step's vecmat takes the {route} route")
+    troute = block.select_train_route(n_i, n_j, d, "rbf")
+    check(troute == "sm90", f"the step's train pass takes the {troute} "
+          "route")
+    kind, p = block.KINDS["rbf"], block.tile_params("rbf", None)
+    row_blocks = -(-n_i // block.SM90_TRAIN_ROWS)
+    clusters = block._train_sm90_lib().dsekl_train_sm90_active_clusters(
+        kind, n_j)
+    print(f"[times] train_pass sm90 route: {row_blocks} row blocks of "
+          f"{block.SM90_TRAIN_ROWS} (clusters of {-(-n_j // 128)} CTAs); "
+          f"the card holds {clusters} such clusters at once")
+
+    def fp32_route(vy, code):
+        return lambda: block._launch_train_fp32(
+            "fp32 route", xi, xj, aj, vy, code, kind, p, 1.0)
+
+    dual_ops = cross + norms + epi + 2 * n_i * n_j
+    train_ops = dual_ops + 4 * n_i
+    vec_bytes = 4 * (n_i * d + n_j * d + n_j + n_i + n_i + n_j)
     rows = []
-    # (name, source, replaces, kernel, plain, fp32 ops, TF32 tensor-core
-    # products, bytes): the vecmat runs its products on the tensor cores.
+    # (name, kernel route, source, replaces, kernel, plain, fp32 ops, TF32
+    # tensor-core products, bytes): the vecmat runs its products on the
+    # tensor cores; the indexed train pass also reads its indices and
+    # adds lam * a_j.
     cases = [
-        ("kernel_vecmat", src + "dsekl_matvec_sm90.cu",
+        ("kernel_vecmat", "sm90", src + "dsekl_matvec_sm90.cu",
          "src/repro/kernels/dsekl/block.py:280",
          lambda: block.kernel_vecmat_cuda(xi, xj, v),
          lambda: block.kernel_vecmat_plain(xi, xj, v),
          norms + epi, cross, 4 * (n_i * d + n_j * d + n_i + n_j)),
-        ("dual_pass", src + "dsekl_train.cu",
+        ("dual_pass", "sm90", src + "dsekl_train_sm90.cu",
          "src/repro/kernels/dsekl/block.py:330",
          lambda: block.dual_pass_cuda(xi, xj, aj, v),
          lambda: block.dual_pass_plain(xi, xj, aj, v),
-         cross + norms + epi + 2 * n_i * n_j, 0,
-         4 * (n_i * d + n_j * d + n_j + n_i + n_i + n_j)),
-        ("train_pass", src + "dsekl_train.cu",
+         dual_ops, 0, vec_bytes),
+        ("train_pass", "sm90", src + "dsekl_train_sm90.cu",
          "src/repro/kernels/dsekl/block.py:432",
-         lambda: block.train_pass_cuda(xi, xj, aj, yi, loss="hinge"),
+         lambda: block.train_pass_indexed_cuda(
+             st["x"], st["y"], st["alpha"], st["idx_i"], st["idx_j"],
+             loss="hinge", lam=lam),
+         lambda: block.train_pass_indexed_plain(
+             st["x"], st["y"], st["alpha"], st["idx_i"], st["idx_j"],
+             loss="hinge", lam=lam),
+         train_ops + 2 * n_j, 0, vec_bytes + 8 * (n_i + n_j)),
+        ("dual_pass_fp32", "fp32", src + "dsekl_train.cu",
+         "src/repro/kernels/dsekl/block.py:330",
+         fp32_route(v, -1), lambda: block.dual_pass_plain(xi, xj, aj, v),
+         dual_ops, 0, vec_bytes),
+        ("train_pass_fp32", "fp32", src + "dsekl_train.cu",
+         "src/repro/kernels/dsekl/block.py:432",
+         fp32_route(yi, LOSS_CODES["hinge"]),
          lambda: block.train_pass_plain(xi, xj, aj, yi, loss="hinge"),
-         cross + norms + epi + 2 * n_i * n_j + 4 * n_i, 0,
-         4 * (n_i * d + n_j * d + n_j + n_i + n_i + n_j)),
+         train_ops, 0, vec_bytes),
     ]
-    for name, source, replaces, kernel, plain, n_ops, n_tensor, n_bytes \
-            in cases:
+    for (name, kroute, source, replaces, kernel, plain, n_ops, n_tensor,
+         n_bytes) in cases:
         got, want = kernel(), plain()
         if isinstance(got, tuple):
             err = max(compare(got[0], want[0]), compare(got[1], want[1]))
@@ -796,11 +978,23 @@ def phase_train_times(out, device_name: str):
         t = _timed(kernel, plain)
         row = _row(name, source, replaces, t, n_ops, n_bytes, device_name,
                    err, t_gemm, tensor_ops=n_tensor, tensor="tf32")
-        if name == "kernel_vecmat":
-            row["matvec_route"] = route
+        row["kernel_route"] = kroute
         rows.append(row)
         _print_row(row, t, f"I={n_i} J={n_j} D={d}", n_ops + n_tensor,
-                   n_bytes, "torch.matmul(xi, xj.T)")
+                   n_bytes, f"torch.matmul(xi, xj.T); {kroute} route,")
+    # The sm90 train pass on the same rows gathered beforehand, as
+    # train_pass_cuda takes them: the price of reading by index.
+    contiguous = [device_ms(lambda: block.train_pass_cuda(xi, xj, aj, yi,
+                                                          loss="hinge"))
+                  for _ in range(2)]
+    train = next(r for r in rows if r["name"] == "train_pass")
+    print(f"[times] train_pass sm90 route on the rows gathered beforehand "
+          f"(train_pass_cuda, contiguous): device "
+          f"{statistics.mean(contiguous):.4f} ms ({contiguous[0]:.4f}, "
+          f"{contiguous[1]:.4f}) against {train['ms']:.4f} ms by index; "
+          f"the fp32 route (csrc/dsekl_train.cu) at the same shape "
+          f"{rows[-1]['ms']:.4f} ms = "
+          f"{rows[-1]['ms'] / train['ms']:.2f}x the sm90 kernel")
     return rows
 
 
@@ -900,9 +1094,16 @@ def phase_times(res, device_name: str):
           f"{err32:.3e}; sm90 is {statistics.mean(t32) / row['ms']:.2f}x "
           "faster")
     row["fp32_route_ms"] = statistics.mean(t32)
+    row["kernel_route"] = "sm90"
+    row32 = _route_row(
+        "kernel_matvec_fp32", "src/repro_torch/kernels/dsekl/csrc/"
+        "dsekl_matvec.cu", "src/repro/kernels/dsekl/block.py:252",
+        statistics.mean(t32), row["plain_ms"],
+        (products + ops_count) / peak["fp32"] * 1e3,
+        bytes_count / peak["bytes"] * 1e3, err32)
     print("[times] clocks.sm,power.draw,power.limit,temperature.gpu: "
           + nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
-    return row
+    return [row, row32]
 
 
 def phase_rbf_times(res, device_name: str):
@@ -932,7 +1133,7 @@ def phase_rbf_times(res, device_name: str):
                bytes_count, device_name, err,
                device_ms(lambda: torch.matmul(xq, x_sv.T)),
                tensor_ops=products, tensor="tf32")
-    row["matvec_route"] = route
+    row["matvec_route"] = row["kernel_route"] = route
     _print_row(row, t, f"I={xq.shape[0]} J={x_sv.shape[0]} D={xq.shape[1]}",
                products + ops_count, bytes_count,
                f"torch.matmul(xq, x_sv.T) ({route} route)")
@@ -1448,6 +1649,13 @@ def phase_lm_times(device_name: str):
           f"{statistics.mean(p32):.4f} ms; bound {bound32 * 1e3:.4f} ms (all "
           f"{n_tensor + n_ops:.3e} operations at the fp32 peak); vs plain: "
           f"max abs err {err32:.3e} (tolerance {FLASH_TOL})")
+    rows[-1]["kernel_route"] = "sm90"
+    rows.append(_route_row(
+        "flash_attention_fp32", "src/repro_torch/kernels/flash_attn/csrc/"
+        "flash_attn.cu", "src/repro/kernels/flash_attn/kernel.py:72",
+        statistics.mean(t32), statistics.mean(p32),
+        (n_tensor + n_ops) / peak["fp32"] * 1e3,
+        2 * n_bytes / peak["bytes"] * 1e3, err32))
     del q32, k32, v32
     # SSD at the served shape (B x nh = 512 (b, h) blocks), bf16: the sm90
     # route.
@@ -1527,6 +1735,12 @@ def phase_lm_times(device_name: str):
           f"(all {n_tensor + n_ops:.3e} operations at the fp32 peak, "
           f"{bytes32:.3e} B); vs plain: max abs err {err32:.3e} (tolerance "
           f"{SSD_RTOL} / {SSD_ATOL} x max(1, |want|_inf))")
+    next(r for r in rows if r["name"] == "ssd")["kernel_route"] = "sm90"
+    rows.append(_route_row(
+        "ssd_fp32", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        "src/repro/kernels/ssd/kernel.py:74", statistics.mean(t32), p32,
+        (n_tensor + n_ops) / peak["fp32"] * 1e3,
+        bytes32 / peak["bytes"] * 1e3, err32))
     return rows
 
 
@@ -1561,9 +1775,9 @@ def main() -> int:
     trained = phase_train()
     phase_train_cuda_vs_ref(trained["out"])
     vecmat_launches = phase_train_two_pass(trained["out"]["cfg"])
-    step_device_ms = phase_profile(trained["out"])
+    step_profile = phase_profile(trained["out"])
     elapsed("serve, train, train-cuda-vs-ref, train-two-pass, profile")
-    rows = [phase_times(res, name), phase_rbf_times(res, name)]
+    rows = phase_times(res, name) + [phase_rbf_times(res, name)]
     rows += phase_train_times(trained["out"], name)
     del res, trained["out"]
     elapsed("times")
@@ -1572,13 +1786,16 @@ def main() -> int:
     elapsed("serve-jamba")
     rows += phase_lm_times(name)
     elapsed("lm-times")
+    # Launches on the main paths; every fp32 route has none there.
     launches = {"kernel_matvec": launches, "rbf_matvec": 0,
                 "kernel_vecmat": vecmat_launches,
                 "dual_pass": trained["dual_launches"],
                 "train_pass": trained["launches"],
                 "flash_attention": jamba["flash"], "ssd": jamba["ssd"]}
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = launches.get(row["name"], 0)
+        check(row["name"] in launches or row["kernel_route"] == "fp32",
+              f"no main-path launch count for {row['name']}")
     train = next(r for r in rows if r["name"] == "train_pass")
     step_ms = trained["ms_per_step"]
     print(f"[train] {trained['steps_per_s']:.1f} steps/s, {step_ms:.4f} "
@@ -1586,7 +1803,9 @@ def main() -> int:
           f"{train['ms']:.4f} ms of device time = {train['ms'] / step_ms:.1%}"
           f" of the step, one call of its wrapper {train['wall_ms']:.4f} ms "
           f"by events = {train['wall_ms'] / step_ms:.1%}; device busy "
-          f"{step_device_ms:.4f} ms/step (profiler)")
+          f"{step_profile['busy_ms']:.4f} ms/step (profiler; "
+          f"{step_profile['busy_share']:.1%} of the profiled wall), "
+          f"{step_profile['kernels']:.2f} device kernels a step")
     print(f"[device_ms] {READINGS['kept']} readings kept, "
           f"{READINGS['retaken']} taken again behind a longer spin, "
           f"{READINGS['host_paced']} paced by the host")

@@ -216,8 +216,21 @@ def step_serial(cfg: DSEKLConfig, state: DSEKLState, x: Tensor, y: Tensor,
     """One Alg.-1 iteration on the index sets ``idx_i`` (n_grad,) and
     ``idx_j`` (n_expand,) (``sampler.sample_uniform`` draws them; the JAX
     step draws them from its key).  x (N, D), y (N,) on the state's
-    device: gather the blocks, compute the block gradient, scatter."""
+    device: compute the block gradient, scatter.
+
+    On the CUDA backend the fused step hands the indices to
+    ``ops.kernel_train_pass_indexed``, whose kernel reads the rows of x, y
+    and alpha itself (no gather before it) and adds lam * alpha_J.  Every
+    other path gathers the blocks first and runs ``grad_block``."""
     n = x.shape[0]
+    if (cfg.fuse_dual_pass
+            and kops.resolve_impl(cfg.impl, cfg.kernel, x.device) == "cuda"):
+        _, g = kops.kernel_train_pass_indexed(
+            x, y, state.alpha, idx_i, idx_j, kernel_name=cfg.kernel,
+            kernel_params=cfg.kernel_params, loss=cfg.loss,
+            f_scale=(n / idx_j.shape[0]) if cfg.unbiased_scaling else 1.0,
+            lam=cfg.lam, impl="cuda")
+        return apply_update(cfg, state, idx_j, g)
     xi, yi = x[idx_i], y[idx_i]
     xj, aj = x[idx_j], state.alpha[idx_j]
     g = grad_block(cfg, xi, yi, xj, aj, scale_n(cfg, n))

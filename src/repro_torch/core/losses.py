@@ -9,7 +9,8 @@ Every loss exposes what the doubly stochastic update needs:
 The dual gradient of the paper (Alg. 1) factorizes as
 ``g_J = K_{I,J}^T grad_f(f_I, y_I) + lam * alpha_J`` with
 ``f_I = K_{I,J} alpha_J``.  ``LOSS_CODES`` numbers the losses as the CUDA
-train pass's loss epilogue does (``csrc/dsekl_train.cu``, enum ``Loss``).
+train passes' loss epilogues do (``kernels/dsekl/csrc/dsekl_tile.cuh``,
+enum ``Loss``).
 """
 from __future__ import annotations
 

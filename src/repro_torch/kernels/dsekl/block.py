@@ -21,11 +21,16 @@ kernels).
   ``"sm90"`` (``csrc/dsekl_matvec_sm90.cu``: the six cross-term kinds
   with D <= ``SM90_MAX_D``, the cross term on the TF32 tensor cores split
   three ways) and ``"fp32"`` (``csrc/dsekl_matvec.cu``: the Laplacian
-  and wider D, fp32 CUDA cores); ``dual_pass_cuda`` and
-  ``train_pass_cuda`` (``csrc/dsekl_train.cu``, replace
-  ``dual_pass_pallas`` and ``train_pass_pallas``).  The train and dual
-  pass stash K in an (I, J) float32 scratch of at most ``STASH_BUDGET``
-  bytes.
+  and wider D, fp32 CUDA cores); ``dual_pass_cuda``, ``train_pass_cuda``
+  and ``train_pass_indexed_cuda`` (replace ``dual_pass_pallas`` and
+  ``train_pass_pallas``) on two routes chosen by shape
+  (``select_train_route``), each counted in ``.launches_by_route``:
+  ``"sm90"`` (``csrc/dsekl_train_sm90.cu``: |J| <= ``SM90_TRAIN_MAX_J``,
+  one cluster launch that keeps K on chip and, in the indexed form, reads
+  the rows of x, y and alpha by index) and ``"fp32"``
+  (``csrc/dsekl_train.cu``: wider J, three passes through an (I, J)
+  float32 K stash of at most ``STASH_BUDGET`` bytes).
+  ``train_pass_indexed_plain`` is the indexed form's plain version.
 
 The TPU module's ``mxu_dtype`` (bf16 cross-term) is not carried over: no
 op asks for it.  Nor are ``choose_blocks`` / ``choose_predict_blocks`` /
@@ -50,9 +55,9 @@ Tensor = torch.Tensor
 
 # Rows per plain-version tile: bounds its (block, n) intermediate.
 PLAIN_BLOCK = 8192
-# Bytes of the (I, J) float32 K stash that dual_pass_cuda / train_pass_cuda
-# may use.  32 MiB keeps the stash inside the H100's 50 MB L2; above it
-# ops.kernel_dual_pass falls back to matvec then vecmat (K evaluated
+# Bytes of the (I, J) float32 K stash that the fp32 train route may use.
+# 32 MiB keeps the stash inside the H100's 50 MB L2; above it, on that
+# route, ops.kernel_dual_pass falls back to matvec then vecmat (K evaluated
 # twice), as the JAX op does when train_pass_blocks returns None.
 STASH_BUDGET = 32 << 20
 
@@ -129,6 +134,15 @@ TILE_FNS: Dict[str, Callable[..., Tensor]] = {
 KINDS: Dict[str, int] = {name: i for i, name in enumerate(TILE_FNS)}
 
 
+@functools.lru_cache(maxsize=None)
+def _param_defaults(kernel_name: str) -> Tuple[Tuple[str, Any], ...]:
+    """The tile function's keyword parameters and their defaults (read once:
+    inspecting a signature costs more than a kernel launch's host work)."""
+    sig = inspect.signature(TILE_FNS[kernel_name])
+    return tuple((k, p.default) for k, p in sig.parameters.items()
+                 if p.kind is inspect.Parameter.KEYWORD_ONLY)
+
+
 def tile_params(kernel_name: str, params: Optional[Dict[str, Any]]
                 ) -> Dict[str, Any]:
     """The tile function's hyperparameters with its defaults filled in;
@@ -136,9 +150,7 @@ def tile_params(kernel_name: str, params: Optional[Dict[str, Any]]
     if kernel_name not in TILE_FNS:
         raise ValueError(f"no tile for kernel {kernel_name!r}; "
                          f"available: {sorted(TILE_FNS)}")
-    sig = inspect.signature(TILE_FNS[kernel_name])
-    full = {k: p.default for k, p in sig.parameters.items()
-            if p.kind is inspect.Parameter.KEYWORD_ONLY}
+    full = dict(_param_defaults(kernel_name))
     unknown = set(params or {}) - set(full)
     if unknown:
         raise TypeError(f"kernel {kernel_name!r} takes no parameter(s) "
@@ -257,6 +269,22 @@ def train_pass_plain(x: Tensor, z: Tensor, a: Tensor, y: Tensor, *,
                            f_scale=f_scale, block=block)
 
 
+def train_pass_indexed_plain(x: Tensor, y: Tensor, alpha: Tensor,
+                             idx_i: Tensor, idx_j: Tensor, *,
+                             loss: str = "hinge", kernel_name: str = "rbf",
+                             params: Optional[Dict[str, Any]] = None,
+                             f_scale: float = 1.0, lam: float = 0.0,
+                             block: int = PLAIN_BLOCK
+                             ) -> Tuple[Tensor, Tensor]:
+    """``train_pass_plain`` on the rows that ``idx_i`` and ``idx_j`` pick:
+    x (N, D), y (N,), alpha (N,); g + lam * alpha[idx_j]."""
+    aj = alpha[idx_j].to(torch.float32)
+    f, g = train_pass_plain(x[idx_i], x[idx_j], aj, y[idx_i], loss=loss,
+                            kernel_name=kernel_name, params=params,
+                            f_scale=f_scale, block=block)
+    return f, (g + lam * aj if lam else g)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels: libraries, argument checks, wrappers.
 # ---------------------------------------------------------------------------
@@ -332,6 +360,59 @@ def _train_lib() -> ctypes.CDLL:
         lib.dsekl_train_error_string.argtypes = [i]
         lib.dsekl_train_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# The train pass's routes (select_train_route) and their sources.
+TRAIN_ROUTES = ("sm90", "fp32")
+TRAIN_LIBS = {"sm90": "dsekl_train_sm90", "fp32": "dsekl_train"}
+# The widest J of the sm90 train kernel: a cluster of 8 CTAs (the portable
+# size) of two 64-column tiles each holds an 80-row K block in registers.
+SM90_TRAIN_MAX_J = 1024
+# Rows of I a cluster covers, and the most rows the kernel takes: 65,535
+# row blocks (gridDim.y).
+SM90_TRAIN_ROWS = 80
+SM90_TRAIN_MAX_I = 65535 * SM90_TRAIN_ROWS
+
+
+def select_train_route(n_i: int, n_j: int, d: int, kernel_name: str) -> str:
+    """The kernel that computes the train (and dual) pass on an (n_i, n_j)
+    block of width ``d``: ``"sm90"`` for 1 <= n_j <= ``SM90_TRAIN_MAX_J``
+    and n_i <= ``SM90_TRAIN_MAX_I`` (every kind, any D: K is held on chip),
+    else ``"fp32"`` (the K stash, within ``STASH_BUDGET``).  Chosen by
+    shape, never as a fallback; raises for an unknown kernel or d < 1."""
+    if kernel_name not in KINDS:
+        raise ValueError(f"select_train_route: no CUDA kernel for "
+                         f"{kernel_name!r}; available: {sorted(KINDS)}")
+    if d < 1:
+        raise ValueError(f"select_train_route: D must be positive, got {d}")
+    if 1 <= n_j <= SM90_TRAIN_MAX_J and n_i <= SM90_TRAIN_MAX_I:
+        return "sm90"
+    return "fp32"
+
+
+def typed_train_sm90_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a library built from ``csrc/dsekl_train_sm90.cu`` (or a
+    variant of it), with its C functions' argument types set."""
+    fn = lib.dsekl_train_sm90
+    if fn.argtypes is None:
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [vp, vp, i, vp, vp, i, vp, vp, vp, vp, vp, vp, i, i, i,
+                       i, f, f, f, i, i, f, i, f, f, vp]
+        fn.restype = ctypes.c_int
+        lib.dsekl_train_sm90_scratch_floats.argtypes = [i, i]
+        lib.dsekl_train_sm90_scratch_floats.restype = ctypes.c_longlong
+        for name in ("dsekl_train_sm90_counters", "dsekl_train_sm90_max_j"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+        lib.dsekl_train_sm90_active_clusters.argtypes = [i, i]
+        lib.dsekl_train_sm90_active_clusters.restype = ctypes.c_int
+        lib.dsekl_train_sm90_error_string.argtypes = [i]
+        lib.dsekl_train_sm90_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _train_sm90_lib() -> ctypes.CDLL:
+    return typed_train_sm90_lib(_build.load("dsekl_train_sm90"))
 
 
 def split_support(n_rows: int, n_cols: int, resident_blocks: int,
@@ -509,25 +590,91 @@ def fits_stash(n_i: int, n_j: int) -> bool:
     return 4 * n_i * n_j <= STASH_BUDGET
 
 
-def _launch_train(fn: str, x: Tensor, z: Tensor, a: Tensor, vy: Tensor,
-                  loss_code: int, kernel_name: str,
-                  params: Optional[Dict[str, Any]], f_scale: float
+def _check_indices(fn: str, x: Tensor, **idx: Tensor) -> None:
+    """Each named index vector: a contiguous int64 CUDA tensor of one
+    dimension on x's device, fewer than 2**31 long.  Its values are the
+    kernel's to check (it traps on one outside [0, N))."""
+    for name, t in idx.items():
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"{fn}: {name} is on {t.device}; the CUDA kernel "
+                             "takes CUDA tensors only, on x's device")
+        if t.dtype != torch.int64:
+            raise TypeError(f"{fn}: {name} is {t.dtype}, expected "
+                            "torch.int64")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be a contiguous vector, got "
+                             f"shape {tuple(t.shape)}")
+        if t.shape[0] >= 2 ** 31:
+            raise ValueError(f"{fn}: {name} has 2**31 or more entries")
+
+
+# Per (device, stream): the sm90 train kernel's g_parts scratch and its
+# arrival counters.  The counters are zeroed once, here, and every launch
+# leaves them zero; the scratch grows when a larger block needs more.
+_SM90_SCRATCH: Dict[Tuple[int, int], Dict[str, Tensor]] = {}
+
+
+def _sm90_scratch(lib: ctypes.CDLL, stream: torch.cuda.Stream,
+                  device: torch.device, n_i: int, n_j: int
                   ) -> Tuple[Tensor, Tensor]:
-    """(f, g) by dsekl_train.cu; no launch (f empty, g zero) when x has no
-    rows."""
-    kind = _kind(fn, kernel_name)
-    p = tile_params(kernel_name, params)
-    _check_cuda_args(fn, x, z, a=(a, "J"), vy=(vy, "I"))
+    key = (stream.device_index, stream.cuda_stream)
+    cached = _SM90_SCRATCH.get(key)
+    if cached is None:
+        cached = _SM90_SCRATCH[key] = {
+            "counters": torch.zeros((lib.dsekl_train_sm90_counters(),),
+                                    dtype=torch.int32, device=device),
+            "g_parts": torch.empty((0,), dtype=torch.float32, device=device)}
+    need = lib.dsekl_train_sm90_scratch_floats(n_i, n_j)
+    if cached["g_parts"].numel() < need:
+        cached["g_parts"] = torch.empty((need,), dtype=torch.float32,
+                                        device=device)
+    return cached["g_parts"], cached["counters"]
+
+
+def launch_train_sm90(lib: ctypes.CDLL, x: Tensor, idx_i: Optional[Tensor],
+                      z: Tensor, idx_j: Optional[Tensor], a: Tensor,
+                      vy: Tensor, n_i: int, n_j: int, kind: int,
+                      p: Dict[str, Any], loss_code: int, f_scale: float,
+                      lam: float = 0.0, fn: str = "launch_train_sm90",
+                      scratch: Optional[Tuple[Tensor, Tensor]] = None
+                      ) -> Tuple[Tensor, Tensor]:
+    """(f (n_i,), g (n_j,)) by the sm90 train kernel from ``lib`` (see
+    ``typed_train_sm90_lib``) on checked tensors, n_i >= 1: the rows of I
+    are x[idx_i] (x itself when idx_i is None), those of J z[idx_j], a and
+    vy indexed as them.  ``scratch`` (g_parts, zeroed counters) defaults
+    to the cached one of the current stream.  Raises if the launch is
+    refused.  Counts nothing: the wrappers do."""
+    f = torch.empty((n_i,), dtype=torch.float32, device=x.device)
+    g = torch.empty((n_j,), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device)
+        g_parts, counters = (scratch if scratch is not None else
+                             _sm90_scratch(lib, stream, x.device, n_i, n_j))
+        err = lib.dsekl_train_sm90(
+            x.data_ptr(), None if idx_i is None else idx_i.data_ptr(),
+            x.shape[0], z.data_ptr(),
+            None if idx_j is None else idx_j.data_ptr(), z.shape[0],
+            a.data_ptr(), vy.data_ptr(), f.data_ptr(), g.data_ptr(),
+            g_parts.data_ptr(), counters.data_ptr(), n_i, n_j, x.shape[1],
+            kind, *_kernel_scalars(p), loss_code, float(f_scale), float(lam),
+            stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} (sm90): dsekl_train_sm90 launch failed: "
+                           + lib.dsekl_train_sm90_error_string(err).decode())
+    return f, g
+
+
+def _launch_train_fp32(fn: str, x: Tensor, z: Tensor, a: Tensor, vy: Tensor,
+                       loss_code: int, kind: int, p: Dict[str, Any],
+                       f_scale: float) -> Tuple[Tensor, Tensor]:
+    """(f, g) by dsekl_train.cu on checked tensors, x with rows."""
     n_i, d = x.shape
     n_j = z.shape[0]
-    if n_i == 0:
-        return (torch.empty((0,), dtype=torch.float32, device=x.device),
-                torch.zeros((n_j,), dtype=torch.float32, device=x.device))
     if not fits_stash(n_i, n_j):
         raise ValueError(
-            f"{fn}: the ({n_i}, {n_j}) K stash is over STASH_BUDGET "
-            f"({STASH_BUDGET} bytes); ops.kernel_dual_pass falls back to "
-            "matvec then vecmat there")
+            f"{fn}: the ({n_i}, {n_j}) K stash of the fp32 route is over "
+            f"STASH_BUDGET ({STASH_BUDGET} bytes); ops.kernel_dual_pass "
+            "falls back to matvec then vecmat there")
     lib = _train_lib()
     f = torch.empty((n_i,), dtype=torch.float32, device=x.device)
     g = torch.empty((n_j,), dtype=torch.float32, device=x.device)
@@ -540,9 +687,42 @@ def _launch_train(fn: str, x: Tensor, z: Tensor, a: Tensor, vy: Tensor,
             f.data_ptr(), g.data_ptr(), scratch.data_ptr(), n_i, n_j, d,
             kind, *_kernel_scalars(p), loss_code, float(f_scale), stream)
     if err != 0:
-        raise RuntimeError(f"{fn}: dsekl_train_pass launch failed: "
+        raise RuntimeError(f"{fn} (fp32): dsekl_train_pass launch failed: "
                            + lib.dsekl_train_error_string(err).decode())
     return f, g
+
+
+def _launch_train(fn: str, x: Tensor, z: Tensor, a: Tensor, vy: Tensor,
+                  loss_code: int, kernel_name: str,
+                  params: Optional[Dict[str, Any]], f_scale: float
+                  ) -> Tuple[Tensor, Tensor, Optional[str]]:
+    """(f, g, route) on contiguous rows by the kernel of
+    ``select_train_route``; no launch (f empty, g zero, route None) when x
+    has no rows."""
+    kind = _kind(fn, kernel_name)
+    p = tile_params(kernel_name, params)
+    _check_cuda_args(fn, x, z, a=(a, "J"), vy=(vy, "I"))
+    n_i, d = x.shape
+    n_j = z.shape[0]
+    if n_i == 0:
+        return (torch.empty((0,), dtype=torch.float32, device=x.device),
+                torch.zeros((n_j,), dtype=torch.float32, device=x.device),
+                None)
+    route = select_train_route(n_i, n_j, d, kernel_name)
+    if route == "sm90":
+        f, g = launch_train_sm90(_train_sm90_lib(), x, None, z, None, a, vy,
+                                 n_i, n_j, kind, p, loss_code, f_scale, fn=fn)
+    else:
+        f, g = _launch_train_fp32(fn, x, z, a, vy, loss_code, kind, p,
+                                  f_scale)
+    return f, g, route
+
+
+def _count(wrapper, route: Optional[str]) -> None:
+    """One launch of ``wrapper`` on ``route`` (None: no launch)."""
+    if route is not None:
+        wrapper.launches += 1
+        wrapper.launches_by_route[route] += 1
 
 
 def dual_pass_cuda(x: Tensor, z: Tensor, a: Tensor, v: Tensor, *,
@@ -550,18 +730,27 @@ def dual_pass_cuda(x: Tensor, z: Tensor, a: Tensor, v: Tensor, *,
                    params: Optional[Dict[str, Any]] = None,
                    f_scale: float = 1.0) -> Tuple[Tensor, Tensor]:
     """(f, g) = (f_scale * K @ a, K^T @ v) by the hand-written Hopper
-    kernel, each K value evaluated once (``csrc/dsekl_train.cu``).
+    kernel of ``select_train_route``, each K value evaluated once.
 
     x (I, D), z (J, D), a (J,), v (I,): contiguous float32 CUDA tensors on
-    one device, with the (I, J) stash within ``STASH_BUDGET``.  There is
-    no CPU form."""
-    f, g = _launch_train("dual_pass_cuda", x, z, a, v, -1, kernel_name,
-                         params, f_scale)
-    dual_pass_cuda.launches += bool(x.shape[0])
+    one device; on the fp32 route the (I, J) stash within
+    ``STASH_BUDGET``.  ``.launches`` counts every launch,
+    ``.launches_by_route`` each route's.  There is no CPU form."""
+    f, g, route = _launch_train("dual_pass_cuda", x, z, a, v, -1,
+                                kernel_name, params, f_scale)
+    _count(dual_pass_cuda, route)
     return f, g
 
 
 dual_pass_cuda.launches = 0
+dual_pass_cuda.launches_by_route = dict.fromkeys(TRAIN_ROUTES, 0)
+
+
+def _loss_code(fn: str, loss: str) -> int:
+    if loss not in losses_lib.LOSS_CODES:
+        raise ValueError(f"{fn}: unknown loss {loss!r}; "
+                         f"available: {sorted(losses_lib.LOSS_CODES)}")
+    return losses_lib.LOSS_CODES[loss]
 
 
 def train_pass_cuda(x: Tensor, z: Tensor, a: Tensor, y: Tensor, *,
@@ -569,20 +758,68 @@ def train_pass_cuda(x: Tensor, z: Tensor, a: Tensor, y: Tensor, *,
                     params: Optional[Dict[str, Any]] = None,
                     f_scale: float = 1.0) -> Tuple[Tensor, Tensor]:
     """(f, g) with f = f_scale * K @ a, v = loss_grad(f, y), g = K^T @ v by
-    the hand-written Hopper kernel, each K value evaluated once, the loss
-    gradient fused (``csrc/dsekl_train.cu``).
+    the hand-written Hopper kernel of ``select_train_route``, each K value
+    evaluated once, the loss gradient fused.
 
     x (I, D), z (J, D), a (J,), y (I,): contiguous float32 CUDA tensors on
-    one device, with the (I, J) stash within ``STASH_BUDGET``.  There is
-    no CPU form."""
-    if loss not in losses_lib.LOSS_CODES:
-        raise ValueError(f"train_pass_cuda: unknown loss {loss!r}; "
-                         f"available: {sorted(losses_lib.LOSS_CODES)}")
-    f, g = _launch_train("train_pass_cuda", x, z, a, y,
-                         losses_lib.LOSS_CODES[loss], kernel_name, params,
-                         f_scale)
-    train_pass_cuda.launches += bool(x.shape[0])
+    one device; on the fp32 route the (I, J) stash within
+    ``STASH_BUDGET``.  ``.launches`` counts every launch,
+    ``.launches_by_route`` each route's.  There is no CPU form."""
+    code = _loss_code("train_pass_cuda", loss)
+    f, g, route = _launch_train("train_pass_cuda", x, z, a, y, code,
+                                kernel_name, params, f_scale)
+    _count(train_pass_cuda, route)
     return f, g
 
 
 train_pass_cuda.launches = 0
+train_pass_cuda.launches_by_route = dict.fromkeys(TRAIN_ROUTES, 0)
+
+
+def train_pass_indexed_cuda(x: Tensor, y: Tensor, alpha: Tensor,
+                            idx_i: Tensor, idx_j: Tensor, *,
+                            loss: str = "hinge", kernel_name: str = "rbf",
+                            params: Optional[Dict[str, Any]] = None,
+                            f_scale: float = 1.0, lam: float = 0.0
+                            ) -> Tuple[Tensor, Tensor]:
+    """The train pass on the rows that ``idx_i`` and ``idx_j`` pick:
+    f = f_scale * K(x[idx_i], x[idx_j]) @ alpha[idx_j], v = loss_grad(f,
+    y[idx_i]), g = K^T @ v + lam * alpha[idx_j], position by position
+    (a duplicate index of J gets its own g entry).
+
+    x (N, D), y (N,), alpha (N,): contiguous float32 CUDA tensors on one
+    device; idx_i (I,), idx_j (J,): contiguous int64 on the same device,
+    each in [0, N) (the kernel traps on one outside).  On the ``"sm90"``
+    route (``select_train_route``) the kernel reads the rows by index:
+    no gather precedes it.  On the ``"fp32"`` route the rows are gathered,
+    then ``csrc/dsekl_train.cu`` runs (the stash within ``STASH_BUDGET``).
+    ``.launches`` counts every launch, ``.launches_by_route`` each
+    route's.  There is no CPU form."""
+    fn = "train_pass_indexed_cuda"
+    code = _loss_code(fn, loss)
+    kind = _kind(fn, kernel_name)
+    p = tile_params(kernel_name, params)
+    _check_cuda_args(fn, x, x, y=(y, "I"), alpha=(alpha, "I"))
+    _check_indices(fn, x, idx_i=idx_i, idx_j=idx_j)
+    n_i, n_j = idx_i.shape[0], idx_j.shape[0]
+    if n_i == 0:
+        aj = alpha[idx_j]
+        return (torch.empty((0,), dtype=torch.float32, device=x.device),
+                lam * aj if lam else torch.zeros_like(aj))
+    route = select_train_route(n_i, n_j, x.shape[1], kernel_name)
+    if route == "sm90":
+        f, g = launch_train_sm90(_train_sm90_lib(), x, idx_i, x, idx_j,
+                                 alpha, y, n_i, n_j, kind, p, code, f_scale,
+                                 lam, fn=fn)
+    else:
+        aj = alpha[idx_j]
+        f, g = _launch_train_fp32(fn, x[idx_i], x[idx_j], aj, y[idx_i], code,
+                                  kind, p, f_scale)
+        if lam:
+            g = g + lam * aj
+    _count(train_pass_indexed_cuda, route)
+    return f, g
+
+
+train_pass_indexed_cuda.launches = 0
+train_pass_indexed_cuda.launches_by_route = dict.fromkeys(TRAIN_ROUTES, 0)

@@ -1,8 +1,9 @@
 // Shared tile machinery of the DSEKL kernels (dsekl_matvec.cu,
-// dsekl_train.cu): the kernel kinds and their hyperparameters, the seven
-// k(x_i, z_j) epilogues (the port's TILE_FNS on the card), the staging
-// loop that accumulates a BM x BN tile's cross term (or L1 sum) in
-// registers, the row-norm pass and the fixed-order partial sum.
+// dsekl_matvec_sm90.cu, dsekl_train.cu, dsekl_train_sm90.cu): the kernel
+// kinds and their hyperparameters, the seven k(x_i, z_j) epilogues (the
+// port's TILE_FNS on the card), the loss gradients, the staging loop
+// that accumulates a BM x BN tile's cross term (or L1 sum) in registers,
+// the row-norm pass and the fixed-order partial sum.
 //
 // Everything here has internal linkage: each .cu is its own shared
 // library, and each includes this header once.
@@ -28,6 +29,11 @@ static_assert((BM * BK) % THREADS == 0, "staging loop must be exact");
 enum Kind : int {
   RBF = 0, LAPLACIAN = 1, LINEAR = 2, POLYNOMIAL = 3, SIGMOID = 4,
   MATERN32 = 5, MATERN52 = 6,
+};
+
+// The train passes' loss epilogues (dsekl_train.cu, dsekl_train_sm90.cu).
+enum Loss : int {                 // repro_torch.core.losses.LOSS_CODES
+  NONE = -1, HINGE = 0, SQUARED_HINGE = 1, SQUARE = 2, LOGISTIC = 3,
 };
 
 struct Params {
@@ -60,6 +66,18 @@ __device__ __forceinline__ float integer_pow(float x, int y) {
     if (y > 0) x = x * x;
   }
   return recip ? 1.0f / acc : acc;
+}
+
+// d loss / d f, as core/losses.py computes it.
+__device__ __forceinline__ float loss_grad(int loss, float f, float y) {
+  switch (loss) {
+    case HINGE: return (y * f < 1.0f) ? -y : 0.0f;           // strict <
+    case SQUARED_HINGE: return -2.0f * y * fmaxf(0.0f, 1.0f - y * f);
+    case SQUARE: return f - y;
+    default:                                                 // LOGISTIC
+      // -y * sigmoid(-y f), sigmoid(t) = 1 / (1 + exp(-t)).
+      return -y * (1.0f / (1.0f + expf(y * f)));
+  }
 }
 
 // k(x_i, z_j) from the accumulated cross term (or L1 sum) and row norms.

@@ -45,27 +45,11 @@
 
 namespace {
 
-enum Loss : int {                 // repro_torch.core.losses.LOSS_CODES
-  NONE = -1, HINGE = 0, SQUARED_HINGE = 1, SQUARE = 2, LOGISTIC = 3,
-};
-
 constexpr int COL_W = 32;         // column-pass columns per block (a warp)
 constexpr int COL_H = 8;          // column-pass row groups per block
 constexpr int ROW_CHUNK = 128;    // column-pass rows per block
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// d loss / d f, as core/losses.py computes it.
-__device__ __forceinline__ float loss_grad(int loss, float f, float y) {
-  switch (loss) {
-    case HINGE: return (y * f < 1.0f) ? -y : 0.0f;           // strict <
-    case SQUARED_HINGE: return -2.0f * y * fmaxf(0.0f, 1.0f - y * f);
-    case SQUARE: return f - y;
-    default:                                                 // LOGISTIC
-      // -y * sigmoid(-y f), sigmoid(t) = 1 / (1 + exp(-t)).
-      return -y * (1.0f / (1.0f + expf(y * f)));
-  }
-}
 
 // Pass 1: stash[i, j] = k(x_i, z_j) for one 64 x 64 tile, and
 // f_parts[blockIdx.y, i] = sum over the tile's columns of k(x_i, z_j) a_j.

@@ -12,8 +12,12 @@ Ops:
   * ``kernel_vecmat``       — g = K(x, z)^T @ v
   * ``kernel_dual_pass``    — both products from ONE evaluation of K; with
     ``loss=...`` the loss gradient v = dloss/df(f, y) is fused between the
-    two products (the doubly stochastic training step in one op).  Above
-    ``block.STASH_BUDGET`` the CUDA path falls back to matvec then vecmat.
+    two products (the doubly stochastic training step in one op).  The CUDA
+    path takes the route of ``block.select_train_route``; on the fp32 route
+    above ``block.STASH_BUDGET`` it falls back to matvec then vecmat.
+  * ``kernel_train_pass_indexed`` — the training step on the rows that
+    ``idx_i`` / ``idx_j`` pick from (x, y, alpha), + lam * alpha_J: on the
+    sm90 route the kernel reads them by index, with no gather before it.
   * ``kernel_matvec_tiled`` — the same, consuming z in ``z_block``-row tiles
     on the ref path (peak intermediate O(|x| * z_block)); the CUDA kernel
     streams z itself and ignores ``z_block``.  The engine's serve function
@@ -107,9 +111,10 @@ def kernel_dual_pass(x: Tensor, z: Tensor, a: Tensor, vy: Tensor, *,
 
     ``f_scale`` (the unbiased N/|J| scaling) is applied after the product
     and, with a loss, *before* the loss gradient is taken.  On the CUDA
-    path a K stash over ``block.STASH_BUDGET`` falls back to matvec then
-    vecmat, K evaluated twice (the JAX op's fallback when
-    ``train_pass_blocks`` returns None)."""
+    path a block on the fp32 route (``block.select_train_route``) whose K
+    stash is over ``block.STASH_BUDGET`` falls back to matvec then vecmat,
+    K evaluated twice (the JAX op's fallback when ``train_pass_blocks``
+    returns None)."""
     params: Dict[str, Any] = dict(kernel_params)
     loss_grad = losses_lib.get_loss(loss).grad_f if loss is not None else None
     if resolve_impl(impl, kernel_name, x.device) == "ref":
@@ -121,7 +126,9 @@ def kernel_dual_pass(x: Tensor, z: Tensor, a: Tensor, vy: Tensor, *,
             return _ref.ref_kernel_train_pass(k, x, z, a, vy, loss_grad,
                                               f_scale=f_scale)
     x, z, a, vy = _f32(x), _f32(z), _f32(a), _f32(vy)
-    if not _blk.fits_stash(x.shape[0], z.shape[0]):
+    if (_blk.select_train_route(x.shape[0], z.shape[0], x.shape[1],
+                                kernel_name) == "fp32"
+            and not _blk.fits_stash(x.shape[0], z.shape[0])):
         f = f_scale * _blk.kernel_matvec_cuda(x, z, a, kernel_name=kernel_name,
                                               params=params)
         v = vy if loss_grad is None else loss_grad(f, vy)
@@ -134,6 +141,55 @@ def kernel_dual_pass(x: Tensor, z: Tensor, a: Tensor, vy: Tensor, *,
     return _blk.train_pass_cuda(x, z, a, vy, loss=loss,
                                 kernel_name=kernel_name, params=params,
                                 f_scale=f_scale)
+
+
+def kernel_train_pass_indexed(x: Tensor, y: Tensor, alpha: Tensor,
+                              idx_i: Tensor, idx_j: Tensor, *,
+                              kernel_name: str = "rbf",
+                              kernel_params: tuple = (("gamma", 1.0),),
+                              loss: str = "hinge", f_scale: float = 1.0,
+                              lam: float = 0.0, impl: str = "auto"
+                              ) -> Tuple[Tensor, Tensor]:
+    """The fused training step on the rows that the indices pick: with
+    xi = x[idx_i], yi = y[idx_i], xj = x[idx_j], aj = alpha[idx_j],
+
+        f = f_scale * K(xi, xj) @ aj;  v = loss.grad_f(f, yi);
+        g = K^T @ v + lam * aj
+
+    (Alg. 1 lines 4-5 with the ridge term), position by position: a
+    duplicate index of J gets its own g entry.  x (N, D), y (N,), alpha
+    (N,), idx_i (I,), idx_j (J,) integer indices in [0, N).
+
+    Ref path: the gathers, then ``ref_kernel_train_pass``.  CUDA path: on
+    the sm90 route (``block.select_train_route``) one launch that reads
+    the rows by index (``block.train_pass_indexed_cuda``); on the fp32
+    route the same wrapper gathers first, and above ``block.STASH_BUDGET``
+    the gathered rows take ``kernel_dual_pass``'s matvec-then-vecmat
+    fallback."""
+    params: Dict[str, Any] = dict(kernel_params)
+    loss_grad = losses_lib.get_loss(loss).grad_f
+    if resolve_impl(impl, kernel_name, x.device) == "ref":
+        aj = alpha[idx_j]
+        k = kernels_fn.get_kernel(kernel_name, **params)
+        with full_fp32_matmul():
+            f, g = _ref.ref_kernel_train_pass(k, x[idx_i], x[idx_j], aj,
+                                              y[idx_i], loss_grad,
+                                              f_scale=f_scale)
+        return f, g + lam * aj
+    x, y, alpha = _f32(x), _f32(y), _f32(alpha)
+    idx_i, idx_j = idx_i.to(torch.int64), idx_j.to(torch.int64)
+    n_i, n_j = idx_i.shape[0], idx_j.shape[0]
+    if (_blk.select_train_route(n_i, n_j, x.shape[1], kernel_name) == "fp32"
+            and not _blk.fits_stash(n_i, n_j)):
+        aj = alpha[idx_j]
+        f, g = kernel_dual_pass(x[idx_i], x[idx_j], aj, y[idx_i],
+                                kernel_name=kernel_name,
+                                kernel_params=kernel_params, loss=loss,
+                                f_scale=f_scale, impl="cuda")
+        return f, g + lam * aj
+    return _blk.train_pass_indexed_cuda(
+        x, y, alpha, idx_i.contiguous(), idx_j.contiguous(), loss=loss,
+        kernel_name=kernel_name, params=params, f_scale=f_scale, lam=lam)
 
 
 def kernel_matvec_tiled(x: Tensor, z: Tensor, a: Tensor, *,

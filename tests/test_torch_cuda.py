@@ -277,6 +277,8 @@ def test_vecmat_is_the_transposed_matvec_bit_for_bit(cuda):
 
 def test_train_wrappers_reject_bad_arguments(cuda, monkeypatch):
     x, z, a, v, y = _train_data((16, 32, 4), cuda)
+    # The stash budget binds the fp32 route: J wider than the sm90 one.
+    wide = _train_data((16, block.SM90_TRAIN_MAX_J + 1, 4), cuda)
     counters = (block.kernel_vecmat_cuda, block.dual_pass_cuda,
                 block.train_pass_cuda)
     before = [c.launches for c in counters]
@@ -294,14 +296,17 @@ def test_train_wrappers_reject_bad_arguments(cuda, monkeypatch):
         block.train_pass_cuda(x, z, a, y, loss="huber")
     monkeypatch.setattr(block, "STASH_BUDGET", 0)
     with pytest.raises(ValueError, match="STASH_BUDGET"):
-        block.train_pass_cuda(x, z, a, y)
+        block.train_pass_cuda(wide[0], wide[1], wide[2], wide[4])
     assert [c.launches for c in counters] == before
     f, g = block.train_pass_cuda(x[:0], z, a, y[:0])
     assert f.shape == (0,) and g.shape == (32,) and not g.any()
 
 
 def test_ops_launch_on_cuda_and_fall_back_over_budget(cuda, monkeypatch):
-    x, z, a, v, y = _train_data((37, 300, 5), cuda, seed=4)
+    # J wider than the sm90 train route: the fp32 route, whose stash the
+    # budget bounds.
+    x, z, a, v, y = _train_data((37, block.SM90_TRAIN_MAX_J + 252, 5), cuda,
+                                seed=4)
     kw = dict(loss="hinge", f_scale=3.0)
     want = ops.kernel_dual_pass(x, z, a, y, impl="ref", **kw)
     counts = [c.launches for c in (block.train_pass_cuda,
@@ -328,10 +333,11 @@ def test_short_fit_on_the_card_matches_ref(cuda):
                       schedule="adagrad", lam=1e-4)
     gen = torch.Generator(device=cuda).manual_seed(0)
     plans = [sampler.epoch_plan(gen, 4096, 256, 256, 16) for _ in range(2)]
-    before = block.train_pass_cuda.launches
+    before = block.train_pass_indexed_cuda.launches_by_route["sm90"]
     card = fit(cfg, x, y, plans=plans, n_epochs=2, tol=0.0, x_val=x[:512],
                y_val=y[:512], device=cuda)
-    assert block.train_pass_cuda.launches == before + 32
+    assert (block.train_pass_indexed_cuda.launches_by_route["sm90"]
+            == before + 32)
     ref = fit(cfg.replace(impl="ref"), x, y, plans=plans, n_epochs=2,
               tol=0.0, device=cuda)
     want = ref.state.alpha.double().cpu().numpy()
@@ -340,6 +346,181 @@ def test_short_fit_on_the_card_matches_ref(cuda):
                                atol=1e-4 * max(1.0, float(np.abs(want).max())))
     assert int(card.state.step) == 32
     assert all(0.0 <= h["val_error"] <= 1.0 for h in card.history)
+
+
+# The sm90 train route (csrc/dsekl_train_sm90.cu): one cluster launch,
+# rows read by index.  Shapes: one row block and one tile, ragged tiles
+# past one 80-row block, the main path's step and its ragged neighbour,
+# D 784 at the widest J, and many row blocks over a narrow J.
+SM90_TRAIN_SHAPES = [(1, 1, 1), (81, 129, 54), (1000, 1000, 54),
+                     (1024, 1024, 54), (130, 1024, 784), (3000, 700, 3)]
+
+
+@pytest.mark.parametrize("shape", SM90_TRAIN_SHAPES, ids=str)
+@pytest.mark.parametrize("loss", (None,) + LOSSES, ids=str)
+@pytest.mark.parametrize("kernel,params", KERNEL_CASES, ids=IDS)
+def test_train_sm90_route_matches_plain(cuda, kernel, params, loss, shape):
+    """The train pass (each loss) and the dual pass (loss None) on the sm90
+    route, against their plain versions at the float32 tolerance."""
+    assert block.select_train_route(shape[0], shape[1], shape[2],
+                                     kernel) == "sm90"
+    x, z, a, v, y = _train_data(shape, cuda, seed=11)
+    kw = dict(kernel_name=kernel, params=dict(params), f_scale=1.7)
+    wrapper = block.dual_pass_cuda if loss is None else block.train_pass_cuda
+    before = dict(wrapper.launches_by_route)
+    if loss is None:
+        got = block.dual_pass_cuda(x, z, a, v, **kw)
+        want = block.dual_pass_plain(x, z, a, v, **kw)
+    else:
+        vy = v if loss == "square" else y
+        got = block.train_pass_cuda(x, z, a, vy, loss=loss, **kw)
+        want = block.train_pass_plain(x, z, a, vy, loss=loss, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches_by_route == {"sm90": before["sm90"] + 1,
+                                         "fp32": before["fp32"]}
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+def _indexed_data(n, shape, device, seed=0):
+    """x (n, D), y, alpha (n,) and (I,), (J,) int64 indices with
+    duplicates (drawn with replacement from a quarter of the rows)."""
+    i, j, d = shape
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal((n, d)) / np.sqrt(d),
+                     dtype=torch.float32, device=device)
+    y = torch.tensor(np.where(rng.standard_normal(n) >= 0, 1.0, -1.0),
+                     dtype=torch.float32, device=device)
+    alpha = torch.tensor(rng.standard_normal(n), dtype=torch.float32,
+                         device=device)
+    idx_i = torch.tensor(rng.integers(0, n // 4, i), device=device)
+    idx_j = torch.tensor(rng.integers(0, n // 4, j), device=device)
+    return x, y, alpha, idx_i, idx_j
+
+
+@pytest.mark.parametrize("shape", [(1024, 1024, 54), (1000, 1000, 54),
+                                   (80, 1024, 7)], ids=str)
+@pytest.mark.parametrize("kernel,params", KERNEL_CASES, ids=IDS)
+def test_train_pass_indexed_equals_gathered_bitwise(cuda, kernel, params,
+                                                    shape):
+    """Rows read by index give the bits of the same kernel on the rows
+    gathered beforehand (duplicate J positions each their own g); with lam
+    the ridge term is added as torch adds it; and both meet the plain
+    version at the float32 tolerance."""
+    x, y, alpha, idx_i, idx_j = _indexed_data(6000, shape, cuda)
+    kw = dict(kernel_name=kernel, params=dict(params), loss="logistic",
+              f_scale=1.3)
+    before = dict(block.train_pass_indexed_cuda.launches_by_route)
+    f, g = block.train_pass_indexed_cuda(x, y, alpha, idx_i, idx_j, **kw)
+    wf, wg = block.train_pass_cuda(x[idx_i], x[idx_j], alpha[idx_j],
+                                   y[idx_i], **kw)
+    assert torch.equal(f, wf) and torch.equal(g, wg)
+    lam = 1e-3
+    f2, g2 = block.train_pass_indexed_cuda(x, y, alpha, idx_i, idx_j,
+                                           lam=lam, **kw)
+    assert torch.equal(f2, f) and torch.equal(g2, g + lam * alpha[idx_j])
+    torch.cuda.synchronize()
+    assert block.train_pass_indexed_cuda.launches_by_route == {
+        "sm90": before["sm90"] + 2, "fp32": before["fp32"]}
+    pf, pg = block.train_pass_indexed_plain(x, y, alpha, idx_i, idx_j,
+                                            lam=lam, **kw)
+    _close(f2, pf)
+    _close(g2, pg)
+
+
+def test_train_sm90_is_bit_stable_over_64_calls(cuda):
+    """Thirteen row blocks meet through the arrival counters: 64 calls in
+    a row give the same bits, so every launch leaves the counters at 0."""
+    x, y, alpha, idx_i, idx_j = _indexed_data(50000, (1024, 1024, 54), cuda,
+                                              seed=3)
+    first = block.train_pass_indexed_cuda(x, y, alpha, idx_i, idx_j,
+                                          lam=1e-4)
+    v = torch.randn(1024, device=cuda)
+    xi, xj, aj = x[idx_i], x[idx_j], alpha[idx_j]
+    dual = block.dual_pass_cuda(xi, xj, aj, v)
+    for _ in range(64):
+        again = block.train_pass_indexed_cuda(x, y, alpha, idx_i, idx_j,
+                                              lam=1e-4)
+        assert all(torch.equal(p, q) for p, q in zip(again, first))
+        again = block.dual_pass_cuda(xi, xj, aj, v)
+        assert all(torch.equal(p, q) for p, q in zip(again, dual))
+    counters = block._SM90_SCRATCH[(torch.cuda.current_device(),
+                                    torch.cuda.current_stream().cuda_stream)]
+    assert not counters["counters"].any()
+
+
+def test_train_routes_count_each_launch(cuda):
+    """Each wrapper counts one launch a call on the route its shape takes:
+    sm90 up to SM90_TRAIN_MAX_J, fp32 past it."""
+    for shape, route in [((1000, 1000, 54), "sm90"),
+                         ((1000, 5003, 54), "fp32")]:
+        x, z, a, v, y = _train_data(shape, cuda, seed=5)
+        assert block.select_train_route(*shape, "rbf") == route
+        idx_i = torch.arange(shape[0], device=cuda)
+        idx_j = torch.arange(shape[1], device=cuda) % shape[0]
+        calls = [(block.train_pass_cuda, lambda: block.train_pass_cuda(
+                     x, z, a, y)),
+                 (block.dual_pass_cuda, lambda: block.dual_pass_cuda(
+                     x, z, a, v)),
+                 (block.train_pass_indexed_cuda,
+                  lambda: block.train_pass_indexed_cuda(x, y, a[:shape[0]],
+                                                        idx_i, idx_j))]
+        for wrapper, call in calls:
+            before = dict(wrapper.launches_by_route)
+            n = wrapper.launches
+            call()
+            torch.cuda.synchronize()
+            before[route] += 1
+            assert wrapper.launches_by_route == before
+            assert wrapper.launches == n + 1
+
+
+def test_train_sm90_library_agrees_on_its_limits(cuda):
+    lib = block._train_sm90_lib()
+    lib.dsekl_train_sm90_rows.restype = ctypes.c_int
+    assert lib.dsekl_train_sm90_max_j() == block.SM90_TRAIN_MAX_J
+    assert lib.dsekl_train_sm90_rows() == block.SM90_TRAIN_ROWS
+    assert lib.dsekl_train_sm90_active_clusters(0, 1024) >= 1
+
+
+def test_train_pass_indexed_rejects_bad_indices(cuda):
+    x, y, alpha, idx_i, idx_j = _indexed_data(100, (16, 32, 4), cuda)
+    before = block.train_pass_indexed_cuda.launches
+    with pytest.raises(TypeError):
+        block.train_pass_indexed_cuda(x, y, alpha, idx_i.int(), idx_j)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        block.train_pass_indexed_cuda(x, y, alpha, idx_i.cpu(), idx_j)
+    with pytest.raises(ValueError, match="contiguous vector"):
+        block.train_pass_indexed_cuda(x, y, alpha, idx_i[None], idx_j)
+    with pytest.raises(ValueError):
+        block.train_pass_indexed_cuda(x, y[:5].contiguous(), alpha, idx_i,
+                                      idx_j)
+    assert block.train_pass_indexed_cuda.launches == before
+
+
+def test_train_pass_indexed_traps_on_an_index_out_of_range(cuda):
+    """An index outside [0, N) stops the kernel (a trap, as x[idx] fails on
+    the card) and never reads past x; the context is lost, so the call
+    runs in a process of its own."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    code = (
+        "import torch\n"
+        "from repro_torch.kernels.dsekl import block\n"
+        "x = torch.randn(100, 4, device='cuda')\n"
+        "y = torch.ones(100, device='cuda')\n"
+        "i = torch.arange(16, device='cuda')\n"
+        "j = torch.arange(32, device='cuda'); j[7] = 100\n"
+        "block.train_pass_indexed_cuda(x, y, y, i, j)\n"
+        "torch.cuda.synchronize()\n"
+        "print('NO TRAP')\n")
+    env = dict(os.environ, PYTHONPATH=src)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env)
+    assert out.returncode != 0 and "NO TRAP" not in out.stdout, out.stdout
 
 
 # ---------------------------------------------------------------------------

@@ -184,9 +184,11 @@ def _counting(plain):
 @pytest.mark.parametrize("loss", [None, "hinge", "square"], ids=str)
 def test_dual_pass_falls_back_above_the_stash_budget(monkeypatch, loss):
     """Over ``STASH_BUDGET`` the CUDA path runs matvec, the loss gradient
-    on f_scale * f, then vecmat (K twice), and never the stash kernels.
-    The CUDA wrappers are replaced by counting stand-ins that run the
-    plain versions, so the branch runs here on the CPU."""
+    on f_scale * f, then vecmat (K twice), and never the stash kernels:
+    a block on the fp32 train route, J wider than the sm90 route takes
+    (below it the sm90 kernel keeps K on chip and needs no stash).  The
+    CUDA wrappers are replaced by counting stand-ins that run the plain
+    versions, so the branch runs here on the CPU."""
     stand_ins = {n: _counting(getattr(tblock, p)) for n, p in [
         ("kernel_matvec_cuda", "kernel_matvec_plain"),
         ("kernel_vecmat_cuda", "kernel_vecmat_plain"),
@@ -194,7 +196,9 @@ def test_dual_pass_falls_back_above_the_stash_budget(monkeypatch, loss):
         ("train_pass_cuda", "train_pass_plain")]}
     for name, fn in stand_ins.items():
         monkeypatch.setattr(tblock, name, fn)
-    x, z, a, vy = _data(loss=loss, seed=5)
+    shape = (37, tblock.SM90_TRAIN_MAX_J + 61, 5)
+    assert tblock.select_train_route(*shape, "rbf") == "fp32"
+    x, z, a, vy = _data(shape=shape, loss=loss, seed=5)
     kw = dict(kernel_name="rbf", kernel_params=(("gamma", 1.0),), loss=loss,
               f_scale=1.5)
     want = jops.kernel_dual_pass(*_j(x, z, a, vy), impl="ref", **kw)
