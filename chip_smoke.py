@@ -5,11 +5,13 @@
 
 Drives the port's main paths on the card — serving a DSEKL model
 through ``repro_torch.launch.serve.serve_dsekl``, training one through
-``repro_torch.launch.train.train_dsekl`` then serving it, and serving the
-jamba-v0.1-52b language model at full width through
-``repro_torch.launch.serve.serve_lm`` — with every kernel built from this
-checkout's sources and held against its plain PyTorch version.  Phases
-(any failure exits non-zero and prints no result):
+``repro_torch.launch.train.train_dsekl`` then serving it, training with
+Algorithm 2 at the paper's parallel covertype protocol in memory and out
+of core from a memmap, and serving the jamba-v0.1-52b language model at
+full width through ``repro_torch.launch.serve.serve_lm`` — with every
+kernel built from this checkout's sources and held against its plain
+PyTorch version.  Phases (any failure exits non-zero and prints no
+result):
 
   1. device  — name, compute capability, ``nvidia-smi`` name and power
                limit; requires sm_90.
@@ -72,7 +74,27 @@ checkout's sources and held against its plain PyTorch version.  Phases
   9. profile — torch.profiler over 32 steps of the training path: device
                time by kernel, device kernels launched a step and the
                device's busy share.
- 10. times   — each DSEKL kernel at its main path's shape (and the RBF
+ 10. train-parallel — Algorithm 2 at the Fig. 3a protocol through
+               ``train_dsekl`` (559,890 x 54 rows in memory, |I| = |J| =
+               1024, 4 workers, RBF, hinge, adagrad, 1 epoch = 546 steps):
+               one train-pass launch a step over the 4,096-column J union,
+               all on the fp32 route, no matvec / vecmat fallback; the
+               eval's one matvec; the val error beats the all-zero model;
+               ms a step; then torch.profiler over 32 of its steps.
+ 11. train-hosted — the same out of core: ``--data mmap`` writes the
+               561,938 x 54 float32 dataset (116 MiB), 2 epochs through
+               the prefetcher, then 1 with ``--no-prefetch``: train-pass
+               launches equal the steps, all fp32; the streamed eval's
+               matvec launches equal its 4,096-row chunks (137), all sm90;
+               the peak device memory over the fit stays below half the
+               dataset; ms a step, gather_s, wait_s and the hidden share
+               1 - wait_s / gather_s; the val error beats the all-zero
+               model.
+ 12. hosted-vs-memory — one 65,536-row memmap on the same plans, hosted
+               and on the device: Algorithm 2 bit-identical, Algorithm 1
+               within the float32 tolerance; prefetched blocks behind a
+               spin on the consumer's stream equal SyncGather's.
+ 13. times   — each DSEKL kernel at its main path's shape (and the RBF
                delegation of row 5): its device time per call
                (``device_ms``: CUDA events around 25 calls enqueued
                behind a spin kernel, two readings), its bound (the matvec
@@ -86,9 +108,12 @@ checkout's sources and held against its plain PyTorch version.  Phases
                on the sm90 train route (row 4 as the step calls it: rows
                by index, lam), the contiguous sm90 train pass, and both on
                the fp32 route at the same shape, each on a line of its
-               own.  Every route of every kernel is a row of the
-               kernels line (``kernel_route``).
- 11. serve-jamba — the LM main path: jamba-v0.1-52b at full width cut to
+               own; row 4's fp32 route at the Alg.-2 step's shape (I =
+               1024, J = 4,096) as a row of its own, with its launches on
+               the Alg.-2 paths (``launches_by_path``).  Every route of
+               every kernel is a row of the kernels line
+               (``kernel_route``).
+ 14. serve-jamba — the LM main path: jamba-v0.1-52b at full width cut to
                one period of 8 layers (7 mamba + 1 attention, 4 MoE FFNs),
                bf16, random weights from a seed, 4 random prompts of 2,048
                tokens, 32 greedy tokens each (cache 2,080); the flash and
@@ -104,7 +129,7 @@ checkout's sources and held against its plain PyTorch version.  Phases
                printed; then torch.profiler over one prefill and 8
                decode steps: device time by kernel (the SSD scan and the
                MoE dispatch's scan among them).
- 12. lm-times — flash attention and the SSD scan (both on the sm90 route)
+ 15. lm-times — flash attention and the SSD scan (both on the sm90 route)
                at their served shapes: device time, one call by events, the
                plain version's device time, the bound (products at the bf16
                tensor-core peak, the rest at fp32), and for flash SDPA's
@@ -172,6 +197,19 @@ TRAIN_ARGS = ["--dsekl", "--data", "memory", "--n", "561938", "--dim", "54",
 TRAIN_N = 561938 - 2048                      # rows left after the hold-out
 TRAIN_STEPS = 2 * (TRAIN_N // 1024)          # 1,092
 TWO_PASS_N = 65536                           # one epoch of 64 steps
+# Algorithm 2 at the paper's parallel covertype protocol (Fig. 3a,
+# benchmarks/covertype_scale.py: |I| = |J| = 1024, 4 workers, RBF): in
+# memory for one epoch, then out of core from a memmap.
+PARALLEL_ARGS = ["--dsekl", "--data", "memory", "--algorithm", "parallel",
+                 "--workers", "4", "--n", "561938", "--dim", "54",
+                 "--n-grad", "1024", "--n-expand", "1024", "--kernel", "rbf",
+                 "--gamma", "1.0", "--epochs", "1", "--seed", "0"]
+HOSTED_ARGS = [a if a != "memory" else "mmap" for a in PARALLEL_ARGS]
+PARALLEL_STEPS = TRAIN_N // 1024             # 546 an epoch
+PARALLEL_J = 4 * 1024                        # the step's J union
+EVAL_CHUNK = 4096                            # decision_function_source's
+HOSTED_VS_MEMORY_N = 65536
+MMAP_DIR = os.path.join(ROOT, "build", "chip_smoke_mmap")
 TRAJ_RTOL, TRAJ_ATOL = 1e-3, 1e-4
 LOSSES = ("hinge", "squared_hinge", "square", "logistic")
 # fp32 outside the tensor cores, dense TF32 and bf16 on the tensor cores
@@ -796,23 +834,35 @@ def _step_inputs(out):
             "aj": alpha[idx_j].contiguous(), "yi": y[idx_i].contiguous()}
 
 
-def phase_profile(out):
-    """torch.profiler over 32 training steps: device time by kernel."""
+def phase_profile(out, parallel: bool = False):
+    """torch.profiler over 32 training steps (Algorithm 1's, or with
+    ``parallel`` Algorithm 2's at 4 workers): device time by kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import dsekl, sampler
     cfg, x, y = out["cfg"], out["x"], out["y"]
     gen = torch.Generator(device=DEVICE).manual_seed(4)
-    idx_i, idx_j = sampler.epoch_plan(gen, x.shape[0], 1024, 1024, 32)
+    if parallel:
+        idx_i, idx_jk = sampler.parallel_epoch_plan(gen, x.shape[0], 1024,
+                                                    1024, cfg.n_workers)
+
+        def step(st, t):
+            return dsekl._parallel_inner(cfg, st, x, y, idx_i[t], idx_jk[t])
+    else:
+        idx_i, idx_j = sampler.epoch_plan(gen, x.shape[0], 1024, 1024, 36)
+
+        def step(st, t):
+            return dsekl.step_serial(cfg, st, x, y, idx_i[t], idx_j[t])
+    tag = "[profile-parallel]" if parallel else "[profile]"
     st = out["result"].state
     for t in range(4):                                   # warm-up
-        st = dsekl.step_serial(cfg, st, x, y, idx_i[t], idx_j[t])
+        st = step(st, t)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for t in range(32):
-            st = dsekl.step_serial(cfg, st, x, y, idx_i[t], idx_j[t])
+        for t in range(4, 36):
+            st = step(st, t)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = _device_rows(prof)
@@ -820,15 +870,288 @@ def phase_profile(out):
     check(total > 0, "torch.profiler recorded no device time")
     ours = sum(r[0] for r in rows if "(anonymous namespace)" in r[1])
     per_step = sum(r[2] for r in rows) / 32
-    print(f"[profile] 32 steps: wall {wall * 1e3:.3f} ms (profiler on), "
+    print(f"{tag} 32 steps: wall {wall * 1e3:.3f} ms (profiler on), "
           f"device busy {total / 1e3:.3f} ms = "
           f"{total / 1e3 / (wall * 1e3):.1%} of the wall; the train pass's "
           f"kernels {ours / 32:.1f} us a step of {total / 32:.1f}; "
           f"{per_step:.2f} device kernels (and copies, fills) a step")
     for dev_us, key, count in rows[:16]:
-        print(f"[profile]   {dev_us / 1e3:9.3f} ms {count:5d}x {key[:90]}")
+        print(f"{tag}   {dev_us / 1e3:9.3f} ms {count:5d}x {key[:90]}")
     return {"busy_ms": total / 1e3 / 32, "kernels": per_step,
             "busy_share": total / 1e3 / (wall * 1e3)}
+
+
+def _reset_dsekl_counters() -> None:
+    """Every DSEKL wrapper's launch counts to 0 (a main path starts)."""
+    from repro_torch.kernels.dsekl import block
+    for f in (block.train_pass_indexed_cuda, block.train_pass_cuda,
+              block.dual_pass_cuda):
+        f.launches = 0
+        f.launches_by_route = dict.fromkeys(block.TRAIN_ROUTES, 0)
+    for f in (block.kernel_matvec_cuda, block.kernel_vecmat_cuda):
+        f.launches = 0
+        f.launches_by_route = dict.fromkeys(block.MATVEC_ROUTES, 0)
+
+
+def _dsekl_counts() -> dict:
+    """Each DSEKL wrapper's launches by route, as the counters read now."""
+    from repro_torch.kernels.dsekl import block
+    return {f.__name__: dict(f.launches_by_route) for f in (
+        block.train_pass_indexed_cuda, block.train_pass_cuda,
+        block.dual_pass_cuda, block.kernel_matvec_cuda,
+        block.kernel_vecmat_cuda)}
+
+
+def _check_fp32_steps(counts: dict, steps: int, wrapper: str,
+                      matvecs: int, what: str) -> None:
+    """Every step one train-pass launch of ``wrapper`` on the fp32 route,
+    no other train-pass, dual-pass or vecmat launch, and ``matvecs``
+    matvec launches (the evals), all on the sm90 route."""
+    train = {"sm90": 0, "fp32": steps}
+    none_t = {"sm90": 0, "fp32": 0}
+    want = {"train_pass_indexed_cuda": none_t, "train_pass_cuda": none_t,
+            "dual_pass_cuda": none_t,
+            "kernel_matvec_cuda": {"sm90": matvecs, "fp32": 0},
+            "kernel_vecmat_cuda": {"sm90": 0, "fp32": 0}}
+    want[wrapper] = train
+    check(counts == want, f"{what}: launches by wrapper and route {counts}, "
+          f"expected {want}")
+
+
+def _zero_model_error(y_val) -> float:
+    import torch
+    return float(torch.mean((y_val != 1.0).to(torch.float32)))
+
+
+def phase_train_parallel():
+    """Algorithm 2 at the Fig. 3a protocol, in memory: one epoch of 546
+    steps, each one train pass over the 4,096-column J union (the fp32
+    route), then the validation eval (one matvec)."""
+    import torch
+    from repro_torch.launch import train
+    args = train.parser().parse_args(PARALLEL_ARGS + ["--device", DEVICE])
+    _reset_dsekl_counters()                    # the parallel path starts
+    out = train.train_dsekl(args)
+    counts = _dsekl_counts()                   # ... and ends here
+    res, cfg = out["result"], out["cfg"]
+    check(tuple(out["x"].shape) == (TRAIN_N, 54) and cfg.n_workers == 4,
+          f"training rows {tuple(out['x'].shape)}, workers {cfg.n_workers}")
+    steps = int(res.state.step)
+    print(f"[train-parallel] {steps} steps, J union {PARALLEL_J}: launches "
+          f"{counts}")
+    check(steps == PARALLEL_STEPS, f"{steps} steps, expected "
+          f"{PARALLEL_STEPS}")
+    _check_fp32_steps(counts, steps, "train_pass_indexed_cuda", 1,
+                      "train-parallel")
+    alpha = res.state.alpha
+    check(bool(torch.isfinite(alpha).all()), "non-finite alpha")
+    err, zero = res.history[-1]["val_error"], _zero_model_error(out["y_val"])
+    ms = res.history[-1]["seconds"] / steps * 1e3
+    print(f"[train-parallel] val error {err:.6f}, all-zero model "
+          f"{zero:.6f}; {ms:.4f} ms/step over the epoch "
+          f"({steps / res.history[-1]['seconds']:.1f} steps/s, wall, eval "
+          f"excluded), n_sv {int((alpha.abs() > 1e-8).sum())}")
+    check(err < zero, f"val error {err} does not beat the all-zero model's "
+          f"{zero}")
+    return {"out": out, "launches": steps, "ms_per_step": ms,
+            "eval_launches": 1}
+
+
+def phase_train_hosted():
+    """The same protocol out of core: a 561,938 x 54 float32 memmap, 2
+    epochs through the prefetcher, then one with the gather inline.  The
+    dataset must never become device-resident."""
+    import shutil
+    import torch
+    from repro_torch.launch import train
+    chunks = -(-TRAIN_N // EVAL_CHUNK)
+    runs = {}
+    for mode, extra in (("prefetch", ["--epochs", "2"]),
+                        ("sync", ["--epochs", "1", "--no-prefetch"])):
+        args = train.parser().parse_args(
+            HOSTED_ARGS + extra + ["--device", DEVICE, "--mmap-dir",
+                                   MMAP_DIR])
+        _reset_dsekl_counters()                # the hosted path starts
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = train.train_dsekl(args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = _dsekl_counts()               # ... and ends here
+        res, src = out["result"], out["dataset"]
+        x_bytes, y_bytes = (os.path.getsize(os.path.join(MMAP_DIR, f))
+                            for f in (f"x_{src.n}x{src.d}.f32",
+                                      f"y_{src.n}.f32"))
+        on_disk = x_bytes + y_bytes
+        steps = int(res.state.step)
+        epochs = res.epochs_run
+        check(out["source"].n == TRAIN_N and steps == epochs *
+              PARALLEL_STEPS, f"{out['source'].n} rows, {steps} steps")
+        print(f"[train-hosted] {mode}: {epochs} epoch(s), {steps} steps; "
+              f"dataset {src.n} x {src.d} float32 on disk: x "
+              f"{x_bytes / 2**20:.1f} MiB + y {y_bytes / 2**20:.1f} MiB; "
+              f"launches {counts}")
+        _check_fp32_steps(counts, steps, "train_pass_cuda", epochs * chunks,
+                          f"train-hosted {mode}")
+        check(bool(torch.isfinite(res.state.alpha).all()), "non-finite alpha")
+        err = res.history[-1]["val_error"]
+        zero = _zero_model_error(out["y_val"])
+        ld = res.loader
+        hidden = 1.0 - ld["wait_s"] / ld["gather_s"]
+        ms = res.history[-1]["seconds"] / PARALLEL_STEPS * 1e3
+        print(f"[train-hosted] {mode}: {ms:.4f} ms/step over epoch {epochs} "
+              f"(wall, eval excluded); gather_s {ld['gather_s']:.4f}, "
+              f"wait_s {ld['wait_s']:.4f}, hidden {hidden:.1%} (over "
+              f"{ld['steps']} steps); val errors "
+              f"{[round(h['val_error'], 6) for h in res.history]}, all-zero "
+              f"model {zero:.6f}; eval {chunks} matvec launches of "
+              f"{out['x_val'].shape[0]} x {EVAL_CHUNK} x 54 each")
+        print(f"[train-hosted] {mode}: device memory peak over the fit "
+              f"{peak / 2**20:.2f} MiB above its start, against the "
+              f"dataset's {on_disk / 2**20:.1f} MiB")
+        check(peak < on_disk / 2, f"peak device memory {peak} B is not "
+              f"below half the dataset's {on_disk} B: the dataset went to "
+              "the device")
+        check(err < zero, f"{mode}: val error {err} does not beat the "
+              f"all-zero model's {zero}")
+        runs[mode] = {"steps": steps, "ms_per_step": ms, "gather_s":
+                      ld["gather_s"], "wait_s": ld["wait_s"],
+                      "hidden": hidden, "peak_mib": peak / 2**20,
+                      "eval_launches": epochs * chunks}
+    shutil.rmtree(MMAP_DIR, ignore_errors=True)
+    return runs
+
+
+def phase_hosted_vs_memory():
+    """One memmap at N = 65,536 on the same plans, as a hosted fit and on
+    the device: Algorithm 2 bit for bit (its steps scatter no duplicate
+    index), Algorithm 1 within the float32 tolerance (duplicate J indices
+    scattered by atomics, lam added in-kernel on one side); then the
+    copy stream: prefetched blocks behind a spin on the consumer's stream
+    equal SyncGather's."""
+    import shutil
+    import torch
+    from repro_torch.core import DSEKLConfig, fit, sampler
+    from repro_torch.data import (BlockPrefetcher, SyncGather,
+                                  make_memmap_dataset)
+    n = HOSTED_VS_MEMORY_N
+    d_dir = MMAP_DIR + "_small"
+    src = make_memmap_dataset(d_dir, n, 54, seed=1)
+    xs, ys = src.gather(slice(0, n))
+    x = torch.from_numpy(xs).to(DEVICE)
+    y = torch.from_numpy(ys).to(DEVICE)
+    cfg = DSEKLConfig(n_grad=1024, n_expand=1024, n_workers=4, kernel="rbf",
+                      kernel_params=(("gamma", 1.0),), lam=1e-4,
+                      schedule="adagrad")
+    gen = torch.Generator().manual_seed(6)
+    cases = {
+        "parallel": (cfg.replace(loss="hinge"), [
+            sampler.parallel_epoch_plan(gen, n, 1024, 1024, 4)
+            for _ in range(2)]),
+        "serial": (cfg.replace(loss="square", n_workers=1), [
+            sampler.epoch_plan(gen, n, 1024, 1024, n // 1024)
+            for _ in range(2)]),
+    }
+    for algorithm, (c, plans) in cases.items():
+        kw = dict(plans=plans, algorithm=algorithm, n_epochs=2, tol=0.0,
+                  device=DEVICE)
+        mem = fit(c, x, y, **kw).state
+        host = fit(c, src, None, **kw).state
+        torch.cuda.synchronize()
+        if algorithm == "parallel":
+            same = (torch.equal(mem.alpha, host.alpha)
+                    and torch.equal(mem.accum, host.accum))
+            diff = float((mem.alpha - host.alpha).abs().max())
+            print(f"[hosted-vs-memory] Algorithm 2 (hinge, 2 x {n // 1024} "
+                  f"steps): "
+                  f"alpha and accum bit-identical {same} (max abs diff "
+                  f"{diff:.3e}, max|alpha| "
+                  f"{float(mem.alpha.abs().max()):.3e})")
+            check(same, "hosted Algorithm 2 is not bit-identical to the "
+                  "in-memory fit")
+        else:
+            e_a = compare(host.alpha, mem.alpha)
+            e_g = compare(host.accum, mem.accum)
+            print(f"[hosted-vs-memory] Algorithm 1 (square, 2 x {n // 1024} "
+                  f"steps): "
+                  f"alpha max abs err {e_a:.3e} (max|alpha| "
+                  f"{float(mem.alpha.abs().max()):.3e}), accum {e_g:.3e}; "
+                  f"rtol {RTOL}, atol {ATOL} x max(1, |.|_inf)")
+    # The copy stream: 64 steps of the Alg.-2 plan; each consumer step
+    # queues a spin, then copies its blocks out; compared with SyncGather.
+    plan_i, plan_jk = (p.numpy() for p in cases["parallel"][1][0])
+    flat = plan_jk.reshape(plan_i.shape[0], -1)
+    steps = plan_i.shape[0]
+    got = []
+    with BlockPrefetcher(src, plan_i, flat, device=DEVICE) as loader:
+        for _ in range(steps):
+            _spin(2.0)
+            got.append(tuple(b.clone() for b in loader.get()))
+        torch.cuda.synchronize()
+    sync = SyncGather(src, plan_i, flat, device=DEVICE)
+    equal = all(all(torch.equal(a, b) for a, b in zip(g, sync.get()))
+                for g in got)
+    print(f"[hosted-vs-memory] copy stream: {steps} prefetched steps behind "
+          f"a 2 ms spin each equal SyncGather's: {equal}")
+    check(equal, "prefetched blocks differ from SyncGather's")
+    shutil.rmtree(d_dir, ignore_errors=True)
+
+
+def phase_parallel_times(out, device_name: str, launches: int):
+    """Row 4's fp32 route at the Alg.-2 step's shape (I = 1024, J union =
+    4,096, D = 54, RBF, hinge) on rows gathered beforehand, against its
+    plain version, with the fp32 cross-term GEMM as yardstick; and one
+    step's call as the step makes it (the indexed wrapper, which gathers
+    and adds lam)."""
+    import torch
+    from repro_torch.core.losses import LOSS_CODES
+    from repro_torch.kernels.dsekl import block
+    x, y, alpha = out["x"], out["y"], out["result"].state.alpha
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    idx_i = torch.randperm(x.shape[0], generator=gen, device=DEVICE)[:1024]
+    idx_j = torch.randperm(x.shape[0], generator=gen,
+                           device=DEVICE)[:PARALLEL_J]
+    xi, yi = x[idx_i].contiguous(), y[idx_i].contiguous()
+    xj, aj = x[idx_j].contiguous(), alpha[idx_j].contiguous()
+    n_i, d = xi.shape
+    n_j = xj.shape[0]
+    check(block.select_train_route(n_i, n_j, d, "rbf") == "fp32"
+          and block.fits_stash(n_i, n_j),
+          "the Alg.-2 step's shape is not on the fp32 route within budget")
+    kind, p = block.KINDS["rbf"], block.tile_params("rbf", None)
+
+    def kernel():
+        return block._launch_train_fp32("fp32 route", xi, xj, aj, yi,
+                                        LOSS_CODES["hinge"], kind, p, 1.0)
+
+    def plain():
+        return block.train_pass_plain(xi, xj, aj, yi, loss="hinge")
+
+    got, want = kernel(), plain()
+    err = max(compare(got[0], want[0]), compare(got[1], want[1]))
+    t = _timed(kernel, plain)
+    t_gemm = device_ms(lambda: torch.matmul(xi, xj.T))
+    cross, norms, epi = 2 * n_i * n_j * d, 2 * d * (n_i + n_j), 8 * n_i * n_j
+    n_ops = cross + norms + epi + 2 * n_i * n_j + 4 * n_i
+    n_bytes = 4 * (n_i * d + n_j * d + n_j + n_i + n_i + n_j)
+    row = _row("train_pass_fp32_j4096",
+               "src/repro_torch/kernels/dsekl/csrc/dsekl_train.cu",
+               "src/repro/kernels/dsekl/block.py:432", t, n_ops, n_bytes,
+               device_name, err, t_gemm)
+    row["kernel_route"] = "fp32"
+    _print_row(row, t, f"I={n_i} J={n_j} D={d}", n_ops, n_bytes,
+               "torch.matmul(xi, xj.T); fp32 route,")
+    lam = out["cfg"].lam
+    step_call = [device_ms(lambda: block.train_pass_indexed_cuda(
+        x, y, alpha, idx_i, idx_j, loss="hinge", lam=lam))
+        for _ in range(2)]
+    print(f"[times] train_pass_fp32_j4096: {row['bound_ms'] / row['ms']:.1%}"
+          f" of its bound; {launches} launches on the Alg.-2 paths; the "
+          f"step's call (train_pass_indexed_cuda: the gathers, the kernel, "
+          f"+ lam * a_J) device {statistics.mean(step_call):.4f} ms "
+          f"({step_call[0]:.4f}, {step_call[1]:.4f})")
+    return row
 
 
 def _row(name, source, replaces, t, ops_count, bytes_count, device_name,
@@ -1777,9 +2100,26 @@ def main() -> int:
     vecmat_launches = phase_train_two_pass(trained["out"]["cfg"])
     step_profile = phase_profile(trained["out"])
     elapsed("serve, train, train-cuda-vs-ref, train-two-pass, profile")
+    parallel = phase_train_parallel()
+    phase_profile(parallel["out"], parallel=True)
+    hosted = phase_train_hosted()
+    phase_hosted_vs_memory()
+    elapsed("train-parallel, profile-parallel, train-hosted, "
+            "hosted-vs-memory")
+    # The fp32 train route's launches on the Alg.-2 paths, by path.
+    fp32_paths = {"train-parallel": parallel["launches"],
+                  "train-hosted prefetch": hosted["prefetch"]["steps"],
+                  "train-hosted sync": hosted["sync"]["steps"]}
+    matvec_paths = {"serve": launches,
+                    "train-parallel eval": parallel["eval_launches"],
+                    "train-hosted prefetch eval":
+                        hosted["prefetch"]["eval_launches"],
+                    "train-hosted sync eval": hosted["sync"]["eval_launches"]}
     rows = phase_times(res, name) + [phase_rbf_times(res, name)]
     rows += phase_train_times(trained["out"], name)
-    del res, trained["out"]
+    rows.append(phase_parallel_times(parallel["out"], name,
+                                     sum(fp32_paths.values())))
+    del res, trained["out"], parallel["out"]
     elapsed("times")
     jamba = phase_serve_jamba()
     del jamba["res"]
@@ -1787,13 +2127,18 @@ def main() -> int:
     rows += phase_lm_times(name)
     elapsed("lm-times")
     # Launches on the main paths; every fp32 route has none there.
-    launches = {"kernel_matvec": launches, "rbf_matvec": 0,
+    by_path = {"kernel_matvec": matvec_paths,
+               "train_pass_fp32_j4096": fp32_paths}
+    launches = {"kernel_matvec": sum(matvec_paths.values()), "rbf_matvec": 0,
                 "kernel_vecmat": vecmat_launches,
                 "dual_pass": trained["dual_launches"],
                 "train_pass": trained["launches"],
+                "train_pass_fp32_j4096": sum(fp32_paths.values()),
                 "flash_attention": jamba["flash"], "ssd": jamba["ssd"]}
     for row in rows:
         row["launches"] = launches.get(row["name"], 0)
+        if row["name"] in by_path:
+            row["launches_by_path"] = by_path[row["name"]]
         check(row["name"] in launches or row["kernel_route"] == "fp32",
               f"no main-path launch count for {row['name']}")
     train = next(r for r in rows if r["name"] == "train_pass")
@@ -1806,6 +2151,13 @@ def main() -> int:
           f"{step_profile['busy_ms']:.4f} ms/step (profiler; "
           f"{step_profile['busy_share']:.1%} of the profiled wall), "
           f"{step_profile['kernels']:.2f} device kernels a step")
+    fp32 = next(r for r in rows if r["name"] == "train_pass_fp32_j4096")
+    print(f"[train-parallel] {parallel['ms_per_step']:.4f} ms/step in "
+          f"memory; out of core {hosted['prefetch']['ms_per_step']:.4f} "
+          f"ms/step prefetched (hidden {hosted['prefetch']['hidden']:.1%}), "
+          f"{hosted['sync']['ms_per_step']:.4f} inline; the fp32 train "
+          f"route's kernel {fp32['ms']:.4f} ms of device time = "
+          f"{fp32['ms'] / parallel['ms_per_step']:.1%} of the in-memory step")
     print(f"[device_ms] {READINGS['kept']} readings kept, "
           f"{READINGS['retaken']} taken again behind a longer spin, "
           f"{READINGS['host_paced']} paced by the host")

@@ -1,11 +1,11 @@
-"""DSEKL model configuration, state, Algorithm 1's step and prediction
-(port of ``repro/core/dsekl.py``; Algorithm 2, the mesh hooks and
-EigenPro are not ported yet).
+"""DSEKL model configuration, state, the steps of Algorithms 1 and 2 and
+prediction (port of ``repro/core/dsekl.py``; the mesh hooks and EigenPro
+are not ported yet).
 
 ``DSEKLConfig`` carries every field of the JAX config, so a JAX config maps
 onto it 1:1 (``repro_torch.convert.config_from_jax``); fields of paths not
-ported yet (``n_workers``, ``compress_bits``, ``precondition_*``,
-``bcd_*``) are kept for that mapping.
+ported yet (``compress_bits``, ``precondition_*``, ``bcd_*``) are kept for
+that mapping.
 
 Algorithm 1 (serial): every step takes two index sets, I (gradient points)
 and J (kernel-map expansion points), computes the dual gradient on the
@@ -13,6 +13,12 @@ sampled K_{I,J} block (``grad_block``: the fused train pass, the two-pass
 matvec + vecmat, or the streamed ref pass) and scatters it into alpha_J
 (``apply_update``).  The state updates are out of place, as in JAX, so a
 caller holding the previous alpha keeps it.
+
+Algorithm 2 (parallel): each step takes one gradient batch I and K
+disjoint expansion batches J^1..J^K (``sampler.parallel_epoch_plan``); the
+workers jointly evaluate f_I = sum_k K_{I,J^k} a_{J^k}, so with
+``fuse_dual_pass`` the step is one train pass over the J union
+(``grad_block_parallel``), scattered by ``apply_update_parallel``.
 
 Prediction is the empirical kernel map over any expansion set:
 ``f(x) = K(x, X_train) @ alpha``.
@@ -238,6 +244,90 @@ def step_serial(cfg: DSEKLConfig, state: DSEKLState, x: Tensor, y: Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Algorithm 2 — parallel shared-memory variant.
+# ---------------------------------------------------------------------------
+
+def _grad_block_parallel_with_f(cfg: DSEKLConfig, xi: Tensor, yi: Tensor,
+                                xjk: Tensor, ajk: Tensor, n: int
+                                ) -> Tuple[Tensor, Tensor]:
+    """``grad_block_parallel``'s body, also returning f_I."""
+    if cfg.fuse_dual_pass:
+        # sum_k K_{I,J^k} a_{J^k} == K_{I,J_union} @ a_union: the worker
+        # axis flattens into ONE train pass over the J union, each K tile
+        # evaluated once for f and g.
+        return _fused_f_and_grad(cfg, xi, yi, xjk.reshape(-1, xjk.shape[-1]),
+                                 ajk.reshape(-1), n)
+    # The two-pass form: each worker's matvec, f summed over the workers
+    # (the "in parallel on worker k" of Alg. 2), then each worker's vecmat.
+    f = torch.stack([_block_f(cfg, xi, xj, aj, n)
+                     for xj, aj in zip(xjk, ajk)]).sum(0)
+    if cfg.unbiased_scaling:            # _block_f scaled by n/j; want n/(K*j)
+        f = f / xjk.shape[0]
+    v = losses_lib.get_loss(cfg.loss).grad_f(f, yi)
+    g = torch.cat([_block_grad(cfg, xi, xj, aj, v)
+                   for xj, aj in zip(xjk, ajk)])
+    return f, g
+
+
+def grad_block_parallel(cfg: DSEKLConfig, xi: Tensor, yi: Tensor,
+                        xjk: Tensor, ajk: Tensor, n: int = 0) -> Tensor:
+    """Alg.-2 dual gradient for one gathered I-batch against K gathered
+    worker expansion blocks: xi (n_grad, D), yi (n_grad,), xjk (K, j, D),
+    ajk (K, j).  Returns the flat (K*j,) gradient (incl. lam*alpha_J) in
+    worker order.  ``n`` is read only under ``cfg.unbiased_scaling``."""
+    _, g = _grad_block_parallel_with_f(cfg, xi, yi, xjk, ajk, n)
+    return g
+
+
+def apply_update_parallel(cfg: DSEKLConfig, state: DSEKLState,
+                          flat_j: Tensor, flat_g: Tensor) -> DSEKLState:
+    """Alg.-2 state update for one flat (K*j,) block gradient, out of
+    place: Alg. 2 lines 11 and 14 are Alg. 1's scatter over the J union,
+    and the accumulator G_jj is touched only under ``schedule="adagrad"``.
+    A step's worker batches are disjoint, so ``index_add`` meets no
+    duplicate index (on the card its sums take a fixed order)."""
+    return apply_update(cfg, state, flat_j, flat_g)
+
+
+def _parallel_inner(cfg: DSEKLConfig, state: DSEKLState, x: Tensor,
+                    y: Tensor, idx_i: Tensor, idx_jk: Tensor) -> DSEKLState:
+    """One Alg.-2 step: the gradient batch ``idx_i`` (n_grad,) against the
+    K worker batches ``idx_jk`` (K, j), x (N, D) and y (N,) on the state's
+    device.
+
+    On the CUDA backend the fused step hands ``idx_i`` and the flat J
+    union to ``ops.kernel_train_pass_indexed``: one train-pass launch (the
+    fp32 route gathers the rows before it for a union over 1,024, and
+    above ``block.STASH_BUDGET`` it falls back to matvec then vecmat).
+    Every other path gathers the blocks and runs ``grad_block_parallel``."""
+    n = x.shape[0]
+    flat_j = idx_jk.reshape(-1)
+    if (cfg.fuse_dual_pass
+            and kops.resolve_impl(cfg.impl, cfg.kernel, x.device) == "cuda"):
+        _, g = kops.kernel_train_pass_indexed(
+            x, y, state.alpha, idx_i, flat_j, kernel_name=cfg.kernel,
+            kernel_params=cfg.kernel_params, loss=cfg.loss,
+            f_scale=(n / flat_j.shape[0]) if cfg.unbiased_scaling else 1.0,
+            lam=cfg.lam, impl="cuda")
+        return apply_update_parallel(cfg, state, flat_j, g)
+    g = grad_block_parallel(cfg, x[idx_i], y[idx_i], x[idx_jk],
+                            state.alpha[idx_jk], scale_n(cfg, n))
+    return apply_update_parallel(cfg, state, flat_j, g)
+
+
+def epoch_parallel(cfg: DSEKLConfig, state: DSEKLState, x: Tensor,
+                   y: Tensor, i_batches: Tensor, idx_jk: Tensor
+                   ) -> DSEKLState:
+    """One Alg.-2 epoch on the plan ``(i_batches (Bi, n_grad), idx_jk (Bi,
+    K, n_expand))`` (``sampler.parallel_epoch_plan``), int64 indices on
+    the state's device: one ``_parallel_inner`` per gradient batch."""
+    state = state._replace(epoch=state.epoch + 1)
+    for b in range(i_batches.shape[0]):
+        state = _parallel_inner(cfg, state, x, y, i_batches[b], idx_jk[b])
+    return state
+
+
+# ---------------------------------------------------------------------------
 # Prediction — empirical kernel map over any expansion set.
 # ---------------------------------------------------------------------------
 
@@ -278,6 +368,32 @@ def decision_function_ref(cfg: DSEKLConfig, alpha: Tensor, x_train: Tensor,
     for start in range(0, n, chunk):
         xs = x_train[start:start + chunk]
         al = alpha[start:start + chunk]
+        if xs.shape[0] < chunk and n > chunk:
+            xs, al = _pad_chunk(xs, al, chunk)
+        out = out + kops.kernel_matvec(
+            x_test, xs, al, kernel_name=cfg.kernel,
+            kernel_params=cfg.kernel_params, impl=cfg.impl)
+    return out
+
+
+def decision_function_source(cfg: DSEKLConfig, alpha: Tensor, source,
+                             x_test: Tensor, chunk: int = 4096) -> Tensor:
+    """f(x_test) with the train set streamed from a host-resident
+    ``DataSource``, on ``x_test``'s device: each ``chunk``-row slice is
+    copied out of the source (numpy / np.memmap) and consumed by one
+    matvec, so the train set never becomes device-resident (peak device
+    memory O(|test| * chunk) plus one chunk of rows).  A ragged final
+    chunk is zero-padded to the full chunk shape, zero alpha on the
+    padding, when there is more than one chunk."""
+    n = source.n
+    dev = x_test.device
+    out = torch.zeros((x_test.shape[0],), dtype=torch.float32, device=dev)
+    alpha = alpha.to(device=dev, dtype=torch.float32)
+    for start in range(0, n, chunk):
+        stop = min(start + chunk, n)
+        # gather_x copies a slice out of the mapping: the tensor owns it.
+        xs = torch.from_numpy(source.gather_x(slice(start, stop))).to(dev)
+        al = alpha[start:stop]
         if xs.shape[0] < chunk and n > chunk:
             xs, al = _pad_chunk(xs, al, chunk)
         out = out + kops.kernel_matvec(

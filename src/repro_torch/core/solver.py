@@ -1,12 +1,19 @@
-"""Training front door for DSEKL: ``fit`` (port of
-``repro/core/solver.py``; in-memory serial fits).
+"""Training front door for DSEKL: ``fit`` and ``train_epoch_hosted`` (port
+of ``repro/core/solver.py``; the serial, parallel and hosted executions).
 
 The paper's stopping rule (§4.2): stop when the L2 norm of the dual
 coefficients' change over one epoch is below ``tol``.  ``fit`` resolves
-the execution backend (``trainer.resolve_execution``), builds the plan
-(``trainer.SerialPlan``: Algorithm 1 on device-resident tensors) and drives
-``trainer.fit_loop``: epoch -> truncate -> eval -> snapshot, with
-checkpoint/resume through ``checkpoint.CheckpointManager``.
+the data placement and the requested execution to a backend
+(``trainer.resolve_execution``):
+
+  * ``SerialPlan`` / ``ParallelPlan`` — Algorithm 1 / 2 on tensors held on
+    the device;
+  * ``HostedPlan`` — either algorithm over a host-resident ``DataSource``
+    (numpy / ``np.memmap``): the plans replayed through one cross-epoch
+    ``BlockPrefetcher``, bit-identical to the in-memory fit on the CPU;
+
+and drives ``trainer.fit_loop``: epoch -> truncate -> eval -> snapshot,
+with checkpoint/resume through ``checkpoint.CheckpointManager``.
 """
 from __future__ import annotations
 
@@ -18,8 +25,10 @@ import torch
 from repro_torch.core import trainer
 from repro_torch.core.dsekl import DSEKLConfig, DSEKLState
 from repro_torch.core.trainer import (  # noqa: F401  (re-exported API)
-    FitResult, SerialPlan, _EVAL_CACHE_BUDGET_BYTES, _error,
+    ExecutionPlan, FitResult, HostedPlan, ParallelPlan, SerialPlan,
+    _EVAL_CACHE_BUDGET_BYTES, _error,
 )
+from repro_torch.data.source import DataSource, InMemorySource
 from repro_torch.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
@@ -31,33 +40,66 @@ def _f32_on(t, device: torch.device) -> Tensor:
     return t.to(device=device, dtype=torch.float32)
 
 
+def train_epoch_hosted(cfg: DSEKLConfig, state: DSEKLState, source, plan, *,
+                       algorithm: str = "serial", prefetch: bool = True,
+                       stats: Optional[dict] = None,
+                       device: DeviceLike = None) -> DSEKLState:
+    """One out-of-core epoch over a host-resident source on the index plan
+    ``plan`` (``trainer.HostedPlan.draw_plan`` draws one): the per-epoch
+    building block ``fit`` drives, for A/B runs of the prefetcher against
+    the inline gather (``prefetch=False``).  ``state`` lives on ``device``
+    (default ``cuda``).  Equal to one epoch of a hosted ``fit`` on the
+    same plan; ``stats`` accumulates the loader's counters."""
+    with trainer.HostedPlan(cfg, source, algorithm=algorithm,
+                            prefetch=prefetch,
+                            device=resolve_device(device)) as plan_:
+        state = plan_.run_epoch(state, plan)
+        if stats is not None:
+            for k, v in (plan_.loader_stats() or {}).items():
+                stats[k] = stats.get(k, 0.0) + v
+    return state
+
+
 def fit(cfg: DSEKLConfig, x, y=None,
         generator: Optional[torch.Generator] = None, *,
         plans: Optional[Sequence] = None, execution: Optional[str] = None,
-        n_epochs: int = 50, tol: float = 1e-3, x_val=None, y_val=None,
-        eval_every: int = 1, verbose: bool = False, truncate_every: int = 0,
-        truncate_frac: float = 0.1, eval_cache="auto",
+        algorithm: str = "serial", n_epochs: int = 50, tol: float = 1e-3,
+        x_val=None, y_val=None, eval_every: int = 1, verbose: bool = False,
+        truncate_every: int = 0, truncate_frac: float = 0.1,
+        eval_cache="auto", prefetch: bool = True,
         checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1,
         checkpoint_keep: int = 3, resume: bool = False,
         callback: Optional[Callable[[int, DSEKLState], None]] = None,
         on_epoch=None, device: DeviceLike = None) -> FitResult:
     """Run DSEKL until convergence (paper stopping rule) or ``n_epochs``.
 
-    ``x`` (N, D) and ``y`` (N,) are tensors or arrays; they, and
-    ``x_val`` / ``y_val``, are moved to ``device`` (default ``cuda``,
-    which raises without a card: pass ``device="cpu"`` there).  Each epoch
-    runs ``max(N // n_grad, 1)`` Alg.-1 steps on an index plan drawn from
-    ``generator`` (a ``torch.Generator``; the plan is drawn on its
-    device), or on ``plans[e]`` when ``plans`` is given: a sequence of
-    per-epoch ``(idx_i (steps, n_grad), idx_j (steps, n_expand))``, which
-    is how the tests feed both packages the JAX sampler's indices.
+    ``x`` is either the ``(N, D)`` rows (a tensor or an array, with ``y``)
+    or a ``DataSource`` (with ``y=None``: the labels are the source's).
+    ``execution`` picks the backend (default ``cfg.execution``, normally
+    ``"auto"``): arrays or an ``InMemorySource`` go to the device and
+    train in memory, by ``algorithm`` (``"serial"``: Algorithm 1,
+    ``"parallel"``: Algorithm 2 with ``cfg.n_workers`` workers); a
+    ``HostSource`` (numpy / np.memmap) trains out of core
+    (``"hosted"``), with the plans streamed through a prefetcher one epoch
+    ahead (``prefetch=False`` gathers inline, the A/B baseline) and the
+    validation eval streamed from the source.  The state, ``x_val`` and
+    ``y_val`` live on ``device`` (default ``cuda``, which raises without a
+    card: pass ``device="cpu"`` there).
+
+    Each epoch runs on an index plan drawn from ``generator`` (a
+    ``torch.Generator``; the plan is drawn on its device, so a hosted fit
+    that keeps the card for its state takes a CPU generator), or on
+    ``plans[e]`` when ``plans`` is given: per epoch ``(idx_i (steps,
+    n_grad), idx_j (steps, n_expand))`` for Algorithm 1, ``(i_batches
+    (steps, n_grad), idx_jk (steps, K, n_expand))`` for Algorithm 2 — how
+    the tests feed both packages the JAX sampler's indices.
 
     ``truncate_every``: every k epochs the smallest ``truncate_frac`` of
     non-zero |alpha| mass is zeroed (paper §5's budgeted model).
 
     ``eval_cache``: evaluate ``x_val`` through a cached keep-all prediction
     engine (the validation kernel map is kept across epochs); ``"auto"``
-    turns it on when the n_val x N map fits 1 GiB.
+    turns it on in memory when the n_val x N map fits 1 GiB.
 
     ``checkpoint_dir``: snapshot every ``checkpoint_every`` epochs
     (atomic, asynchronous, checksummed, keep ``checkpoint_keep``);
@@ -65,9 +107,9 @@ def fit(cfg: DSEKLConfig, x, y=None,
     that was never interrupted.  ``on_epoch(epoch, state, record)``
     returning truthy stops the fit after that boundary's snapshot.
 
-    Not ported yet, and refused: the ``parallel``, ``hosted``, ``mesh``
-    and ``bcd`` executions (``NotImplementedError`` from
-    ``trainer.make_plan``) and EigenPro (``cfg.precondition_k > 0``)."""
+    Not ported yet, and refused: the ``mesh`` and ``bcd`` executions
+    (``NotImplementedError`` from ``trainer.make_plan``) and EigenPro
+    (``cfg.precondition_k > 0``), with any execution."""
     if generator is None and plans is None:
         raise TypeError("fit() requires a torch.Generator (or explicit "
                         "per-epoch index plans)")
@@ -75,9 +117,6 @@ def fit(cfg: DSEKLConfig, x, y=None,
         raise TypeError(
             "fit() got x_val without y_val: validation labels are required "
             "to evaluate (pass y_val, or drop x_val to skip eval)")
-    if y is None:
-        raise TypeError("fit() needs the labels y: out-of-core data "
-                        "sources are not ported yet")
     if cfg.precondition_k:
         raise NotImplementedError(
             "EigenPro preconditioning (cfg.precondition_k > 0) is not "
@@ -85,27 +124,58 @@ def fit(cfg: DSEKLConfig, x, y=None,
     if plans is not None and len(plans) < n_epochs:
         raise ValueError(f"plans holds {len(plans)} epochs; "
                          f"n_epochs={n_epochs}")
+    source = None
+    if isinstance(x, DataSource):
+        if y is not None:
+            raise TypeError(
+                "fit() over a DataSource takes the labels from the source; "
+                "pass y=None")
+        source, x = x, None
+    elif y is None:
+        raise TypeError("fit() needs the labels y with arrays (or a "
+                        "DataSource that holds them)")
     dev = resolve_device(device)
-    x, y = _f32_on(x, dev), _f32_on(y, dev)
+    hosted_data = source is not None and not isinstance(source,
+                                                        InMemorySource)
+    execution = trainer.resolve_execution(execution, cfg,
+                                          algorithm=algorithm,
+                                          hosted_data=hosted_data)
+    if execution in ("serial", "parallel"):
+        algorithm = execution               # the backend IS the algorithm
+        if isinstance(source, InMemorySource):
+            x, y = source.x, source.y
+        elif source is not None:
+            raise ValueError(
+                f"execution={execution!r} needs device-resident data; a "
+                "HostSource trains out of core via 'hosted'")
+        x, y = _f32_on(x, dev), _f32_on(y, dev)
+        n = int(x.shape[0])
+    else:
+        if source is None:                  # arrays -> a host mirror
+            source = InMemorySource(x, y)
+            x = y = None
+        n = source.n
     if x_val is not None:
         x_val, y_val = _f32_on(x_val, dev), _f32_on(y_val, dev)
-    execution = trainer.resolve_execution(execution, cfg)
-    n = int(x.shape[0])
     if eval_cache == "auto":
-        eval_cache = (x_val is not None
+        eval_cache = (execution in ("serial", "parallel")
+                      and x_val is not None
                       and 4 * int(x_val.shape[0]) * n
                       <= _EVAL_CACHE_BUDGET_BYTES)
     manager = None
     if checkpoint_dir is not None:
         from repro_torch.checkpoint import CheckpointManager
         manager = CheckpointManager(checkpoint_dir, keep=checkpoint_keep)
-    plan = trainer.make_plan(execution, cfg, x=x, y=y, eval_cache=eval_cache)
-    return trainer.fit_loop(
-        plan, generator, plans=plans, n_epochs=n_epochs, tol=tol,
-        x_val=x_val, y_val=y_val, eval_every=eval_every, verbose=verbose,
-        truncate_every=truncate_every, truncate_frac=truncate_frac,
-        callback=callback, manager=manager,
-        checkpoint_every=checkpoint_every, resume=resume, on_epoch=on_epoch)
+    with trainer.make_plan(execution, cfg, x=x, y=y, source=source,
+                           algorithm=algorithm, prefetch=prefetch,
+                           eval_cache=eval_cache, device=dev) as plan:
+        return trainer.fit_loop(
+            plan, generator, plans=plans, n_epochs=n_epochs, tol=tol,
+            x_val=x_val, y_val=y_val, eval_every=eval_every,
+            verbose=verbose, truncate_every=truncate_every,
+            truncate_frac=truncate_frac, callback=callback,
+            manager=manager, checkpoint_every=checkpoint_every,
+            resume=resume, on_epoch=on_epoch)
 
 
 def error_rate(cfg: DSEKLConfig, alpha: Tensor, x_train: Tensor, x: Tensor,

@@ -1,29 +1,49 @@
-"""The execution-backend trainer (port of ``repro/core/trainer.py``; the
-in-memory serial backend).
+"""The execution-backend trainer (port of ``repro/core/trainer.py``: the
+in-memory serial and parallel backends and the hosted one).
 
-One ``fit_loop`` drives a backend (the JAX package's ``ExecutionPlan``;
-the port has one, ``SerialPlan``):
+One ``fit_loop`` drives an ``ExecutionPlan``:
 
   * ``draw_plan(generator)`` — the epoch's index plan, drawn from the
     fit's ``torch.Generator`` (the JAX plans derive theirs from a key);
+  * ``plan_epoch(plan)`` — queue a plan ahead of its epoch (a no-op in
+    memory; the hosted backend's prefetcher starts gathering it);
   * ``run_epoch(state, plan) -> state`` — execute one epoch on it;
   * ``eval_error(state, x_val, y_val)`` — the backend's validation eval.
 
-``SerialPlan`` is Algorithm 1 on device-resident tensors: one
-``dsekl.step_serial`` per row of the epoch plan, ``max(N // n_grad, 1)``
-steps, no host synchronisation inside the epoch.  The JAX package's other
-backends (``parallel``, ``hosted``, ``mesh``, ``bcd``) are not ported yet:
-``make_plan`` raises ``NotImplementedError`` naming their ROADMAP item.
+Three backends:
+
+  * ``SerialPlan`` — Algorithm 1 on device-resident tensors: one
+    ``dsekl.step_serial`` per row of the plan, ``max(N // n_grad, 1)``
+    steps;
+  * ``ParallelPlan`` — Algorithm 2 on device-resident tensors: one
+    ``dsekl._parallel_inner`` per gradient batch, ``N // n_grad`` steps;
+  * ``HostedPlan`` — either algorithm over a host-resident ``DataSource``
+    (numpy / ``np.memmap``): the plans are replayed through ONE
+    ``BlockPrefetcher`` that lives for the whole fit, the blocks it stages
+    go through the block cores (``dsekl.grad_block`` /
+    ``grad_block_parallel``), and only the O(N) state lives on the
+    device.  The validation eval streams the source too.
+
+The in-memory epochs never synchronise the host.  The JAX package's
+``mesh`` and ``bcd`` backends are not ported yet: ``make_plan`` raises
+``NotImplementedError`` naming their ROADMAP item.
+
+The equivalence contract (``tests/test_torch_hosted.py``): on the same
+plans a hosted fit equals the in-memory fit of its algorithm bit for bit
+on the CPU, and on the card for Algorithm 2, whose steps scatter no
+duplicate index.
 
 Checkpoint/resume: ``fit_loop`` snapshots ``(state, generator state,
 epoch, history, converged)`` through ``checkpoint.CheckpointManager``.
-The generator state stored is the one that draws the NEXT epoch's plan
-(the counterpart of the JAX snapshot's pre-epoch carry key), as a uint8
-array in the npz so the crc covers it: a resumed fit draws the very plans
-the uninterrupted one draws.
+The generator state stored is the one that draws the NEXT epoch's plan,
+taken before the loop draws that plan one epoch ahead (the counterpart of
+the JAX snapshot's pre-epoch carry key), as a uint8 array in the npz so
+the crc covers it: a resumed fit draws the very plans the uninterrupted
+one draws.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -33,6 +53,7 @@ import torch
 
 from repro_torch.core import dsekl, sampler
 from repro_torch.core.dsekl import DSEKLConfig, DSEKLState
+from repro_torch.data.source import BlockPrefetcher, SyncGather
 
 Tensor = torch.Tensor
 
@@ -40,8 +61,6 @@ EXECUTIONS = ("auto", "serial", "parallel", "hosted", "mesh", "bcd")
 # Executions of the JAX package the port has not reached yet, and the
 # ROADMAP.md item (section 1's queue) that ports each.
 NOT_PORTED = {
-    "parallel": "item 2 (Algorithm 2)",
-    "hosted": "item 3 (the out-of-core data plane)",
     "bcd": "item 5 (BCD)",
     "mesh": "item 6 (the mesh)",
 }
@@ -56,6 +75,9 @@ class FitResult:
     # cache_info() of the validation engine (None without a validation
     # set or with eval_cache off).
     val_cache: Optional[Dict[str, Any]] = None
+    # The loader's counters of a hosted fit over all its epochs (steps,
+    # gather_s, wait_s); None in memory.
+    loader: Optional[Dict[str, float]] = None
     # "converged" (the paper's stopping rule), "hook" (on_epoch asked to
     # stop) or "epochs" (the budget ran out).
     stop_reason: str = "epochs"
@@ -97,6 +119,24 @@ def _error(cfg: DSEKLConfig, alpha: Tensor, x_train: Tensor, x: Tensor,
     return torch.mean((dsekl.predict_labels(f) != y).to(torch.float32))
 
 
+def _error_source(cfg: DSEKLConfig, alpha: Tensor, source, x: Tensor,
+                  y: Tensor) -> float:
+    """Validation error with the train set streamed from a host source."""
+    f = dsekl.decision_function_source(cfg, alpha, source, x)
+    return float(torch.mean((dsekl.predict_labels(f) != y).to(torch.float32)))
+
+
+def _apply_then_gather(cfg: DSEKLConfig, state: DSEKLState, idx_j: Tensor,
+                       g: Tensor, idx_next: Tensor
+                       ) -> Tuple[DSEKLState, Tensor]:
+    """Step t's scatter, then step t+1's alpha gather: the only two
+    N-shaped operations of a hosted step.  Alg. 1's and Alg. 2's scatters
+    are one function (``dsekl.apply_update_parallel`` is
+    ``apply_update`` over the J union)."""
+    state = dsekl.apply_update(cfg, state, idx_j, g)
+    return state, state.alpha[idx_next]
+
+
 # "auto" eval_cache budget: the cached validation eval materializes the
 # n_val x N kernel map (4 bytes an entry); above it the eval streams.
 _EVAL_CACHE_BUDGET_BYTES = 1 << 30
@@ -124,7 +164,7 @@ def _make_val_engine(cfg: DSEKLConfig, x: Tensor, n_val: int):
 
 
 # ---------------------------------------------------------------------------
-# The serial backend.
+# The ExecutionPlan interface.
 # ---------------------------------------------------------------------------
 
 def _indices(p, device: torch.device) -> Tensor:
@@ -134,25 +174,39 @@ def _indices(p, device: torch.device) -> Tensor:
     return p.to(device=device, dtype=torch.int64)
 
 
-class SerialPlan:
-    """Algorithm 1 on device-resident tensors; eval through the cached
-    prediction engine or the streamed error."""
+def _host_indices(p) -> np.ndarray:
+    """An index plan (tensor or array) as an int64 numpy array."""
+    if isinstance(p, torch.Tensor):
+        p = p.cpu().numpy()
+    return np.asarray(p, dtype=np.int64)
 
-    name = "serial"
 
-    def __init__(self, cfg: DSEKLConfig, x: Tensor, y: Tensor, *,
-                 eval_cache: bool = False):
+def _check_plan(name: str, plan, steps: int, ndims: Sequence[int]) -> None:
+    """A ``name`` epoch plan is index arrays of ``steps`` rows with
+    ``ndims`` dimensions (2 for I and Alg.-1's J, 3 for Alg.-2's J)."""
+    got = [tuple(p.shape) for p in plan]
+    if len(got) != len(ndims) or any(
+            len(g) != nd or g[0] != steps for g, nd in zip(got, ndims)):
+        raise ValueError(f"a {name} epoch plan is {len(ndims)} index "
+                         f"arrays of {steps} steps with {list(ndims)} "
+                         f"dimensions; got shapes {got}")
+
+
+class ExecutionPlan:
+    """One training backend: how epochs execute and where the data lives.
+    ``fit_loop`` is backend-agnostic; everything placement-specific lives
+    behind this interface.  ``algorithm`` ("serial": Algorithm 1,
+    "parallel": Algorithm 2) sets the steps and the plans of an epoch."""
+
+    name = "base"
+    algorithm = "serial"
+
+    def __init__(self, cfg: DSEKLConfig, n: int, device: torch.device):
         self.cfg = cfg
-        self.n = int(x.shape[0])
-        self.device = x.device
-        self.x, self.y = x, y
-        self._eval_cache = bool(eval_cache)
-        self._val_engine = None
+        self.n = int(n)
+        self.device = device
 
-    @property
-    def steps(self) -> int:
-        return max(self.n // self.cfg.n_grad, 1)
-
+    # -- state ----------------------------------------------------------
     def init_state(self) -> DSEKLState:
         return dsekl.init_state(self.n, device=self.device)
 
@@ -169,25 +223,68 @@ class SerialPlan:
         return DSEKLState(alpha=vec("alpha"), accum=vec("accum"),
                           step=scalar("step"), epoch=scalar("epoch"))
 
+    # -- epochs ---------------------------------------------------------
+    @property
+    def steps(self) -> int:
+        """Steps an epoch: Alg. 1 takes ``max(N // n_grad, 1)``, Alg. 2 one
+        a gradient batch, ``N // n_grad`` (none when N < n_grad)."""
+        if self.algorithm == "serial":
+            return max(self.n // self.cfg.n_grad, 1)
+        return self.n // self.cfg.n_grad
+
     def draw_plan(self, generator: torch.Generator) -> Tuple[Tensor, Tensor]:
-        return sampler.epoch_plan(generator, self.n, self.cfg.n_grad,
-                                  self.cfg.n_expand, self.steps)
+        """An epoch's index plan from ``generator``, on its device."""
+        cfg = self.cfg
+        if self.algorithm == "serial":
+            return sampler.epoch_plan(generator, self.n, cfg.n_grad,
+                                      cfg.n_expand, self.steps)
+        return sampler.parallel_epoch_plan(generator, self.n, cfg.n_grad,
+                                           cfg.n_expand, cfg.n_workers)
+
+    def check_plan(self, plan) -> None:
+        """Refuse a plan whose shapes are not an epoch of this backend:
+        (steps, n_grad) indices of I with (steps, n_expand) of J for
+        Alg. 1, or (steps, K, n_expand) for Alg. 2."""
+        _check_plan(f"{self.name} ({self.algorithm})", plan, self.steps,
+                    (2, 2 if self.algorithm == "serial" else 3))
+
+    def plan_epoch(self, plan) -> None:
+        """Queue ``plan`` ahead of its epoch (no-op in memory)."""
 
     def run_epoch(self, state: DSEKLState, plan) -> DSEKLState:
-        """One epoch over ``plan = (idx_i (steps, n_grad), idx_j (steps,
-        n_expand))``: tensors or arrays of indices in [0, N)."""
-        idx_i, idx_j = (_indices(p, self.device) for p in plan)
-        if idx_i.dim() != 2 or idx_j.dim() != 2 or (
-                idx_i.shape[0] != self.steps or idx_j.shape[0] != self.steps):
-            raise ValueError(
-                f"an epoch plan is ({self.steps}, n_grad) and ({self.steps}, "
-                f"n_expand) indices; got {tuple(idx_i.shape)} and "
-                f"{tuple(idx_j.shape)}")
-        state = state._replace(epoch=state.epoch + 1)
-        for t in range(self.steps):
-            state = dsekl.step_serial(self.cfg, state, self.x, self.y,
-                                      idx_i[t], idx_j[t])
-        return state
+        raise NotImplementedError
+
+    # -- eval / reporting -----------------------------------------------
+    def eval_error(self, state: DSEKLState, x_val: Tensor,
+                   y_val: Tensor) -> float:
+        raise NotImplementedError
+
+    def val_cache_info(self) -> Optional[Dict[str, Any]]:
+        return None
+
+    def loader_stats(self) -> Optional[Dict[str, float]]:
+        return None
+
+    def close(self) -> None:
+        pass
+
+    def __enter__(self) -> "ExecutionPlan":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class _InMemoryPlan(ExecutionPlan):
+    """The device-resident backends' shared base: x and y on the device,
+    eval through the cached prediction engine or the streamed error."""
+
+    def __init__(self, cfg: DSEKLConfig, x: Tensor, y: Tensor, *,
+                 eval_cache: bool = False):
+        super().__init__(cfg, int(x.shape[0]), x.device)
+        self.x, self.y = x, y
+        self._eval_cache = bool(eval_cache)
+        self._val_engine = None
 
     def eval_error(self, state: DSEKLState, x_val: Tensor,
                    y_val: Tensor) -> float:
@@ -204,6 +301,153 @@ class SerialPlan:
     def val_cache_info(self) -> Optional[Dict[str, Any]]:
         return (self._val_engine.cache_info()
                 if self._val_engine is not None else None)
+
+
+class SerialPlan(_InMemoryPlan):
+    """Algorithm 1 on device-resident tensors."""
+
+    name = "serial"
+
+    def run_epoch(self, state: DSEKLState, plan) -> DSEKLState:
+        """One epoch over ``plan = (idx_i (steps, n_grad), idx_j (steps,
+        n_expand))``: tensors or arrays of indices in [0, N)."""
+        self.check_plan(plan)
+        idx_i, idx_j = (_indices(p, self.device) for p in plan)
+        state = state._replace(epoch=state.epoch + 1)
+        for t in range(self.steps):
+            state = dsekl.step_serial(self.cfg, state, self.x, self.y,
+                                      idx_i[t], idx_j[t])
+        return state
+
+
+class ParallelPlan(_InMemoryPlan):
+    """Algorithm 2 on device-resident tensors."""
+
+    name = "parallel"
+    algorithm = "parallel"
+
+    def run_epoch(self, state: DSEKLState, plan) -> DSEKLState:
+        """One epoch over ``plan = (i_batches (steps, n_grad), idx_jk
+        (steps, K, n_expand))``; with N < n_grad it has no step and the
+        state comes back with only its epoch counted."""
+        self.check_plan(plan)
+        i_batches, idx_jk = (_indices(p, self.device) for p in plan)
+        return dsekl.epoch_parallel(self.cfg, state, self.x, self.y,
+                                    i_batches, idx_jk)
+
+
+class HostedPlan(ExecutionPlan):
+    """Either algorithm over a host-resident ``DataSource``.
+
+    Epoch plans are queued onto ONE loader (a ``BlockPrefetcher``, or
+    ``SyncGather`` with ``prefetch=False``) that lives for the whole fit:
+    ``plan_epoch`` extends its plan, so when the driver plans epoch e + 1
+    before running epoch e the worker streams straight across the
+    boundary.  A step takes the staged blocks, runs the block core
+    (``dsekl.grad_block`` / ``grad_block_parallel``) and
+    ``_apply_then_gather``.  Only alpha, accum and the staged blocks live
+    on the device."""
+
+    name = "hosted"
+
+    def __init__(self, cfg: DSEKLConfig, source, *,
+                 algorithm: str = "serial", prefetch: bool = True,
+                 device: torch.device):
+        super().__init__(cfg, source.n, device)
+        if algorithm not in ("serial", "parallel"):
+            raise ValueError(f"unknown algorithm {algorithm!r}")
+        self.source = source
+        self.algorithm = algorithm
+        self.prefetch = prefetch
+        self._loader = None
+        # Queued epochs, FIFO: (the plan as given, its host index arrays).
+        self._queued: collections.deque = collections.deque()
+        self._consumed_steps = 0
+
+    def plan_epoch(self, plan) -> None:
+        self.check_plan(plan)
+        plan_i, plan_j = (_host_indices(p) for p in plan)
+        # An explicit flat width: reshape(0, -1) is ambiguous for the
+        # empty plan (N < n_grad on the parallel path).
+        flat_j = plan_j.reshape(plan_i.shape[0],
+                                int(np.prod(plan_j.shape[1:], dtype=int)))
+        if self._loader is None:
+            if self.prefetch:
+                self._loader = BlockPrefetcher(self.source, plan_i, flat_j,
+                                               device=self.device)
+            else:
+                self._loader = SyncGather(self.source, plan_i, flat_j,
+                                          device=self.device)
+        else:
+            self._loader.extend(plan_i, flat_j)
+        self._queued.append((plan, plan_i, plan_j))
+
+    def _pop_plan(self, plan):
+        if not self._queued:
+            self.plan_epoch(plan)
+        elif self._queued[0][0] is not plan:
+            raise RuntimeError(
+                "hosted epochs must be consumed in the order they were "
+                "planned (the prefetcher streams one plan)")
+        return self._queued.popleft()
+
+    def run_epoch(self, state: DSEKLState, plan) -> DSEKLState:
+        _, plan_i, plan_j = self._pop_plan(plan)
+        state = state._replace(epoch=state.epoch + 1)
+        steps = plan_i.shape[0]
+        if steps == 0:
+            # N < n_grad on the parallel path: no step, as in memory.
+            return state
+        cfg, loader = self.cfg, self._loader
+        n_eff = dsekl.scale_n(cfg, self.n)
+        # The epoch's J indices stay on the host (pinned on the card): each
+        # step copies the next step's row of them ahead, asynchronously, so
+        # no epoch-sized index plan lives on the device.
+        idx_host = torch.from_numpy(plan_j.reshape(steps, -1))
+        if self.device.type == "cuda":
+            idx_host = idx_host.pin_memory()
+
+        def idx_j(t):
+            return idx_host[t].to(self.device, non_blocking=True)
+
+        idx_cur = idx_j(0)
+        aj = state.alpha[idx_cur]
+        for t in range(steps):
+            xi, yi, xj = loader.get()
+            if self.algorithm == "serial":
+                g = dsekl.grad_block(cfg, xi, yi, xj, aj, n_eff)
+            else:
+                k, j = plan_j.shape[1:]
+                g = dsekl.grad_block_parallel(
+                    cfg, xi, yi, xj.reshape(k, j, xj.shape[-1]),
+                    aj.reshape(k, j), n_eff)
+            idx_next = idx_j(t + 1) if t + 1 < steps else idx_cur
+            state, aj = _apply_then_gather(cfg, state, idx_cur, g, idx_next)
+            idx_cur = idx_next
+        self._consumed_steps += steps
+        return state
+
+    def eval_error(self, state: DSEKLState, x_val: Tensor,
+                   y_val: Tensor) -> float:
+        # The eval streams the source too: the dataset never becomes
+        # device-resident.
+        return _error_source(self.cfg, state.alpha, self.source, x_val,
+                             y_val)
+
+    def loader_stats(self) -> Optional[Dict[str, float]]:
+        if self._loader is None:
+            return None
+        st = dict(self._loader.stats())
+        # Steps CONSUMED, not planned: the driver plans one epoch ahead,
+        # so a fit that stops early leaves a planned epoch unrun.
+        st["steps"] = self._consumed_steps
+        return st
+
+    def close(self) -> None:
+        if self._loader is not None:
+            self._loader.close()
+            self._loader = None
+        self._queued.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +474,7 @@ def _snapshot(manager, state: DSEKLState, gen_state: np.ndarray,
     manager.save(epoch, tree, extra=extra)
 
 
-def _restore(manager, plan: SerialPlan,
+def _restore(manager, plan: ExecutionPlan,
              generator: Optional[torch.Generator]):
     step = manager.latest_valid_step()
     if step is None:
@@ -244,7 +488,7 @@ def _restore(manager, plan: SerialPlan,
             bool(extra.get("converged", False)))
 
 
-def fit_loop(plan: SerialPlan, generator: Optional[torch.Generator], *,
+def fit_loop(plan: ExecutionPlan, generator: Optional[torch.Generator], *,
              plans: Optional[Sequence] = None, n_epochs: int = 50,
              tol: float = 1e-3, x_val: Optional[Tensor] = None,
              y_val: Optional[Tensor] = None, eval_every: int = 1,
@@ -255,18 +499,21 @@ def fit_loop(plan: SerialPlan, generator: Optional[torch.Generator], *,
              on_epoch: Optional[
                  Callable[[int, DSEKLState, Dict[str, Any]], Any]] = None
              ) -> FitResult:
-    """Drive a ``SerialPlan`` to convergence (paper §4.2: ``|dalpha| <
+    """Drive an ``ExecutionPlan`` to convergence (paper §4.2: ``|dalpha| <
     tol`` over one epoch) or ``n_epochs``: epoch -> truncate -> eval ->
     snapshot.
 
     Epoch e runs on ``plans[e]`` when ``plans`` is given, else on a plan
-    drawn from ``generator``.  It is evaluated on the ``eval_every``
-    cadence, and always on the last record of the fit (the final epoch or
-    the convergence epoch).  With a ``CheckpointManager`` the loop
-    snapshots every ``checkpoint_every`` epochs and at the end;
-    ``resume=True`` restores the newest valid snapshot and continues as a
-    run that was never interrupted.  ``on_epoch(epoch, state, record)``
-    returning truthy stops the fit after that boundary's snapshot."""
+    drawn from ``generator``.  The plan of epoch e + 1 is drawn (or taken)
+    and handed to ``plan.plan_epoch`` before epoch e runs, so a hosted
+    backend's prefetcher streams across the boundary.  An epoch is
+    evaluated on the ``eval_every`` cadence, and always on the last record
+    of the fit (the final epoch or the convergence epoch).  With a
+    ``CheckpointManager`` the loop snapshots every ``checkpoint_every``
+    epochs and at the end; ``resume=True`` restores the newest valid
+    snapshot and continues as a run that was never interrupted.
+    ``on_epoch(epoch, state, record)`` returning truthy stops the fit
+    after that boundary's snapshot."""
     state = plan.init_state()
     history: List[Dict[str, Any]] = []
     start = 0
@@ -283,14 +530,22 @@ def fit_loop(plan: SerialPlan, generator: Optional[torch.Generator], *,
                 print(f"[dsekl] resumed at epoch {start} ({plan.name} "
                       "backend)" + (" — already converged" if converged
                                     else ""))
+
+    def take(e):
+        return plans[e] if plans is not None else plan.draw_plan(generator)
+
     hook_stop = False
+    if start < n_epochs:
+        current = take(start)
+        plan.plan_epoch(current)
     for e in range(start, n_epochs):
-        epoch_plan = plans[e] if plans is not None else plan.draw_plan(
-            generator)
         gen_state = _gen_state(generator)       # draws epoch e + 1's plan
+        upcoming = take(e + 1) if e + 1 < n_epochs else None
+        if upcoming is not None:
+            plan.plan_epoch(upcoming)           # one epoch ahead
         prev_alpha = state.alpha
         t0 = time.perf_counter()
-        state = plan.run_epoch(state, epoch_plan)
+        state = plan.run_epoch(state, current)
         if truncate_every and (e + 1) % truncate_every == 0:
             state = state._replace(
                 alpha=_truncate_smallest(state.alpha, truncate_frac))
@@ -316,6 +571,7 @@ def fit_loop(plan: SerialPlan, generator: Optional[torch.Generator], *,
                 (e + 1) % checkpoint_every == 0 or converged or hook_stop
                 or e == n_epochs - 1):
             _snapshot(manager, state, gen_state, e + 1, history, converged)
+        current = upcoming
         if converged or hook_stop:
             break
     if manager is not None:
@@ -323,6 +579,7 @@ def fit_loop(plan: SerialPlan, generator: Optional[torch.Generator], *,
     return FitResult(state=state, history=history, converged=converged,
                      epochs_run=len(history),
                      val_cache=plan.val_cache_info(),
+                     loader=plan.loader_stats(),
                      stop_reason=("converged" if converged
                                   else "hook" if hook_stop else "epochs"),
                      epochs_to_tol=next(
@@ -332,22 +589,46 @@ def fit_loop(plan: SerialPlan, generator: Optional[torch.Generator], *,
                                      if history else 0.0))
 
 
-def resolve_execution(execution: Optional[str], cfg: DSEKLConfig) -> str:
-    """``execution=None`` defers to ``cfg.execution``; ``"auto"`` is the
-    serial in-memory backend, the only one the port has."""
+def resolve_execution(execution: Optional[str], cfg: DSEKLConfig, *,
+                      algorithm: str = "serial",
+                      hosted_data: bool = False) -> str:
+    """``execution=None`` defers to ``cfg.execution``; ``"auto"`` picks
+    ``hosted`` for a host-resident source, else the in-memory backend of
+    ``algorithm``."""
     execution = execution if execution is not None else cfg.execution
     if execution not in EXECUTIONS:
         raise ValueError(f"unknown execution {execution!r}; "
                          f"one of {EXECUTIONS}")
-    return "serial" if execution == "auto" else execution
+    if algorithm not in ("serial", "parallel"):
+        raise ValueError(f"unknown algorithm {algorithm!r}")
+    if execution == "auto":
+        return "hosted" if hosted_data else algorithm
+    return execution
 
 
-def make_plan(execution: str, cfg: DSEKLConfig, *, x: Tensor, y: Tensor,
-              eval_cache: bool = False) -> SerialPlan:
-    """The backend for a resolved ``execution``: ``SerialPlan``, or
-    ``NotImplementedError`` for a backend the port has not reached."""
-    if execution == "serial":
-        return SerialPlan(cfg, x, y, eval_cache=eval_cache)
+def make_plan(execution: str, cfg: DSEKLConfig, *,
+              x: Optional[Tensor] = None, y: Optional[Tensor] = None,
+              source=None, algorithm: str = "serial", prefetch: bool = True,
+              eval_cache: bool = False,
+              device: Optional[torch.device] = None) -> ExecutionPlan:
+    """The backend for a resolved ``execution``: ``SerialPlan`` /
+    ``ParallelPlan`` over device tensors, ``HostedPlan`` over a
+    ``DataSource`` (its state on ``device``), or ``NotImplementedError``
+    for a backend the port has not reached."""
+    if execution in ("serial", "parallel"):
+        if x is None:
+            raise ValueError(
+                f"execution={execution!r} needs device-resident tensors; "
+                "a host-resident DataSource trains via 'hosted'")
+        plan_cls = SerialPlan if execution == "serial" else ParallelPlan
+        return plan_cls(cfg, x, y, eval_cache=eval_cache)
+    if execution == "hosted":
+        if source is None:
+            raise ValueError("execution='hosted' needs a DataSource")
+        if device is None:
+            raise ValueError("execution='hosted' needs the state's device")
+        return HostedPlan(cfg, source, algorithm=algorithm,
+                          prefetch=prefetch, device=device)
     if execution in NOT_PORTED:
         raise NotImplementedError(
             f"execution={execution!r} is not ported to repro_torch yet: "

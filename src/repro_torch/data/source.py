@@ -1,0 +1,675 @@
+"""Host-resident training data plane (port of ``repro/data/source.py``'s
+``DataSource``, ``HostSource``, ``InMemorySource``, ``BlockPrefetcher``,
+``SyncGather``, ``split_holdout``, the memmap datasets and
+``ManifestSource``).
+
+The doubly stochastic step only ever needs the sampled rows of I and J, so
+the training set can stay on the host, or on disk, while the O(N) dual
+vector lives on the card:
+
+  * ``DataSource`` — the protocol the trainer gathers rows through: ``n``
+    rows of dimension ``d``, ``gather(idx) -> (x_rows, y_rows)`` and
+    ``gather_x(idx)`` as float32 numpy arrays.
+  * ``HostSource`` — numpy / ``np.memmap`` backing.  Gathered rows are
+    owned copies, never views of the mapping.  ``local(offset, length)``
+    and ``split(n_shards)`` carve row-range views.
+  * ``InMemorySource`` — wraps tensors; ``solver.fit`` trains on them in
+    memory, and its host-side ``gather`` reads a lazily made host mirror.
+  * ``BlockPrefetcher`` — a worker thread gathers step t+1's rows while the
+    card runs step t.  On the card it gathers into pinned staging buffers
+    and copies them to the device on a stream of its own (see the class);
+    ``SyncGather`` is the same contract with every gather inline.
+  * ``make_memmap_dataset`` / ``open_memmap_dataset`` / ``read_manifest``
+    / ``ManifestSource`` — a synthetic float32 dataset on disk with a
+    manifest, written from numpy's ``default_rng((seed, start))`` granule
+    by granule: the same bytes as the JAX package writes.
+
+The JAX module's ``RingSource`` / ``RingSnapshot`` (ROADMAP item 7) and
+``MeshPrefetcher`` / ``SyncMeshGather`` (item 6) are not ported yet.
+"""
+from __future__ import annotations
+
+import collections
+import json
+import os
+import queue
+import threading
+import time
+from typing import List, Optional, Protocol, Tuple, Union, runtime_checkable
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+Index = Union[np.ndarray, slice]
+
+# Seconds between the worker's and the consumer's checks of the stop flag
+# while they wait on a queue.
+_POLL_S = 0.05
+# Steps the prefetcher stages ahead of the consumer (double buffering).
+_DEPTH = 2
+
+
+@runtime_checkable
+class DataSource(Protocol):
+    """What the training stack needs from a dataset: sized row access."""
+
+    @property
+    def n(self) -> int: ...
+
+    @property
+    def d(self) -> int: ...
+
+    def gather(self, idx: Index,
+               out_x: Optional[np.ndarray] = None,
+               out_y: Optional[np.ndarray] = None
+               ) -> Tuple[np.ndarray, np.ndarray]: ...
+
+    def gather_x(self, idx: Index,
+                 out: Optional[np.ndarray] = None) -> np.ndarray: ...
+
+
+class HostSource:
+    """Rows on host memory or disk (``np.ndarray`` / ``np.memmap``).
+
+    ``offset``/``length`` make a zero-copy view over a row range: a view
+    reads (and pages in) only its own rows.
+    """
+
+    def __init__(self, x: np.ndarray, y: np.ndarray, *,
+                 offset: int = 0, length: Optional[int] = None):
+        if x.ndim != 2 or y.ndim != 1 or x.shape[0] != y.shape[0]:
+            raise ValueError(
+                f"x must be (n, d) and y (n,); got {x.shape} / {y.shape}")
+        length = x.shape[0] - offset if length is None else length
+        if offset < 0 or offset + length > x.shape[0]:
+            raise ValueError(
+                f"row range [{offset}, {offset + length}) outside "
+                f"0..{x.shape[0]}")
+        self._x, self._y = x, y
+        self._offset, self._n = int(offset), int(length)
+
+    @property
+    def n(self) -> int:
+        return self._n
+
+    @property
+    def d(self) -> int:
+        return int(self._x.shape[1])
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes the rows of THIS view take as float32 (x and y): what a
+        device-resident copy would cost."""
+        return 4 * self._n * (self.d + 1)
+
+    def _absolute(self, idx: Index) -> Index:
+        if isinstance(idx, slice):
+            # Numpy slice semantics relative to THIS view, clamped before
+            # offsetting: a view never reads a neighbouring range's rows.
+            if idx.step not in (None, 1):
+                raise ValueError("strided row slices are not supported; "
+                                 "gather an index array instead")
+            start = idx.start or 0
+            stop = self._n if idx.stop is None else idx.stop
+            if start < 0:
+                start += self._n
+            if stop < 0:
+                stop += self._n
+            start = min(max(start, 0), self._n)
+            stop = min(max(stop, 0), self._n)
+            return slice(start + self._offset, stop + self._offset)
+        idx = np.asarray(idx)
+        if idx.size and (idx.min() < 0 or idx.max() >= self._n):
+            raise IndexError(
+                f"indices outside the view's [0, {self._n}) row range")
+        return idx + self._offset if self._offset else idx
+
+    @staticmethod
+    def _take(backing: np.ndarray, ai: Index,
+              out: Optional[np.ndarray]) -> np.ndarray:
+        """The rows ``ai`` of ``backing`` as float32: in ``out`` (a staging
+        buffer) when given, else as a fresh OWNED array.  A slice of the
+        backing store is a view (memmap included), so it is copied
+        explicitly; an index array lands in ``out`` by one ``np.take``
+        (its bounds are checked already, so ``mode="clip"`` keeps numpy
+        from buffering the output)."""
+        if out is None:
+            if isinstance(ai, slice):
+                return np.array(backing[ai], np.float32)
+            return np.asarray(backing[ai], np.float32)
+        if not isinstance(ai, slice) and backing.dtype == out.dtype:
+            dst = out[: ai.shape[0]]
+            np.take(backing, ai, axis=0, out=dst, mode="clip")
+            return dst
+        rows = backing[ai]
+        out[: rows.shape[0]] = rows
+        return out[: rows.shape[0]]
+
+    def gather(self, idx: Index,
+               out_x: Optional[np.ndarray] = None,
+               out_y: Optional[np.ndarray] = None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """Copy the requested rows out of the backing store as float32,
+        into ``out_*`` staging buffers when given, else into fresh arrays.
+        For a memmap this is the disk (or page cache) read."""
+        ai = self._absolute(idx)
+        return self._take(self._x, ai, out_x), self._take(self._y, ai, out_y)
+
+    def gather_x(self, idx: Index,
+                 out: Optional[np.ndarray] = None) -> np.ndarray:
+        """``gather`` for feature rows only (expansion blocks and the
+        streamed eval never need the labels)."""
+        return self._take(self._x, self._absolute(idx), out)
+
+    def local(self, offset: int, length: int) -> "HostSource":
+        """A view over rows [offset, offset + length) of THIS view."""
+        return HostSource(self._x, self._y,
+                          offset=self._offset + offset, length=length)
+
+    def split(self, n_shards: int) -> List["HostSource"]:
+        """Equal per-shard local views, row order kept (``n % n_shards``
+        must be 0)."""
+        if self._n % n_shards:
+            raise ValueError(f"{self._n} rows do not split into {n_shards}")
+        rows = self._n // n_shards
+        return [self.local(s * rows, rows) for s in range(n_shards)]
+
+
+class InMemorySource(HostSource):
+    """A dataset held as tensors (on any device).
+
+    ``solver.fit`` trains on ``.x`` / ``.y`` in memory (the serial and
+    parallel plans); the host-side ``gather`` it inherits reads a host
+    mirror made on first use, so the same source also works wherever a
+    ``DataSource`` is expected (the hosted plan over raw arrays)."""
+
+    def __init__(self, x, y):
+        self.x = torch.as_tensor(x).to(torch.float32)
+        self.y = torch.as_tensor(y).to(torch.float32)
+        if self.x.dim() != 2 or self.y.dim() != 1 \
+                or self.x.shape[0] != self.y.shape[0]:
+            raise ValueError(f"x must be (n, d) and y (n,); got "
+                             f"{tuple(self.x.shape)} / {tuple(self.y.shape)}")
+        self._host_ready = False
+
+    def _ensure_host(self) -> None:
+        if not self._host_ready:
+            super().__init__(self.x.detach().cpu().numpy(),
+                             self.y.detach().cpu().numpy())
+            self._host_ready = True
+
+    @property
+    def n(self) -> int:
+        return int(self.x.shape[0])
+
+    @property
+    def d(self) -> int:
+        return int(self.x.shape[1])
+
+    @property
+    def nbytes(self) -> int:
+        return 4 * self.n * (self.d + 1)
+
+    def gather(self, idx: Index,
+               out_x: Optional[np.ndarray] = None,
+               out_y: Optional[np.ndarray] = None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        self._ensure_host()
+        return super().gather(idx, out_x=out_x, out_y=out_y)
+
+    def gather_x(self, idx: Index,
+                 out: Optional[np.ndarray] = None) -> np.ndarray:
+        self._ensure_host()
+        return super().gather_x(idx, out=out)
+
+    def local(self, offset: int, length: int) -> HostSource:
+        self._ensure_host()
+        return super().local(offset, length)
+
+    def split(self, n_shards: int) -> List[HostSource]:
+        self._ensure_host()
+        return super().split(n_shards)
+
+
+# ---------------------------------------------------------------------------
+# Double-buffered prefetch.
+# ---------------------------------------------------------------------------
+
+class _Buffers:
+    """One staging slot: the page-locked tensors of one step's blocks and
+    the numpy views the gather writes into."""
+
+    __slots__ = ("pinned", "xi", "yi", "xj")
+
+    def __init__(self, n_grad: int, n_flat_expand: int, d: int):
+        shapes = ((n_grad, d), (n_grad,), (n_flat_expand, d))
+        # pin_memory=True allocates page-locked memory or raises.
+        self.pinned = tuple(torch.empty(s, dtype=torch.float32,
+                                        pin_memory=True) for s in shapes)
+        if not all(t.is_pinned() for t in self.pinned):
+            raise RuntimeError("staging buffer is not page-locked")
+        self.xi, self.yi, self.xj = (t.numpy() for t in self.pinned)
+
+
+class _DeviceBlocks:
+    """One step's blocks on the card and the event that follows their
+    copies on the prefetcher's stream."""
+
+    __slots__ = ("blocks", "event")
+
+    def __init__(self, blocks: Tuple[torch.Tensor, ...],
+                 event: torch.cuda.Event):
+        self.blocks, self.event = blocks, event
+
+
+class BlockPrefetcher:
+    """Gather (and stage) step t+1's sampled rows while the card runs
+    step t.
+
+    Built from host-side epoch plans: ``plan_i (steps, n_grad)`` indexes
+    the gradient rows, ``plan_j (steps, m)`` the (flattened) expansion
+    rows.  ``extend(plan_i, plan_j)`` queues further epochs onto the SAME
+    worker thread and staging slot, so a fit that plans each epoch one
+    ahead streams across epoch boundaries; ``stats()`` accumulates over
+    the prefetcher's life.  A segment with zero steps is legal.
+
+    ``get()`` returns the next step's ``(xi, yi, xj_flat)`` as tensors on
+    ``device`` (default ``cuda``):
+
+    * on the card, the worker gathers with ``np.take`` into a page-locked
+      staging slot, issues ``non_blocking`` copies into blocks it
+      allocates on a stream of its own, records an event after them, and
+      reuses the slot only after ``event.synchronize()``.
+      ``get()`` makes the caller's current stream wait on that event and
+      ``record_stream``s the blocks onto it, so the caching allocator
+      cannot hand their memory to a later step's copy while the caller's
+      queued kernels still read it.
+    * on the CPU, the worker gathers into fresh owned arrays
+      (``torch.from_numpy`` aliases its array, so no buffer is reused).
+
+    At most two steps wait staged ahead.  A failure in the worker
+    surfaces in ``get()``; every wait has a timeout, ``get()`` raises
+    ``TimeoutError`` after ``timeout`` seconds without a step, and
+    ``close()`` stops the worker, mid-stream or failed.  ``stats()``:
+    ``gather_s`` is worker time spent gathering and copying rows,
+    ``wait_s`` consumer time blocked in ``get()``.
+    """
+
+    def __init__(self, source: DataSource,
+                 plan_i: Optional[np.ndarray] = None,
+                 plan_j: Optional[np.ndarray] = None, *,
+                 device: DeviceLike = None, timeout: float = 300.0):
+        self._source = source
+        self._device = resolve_device(device)
+        self._cuda = self._device.type == "cuda"
+        if self._cuda and self._device.index is None:
+            # The worker thread sets its device by index.
+            self._device = torch.device("cuda", torch.cuda.current_device())
+        self._timeout = float(timeout)
+        self._bufs: Optional[_Buffers] = None
+        self._segments: "queue.Queue[Tuple[np.ndarray, np.ndarray]]" = \
+            queue.Queue()
+        self.steps = 0
+        self._taken = 0
+        self._widths: Optional[Tuple[int, int]] = None
+        self._ready: "queue.Queue[object]" = queue.Queue(maxsize=_DEPTH)
+        self._stop = False
+        self.gather_s = 0.0
+        self.wait_s = 0.0
+        if plan_i is not None:
+            self.extend(plan_i, plan_j)
+        self._thread = threading.Thread(target=self._worker, daemon=True,
+                                        name="BlockPrefetcher")
+        self._thread.start()
+
+    def extend(self, plan_i: np.ndarray, plan_j: np.ndarray) -> None:
+        """Queue another epoch's plan onto the live worker (from the
+        consumer's thread).  Step widths must match the first segment's:
+        the staging slot serves the prefetcher's whole life."""
+        plan_i, plan_j = np.asarray(plan_i), np.asarray(plan_j)
+        if plan_j.shape[0] != plan_i.shape[0]:
+            raise ValueError("plan_i / plan_j step counts differ")
+        widths = (int(plan_i.shape[1]),
+                  int(np.prod(plan_j.shape[1:], dtype=int)))
+        if self._widths is None:
+            self._widths = widths
+            if self._cuda:
+                self._bufs = _Buffers(*widths, self._source.d)
+        elif widths != self._widths and plan_i.shape[0]:
+            raise ValueError(
+                f"segment step widths {widths} != first segment's "
+                f"{self._widths}; one prefetcher serves one block geometry")
+        self.steps += int(plan_i.shape[0])
+        self._segments.put((plan_i, plan_j))
+
+    # -- worker side ----------------------------------------------------
+    def _next_indices(self):
+        """Per-step (idx_i, idx_j), waiting between segments until the
+        consumer extends the plan; ends when ``close()`` sets the stop
+        flag."""
+        while not self._stop:
+            try:
+                seg_i, seg_j = self._segments.get(timeout=_POLL_S)
+            except queue.Empty:
+                continue
+            for t in range(seg_i.shape[0]):
+                yield seg_i[t], seg_j[t].reshape(-1)
+
+    def _put_ready(self, item) -> bool:
+        """Hand ``item`` to the consumer; False once ``close()`` asked the
+        worker to stop."""
+        while not self._stop:
+            try:
+                self._ready.put(item, timeout=_POLL_S)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _stage(self, idx_i: np.ndarray, idx_j: np.ndarray,
+               stream: torch.cuda.Stream) -> _DeviceBlocks:
+        """Gather one step into the staging slot and copy it to the card
+        on ``stream``; returns once the copies have landed, the slot free
+        for the next step."""
+        bufs = self._bufs
+        self._source.gather(idx_i, out_x=bufs.xi, out_y=bufs.yi)
+        self._source.gather_x(idx_j, out=bufs.xj)
+        with torch.cuda.stream(stream):
+            blocks = tuple(torch.empty(p.shape, dtype=p.dtype,
+                                       device=self._device)
+                           for p in bufs.pinned)
+            for b, p in zip(blocks, bufs.pinned):
+                b.copy_(p, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(stream)
+        event.synchronize()
+        return _DeviceBlocks(blocks, event)
+
+    def _worker(self) -> None:
+        try:
+            stream = None
+            if self._cuda:
+                torch.cuda.set_device(self._device)
+                stream = torch.cuda.Stream(self._device)
+            for idx_i, idx_j in self._next_indices():
+                t0 = time.perf_counter()
+                if self._cuda:
+                    item = self._stage(idx_i, idx_j, stream)
+                else:
+                    xi, yi = self._source.gather(idx_i)
+                    xj = self._source.gather_x(idx_j)
+                    item = tuple(torch.from_numpy(a) for a in (xi, yi, xj))
+                self.gather_s += time.perf_counter() - t0
+                if not self._put_ready(item):
+                    return
+        except Exception as e:                   # surfaces in get()
+            self._put_ready(e)
+
+    # -- consumer side --------------------------------------------------
+    def get(self) -> Tuple:
+        """The next step's ``(xi, yi, xj_flat)``; blocks until the worker
+        has staged it.  Raises the worker's error, ``RuntimeError`` past
+        the end of the plan or after ``close()``, and ``TimeoutError``
+        after ``timeout`` seconds."""
+        if self._stop:
+            raise RuntimeError("the prefetcher is closed")
+        if self._taken >= self.steps:
+            raise RuntimeError(f"all {self.steps} planned steps were taken; "
+                               "extend() the plan first")
+        t0 = time.perf_counter()
+        while True:
+            try:
+                item = self._ready.get(timeout=_POLL_S)
+                break
+            except queue.Empty:
+                if not self._thread.is_alive() and self._ready.empty():
+                    raise RuntimeError("the prefetch worker ended without "
+                                       "staging the next step") from None
+                if time.perf_counter() - t0 > self._timeout:
+                    raise TimeoutError(
+                        f"no staged step within {self._timeout} s") from None
+        self.wait_s += time.perf_counter() - t0
+        if isinstance(item, Exception):
+            raise item
+        self._taken += 1
+        if isinstance(item, _DeviceBlocks):
+            stream = torch.cuda.current_stream(self._device)
+            stream.wait_event(item.event)
+            for b in item.blocks:
+                b.record_stream(stream)
+            return item.blocks
+        return item
+
+    def close(self, timeout: float = 5.0) -> None:
+        """Stop the worker and join it (at most ``timeout`` seconds), then
+        drop the staged steps."""
+        self._stop = True
+        self._thread.join(timeout=timeout)
+        while True:
+            try:
+                self._ready.get_nowait()
+            except queue.Empty:
+                break
+
+    def __enter__(self) -> "BlockPrefetcher":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def stats(self) -> dict:
+        return {"steps": self.steps, "gather_s": self.gather_s,
+                "wait_s": self.wait_s}
+
+
+class SyncGather:
+    """The no-overlap baseline with ``BlockPrefetcher``'s ``get()`` /
+    ``extend()`` contract: every gather and copy to ``device`` runs
+    inline on the consumer's thread (a pageable copy, so ``wait_s`` is
+    ``gather_s``)."""
+
+    def __init__(self, source: DataSource,
+                 plan_i: Optional[np.ndarray] = None,
+                 plan_j: Optional[np.ndarray] = None, *,
+                 device: DeviceLike = None):
+        self._source = source
+        self._device = resolve_device(device)
+        # Consumed steps are popped: a fit-lived loader holds at most the
+        # epoch planned ahead.
+        self._steps: "collections.deque[Tuple[np.ndarray, np.ndarray]]" = \
+            collections.deque()
+        self.steps = 0
+        self.gather_s = 0.0
+        if plan_i is not None:
+            self.extend(plan_i, plan_j)
+
+    def extend(self, plan_i: np.ndarray, plan_j: np.ndarray) -> None:
+        plan_i, plan_j = np.asarray(plan_i), np.asarray(plan_j)
+        if plan_j.shape[0] != plan_i.shape[0]:
+            raise ValueError("plan_i / plan_j step counts differ")
+        for t in range(plan_i.shape[0]):
+            self._steps.append((plan_i[t], plan_j[t].reshape(-1)))
+        self.steps += int(plan_i.shape[0])
+
+    def get(self) -> Tuple:
+        t0 = time.perf_counter()
+        idx_i, idx_j = self._steps.popleft()
+        xi, yi = self._source.gather(idx_i)
+        xj = self._source.gather_x(idx_j)
+        out = tuple(torch.from_numpy(a).to(self._device)
+                    for a in (xi, yi, xj))
+        self.gather_s += time.perf_counter() - t0
+        return out
+
+    def close(self) -> None:
+        pass
+
+    def __enter__(self) -> "SyncGather":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
+
+    def stats(self) -> dict:
+        return {"steps": self.steps, "gather_s": self.gather_s,
+                "wait_s": self.gather_s}
+
+
+# ---------------------------------------------------------------------------
+# Memmapped synthetic datasets (examples, tests, launch --data mmap).
+# ---------------------------------------------------------------------------
+
+def split_holdout(source: HostSource, *, cap: int = 2048, frac: int = 8
+                  ) -> Tuple[HostSource, np.ndarray, np.ndarray]:
+    """Hold out the LAST ``min(cap, n // frac)`` rows (at least one):
+    ``(train_view, x_val, y_val)``.  The train view never sees the held-out
+    rows, which are copied out of the backing store (owned arrays) through
+    a local view of their range."""
+    n_val = max(min(cap, source.n // frac), 1)
+    train = source.local(0, source.n - n_val)
+    x_val, y_val = source.local(source.n - n_val, n_val).gather(
+        slice(0, n_val))
+    return train, x_val, y_val
+
+
+def make_memmap_dataset(directory: str, n: int, d: int, *, seed: int = 0,
+                        granule: int = 8192) -> HostSource:
+    """Write a learnable synthetic (N, D) classification set to disk as
+    float32 memmaps, one ``granule`` of rows at a time (peak host memory
+    O(granule * D)), with its ``manifest.json``, and return a read-only
+    ``HostSource`` over it.  Granule g is drawn from numpy's
+    ``default_rng((seed, g_start))``: the files equal the JAX package's
+    byte for byte.
+
+    Labels: the sign of a covertype-like nonlinear score (a smooth function
+    of a fixed random projection plus low-order interactions) on
+    all-continuous features."""
+    os.makedirs(directory, exist_ok=True)
+    x_path = os.path.join(directory, f"x_{n}x{d}.f32")
+    y_path = os.path.join(directory, f"y_{n}.f32")
+    x_mm = np.memmap(x_path, np.float32, mode="w+", shape=(n, d))
+    y_mm = np.memmap(y_path, np.float32, mode="w+", shape=(n,))
+    root = np.random.default_rng(seed)
+    w = root.standard_normal(d).astype(np.float32)
+    for start in range(0, n, granule):
+        stop = min(start + granule, n)
+        rng = np.random.default_rng((seed, start))
+        xc = rng.standard_normal((stop - start, d)).astype(np.float32)
+        score = (np.tanh(xc @ w / np.sqrt(d)) + 0.5 * np.sin(2.0 * xc[:, 0])
+                 + 0.25 * xc[:, 1] * xc[:, 2] + 0.18)
+        x_mm[start:stop] = xc
+        y_mm[start:stop] = np.where(score >= 0.0, 1.0, -1.0)
+    x_mm.flush()
+    y_mm.flush()
+    del x_mm, y_mm
+    # The manifest: sizes, file names and the recipe, written atomically.
+    manifest = {"version": 1, "n": int(n), "d": int(d), "dtype": "float32",
+                "x_file": os.path.basename(x_path),
+                "y_file": os.path.basename(y_path),
+                "seed": int(seed), "granule": int(granule)}
+    tmp = os.path.join(directory, "manifest.json.tmp")
+    with open(tmp, "w") as f:
+        json.dump(manifest, f, indent=1)
+    os.replace(tmp, os.path.join(directory, "manifest.json"))
+    return open_memmap_dataset(directory, n, d)
+
+
+def open_memmap_dataset(directory: str, n: Optional[int] = None,
+                        d: Optional[int] = None) -> HostSource:
+    """Re-open a dataset written by ``make_memmap_dataset``, read-only;
+    ``n`` / ``d`` come from its ``manifest.json`` when omitted."""
+    if n is None or d is None:
+        meta = read_manifest(directory)
+        n, d = meta["n"], meta["d"]
+    x = np.memmap(os.path.join(directory, f"x_{n}x{d}.f32"), np.float32,
+                  mode="r", shape=(n, d))
+    y = np.memmap(os.path.join(directory, f"y_{n}.f32"), np.float32,
+                  mode="r", shape=(n,))
+    return HostSource(x, y)
+
+
+def read_manifest(directory: str) -> dict:
+    """Load and validate ``manifest.json``."""
+    path = os.path.join(directory, "manifest.json")
+    with open(path) as f:
+        meta = json.load(f)
+    for k in ("n", "d", "x_file", "y_file"):
+        if k not in meta:
+            raise ValueError(f"manifest {path} is missing {k!r}")
+    if meta.get("dtype", "float32") != "float32":
+        raise ValueError(f"manifest dtype {meta['dtype']!r} unsupported")
+    return meta
+
+
+class ManifestSource(HostSource):
+    """A dataset addressed through its manifest, mapped per row range.
+
+    The object holds only the manifest's metadata; ``local`` (and
+    ``split``) return further ``ManifestSource`` views, and a view opens
+    its ``np.memmap`` on first gather with ``offset=`` into the file,
+    covering only its own rows."""
+
+    def __init__(self, directory: str, *, offset: int = 0,
+                 length: Optional[int] = None, _meta: Optional[dict] = None):
+        meta = read_manifest(directory) if _meta is None else _meta
+        n, d = int(meta["n"]), int(meta["d"])
+        length = n - offset if length is None else int(length)
+        if offset < 0 or offset + length > n:
+            raise ValueError(
+                f"row range [{offset}, {offset + length}) outside 0..{n}")
+        self._directory = directory
+        self._meta = meta
+        self._global_offset = int(offset)   # rows into the file
+        self._n = int(length)
+        self._d = d
+        self._offset = 0                    # view-local, after mapping
+        self._mapped = False
+
+    @property
+    def d(self) -> int:
+        return self._d
+
+    @property
+    def mapped(self) -> bool:
+        """Whether this view has opened its memmap."""
+        return self._mapped
+
+    @property
+    def global_offset(self) -> int:
+        """First row of the file this view covers."""
+        return self._global_offset
+
+    def _ensure_mapped(self) -> None:
+        if self._mapped:
+            return
+        meta, r0, rows = self._meta, self._global_offset, self._n
+        x = np.memmap(os.path.join(self._directory, meta["x_file"]),
+                      np.float32, mode="r", shape=(rows, self._d),
+                      offset=4 * r0 * self._d)
+        y = np.memmap(os.path.join(self._directory, meta["y_file"]),
+                      np.float32, mode="r", shape=(rows,), offset=4 * r0)
+        HostSource.__init__(self, x, y)
+        self._mapped = True
+
+    def gather(self, idx: Index,
+               out_x: Optional[np.ndarray] = None,
+               out_y: Optional[np.ndarray] = None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        self._ensure_mapped()
+        return super().gather(idx, out_x=out_x, out_y=out_y)
+
+    def gather_x(self, idx: Index,
+                 out: Optional[np.ndarray] = None) -> np.ndarray:
+        self._ensure_mapped()
+        return super().gather_x(idx, out=out)
+
+    def local(self, offset: int, length: int) -> "ManifestSource":
+        if offset < 0 or offset + length > self._n:
+            raise ValueError(
+                f"row range [{offset}, {offset + length}) outside the "
+                f"view's [0, {self._n})")
+        return ManifestSource(self._directory,
+                              offset=self._global_offset + offset,
+                              length=length, _meta=self._meta)

@@ -1,66 +1,113 @@
-"""DSEKL training on the card (port of the ``--dsekl --data memory`` mode
-of ``repro/launch/train.py``, serial algorithm).
+"""DSEKL training on the card (port of the ``--dsekl`` modes of
+``repro/launch/train.py``: in memory or out of core from a memmap,
+Algorithm 1 or 2).
 
-Trains the kernel machine on the covertype stand-in held on the device,
-with the JAX launcher's configuration (hinge loss, adagrad, lam = 1e-4)
-and hold-out (the last ``max(min(2048, n // 8), 1)`` rows):
+Trains the kernel machine with the JAX launcher's configuration (hinge
+loss, adagrad, lam = 1e-4) and hold-out (the last ``max(min(2048,
+n // 8), 1)`` rows).  ``--data memory`` keeps the covertype stand-in on
+the device; ``--data mmap`` writes a synthetic float32 dataset to
+``--mmap-dir`` and trains out of core through the hosted data plane: the
+rows stay on disk, a prefetch thread stages each step's sampled blocks
+(``--no-prefetch`` gathers inline), and only O(n_grad + n_workers *
+n_expand) rows a step and the O(N) dual vector reach the device:
 
-    PYTHONPATH=src python -m repro_torch.launch.train --dsekl \\
-        --n 100000 --dim 54 --epochs 3 [--device cpu] \\
+    PYTHONPATH=src python -m repro_torch.launch.train --dsekl \
+        --n 100000 --dim 54 --epochs 3 [--device cpu] \
+        [--data mmap [--mmap-dir DIR] [--no-prefetch]] \
+        [--algorithm parallel --workers 4] \
         [--checkpoint-dir DIR [--resume]]
 
 Modes the port does not have yet exit with an error that names them:
-``--data mmap``, ``--algorithm parallel``, ``--execution`` other than
-``auto`` / ``serial``, ``--precondition-k``, and the LM path.
+``--execution mesh`` / ``bcd``, ``--precondition-k``, and the LM path.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 import time
 from typing import Any, Dict
 
 import torch
 
 from repro_torch.core import DSEKLConfig, fit
+from repro_torch.data import make_memmap_dataset, split_holdout
 from repro_torch.data.synthetic import make_covertype_like
 from repro_torch.device import resolve_device
 
 
 def train_dsekl(args) -> Dict[str, Any]:
-    """Train on the device-resident covertype stand-in; returns the fit
-    result, the config, the training and held-out data and the wall
-    time."""
+    """Train in memory (``--data memory``) or out of core (``--data
+    mmap``); returns the fit result, the config, the training data (``x``
+    and ``y`` on the device, or the memmap ``source``), the held-out rows
+    on the device and the wall time."""
     device = resolve_device(args.device)
     cfg = DSEKLConfig(n_grad=args.n_grad, n_expand=args.n_expand,
                       kernel=args.kernel,
                       kernel_params=(("gamma", args.gamma),),
-                      lam=1e-4, schedule="adagrad", impl="auto")
-    gen = torch.Generator(device=device).manual_seed(args.seed)
+                      lam=1e-4, schedule="adagrad", n_workers=args.workers,
+                      impl="auto")
+    # A hosted fit gathers its plans on the host: draw them there, so no
+    # epoch plan takes room on the card.
+    hosted = args.data == "mmap" or args.execution == "hosted"
+    gen = torch.Generator(device="cpu" if hosted else device)
+    gen.manual_seed(args.seed)
+    ckpt_kw = dict(checkpoint_dir=args.checkpoint_dir, resume=args.resume,
+                   checkpoint_every=args.ckpt_every_epochs)
     if args.checkpoint_dir:
         print(f"[train-dsekl] checkpoints -> {args.checkpoint_dir} "
               f"(every {args.ckpt_every_epochs} epoch(s)"
               + (", resuming from newest valid" if args.resume else "")
               + ")")
-    x, y = make_covertype_like(args.n, args.dim, seed=args.seed,
-                               device=device)
-    n_val = max(min(2048, args.n // 8), 1)  # never 0: x[:-0] is empty
-    x_val, y_val = x[-n_val:], y[-n_val:]
-    x, y = x[:-n_val].contiguous(), y[:-n_val].contiguous()
+    out: Dict[str, Any] = {"cfg": cfg}
+    if args.data == "mmap":
+        mmap_dir = args.mmap_dir or os.path.join(tempfile.gettempdir(),
+                                                 "repro_torch_dsekl_mmap")
+        src = make_memmap_dataset(mmap_dir, args.n, args.dim, seed=args.seed)
+        train_src, x_val, y_val = split_holdout(src)
+        # split_holdout copies the held-out rows out of the mapping.
+        x_val = torch.from_numpy(x_val).to(device)
+        y_val = torch.from_numpy(y_val).to(device)
+        rows = cfg.n_grad + cfg.n_workers * cfg.n_expand
+        print(f"[train-dsekl] mmap dataset: {args.n} x {args.dim} = "
+              f"{src.nbytes / 2**20:.1f} MiB on disk at {mmap_dir}; the "
+              f"device sees {4 * rows * args.dim / 2**10:.0f} KiB of rows a "
+              f"step + {8 * train_src.n / 2**20:.1f} MiB of state")
+        data = (train_src, None)
+        out.update(source=train_src, dataset=src)
+    else:
+        x, y = make_covertype_like(args.n, args.dim, seed=args.seed,
+                                   device=device)
+        n_val = max(min(2048, args.n // 8), 1)  # never 0: x[:-0] is empty
+        x_val, y_val = x[-n_val:], y[-n_val:]
+        x, y = x[:-n_val].contiguous(), y[:-n_val].contiguous()
+        data = (x, y)
+        out.update(x=x, y=y)
     t0 = time.perf_counter()
-    res = fit(cfg, x, y, gen, n_epochs=args.epochs, tol=0.0, x_val=x_val,
-              y_val=y_val, verbose=True, checkpoint_dir=args.checkpoint_dir,
-              checkpoint_every=args.ckpt_every_epochs, resume=args.resume,
-              device=device)
+    res = fit(cfg, *data, gen,
+              execution=None if args.execution == "auto" else args.execution,
+              algorithm=args.algorithm, n_epochs=args.epochs, tol=0.0,
+              x_val=x_val, y_val=y_val, prefetch=not args.no_prefetch,
+              verbose=True, device=device, **ckpt_kw)
     dt = time.perf_counter() - t0
-    print(f"[train-dsekl] {res.epochs_run} epochs in {dt:.2f}s "
-          f"(device-resident on {device})")
+    if res.loader is not None:
+        ld = res.loader
+        hidden = 1.0 - ld["wait_s"] / ld["gather_s"] if ld["gather_s"] else 0.0
+        print(f"[train-dsekl] {res.epochs_run} epochs in {dt:.2f}s "
+              f"(hosted, {args.algorithm}, "
+              f"{'sync' if args.no_prefetch else 'prefetch'}; host gather "
+              f"{ld['gather_s']:.3f}s, consumer wait {ld['wait_s']:.3f}s, "
+              f"hidden {hidden:.1%})")
+    else:
+        print(f"[train-dsekl] {res.epochs_run} epochs in {dt:.2f}s "
+              f"(device-resident on {device}, {args.algorithm})")
     errs = [h["val_error"] for h in res.history if "val_error" in h]
     nsv = int((res.state.alpha != 0).sum())
     if errs:
         print(f"[train-dsekl] val error {errs[0]:.4f} -> {errs[-1]:.4f}; "
               f"{nsv} support vectors")
-    return {"result": res, "cfg": cfg, "x": x, "y": y, "x_val": x_val,
-            "y_val": y_val, "seconds": dt}
+    out.update(result=res, x_val=x_val, y_val=y_val, seconds=dt)
+    return out
 
 
 def parser() -> argparse.ArgumentParser:
@@ -71,7 +118,14 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
     ap.add_argument("--data", choices=("memory", "mmap"), default="memory",
-                    help="device-resident arrays (mmap is not ported yet)")
+                    help="device-resident arrays, or a float32 memmap on "
+                         "disk trained out of core")
+    ap.add_argument("--mmap-dir", default=None,
+                    help="where --data mmap writes its dataset (default: "
+                         "a directory under the temporary directory)")
+    ap.add_argument("--no-prefetch", action="store_true",
+                    help="--data mmap: gather each step's rows inline (the "
+                         "A/B baseline of the prefetch thread)")
     ap.add_argument("--n", type=int, default=100_000)
     ap.add_argument("--dim", type=int, default=54)
     ap.add_argument("--epochs", type=int, default=3)
@@ -80,12 +134,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--kernel", default="rbf")
     ap.add_argument("--gamma", type=float, default=1.0)
     ap.add_argument("--algorithm", choices=("serial", "parallel"),
-                    default="serial")
+                    default="serial",
+                    help="Algorithm 1 (serial) or 2 (parallel)")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="Algorithm 2's K: expansion batches a step")
     ap.add_argument("--execution",
                     choices=("auto", "serial", "parallel", "hosted", "mesh",
                              "bcd"),
                     default="auto",
-                    help="training execution backend; only auto/serial are "
+                    help="training execution backend; mesh and bcd are not "
                          "ported")
     ap.add_argument("--precondition-k", type=int, default=0,
                     help="EigenPro rank (not ported yet; must be 0)")
@@ -105,11 +162,7 @@ def unported_modes(args) -> list:
     out = []
     if not args.dsekl:
         out.append("the LM path (pass --dsekl)")
-    if args.data != "memory":
-        out.append(f"--data {args.data}")
-    if args.algorithm != "serial":
-        out.append(f"--algorithm {args.algorithm}")
-    if args.execution not in ("auto", "serial"):
+    if args.execution in ("mesh", "bcd"):
         out.append(f"--execution {args.execution}")
     if args.precondition_k:
         out.append("--precondition-k")

@@ -21,7 +21,11 @@ every other flash call on the fp32 route (``kernel.select_route``).  The
 matvec and vecmat of the six cross-term kinds with D <= 64 run on the sm90
 TF32 tensor-core route (the cross term split three ways), the Laplacian
 and wider D on the fp32 route (``block.select_matvec_route``), held to
-the same float32 tolerance.
+the same float32 tolerance.  Algorithm 2's step at the protocol's shape
+(J union 4,096) takes the fp32 train route and is held to the same
+tolerance; the hosted prefetcher's pinned, copy-streamed blocks must
+equal ``SyncGather``'s exactly under a delayed consumer, and a hosted
+Algorithm-2 fit must equal the in-memory one bit for bit.
 """
 import ctypes
 
@@ -829,3 +833,102 @@ def test_ssd_wrapper_rejects_bad_arguments(cuda):
     with pytest.raises(ValueError):
         kernel.ssd_cuda(x, dt, a, bm[:, :, :, :3], cm)     # not contiguous
     assert kernel.ssd_cuda.launches == before
+
+
+# ---------------------------------------------------------------------------
+# Algorithm 2 and the hosted data plane on the card.
+# ---------------------------------------------------------------------------
+
+def _host_rows(n, d=54, seed=0):
+    from repro_torch.data import HostSource
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    y = np.where(x[:, 0] + x[:, 1] * x[:, 2] > 0, 1.0, -1.0).astype(np.float32)
+    return x, y, HostSource(x, y)
+
+
+def test_prefetcher_copy_stream_under_a_delayed_consumer(cuda):
+    """Pinned staging and the prefetcher's own copy stream: with a spin
+    queued on the consumer's stream before each step, so that its reads
+    lag far behind the host, the blocks it reads over 64 steps equal
+    SyncGather's.  A block whose memory the allocator handed to a later
+    step's copy too early would show here as rows of another step."""
+    from repro_torch.data import BlockPrefetcher, SyncGather
+    x, y, src = _host_rows(20000)
+    rng = np.random.default_rng(1)
+    plan_i = np.stack([rng.permutation(20000)[:1024] for _ in range(64)])
+    plan_j = np.stack([rng.permutation(20000)[:4096] for _ in range(64)])
+    kept = [torch.empty((64,) + shape, dtype=torch.float32, device=cuda)
+            for shape in ((1024, 54), (1024,), (4096, 54))]
+    with BlockPrefetcher(src, plan_i, plan_j, device=cuda) as loader:
+        assert all(t.is_pinned() for t in loader._bufs.pinned)
+        for t in range(64):
+            torch.cuda._sleep(3_000_000)          # ~2 ms on the stream
+            blocks = loader.get()
+            assert all(b.is_cuda for b in blocks)
+            for k, b in zip(kept, blocks):
+                k[t].copy_(b)                     # queued behind the spin
+            del blocks
+        torch.cuda.synchronize()
+    sync = SyncGather(src, plan_i, plan_j, device=cuda)
+    for t in range(64):
+        for k, b in zip(kept, sync.get()):
+            assert torch.equal(k[t], b)
+
+
+def test_parallel_step_on_the_fp32_route_matches_plain(cuda):
+    """One Alg.-2 step at the protocol's shape (I = 1024, J union = 4 x
+    1024): one launch of the indexed train pass on the fp32 route, f and
+    g against the plain version, and the step's state against the ref
+    step's."""
+    from repro_torch.core import dsekl
+    x, y, _ = _host_rows(20000, seed=2)
+    x, y = torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)
+    rng = np.random.default_rng(3)
+    alpha = torch.tensor(rng.standard_normal(20000) * 0.1,
+                         dtype=torch.float32, device=cuda)
+    perm = torch.from_numpy(rng.permutation(20000)).to(cuda)
+    idx_i, idx_jk = perm[:1024], perm[1024:1024 + 4096].reshape(4, 1024)
+    flat_j = idx_jk.reshape(-1).contiguous()
+    assert block.select_train_route(1024, 4096, 54, "rbf") == "fp32"
+    before = dict(block.train_pass_indexed_cuda.launches_by_route)
+    f, g = ops.kernel_train_pass_indexed(x, y, alpha, idx_i, flat_j,
+                                         loss="hinge", lam=1e-4, impl="cuda")
+    before["fp32"] += 1
+    assert block.train_pass_indexed_cuda.launches_by_route == before
+    wf, wg = block.train_pass_indexed_plain(x, y, alpha, idx_i, flat_j,
+                                            loss="hinge", lam=1e-4)
+    _close(f, wf)
+    _close(g, wg)
+    cfg = DSEKLConfig(n_grad=1024, n_expand=1024, n_workers=4,
+                      loss="square", schedule="adagrad", lam=1e-4)
+    st = dsekl.init_state(20000, device=cuda)._replace(alpha=alpha)
+    card = dsekl._parallel_inner(cfg, st, x, y, idx_i, idx_jk)
+    ref = dsekl._parallel_inner(cfg.replace(impl="ref"), st, x, y, idx_i,
+                                idx_jk)
+    _close(card.alpha, ref.alpha)
+    _close(card.accum, ref.accum)
+
+
+def test_hosted_parallel_fit_is_bit_identical_to_in_memory(cuda):
+    """Algorithm 2's worker batches are disjoint within a step, so the
+    scatter meets no duplicate index and the fp32 train route sums in a
+    fixed order: a hosted fit from pinned, copy-streamed blocks equals the
+    in-memory fit bit for bit."""
+    x, y, src = _host_rows(16384, seed=4)
+    cfg = DSEKLConfig(n_grad=1024, n_expand=1024, n_workers=4, loss="hinge",
+                      schedule="adagrad", lam=1e-4)
+    gen = torch.Generator().manual_seed(5)
+    plans = [sampler.parallel_epoch_plan(gen, 16384, 1024, 1024, 4)
+             for _ in range(2)]
+    before = block.train_pass_cuda.launches_by_route["fp32"]
+    kw = dict(plans=plans, algorithm="parallel", n_epochs=2, tol=0.0,
+              device=cuda)
+    mem = fit(cfg, x, y, **kw)
+    host = fit(cfg, src, None, **kw)
+    sync = fit(cfg, src, None, prefetch=False, **kw)
+    assert block.train_pass_cuda.launches_by_route["fp32"] == before + 64
+    for other in (host, sync):
+        assert torch.equal(mem.state.alpha, other.state.alpha)
+        assert torch.equal(mem.state.accum, other.state.accum)
+    assert host.loader["steps"] == 32 and host.loader["gather_s"] > 0

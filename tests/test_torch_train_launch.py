@@ -44,9 +44,14 @@ def test_train_dsekl_result_and_hold_out(capsys):
     assert "val error" in capsys.readouterr().out
 
 
+# --data mmap and --algorithm parallel are ported
+# (tests/test_torch_hosted.py drives them); with either, the modes still
+# missing are refused by name.
 @pytest.mark.parametrize("extra,named", [
-    (["--data", "mmap"], "--data mmap"),
-    (["--algorithm", "parallel"], "--algorithm parallel"),
+    pytest.param(["--data", "mmap", "--execution", "bcd"], "--execution bcd",
+                 id="extra0---data mmap"),
+    pytest.param(["--algorithm", "parallel", "--precondition-k", "8"],
+                 "--precondition-k", id="extra1---algorithm parallel"),
     (["--execution", "mesh"], "--execution mesh"),
     (["--precondition-k", "8"], "--precondition-k"),
 ])
