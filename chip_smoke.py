@@ -20,7 +20,10 @@ result):
                memory, spills and warnings, and their SASS counts by
                cuobjdump: HGMMA (wgmma) and, for flash and the SSD scan,
                UTMALDG (TMA) must be > 0; the sm90 matvec must spill
-               nothing.
+               nothing; the sm90 train kernel's wide instantiations
+               must spill nothing (the narrow ones' ptxas lines are
+               printed), no C75xx note may appear, and the wide
+               variant's dynamic shared memory is printed.
   3. parity  — each DSEKL kernel vs its plain version on the card, 7
                kernels x D in {3, 54, 784} at ragged I=1000, J=5003:
                matvec, vecmat, the dual pass, the train pass for the 4
@@ -32,10 +35,12 @@ result):
                cross-term kinds at D <= 64, fp32 for the rest).  The
                dual and train passes on both train routes
                (``block.select_train_route``: J = 5003 on the fp32 one,
-               the ragged J = 1000 on the sm90 one), and the indexed
-               train pass (rows read by index from the 5003, duplicates
-               among them, lam 1e-4) against its plain version and,
-               bit for bit, against the same kernel on the rows gathered
+               the ragged J = 1000 on the sm90 one with K in registers,
+               J = 4096 and the ragged 3000 on its wide variant with K in
+               shared memory), and the indexed train pass (rows read by
+               index from the 5003, duplicates among them, lam 1e-4; J =
+               1000, 4096 and 3000) against its plain version and, bit
+               for bit, against the same kernel on the rows gathered
                beforehand.
   4. lm-parity — flash attention (causal and not, window 64 and 0, GQA
                32/8 and 4/1, D 64 and 128, ragged S, S != T, and lengths at
@@ -78,13 +83,16 @@ result):
                ``train_dsekl`` (559,890 x 54 rows in memory, |I| = |J| =
                1024, 4 workers, RBF, hinge, adagrad, 1 epoch = 546 steps):
                one train-pass launch a step over the 4,096-column J union,
-               all on the fp32 route, no matvec / vecmat fallback; the
-               eval's one matvec; the val error beats the all-zero model;
-               ms a step; then torch.profiler over 32 of its steps.
+               all on the sm90 route (its wide variant, rows read by
+               index), none on the fp32 route, no matvec / vecmat
+               fallback; the eval's one matvec; the val error beats the
+               all-zero model; ms a step; then torch.profiler over 32 of
+               its steps: device busy, device kernels a step.
  11. train-hosted — the same out of core: ``--data mmap`` writes the
                561,938 x 54 float32 dataset (116 MiB), 2 epochs through
                the prefetcher, then 1 with ``--no-prefetch``: train-pass
-               launches equal the steps, all fp32; the streamed eval's
+               launches equal the steps, all sm90 (the wide variant on the
+               staged blocks), none fp32; the streamed eval's
                matvec launches equal its 4,096-row chunks (137), all sm90;
                the peak device memory over the fit stays below half the
                dataset; ms a step, gather_s, wait_s and the hidden share
@@ -108,9 +116,12 @@ result):
                on the sm90 train route (row 4 as the step calls it: rows
                by index, lam), the contiguous sm90 train pass, and both on
                the fp32 route at the same shape, each on a line of its
-               own; row 4's fp32 route at the Alg.-2 step's shape (I =
-               1024, J = 4,096) as a row of its own, with its launches on
-               the Alg.-2 paths (``launches_by_path``).  Every route of
+               own; row 4 at the Alg.-2 step's shape (I = 1024, J =
+               4,096): the sm90 route's wide variant as the step calls it,
+               with its launches on the Alg.-2 paths
+               (``launches_by_path``) and the clusters the card holds at
+               once, and the fp32 route, each a row of its own; the step's
+               call with the fp32 route forced on a line.  Every route of
                every kernel is a row of the kernels line
                (``kernel_route``).
  14. serve-jamba — the LM main path: jamba-v0.1-52b at full width cut to
@@ -173,6 +184,9 @@ DEVICE = "cuda"
 RTOL, ATOL = 2e-4, 1e-5
 PARITY_SHAPE = (1000, 5003)
 SM90_PARITY_J = 1000                     # the ragged J of the sm90 train route
+# The sm90 train route's wide variant (K in shared memory): J at its limit,
+# and a ragged J that leaves the last CTAs' slices short or empty.
+SM90_WIDE_PARITY_J = (4096, 3000)
 PARITY_DIMS = (3, 54, 784)
 PARITY_CASES = [
     ("rbf", (("gamma", 0.7),)),
@@ -400,7 +414,40 @@ def phase_build():
     _inspect_sm90(records["ssd_sm90"], "ssd sm90", ("HGMMA", "UTMALDG"))
     _inspect_sm90(records["dsekl_matvec_sm90"], "matvec sm90", ("HGMMA",))
     _check_no_spills(records["dsekl_matvec_sm90"], "matvec sm90")
+    _inspect_train_sm90(records["dsekl_train_sm90"])
     return records
+
+
+def _inspect_train_sm90(rec) -> None:
+    """The sm90 train kernel's instantiations (train_sm90, K in registers;
+    train_sm90_wide, K in shared memory): ptxas's registers, static shared
+    memory and spills for each, and the wide variant's dynamic shared
+    memory.  No wide instantiation may spill, and no C75xx note may
+    appear; the narrow kernel's spills are printed."""
+    from repro_torch.kernels.dsekl import block
+    what = "train sm90"
+    entry, wide_spills = "", []
+    for line in rec.log.splitlines():
+        if "Compiling entry function" in line:
+            entry = ("train_sm90_wide" if "train_sm90_wideI" in line else
+                     "train_sm90" if "train_sm90I" in line else "helper")
+            kind = line.split("ILi")[1][0] if "ILi" in line else "-"
+            print(f"[build] {what} {entry} kind {kind}:")
+        elif any(w in line for w in ("registers", "spill", "C75")):
+            print(f"[build] {what}   {line.strip()[:160]}")
+            if (entry == "train_sm90_wide" and "spill" in line
+                    and not (" 0 bytes spill stores" in line
+                             and " 0 bytes spill loads" in line)):
+                wide_spills.append(line.strip())
+    notes = [ln.strip() for ln in rec.log.splitlines() if "C75" in ln]
+    check(not notes, f"{what}: ptxas notes {notes[:3]}")
+    check(not wide_spills, f"{what}: the wide variant spilled registers: "
+          f"{wide_spills[:3]}")
+    lib = block._train_sm90_lib()
+    print(f"[build] {what}: train_sm90_wide spills nothing; dynamic shared "
+          f"memory a CTA {lib.dsekl_train_sm90_smem_bytes(4096)} B for the "
+          f"wide variant (J > 1,024), {lib.dsekl_train_sm90_smem_bytes(1024)}"
+          f" B for J <= 1,024")
 
 
 def _check_no_spills(rec, what: str) -> None:
@@ -491,8 +538,8 @@ def phase_parity():
         # drawn with replacement (duplicates among them).
         y_n = dev(np.where(rng.standard_normal(n_j) >= 0, 1.0, -1.0))
         idx_i = torch.tensor(rng.integers(0, n_j, n_i), device=DEVICE)
-        idx_j = torch.tensor(rng.integers(0, n_j, SM90_PARITY_J),
-                             device=DEVICE)
+        idx_js = [torch.tensor(rng.integers(0, n_j, w), device=DEVICE)
+                  for w in (SM90_PARITY_J,) + SM90_WIDE_PARITY_J]
         for name, params in PARITY_CASES:
             kw = dict(kernel_name=name, params=dict(params))
             # The matvec and vecmat: on the tensor-core route for the six
@@ -516,18 +563,22 @@ def phase_parity():
                 check(f.launches_by_route == before,
                       f"{name} D={d}: not launched on the {route} route")
             # The dual and train passes on both train routes: the fp32
-            # one at J = 5003, the sm90 one at the ragged J = 1000.
-            for zz, aa in ((z, a), (z[:SM90_PARITY_J], a[:SM90_PARITY_J])):
-                troute = block.select_train_route(n_i, zz.shape[0], d, name)
-                check(troute == ("sm90" if zz.shape[0] <= block.SM90_TRAIN_MAX_J
+            # one at J = 5003, the sm90 one at the ragged J = 1000 (K in
+            # registers) and at J = 4096 and 3000 (the wide variant, K in
+            # shared memory).
+            for w in (n_j, SM90_PARITY_J) + SM90_WIDE_PARITY_J:
+                zz, aa = z[:w], a[:w]
+                troute = block.select_train_route(n_i, w, d, name)
+                check(troute == ("sm90" if w <= block.SM90_TRAIN_MAX_J
                                  else "fp32"),
-                      f"{name} D={d} J={zz.shape[0]}: train route {troute}")
+                      f"{name} D={d} J={w}: train route {troute}")
+                tag = troute + (" wide" if w in SM90_WIDE_PARITY_J else "")
                 gf, gg = _routed(
                     lambda: block.dual_pass_cuda(x, zz, aa, v, **kw),
                     block.dual_pass_cuda, troute, name)
                 wf, wg = block.dual_pass_plain(x, zz, aa, v, **kw)
-                held(f"dual_pass {troute}", gf, wf)
-                held(f"dual_pass {troute}", gg, wg)
+                held(f"dual_pass {tag}", gf, wf)
+                held(f"dual_pass {tag}", gg, wg)
                 for loss in LOSSES:
                     yl = y_reg if loss == "square" else y
                     for f_scale in (1.0, TRAIN_N / zz.shape[0]):
@@ -538,27 +589,29 @@ def phase_parity():
                             block.train_pass_cuda, troute, f"{name} {loss}")
                         wf, wg = block.train_pass_plain(
                             x, zz, aa, yl, loss=loss, f_scale=f_scale, **kw)
-                        held(f"train_pass {troute}", gf, wf)
-                        held(f"train_pass {troute}", gg, wg)
+                        held(f"train_pass {tag}", gf, wf)
+                        held(f"train_pass {tag}", gg, wg)
             # The indexed train pass: rows of the J = 5003 block read by
-            # index, as the step reads them from the training rows.
-            ikw = dict(kw, loss="hinge", f_scale=TRAIN_N / SM90_PARITY_J,
-                       lam=1e-4)
-            gf, gg = _routed(
-                lambda: block.train_pass_indexed_cuda(z, y_n, a, idx_i,
-                                                      idx_j, **ikw),
-                block.train_pass_indexed_cuda, "sm90", name)
-            wf, wg = block.train_pass_indexed_plain(z, y_n, a, idx_i, idx_j,
-                                                    **ikw)
-            held("train_pass indexed", gf, wf)
-            held("train_pass indexed", gg, wg)
-            bf, bg = block.train_pass_cuda(
-                z[idx_i], z[idx_j], a[idx_j], y_n[idx_i], loss="hinge",
-                f_scale=TRAIN_N / SM90_PARITY_J, **kw)
-            check(torch.equal(gf, bf)
-                  and torch.equal(gg, bg + 1e-4 * a[idx_j]),
-                  f"{name} D={d}: the indexed train pass differs from the "
-                  "gathered one")
+            # index, as the steps read them from the training rows (J =
+            # 1000 in registers, 4096 and 3000 in the wide variant).
+            for idx_j in idx_js:
+                w = idx_j.shape[0]
+                ikw = dict(kw, loss="hinge", f_scale=TRAIN_N / w, lam=1e-4)
+                gf, gg = _routed(
+                    lambda: block.train_pass_indexed_cuda(z, y_n, a, idx_i,
+                                                          idx_j, **ikw),
+                    block.train_pass_indexed_cuda, "sm90", name)
+                wf, wg = block.train_pass_indexed_plain(z, y_n, a, idx_i,
+                                                        idx_j, **ikw)
+                held(f"train_pass indexed J={w}", gf, wf)
+                held(f"train_pass indexed J={w}", gg, wg)
+                bf, bg = block.train_pass_cuda(
+                    z[idx_i], z[idx_j], a[idx_j], y_n[idx_i], loss="hinge",
+                    f_scale=TRAIN_N / w, **kw)
+                check(torch.equal(gf, bf)
+                      and torch.equal(gg, bg + 1e-4 * a[idx_j]),
+                      f"{name} D={d} J={w}: the indexed train pass differs "
+                      "from the gathered one")
             # The over-budget fallback: matvec then vecmat, no stash.
             budget, block.STASH_BUDGET = block.STASH_BUDGET, 0
             try:
@@ -902,13 +955,13 @@ def _dsekl_counts() -> dict:
         block.kernel_vecmat_cuda)}
 
 
-def _check_fp32_steps(counts: dict, steps: int, wrapper: str,
-                      matvecs: int, what: str) -> None:
-    """Every step one train-pass launch of ``wrapper`` on the fp32 route,
-    no other train-pass, dual-pass or vecmat launch, and ``matvecs``
-    matvec launches (the evals), all on the sm90 route."""
-    train = {"sm90": 0, "fp32": steps}
+def _check_train_steps(counts: dict, steps: int, wrapper: str, route: str,
+                       matvecs: int, what: str) -> None:
+    """Every step one train-pass launch of ``wrapper`` on ``route`` (none
+    on the other), no other train-pass, dual-pass or vecmat launch, and
+    ``matvecs`` matvec launches (the evals), all on the sm90 route."""
     none_t = {"sm90": 0, "fp32": 0}
+    train = dict(none_t, **{route: steps})
     want = {"train_pass_indexed_cuda": none_t, "train_pass_cuda": none_t,
             "dual_pass_cuda": none_t,
             "kernel_matvec_cuda": {"sm90": matvecs, "fp32": 0},
@@ -925,8 +978,9 @@ def _zero_model_error(y_val) -> float:
 
 def phase_train_parallel():
     """Algorithm 2 at the Fig. 3a protocol, in memory: one epoch of 546
-    steps, each one train pass over the 4,096-column J union (the fp32
-    route), then the validation eval (one matvec)."""
+    steps, each one train pass over the 4,096-column J union (the sm90
+    route's wide variant, rows read by index), then the validation eval
+    (one matvec)."""
     import torch
     from repro_torch.launch import train
     args = train.parser().parse_args(PARALLEL_ARGS + ["--device", DEVICE])
@@ -941,8 +995,8 @@ def phase_train_parallel():
           f"{counts}")
     check(steps == PARALLEL_STEPS, f"{steps} steps, expected "
           f"{PARALLEL_STEPS}")
-    _check_fp32_steps(counts, steps, "train_pass_indexed_cuda", 1,
-                      "train-parallel")
+    _check_train_steps(counts, steps, "train_pass_indexed_cuda", "sm90", 1,
+                       "train-parallel")
     alpha = res.state.alpha
     check(bool(torch.isfinite(alpha).all()), "non-finite alpha")
     err, zero = res.history[-1]["val_error"], _zero_model_error(out["y_val"])
@@ -992,8 +1046,8 @@ def phase_train_hosted():
               f"dataset {src.n} x {src.d} float32 on disk: x "
               f"{x_bytes / 2**20:.1f} MiB + y {y_bytes / 2**20:.1f} MiB; "
               f"launches {counts}")
-        _check_fp32_steps(counts, steps, "train_pass_cuda", epochs * chunks,
-                          f"train-hosted {mode}")
+        _check_train_steps(counts, steps, "train_pass_cuda", "sm90",
+                           epochs * chunks, f"train-hosted {mode}")
         check(bool(torch.isfinite(res.state.alpha).all()), "non-finite alpha")
         err = res.history[-1]["val_error"]
         zero = _zero_model_error(out["y_val"])
@@ -1098,16 +1152,19 @@ def phase_hosted_vs_memory():
     shutil.rmtree(d_dir, ignore_errors=True)
 
 
-def phase_parallel_times(out, device_name: str, launches: int):
-    """Row 4's fp32 route at the Alg.-2 step's shape (I = 1024, J union =
-    4,096, D = 54, RBF, hinge) on rows gathered beforehand, against its
-    plain version, with the fp32 cross-term GEMM as yardstick; and one
-    step's call as the step makes it (the indexed wrapper, which gathers
-    and adds lam)."""
+def phase_parallel_times(out, device_name: str):
+    """Row 4 at the Alg.-2 step's shape (I = 1024, J union = 4,096, D =
+    54, RBF, hinge): the sm90 route's wide variant as the step calls it
+    (rows by index, lam) and on the rows gathered beforehand, and the fp32
+    route on the gathered rows, each against its plain version, with the
+    fp32 cross-term GEMM as yardstick; and the step's indexed call with
+    the fp32 route forced (the gathers, its launches, + lam * a_J in
+    torch), as the step ran before the wide variant."""
     import torch
     from repro_torch.core.losses import LOSS_CODES
     from repro_torch.kernels.dsekl import block
     x, y, alpha = out["x"], out["y"], out["result"].state.alpha
+    lam = out["cfg"].lam
     gen = torch.Generator(device=DEVICE).manual_seed(8)
     idx_i = torch.randperm(x.shape[0], generator=gen, device=DEVICE)[:1024]
     idx_j = torch.randperm(x.shape[0], generator=gen,
@@ -1116,42 +1173,81 @@ def phase_parallel_times(out, device_name: str, launches: int):
     xj, aj = x[idx_j].contiguous(), alpha[idx_j].contiguous()
     n_i, d = xi.shape
     n_j = xj.shape[0]
-    check(block.select_train_route(n_i, n_j, d, "rbf") == "fp32"
-          and block.fits_stash(n_i, n_j),
-          "the Alg.-2 step's shape is not on the fp32 route within budget")
+    check(block.select_train_route(n_i, n_j, d, "rbf") == "sm90",
+          "the Alg.-2 step's shape is not on the sm90 route")
+    check(block.fits_stash(n_i, n_j), "the Alg.-2 step's K stash is over "
+          "the fp32 route's budget")
     kind, p = block.KINDS["rbf"], block.tile_params("rbf", None)
-
-    def kernel():
-        return block._launch_train_fp32("fp32 route", xi, xj, aj, yi,
-                                        LOSS_CODES["hinge"], kind, p, 1.0)
-
-    def plain():
-        return block.train_pass_plain(xi, xj, aj, yi, loss="hinge")
-
-    got, want = kernel(), plain()
-    err = max(compare(got[0], want[0]), compare(got[1], want[1]))
-    t = _timed(kernel, plain)
-    t_gemm = device_ms(lambda: torch.matmul(xi, xj.T))
+    lib = block._train_sm90_lib()
+    clusters = lib.dsekl_train_sm90_active_clusters(kind, n_j)
+    row_blocks = -(-n_i // block.SM90_TRAIN_ROWS)
+    print(f"[times] train_pass sm90 route, wide variant at J={n_j}: "
+          f"{row_blocks} row blocks of {block.SM90_TRAIN_ROWS} (clusters of "
+          f"8 CTAs, {lib.dsekl_train_sm90_smem_bytes(n_j)} B of dynamic "
+          f"shared memory a CTA); the card holds {clusters} such clusters "
+          f"at once")
+    check(clusters >= row_blocks, f"{row_blocks} row blocks need "
+          f"{row_blocks} clusters at once, the card holds {clusters}")
     cross, norms, epi = 2 * n_i * n_j * d, 2 * d * (n_i + n_j), 8 * n_i * n_j
     n_ops = cross + norms + epi + 2 * n_i * n_j + 4 * n_i
     n_bytes = 4 * (n_i * d + n_j * d + n_j + n_i + n_i + n_j)
-    row = _row("train_pass_fp32_j4096",
-               "src/repro_torch/kernels/dsekl/csrc/dsekl_train.cu",
-               "src/repro/kernels/dsekl/block.py:432", t, n_ops, n_bytes,
-               device_name, err, t_gemm)
-    row["kernel_route"] = "fp32"
-    _print_row(row, t, f"I={n_i} J={n_j} D={d}", n_ops, n_bytes,
-               "torch.matmul(xi, xj.T); fp32 route,")
-    lam = out["cfg"].lam
-    step_call = [device_ms(lambda: block.train_pass_indexed_cuda(
-        x, y, alpha, idx_i, idx_j, loss="hinge", lam=lam))
-        for _ in range(2)]
-    print(f"[times] train_pass_fp32_j4096: {row['bound_ms'] / row['ms']:.1%}"
-          f" of its bound; {launches} launches on the Alg.-2 paths; the "
-          f"step's call (train_pass_indexed_cuda: the gathers, the kernel, "
-          f"+ lam * a_J) device {statistics.mean(step_call):.4f} ms "
-          f"({step_call[0]:.4f}, {step_call[1]:.4f})")
-    return row
+    t_gemm = device_ms(lambda: torch.matmul(xi, xj.T))
+    src = "src/repro_torch/kernels/dsekl/csrc/"
+    rows = []
+    # (name, kernel route, source, kernel, plain, operations, bytes): the
+    # sm90 row as the step calls it, which also reads its indices and adds
+    # lam * a_j.
+    cases = [
+        ("train_pass_sm90_j4096", "sm90", src + "dsekl_train_sm90.cu",
+         lambda: block.train_pass_indexed_cuda(x, y, alpha, idx_i, idx_j,
+                                               loss="hinge", lam=lam),
+         lambda: block.train_pass_indexed_plain(x, y, alpha, idx_i, idx_j,
+                                                loss="hinge", lam=lam),
+         n_ops + 2 * n_j, n_bytes + 8 * (n_i + n_j)),
+        ("train_pass_fp32_j4096", "fp32", src + "dsekl_train.cu",
+         lambda: block._launch_train_fp32(
+             "fp32 route", xi, xj, aj, yi, LOSS_CODES["hinge"], kind, p, 1.0),
+         lambda: block.train_pass_plain(xi, xj, aj, yi, loss="hinge"),
+         n_ops, n_bytes),
+    ]
+    for name, kroute, source, kernel, plain, ops_count, bytes_count in cases:
+        got, want = kernel(), plain()
+        err = max(compare(got[0], want[0]), compare(got[1], want[1]))
+        t = _timed(kernel, plain)
+        row = _row(name, source, "src/repro/kernels/dsekl/block.py:432", t,
+                   ops_count, bytes_count, device_name, err, t_gemm)
+        row["kernel_route"] = kroute
+        rows.append(row)
+        _print_row(row, t, f"I={n_i} J={n_j} D={d}", ops_count, bytes_count,
+                   f"torch.matmul(xi, xj.T); {kroute} route,")
+        print(f"[times] {name}: {row['bound_ms'] / row['ms']:.1%} of its "
+              f"bound")
+    sm90, fp32 = rows
+    contiguous = [device_ms(lambda: block.train_pass_cuda(xi, xj, aj, yi,
+                                                          loss="hinge"))
+                  for _ in range(2)]
+    max_j = block.SM90_TRAIN_MAX_J
+    block.SM90_TRAIN_MAX_J = 1024             # the step before the wide variant
+    try:
+        check(block.select_train_route(n_i, n_j, d, "rbf") == "fp32",
+              "the forced route is not fp32")
+        step_fp32 = [device_ms(lambda: block.train_pass_indexed_cuda(
+            x, y, alpha, idx_i, idx_j, loss="hinge", lam=lam))
+            for _ in range(2)]
+    finally:
+        block.SM90_TRAIN_MAX_J = max_j
+    print(f"[times] train_pass_sm90_j4096: the step's call (rows by index, "
+          f"lam in the kernel) device {sm90['ms']:.4f} ms; on the rows "
+          f"gathered beforehand (train_pass_cuda, the hosted step's call) "
+          f"{statistics.mean(contiguous):.4f} ms ({contiguous[0]:.4f}, "
+          f"{contiguous[1]:.4f}); the fp32 route's kernels "
+          f"{fp32['ms']:.4f} ms = {fp32['ms'] / sm90['ms']:.2f}x; the step's "
+          f"call on the fp32 route (the gathers, the kernels, + lam * a_J) "
+          f"{statistics.mean(step_fp32):.4f} ms ({step_fp32[0]:.4f}, "
+          f"{step_fp32[1]:.4f})")
+    sm90["contiguous_ms"] = statistics.mean(contiguous)
+    fp32["step_call_ms"] = statistics.mean(step_fp32)
+    return rows
 
 
 def _row(name, source, replaces, t, ops_count, bytes_count, device_name,
@@ -2101,13 +2197,13 @@ def main() -> int:
     step_profile = phase_profile(trained["out"])
     elapsed("serve, train, train-cuda-vs-ref, train-two-pass, profile")
     parallel = phase_train_parallel()
-    phase_profile(parallel["out"], parallel=True)
+    parallel_profile = phase_profile(parallel["out"], parallel=True)
     hosted = phase_train_hosted()
     phase_hosted_vs_memory()
     elapsed("train-parallel, profile-parallel, train-hosted, "
             "hosted-vs-memory")
-    # The fp32 train route's launches on the Alg.-2 paths, by path.
-    fp32_paths = {"train-parallel": parallel["launches"],
+    # The wide sm90 train kernel's launches on the Alg.-2 paths, by path.
+    wide_paths = {"train-parallel": parallel["launches"],
                   "train-hosted prefetch": hosted["prefetch"]["steps"],
                   "train-hosted sync": hosted["sync"]["steps"]}
     matvec_paths = {"serve": launches,
@@ -2117,8 +2213,7 @@ def main() -> int:
                     "train-hosted sync eval": hosted["sync"]["eval_launches"]}
     rows = phase_times(res, name) + [phase_rbf_times(res, name)]
     rows += phase_train_times(trained["out"], name)
-    rows.append(phase_parallel_times(parallel["out"], name,
-                                     sum(fp32_paths.values())))
+    rows += phase_parallel_times(parallel["out"], name)
     del res, trained["out"], parallel["out"]
     elapsed("times")
     jamba = phase_serve_jamba()
@@ -2128,12 +2223,12 @@ def main() -> int:
     elapsed("lm-times")
     # Launches on the main paths; every fp32 route has none there.
     by_path = {"kernel_matvec": matvec_paths,
-               "train_pass_fp32_j4096": fp32_paths}
+               "train_pass_sm90_j4096": wide_paths}
     launches = {"kernel_matvec": sum(matvec_paths.values()), "rbf_matvec": 0,
                 "kernel_vecmat": vecmat_launches,
                 "dual_pass": trained["dual_launches"],
                 "train_pass": trained["launches"],
-                "train_pass_fp32_j4096": sum(fp32_paths.values()),
+                "train_pass_sm90_j4096": sum(wide_paths.values()),
                 "flash_attention": jamba["flash"], "ssd": jamba["ssd"]}
     for row in rows:
         row["launches"] = launches.get(row["name"], 0)
@@ -2151,13 +2246,17 @@ def main() -> int:
           f"{step_profile['busy_ms']:.4f} ms/step (profiler; "
           f"{step_profile['busy_share']:.1%} of the profiled wall), "
           f"{step_profile['kernels']:.2f} device kernels a step")
-    fp32 = next(r for r in rows if r["name"] == "train_pass_fp32_j4096")
+    wide = next(r for r in rows if r["name"] == "train_pass_sm90_j4096")
     print(f"[train-parallel] {parallel['ms_per_step']:.4f} ms/step in "
-          f"memory; out of core {hosted['prefetch']['ms_per_step']:.4f} "
-          f"ms/step prefetched (hidden {hosted['prefetch']['hidden']:.1%}), "
-          f"{hosted['sync']['ms_per_step']:.4f} inline; the fp32 train "
-          f"route's kernel {fp32['ms']:.4f} ms of device time = "
-          f"{fp32['ms'] / parallel['ms_per_step']:.1%} of the in-memory step")
+          f"memory (the serial step {step_ms:.4f}); out of core "
+          f"{hosted['prefetch']['ms_per_step']:.4f} ms/step prefetched "
+          f"(hidden {hosted['prefetch']['hidden']:.1%}), "
+          f"{hosted['sync']['ms_per_step']:.4f} inline; the wide sm90 train "
+          f"kernel {wide['ms']:.4f} ms of device time = "
+          f"{wide['ms'] / parallel['ms_per_step']:.1%} of the in-memory "
+          f"step; device busy {parallel_profile['busy_ms']:.4f} ms/step, "
+          f"{parallel_profile['kernels']:.2f} device kernels a step "
+          f"(profiler; the serial step {step_profile['kernels']:.2f})")
     print(f"[device_ms] {READINGS['kept']} readings kept, "
           f"{READINGS['retaken']} taken again behind a longer spin, "
           f"{READINGS['host_paced']} paced by the host")

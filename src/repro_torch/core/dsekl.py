@@ -296,10 +296,12 @@ def _parallel_inner(cfg: DSEKLConfig, state: DSEKLState, x: Tensor,
     device.
 
     On the CUDA backend the fused step hands ``idx_i`` and the flat J
-    union to ``ops.kernel_train_pass_indexed``: one train-pass launch (the
-    fp32 route gathers the rows before it for a union over 1,024, and
-    above ``block.STASH_BUDGET`` it falls back to matvec then vecmat).
-    Every other path gathers the blocks and runs ``grad_block_parallel``."""
+    union to ``ops.kernel_train_pass_indexed``: one train-pass launch that
+    reads the rows by index for a union of up to 4,096 columns (the sm90
+    route; 4 workers x 1,024 at the paper's protocol).  A wider union takes
+    the fp32 route, which gathers the rows before it, and above
+    ``block.STASH_BUDGET`` falls back to matvec then vecmat.  Every other
+    path gathers the blocks and runs ``grad_block_parallel``."""
     n = x.shape[0]
     flat_j = idx_jk.reshape(-1)
     if (cfg.fuse_dual_pass

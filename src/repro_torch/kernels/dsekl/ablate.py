@@ -33,12 +33,22 @@ cut to one add a feature); no DSMEM exchange (each CTA takes its own row
 partials for f: no cluster barrier); no g reduction (the row blocks'
 partials stored, not summed); the launch and the index loads alone; and
 the kernel as built on rows gathered beforehand (null indices: contiguous
-rows).  Then the training step end to end (``dsekl.step_serial``, 546
-steps of covertype-train's epoch: the same plan, adagrad, lam 1e-4, host
-clock ending in a sync) with the train pass on each route, in turns
-fp32, sm90, sm90, fp32, twice: the fp32 route (``SM90_TRAIN_MAX_J`` set
-to 0) gathers x, y and alpha in Python and launches the three passes of
-``csrc/dsekl_train.cu``, as the step did before the sm90 route.
+rows).  Then the wide variant (``train_sm90_wide``, K in shared memory)
+at Algorithm 2's step (I = 1024 against a J union of 4,096), its parts
+added one at a time: the loads and the cross term alone; plus K to
+shared memory (and the row partials of K @ a); plus the f exchange
+through DSMEM; the kernel as built (plus g from shared memory), by index
+and on rows gathered beforehand; and the next pair's copies issued
+before its K is formed rather than after.  Then the training step end to end
+(``dsekl.step_serial``, 546 steps of covertype-train's epoch: the same
+plan, adagrad, lam 1e-4, host clock ending in a sync) with the train
+pass on each route, in turns fp32, sm90, sm90, fp32, twice: the fp32
+route (``SM90_TRAIN_MAX_J`` set to 0) gathers x, y and alpha in Python
+and launches the three passes of ``csrc/dsekl_train.cu``, as the step
+did before the sm90 route; and the same for Algorithm 2's step
+(``dsekl._parallel_inner``, 4 workers, 546 steps of parallel-train's
+epoch), the fp32 route by ``SM90_TRAIN_MAX_J`` set to 1,024, as the step
+ran before the wide variant.
 
 Needs a card; prints the card's name and power limit and one JSON line a
 kernel.
@@ -103,28 +113,28 @@ VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
 TRAIN_SOURCE = _build.KERNELS_DIR / "dsekl" / "csrc" / "dsekl_train_sm90.cu"
 TRAIN_N = 559_890                          # covertype-train's rows
 TRAIN_SHAPE = (1024, 1024, 54)             # I, J, D: the step's block
-SECTION = {n: f"  // -- {n}." for n in range(1, 8)}
-# Every train variant: only the RBF kernel is instantiated.
+WIDE_SHAPE = (1024, 4096, 54)              # Alg. 2's step: 4 x 1,024
+SECTION = {n: f"  // -- {n}." for n in (*range(1, 8),
+                                        *(f"w{k}" for k in range(1, 8)))}
+# Every train variant: only the RBF kernels (both variants) are
+# instantiated, through with_rbf in place of with_kind.
 TRAIN_ONLY_STEP = [
-    ("""  const bool known = with_kind(kind, [&](auto k) {
-    err = cudaLaunchKernelEx(&launch.cfg,
-                             tsm90::train_sm90<decltype(k)::value>, args);
-  });
-""", """  const bool known = kind == RBF;
-  if (known) err = cudaLaunchKernelEx(&launch.cfg, tsm90::train_sm90<RBF>,
-                                      args);
+    ('#include "dsekl_tile.cuh"\n', """#include "dsekl_tile.cuh"
+
+template <typename F>
+bool with_rbf(int kind, F&& f) {
+  if (kind != RBF) return false;
+  f(std::integral_constant<int, RBF>{});
+  return true;
+}
 """),
+    ("const bool known = with_kind(kind, ",
+     "const bool known = with_rbf(kind, "),
     ("""  with_kind(kind, [&](auto k) {
-    const cudaError_t err = cudaOccupancyMaxActiveClusters(
-        &n, tsm90::train_sm90<decltype(k)::value>, &launch.cfg);
-    if (err != cudaSuccess) n = -static_cast<int>(err);
-  });
-""", """  if (kind == RBF) {
-    const cudaError_t err = cudaOccupancyMaxActiveClusters(
-        &n, tsm90::train_sm90<RBF>, &launch.cfg);
-    if (err != cudaSuccess) n = -static_cast<int>(err);
-  }
-"""),
+    void (*fn)(tsm90::Args);
+    cudaError_t err""", """  with_rbf(kind, [&](auto k) {
+    void (*fn)(tsm90::Args);
+    cudaError_t err"""),
 ]
 # Sections 3-7 (K, f, v, g) cut: each thread stores its accumulators' sum
 # into the variant's own scratch.
@@ -168,7 +178,6 @@ EXCHANGE = """  cluster.sync();
     for (int q = 0; q < MAX_CLUSTER; ++q)
       if (q < n_rank) s += part[q];
 """
-G_SUM = SECTION[6]
 # name -> (what it changes, substitutions (old, new) each found once, or
 # (section a, section b, new) to replace from section a's line up to the
 # kernel's end or to section b's line)
@@ -190,8 +199,9 @@ TRAIN_VARIANTS: Dict[str, Tuple[str, list]] = {
                     "no cluster barrier",
                     [(EXCHANGE, "  __syncthreads();\n  if (tid < ROWS) {\n"
                       "    float s = fpart[tid];\n"),
-                     ("  cluster_arrive();\n", ""),
-                     ("  cluster_wait();\n}\n", "}\n")]),
+                     ("  cluster_arrive();\n  __syncthreads();\n\n  // -- 5.",
+                      "  __syncthreads();\n\n  // -- 5."),
+                     ("  // -- 7. End.\n  cluster_wait();\n}\n", "}\n")]),
     "no_g_reduction": ("no g reduction: the row blocks' g partials stored, "
                        "not summed (no fence, counter or last-CTA sum)",
                        [(6, 7, "  if (jv) args.g_parts[static_cast<size_t>"
@@ -199,9 +209,47 @@ TRAIN_VARIANTS: Dict[str, Tuple[str, list]] = {
 }
 
 
+# The wide variant (train_sm90_wide, K in shared memory) at Alg. 2's step,
+# its parts added one at a time; each variant stores what it produced into
+# its own scratch, a float a thread.
+WIDE_STORE = ("  args.g_parts[(static_cast<size_t>(blockIdx.y) * gridDim.x"
+              " + blockIdx.x)\n               * WNT + tid] = ")
+WIDE_FOLD_ACC = """#pragma unroll
+    for (int m = 0; m < TM; ++m)
+#pragma unroll
+      for (int n = 0; n < TN; ++n) rowacc[m] += acc[m][n];
+"""
+ROWACC_SUM = "rowacc[0] + rowacc[1] + rowacc[2] + rowacc[3]"
+WIDE_TRAIN_VARIANTS: Dict[str, Tuple[str, list]] = {
+    "wide_kernel": ("the wide kernel as built, rows read by index", []),
+    "wide_contiguous": ("the wide kernel as built on rows gathered "
+                        "beforehand (null indices); the gathers not timed",
+                        []),
+    "wide_overlap": ("the next pair's copies issued before its K is "
+                     "formed, to fly meanwhile",
+                     [("    pair_k(acc, p);\n    if (p + 1 < pairs) "
+                       "stage(p + 1, 0, nk > 1);\n",
+                       "    if (p + 1 < pairs) stage(p + 1, 0, nk > 1);\n"
+                       "    pair_k(acc, p);\n")]),
+    "wide_products": ("the loads and the cross term alone, pair by pair: "
+                      "no K, no K to shared memory, no f, no g (sections w3 "
+                      "on cut; each thread stores its accumulators' sum)",
+                      [("    pair_k(acc, p);\n", WIDE_FOLD_ACC),
+                       ("w4", None, WIDE_STORE + ROWACC_SUM + ";\n}\n")]),
+    "wide_k_smem": ("plus K to shared memory and the row partials of K @ a "
+                    "(sections w4 on cut: no f exchange, no g)",
+                    [("w4", None, "  __syncthreads();\n" + WIDE_STORE
+                      + ROWACC_SUM + " + ks[tid];\n}\n")]),
+    "wide_exchange": ("plus the f exchange through DSMEM and v (sections w5 "
+                      "on cut: no g)",
+                      [("w5", None, WIDE_STORE + "ks[tid] + v_s[tid % ROWS];"
+                        "\n  cluster_wait();\n}\n")]),
+}
+
+
 def _substitute(src: str, subs, what: str, where: str) -> str:
     for sub in subs:
-        if isinstance(sub[0], int):
+        if len(sub) == 3:
             start, stop, new = sub
             a = src.index(SECTION[start])
             b = (src.index(SECTION[stop]) if stop is not None
@@ -219,9 +267,9 @@ def _substitute(src: str, subs, what: str, where: str) -> str:
 def variant_source(name: str, kernel: str = "matvec") -> str:
     """The ``kernel``'s source with variant ``name``'s substitutions."""
     if kernel == "train":
-        return _substitute(TRAIN_SOURCE.read_text(),
-                           TRAIN_ONLY_STEP + TRAIN_VARIANTS[name][1], name,
-                           TRAIN_SOURCE.name)
+        subs = {**TRAIN_VARIANTS, **WIDE_TRAIN_VARIANTS}[name][1]
+        return _substitute(TRAIN_SOURCE.read_text(), TRAIN_ONLY_STEP + subs,
+                           name, TRAIN_SOURCE.name)
     return _substitute(SOURCE.read_text(), ONLY_SERVED + VARIANTS[name][1],
                        name, SOURCE.name)
 
@@ -283,7 +331,7 @@ def _smi() -> str:
 
 def _report(what: str, shape, times: Dict[str, List[float]], variants,
             smi: str) -> None:
-    base = statistics.mean(times["kernel"])
+    base = statistics.mean(times[next(iter(variants))])  # as built
     rows = []
     print(f"[ablate] {what}; {smi}")
     for name, (desc, _) in variants.items():
@@ -318,64 +366,94 @@ def ablate_matvec(smi: str) -> None:
 def ablate_train(smi: str) -> None:
     from repro_torch.core.losses import LOSS_CODES
     from repro_torch.data import make_covertype_like
-    names = [n for n in TRAIN_VARIANTS if n != "contiguous"]
+    names = [n for n in {**TRAIN_VARIANTS, **WIDE_TRAIN_VARIANTS}
+             if n not in ("contiguous", "wide_kernel", "wide_contiguous")]
     libs = build(names, "train")
-    libs["contiguous"] = libs["kernel"]
-    n_i, n_j, d = TRAIN_SHAPE
+    for name in ("contiguous", "wide_kernel", "wide_contiguous"):
+        libs[name] = libs["kernel"]
+    d = TRAIN_SHAPE[2]
     x, y = make_covertype_like(TRAIN_N, d, seed=0, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
     alpha = 0.01 * torch.randn(TRAIN_N, generator=gen, device="cuda")
-    idx_i = torch.randint(0, TRAIN_N, (n_i,), generator=gen, device="cuda")
-    idx_j = torch.randint(0, TRAIN_N, (n_j,), generator=gen, device="cuda")
-    xi, yi = x[idx_i].contiguous(), y[idx_i].contiguous()
-    xj, aj = x[idx_j].contiguous(), alpha[idx_j].contiguous()
     kind = block.KINDS["rbf"]
     params = block.tile_params("rbf", {"gamma": 1.0})
-    # Room for every variant: the cross-term ones store a float a thread.
-    g_parts = torch.empty((-(-n_i // 64) * 8 * 320,), device="cuda")
-    counters = torch.zeros((8,), dtype=torch.int32, device="cuda")
+    for shape, variants in ((TRAIN_SHAPE, TRAIN_VARIANTS),
+                            (WIDE_SHAPE, WIDE_TRAIN_VARIANTS)):
+        n_i, n_j, _ = shape
+        idx_i = torch.randint(0, TRAIN_N, (n_i,), generator=gen,
+                              device="cuda")
+        idx_j = torch.randint(0, TRAIN_N, (n_j,), generator=gen,
+                              device="cuda")
+        xi, yi = x[idx_i].contiguous(), y[idx_i].contiguous()
+        xj, aj = x[idx_j].contiguous(), alpha[idx_j].contiguous()
+        # Room for every variant: the cut ones store a float a thread, the
+        # kernel its row blocks' g partials.
+        row_blocks = -(-n_i // block.SM90_TRAIN_ROWS)
+        g_parts = torch.empty((row_blocks * max(8 * 640, n_j),),
+                              device="cuda")
+        counters = torch.zeros((8,), dtype=torch.int32, device="cuda")
 
-    def call(name):
-        lib = libs[name]
-        if name == "contiguous":
-            args = (xi, None, xj, None, aj, yi)
-        else:
-            args = (x, idx_i, x, idx_j, alpha, y)
-        return block.launch_train_sm90(
-            lib, *args, n_i, n_j, kind, params, LOSS_CODES["hinge"], 1.0,
-            1e-4, scratch=(g_parts, counters))
+        def call(name):
+            if name.endswith("contiguous"):
+                args = (xi, None, xj, None, aj, yi)
+            else:
+                args = (x, idx_i, x, idx_j, alpha, y)
+            return block.launch_train_sm90(
+                libs[name], *args, n_i, n_j, kind, params,
+                LOSS_CODES["hinge"], 1.0, 1e-4, scratch=(g_parts, counters))
 
-    times: Dict[str, List[float]] = {n: [] for n in TRAIN_VARIANTS}
-    for order in (list(TRAIN_VARIANTS), list(TRAIN_VARIANTS)[::-1]):
-        for name in order:
-            times[name].append(events_ms(lambda: call(name), reps=200))
-    if counters.any():
-        raise RuntimeError("a variant left its arrival counters non-zero")
-    _report(f"train sm90, I={n_i} J={n_j} D={d} rows by index from "
-            f"N={TRAIN_N}, rbf gamma 1, hinge, float32", TRAIN_SHAPE, times,
-            TRAIN_VARIANTS, smi)
+        times: Dict[str, List[float]] = {n: [] for n in variants}
+        for order in (list(variants), list(variants)[::-1]):
+            for name in order:
+                times[name].append(events_ms(lambda: call(name), reps=200))
+        if counters.any():
+            raise RuntimeError("a variant left its arrival counters non-zero")
+        _report(f"train sm90, I={n_i} J={n_j} D={d} rows by index from "
+                f"N={TRAIN_N}, rbf gamma 1, hinge, float32", shape, times,
+                variants, smi)
     step_ab(x, y, gen, smi)
+    step_ab(x, y, gen, smi, workers=4)
 
 
-def step_ab(x, y, gen, smi: str, steps: int = 546) -> None:
-    """ms a training step with the train pass on each route, in turns."""
+def step_ab(x, y, gen, smi: str, steps: int = 546, workers: int = 1
+            ) -> None:
+    """ms a training step with the train pass on each route, in turns:
+    Algorithm 1's step (``workers`` 1, J = 1,024; the fp32 route by
+    ``SM90_TRAIN_MAX_J`` = 0) or Algorithm 2's (``workers`` 4, the J union
+    4,096; the fp32 route by ``SM90_TRAIN_MAX_J`` = 1,024, as before the
+    wide variant)."""
     from repro_torch.core import dsekl, sampler
-    cfg = dsekl.DSEKLConfig(n_grad=TRAIN_SHAPE[0], n_expand=TRAIN_SHAPE[1],
-                            kernel="rbf", kernel_params=(("gamma", 1.0),),
-                            lam=1e-4, schedule="adagrad")
-    idx_i, idx_j = sampler.epoch_plan(gen, x.shape[0], cfg.n_grad,
-                                      cfg.n_expand, steps)
+    n_grad = TRAIN_SHAPE[0]
+    cfg = dsekl.DSEKLConfig(n_grad=n_grad, n_expand=TRAIN_SHAPE[1],
+                            n_workers=workers, kernel="rbf",
+                            kernel_params=(("gamma", 1.0),), lam=1e-4,
+                            schedule="adagrad")
+    if workers == 1:
+        idx_i, idx_j = sampler.epoch_plan(gen, x.shape[0], cfg.n_grad,
+                                          cfg.n_expand, steps)
+
+        def step(st, t):
+            return dsekl.step_serial(cfg, st, x, y, idx_i[t], idx_j[t])
+        fp32_max_j = 0
+    else:
+        idx_i, idx_jk = sampler.parallel_epoch_plan(
+            gen, x.shape[0], cfg.n_grad, cfg.n_expand, workers)
+        steps = min(steps, idx_i.shape[0])
+
+        def step(st, t):
+            return dsekl._parallel_inner(cfg, st, x, y, idx_i[t], idx_jk[t])
+        fp32_max_j = TRAIN_SHAPE[1]
     max_j = block.SM90_TRAIN_MAX_J
 
     def epoch(route: str) -> float:
-        block.SM90_TRAIN_MAX_J = max_j if route == "sm90" else 0
+        block.SM90_TRAIN_MAX_J = max_j if route == "sm90" else fp32_max_j
         try:
             st = dsekl.init_state(x.shape[0], device="cuda")
             before = dict(block.train_pass_indexed_cuda.launches_by_route)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for t in range(steps):
-                st = dsekl.step_serial(cfg, st, x, y, idx_i[t], idx_j[t])
+                st = step(st, t)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3 / steps
         finally:
@@ -390,14 +468,17 @@ def step_ab(x, y, gen, smi: str, steps: int = 546) -> None:
     readings: Dict[str, List[float]] = {"fp32": [], "sm90": []}
     for route in ("fp32", "sm90", "sm90", "fp32") * 2:
         readings[route].append(epoch(route))
-    print(f"[ablate] step, {steps} steps of I=J={TRAIN_SHAPE[0]} from "
-          f"N={x.shape[0]}; {smi}")
+    what = (f"I=J={n_grad}" if workers == 1 else
+            f"Algorithm 2, I={n_grad}, J union {workers} x {cfg.n_expand}")
+    print(f"[ablate] step, {steps} steps of {what} from N={x.shape[0]}; "
+          f"{smi}")
     for route, ms in readings.items():
         print(f"[ablate] step {route}: median {statistics.median(ms):.4f} "
               f"ms a step ({1e3 / statistics.median(ms):.1f} steps/s); "
               f"readings {[round(v, 4) for v in ms]}")
     print(json.dumps({"device": smi, "kernel": "train step",
-                      "steps": steps, "ms_a_step": readings}))
+                      "workers": workers, "steps": steps,
+                      "ms_a_step": readings}))
 
 
 def main() -> int:

@@ -26,7 +26,8 @@ kernels).
   ``train_pass_pallas``) on two routes chosen by shape
   (``select_train_route``), each counted in ``.launches_by_route``:
   ``"sm90"`` (``csrc/dsekl_train_sm90.cu``: |J| <= ``SM90_TRAIN_MAX_J``,
-  one cluster launch that keeps K on chip and, in the indexed form, reads
+  one cluster launch that keeps K on chip, in registers up to 1,024
+  columns and in shared memory past them, and, in the indexed form, reads
   the rows of x, y and alpha by index) and ``"fp32"``
   (``csrc/dsekl_train.cu``: wider J, three passes through an (I, J)
   float32 K stash of at most ``STASH_BUDGET`` bytes).
@@ -366,8 +367,11 @@ def _train_lib() -> ctypes.CDLL:
 TRAIN_ROUTES = ("sm90", "fp32")
 TRAIN_LIBS = {"sm90": "dsekl_train_sm90", "fp32": "dsekl_train"}
 # The widest J of the sm90 train kernel: a cluster of 8 CTAs (the portable
-# size) of two 64-column tiles each holds an 80-row K block in registers.
-SM90_TRAIN_MAX_J = 1024
+# size) holds an 80-row K block, each CTA up to eight 64-column tiles.  Up
+# to 1,024 columns (two tiles a CTA: Algorithm 1's step) K stays in
+# registers; past them (Algorithm 2's J union of 4 x 1,024) each CTA
+# computes two tiles at a time and keeps K in 160 KB of shared memory.
+SM90_TRAIN_MAX_J = 4096
 # Rows of I a cluster covers, and the most rows the kernel takes: 65,535
 # row blocks (gridDim.y).
 SM90_TRAIN_ROWS = 80
@@ -404,8 +408,11 @@ def typed_train_sm90_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
         for name in ("dsekl_train_sm90_counters", "dsekl_train_sm90_max_j"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
+        for name in ("dsekl_train_sm90_active_clusters",
+                     "dsekl_train_sm90_smem_bytes"):
+            getattr(lib, name).restype = ctypes.c_int
         lib.dsekl_train_sm90_active_clusters.argtypes = [i, i]
-        lib.dsekl_train_sm90_active_clusters.restype = ctypes.c_int
+        lib.dsekl_train_sm90_smem_bytes.argtypes = [i]
         lib.dsekl_train_sm90_error_string.argtypes = [i]
         lib.dsekl_train_sm90_error_string.restype = ctypes.c_char_p
     return lib
@@ -790,9 +797,11 @@ def train_pass_indexed_cuda(x: Tensor, y: Tensor, alpha: Tensor,
     x (N, D), y (N,), alpha (N,): contiguous float32 CUDA tensors on one
     device; idx_i (I,), idx_j (J,): contiguous int64 on the same device,
     each in [0, N) (the kernel traps on one outside).  On the ``"sm90"``
-    route (``select_train_route``) the kernel reads the rows by index:
-    no gather precedes it.  On the ``"fp32"`` route the rows are gathered,
-    then ``csrc/dsekl_train.cu`` runs (the stash within ``STASH_BUDGET``).
+    route (``select_train_route``: J <= ``SM90_TRAIN_MAX_J``, Algorithm
+    1's step and Algorithm 2's 4,096-column J union) the kernel reads the
+    rows by index and adds lam: no gather precedes it.  On the ``"fp32"``
+    route (wider J) the rows are gathered, then ``csrc/dsekl_train.cu``
+    runs (the stash within ``STASH_BUDGET``) and lam is added in torch.
     ``.launches`` counts every launch, ``.launches_by_route`` each
     route's.  There is no CPU form."""
     fn = "train_pass_indexed_cuda"

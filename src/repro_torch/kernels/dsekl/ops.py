@@ -161,11 +161,13 @@ def kernel_train_pass_indexed(x: Tensor, y: Tensor, alpha: Tensor,
     (N,), idx_i (I,), idx_j (J,) integer indices in [0, N).
 
     Ref path: the gathers, then ``ref_kernel_train_pass``.  CUDA path: on
-    the sm90 route (``block.select_train_route``) one launch that reads
-    the rows by index (``block.train_pass_indexed_cuda``); on the fp32
-    route the same wrapper gathers first, and above ``block.STASH_BUDGET``
-    the gathered rows take ``kernel_dual_pass``'s matvec-then-vecmat
-    fallback."""
+    the sm90 route (``block.select_train_route``: J up to
+    ``block.SM90_TRAIN_MAX_J`` = 4,096, so Algorithm 1's step and
+    Algorithm 2's J union at the paper's protocol) one launch that reads
+    the rows by index and adds lam (``block.train_pass_indexed_cuda``);
+    on the fp32 route (wider J) the same wrapper gathers first, and above
+    ``block.STASH_BUDGET`` the gathered rows take ``kernel_dual_pass``'s
+    matvec-then-vecmat fallback."""
     params: Dict[str, Any] = dict(kernel_params)
     loss_grad = losses_lib.get_loss(loss).grad_f
     if resolve_impl(impl, kernel_name, x.device) == "ref":

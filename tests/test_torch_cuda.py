@@ -21,10 +21,13 @@ every other flash call on the fp32 route (``kernel.select_route``).  The
 matvec and vecmat of the six cross-term kinds with D <= 64 run on the sm90
 TF32 tensor-core route (the cross term split three ways), the Laplacian
 and wider D on the fp32 route (``block.select_matvec_route``), held to
-the same float32 tolerance.  Algorithm 2's step at the protocol's shape
-(J union 4,096) takes the fp32 train route and is held to the same
-tolerance; the hosted prefetcher's pinned, copy-streamed blocks must
-equal ``SyncGather``'s exactly under a delayed consumer, and a hosted
+the same float32 tolerance.  The train pass's sm90 route keeps K in
+registers up to J = 1,024 and in shared memory past it (the wide
+variant, up to 4,096), and the fp32 route takes wider J; Algorithm 2's
+step at the protocol's shape (J union 4,096) takes the wide variant,
+and past 4,096 the fp32 route, each held to the same tolerance; the
+hosted prefetcher's pinned, copy-streamed blocks must equal
+``SyncGather``'s exactly under a delayed consumer, and a hosted
 Algorithm-2 fit must equal the in-memory one bit for bit.
 """
 import ctypes
@@ -366,6 +369,10 @@ SM90_TRAIN_SHAPES = [(1, 1, 1), (81, 129, 54), (1000, 1000, 54),
 def test_train_sm90_route_matches_plain(cuda, kernel, params, loss, shape):
     """The train pass (each loss) and the dual pass (loss None) on the sm90
     route, against their plain versions at the float32 tolerance."""
+    _train_sm90_matches_plain(cuda, kernel, params, loss, shape)
+
+
+def _train_sm90_matches_plain(cuda, kernel, params, loss, shape):
     assert block.select_train_route(shape[0], shape[1], shape[2],
                                      kernel) == "sm90"
     x, z, a, v, y = _train_data(shape, cuda, seed=11)
@@ -386,6 +393,55 @@ def test_train_sm90_route_matches_plain(cuda, kernel, params, loss, shape):
         _close(g, w)
 
 
+# The sm90 route's wide variant (train_sm90_wide, K in shared memory):
+# J just past the narrow kernel's 1,024 (most CTAs' slices short, the last
+# ones empty), 2,048, the ragged 3,000 and the widest 4,096, each with one
+# row block and with several (the last CTA to arrive sums g).
+SM90_WIDE_SHAPES = [(80, 1025, 54), (1000, 1025, 3), (1, 2048, 54),
+                    (1000, 2048, 54), (81, 3000, 20), (1024, 3000, 54),
+                    (80, 4096, 54), (1024, 4096, 54), (130, 4096, 784)]
+
+
+@pytest.mark.parametrize("shape", SM90_WIDE_SHAPES, ids=str)
+@pytest.mark.parametrize("loss", (None,) + LOSSES, ids=str)
+@pytest.mark.parametrize("kernel,params", KERNEL_CASES, ids=IDS)
+def test_train_sm90_wide_matches_plain(cuda, kernel, params, loss, shape):
+    """The wide variant: the train pass (each loss) and the dual pass (loss
+    None) on the sm90 route past J = 1,024, against their plain versions
+    at the float32 tolerance."""
+    _train_sm90_matches_plain(cuda, kernel, params, loss, shape)
+
+
+def test_train_sm90_wide_is_bit_stable_and_indexed_equals_gathered(cuda):
+    """At Algorithm 2's step (I = 1,024, J union 4,096): 16 calls in a row
+    give the same bits (the arrival counters left at 0), the indexed form
+    gives the bits of the contiguous one on the rows gathered beforehand,
+    lam is added as torch adds it, and the dual pass is bit-stable too."""
+    x, y, alpha, _, _ = _indexed_data(50000, (1, 1, 54), cuda, seed=4)
+    perm = torch.randperm(50000, device=cuda)
+    idx_i, idx_j = perm[:1024].contiguous(), perm[1024:5120].contiguous()
+    lam = 1e-4
+    first = block.train_pass_indexed_cuda(x, y, alpha, idx_i, idx_j, lam=lam)
+    xi, xj, aj, yi = x[idx_i], x[idx_j], alpha[idx_j], y[idx_i]
+    f, g = block.train_pass_cuda(xi, xj, aj, yi)
+    assert torch.equal(first[0], f) and torch.equal(first[1], g + lam * aj)
+    v = torch.randn(1024, device=cuda)
+    dual = block.dual_pass_cuda(xi, xj, aj, v)
+    for _ in range(16):
+        again = block.train_pass_indexed_cuda(x, y, alpha, idx_i, idx_j,
+                                              lam=lam)
+        assert all(torch.equal(p, q) for p, q in zip(again, first))
+        again = block.dual_pass_cuda(xi, xj, aj, v)
+        assert all(torch.equal(p, q) for p, q in zip(again, dual))
+    counters = block._SM90_SCRATCH[(torch.cuda.current_device(),
+                                    torch.cuda.current_stream().cuda_stream)]
+    assert not counters["counters"].any()
+    pf, pg = block.train_pass_indexed_plain(x, y, alpha, idx_i, idx_j,
+                                            lam=lam)
+    _close(first[0], pf)
+    _close(first[1], pg)
+
+
 def _indexed_data(n, shape, device, seed=0):
     """x (n, D), y, alpha (n,) and (I,), (J,) int64 indices with
     duplicates (drawn with replacement from a quarter of the rows)."""
@@ -403,7 +459,9 @@ def _indexed_data(n, shape, device, seed=0):
 
 
 @pytest.mark.parametrize("shape", [(1024, 1024, 54), (1000, 1000, 54),
-                                   (80, 1024, 7)], ids=str)
+                                   (80, 1024, 7), (1024, 4096, 54),
+                                   (1000, 3000, 54), (80, 1025, 7)],
+                         ids=str)
 @pytest.mark.parametrize("kernel,params", KERNEL_CASES, ids=IDS)
 def test_train_pass_indexed_equals_gathered_bitwise(cuda, kernel, params,
                                                     shape):
@@ -455,8 +513,9 @@ def test_train_sm90_is_bit_stable_over_64_calls(cuda):
 
 def test_train_routes_count_each_launch(cuda):
     """Each wrapper counts one launch a call on the route its shape takes:
-    sm90 up to SM90_TRAIN_MAX_J, fp32 past it."""
+    sm90 up to SM90_TRAIN_MAX_J (both variants), fp32 past it."""
     for shape, route in [((1000, 1000, 54), "sm90"),
+                         ((1000, 3000, 54), "sm90"),
                          ((1000, 5003, 54), "fp32")]:
         x, z, a, v, y = _train_data(shape, cuda, seed=5)
         assert block.select_train_route(*shape, "rbf") == route
@@ -485,6 +544,12 @@ def test_train_sm90_library_agrees_on_its_limits(cuda):
     assert lib.dsekl_train_sm90_max_j() == block.SM90_TRAIN_MAX_J
     assert lib.dsekl_train_sm90_rows() == block.SM90_TRAIN_ROWS
     assert lib.dsekl_train_sm90_active_clusters(0, 1024) >= 1
+    # The wide variant: its dynamic shared memory, and Algorithm 2's 13 row
+    # blocks at I = 1,024 in one wave.
+    lib.dsekl_train_sm90_smem_bytes.restype = ctypes.c_int
+    assert lib.dsekl_train_sm90_smem_bytes(1024) == 0
+    assert 48 * 1024 < lib.dsekl_train_sm90_smem_bytes(1025) <= 232448
+    assert lib.dsekl_train_sm90_active_clusters(0, 4096) >= 13
 
 
 def test_train_pass_indexed_rejects_bad_indices(cuda):
@@ -502,10 +567,9 @@ def test_train_pass_indexed_rejects_bad_indices(cuda):
     assert block.train_pass_indexed_cuda.launches == before
 
 
-def test_train_pass_indexed_traps_on_an_index_out_of_range(cuda):
-    """An index outside [0, N) stops the kernel (a trap, as x[idx] fails on
-    the card) and never reads past x; the context is lost, so the call
-    runs in a process of its own."""
+def _traps_on_an_index_out_of_range(n_j):
+    """Runs the indexed train pass over ``n_j`` columns, one index of J
+    past x, in a process of its own; asserts the kernel trapped."""
     import os
     import subprocess
     import sys
@@ -514,10 +578,10 @@ def test_train_pass_indexed_traps_on_an_index_out_of_range(cuda):
     code = (
         "import torch\n"
         "from repro_torch.kernels.dsekl import block\n"
-        "x = torch.randn(100, 4, device='cuda')\n"
-        "y = torch.ones(100, device='cuda')\n"
+        f"x = torch.randn({n_j + 100}, 4, device='cuda')\n"
+        f"y = torch.ones({n_j + 100}, device='cuda')\n"
         "i = torch.arange(16, device='cuda')\n"
-        "j = torch.arange(32, device='cuda'); j[7] = 100\n"
+        f"j = torch.arange({n_j}, device='cuda'); j[7] = {n_j + 100}\n"
         "block.train_pass_indexed_cuda(x, y, y, i, j)\n"
         "torch.cuda.synchronize()\n"
         "print('NO TRAP')\n")
@@ -525,6 +589,19 @@ def test_train_pass_indexed_traps_on_an_index_out_of_range(cuda):
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, env=env)
     assert out.returncode != 0 and "NO TRAP" not in out.stdout, out.stdout
+
+
+def test_train_pass_indexed_traps_on_an_index_out_of_range(cuda):
+    """An index outside [0, N) stops the kernel (a trap, as x[idx] fails on
+    the card) and never reads past x; the context is lost, so the call
+    runs in a process of its own."""
+    _traps_on_an_index_out_of_range(32)
+
+
+def test_train_pass_indexed_wide_traps_on_an_index_out_of_range(cuda):
+    """The same on the wide variant (J = 2,000, K in shared memory)."""
+    assert block.select_train_route(16, 2000, 4, "rbf") == "sm90"
+    _traps_on_an_index_out_of_range(2000)
 
 
 # ---------------------------------------------------------------------------
@@ -876,11 +953,10 @@ def test_prefetcher_copy_stream_under_a_delayed_consumer(cuda):
             assert torch.equal(k[t], b)
 
 
-def test_parallel_step_on_the_fp32_route_matches_plain(cuda):
-    """One Alg.-2 step at the protocol's shape (I = 1024, J union = 4 x
-    1024): one launch of the indexed train pass on the fp32 route, f and
-    g against the plain version, and the step's state against the ref
-    step's."""
+def _parallel_step_matches_plain(cuda, workers, route):
+    """One Alg.-2 step of ``workers`` x 1,024 columns at I = 1,024: one
+    launch of the indexed train pass on ``route``, f and g against the
+    plain version, and the step's state against the ref step's."""
     from repro_torch.core import dsekl
     x, y, _ = _host_rows(20000, seed=2)
     x, y = torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda)
@@ -888,19 +964,21 @@ def test_parallel_step_on_the_fp32_route_matches_plain(cuda):
     alpha = torch.tensor(rng.standard_normal(20000) * 0.1,
                          dtype=torch.float32, device=cuda)
     perm = torch.from_numpy(rng.permutation(20000)).to(cuda)
-    idx_i, idx_jk = perm[:1024], perm[1024:1024 + 4096].reshape(4, 1024)
+    n_j = workers * 1024
+    idx_i = perm[:1024]
+    idx_jk = perm[1024:1024 + n_j].reshape(workers, 1024)
     flat_j = idx_jk.reshape(-1).contiguous()
-    assert block.select_train_route(1024, 4096, 54, "rbf") == "fp32"
+    assert block.select_train_route(1024, n_j, 54, "rbf") == route
     before = dict(block.train_pass_indexed_cuda.launches_by_route)
     f, g = ops.kernel_train_pass_indexed(x, y, alpha, idx_i, flat_j,
                                          loss="hinge", lam=1e-4, impl="cuda")
-    before["fp32"] += 1
+    before[route] += 1
     assert block.train_pass_indexed_cuda.launches_by_route == before
     wf, wg = block.train_pass_indexed_plain(x, y, alpha, idx_i, flat_j,
                                             loss="hinge", lam=1e-4)
     _close(f, wf)
     _close(g, wg)
-    cfg = DSEKLConfig(n_grad=1024, n_expand=1024, n_workers=4,
+    cfg = DSEKLConfig(n_grad=1024, n_expand=1024, n_workers=workers,
                       loss="square", schedule="adagrad", lam=1e-4)
     st = dsekl.init_state(20000, device=cuda)._replace(alpha=alpha)
     card = dsekl._parallel_inner(cfg, st, x, y, idx_i, idx_jk)
@@ -910,24 +988,41 @@ def test_parallel_step_on_the_fp32_route_matches_plain(cuda):
     _close(card.accum, ref.accum)
 
 
+def test_parallel_step_on_the_sm90_route_matches_plain(cuda):
+    """The paper's protocol (4 workers: J union 4,096): the wide variant of
+    the sm90 train kernel."""
+    _parallel_step_matches_plain(cuda, 4, "sm90")
+
+
+def test_parallel_step_on_the_fp32_route_matches_plain(cuda):
+    """A J union past the sm90 route's 4,096 (5 workers: 5,120):
+    ``csrc/dsekl_train.cu`` on the rows the indexed wrapper gathers."""
+    _parallel_step_matches_plain(cuda, 5, "fp32")
+
+
 def test_hosted_parallel_fit_is_bit_identical_to_in_memory(cuda):
     """Algorithm 2's worker batches are disjoint within a step, so the
-    scatter meets no duplicate index and the fp32 train route sums in a
-    fixed order: a hosted fit from pinned, copy-streamed blocks equals the
-    in-memory fit bit for bit."""
+    scatter meets no duplicate index, and the sm90 train kernel's wide
+    variant sums in a fixed order whether it reads the rows by index (in
+    memory, lam added in the kernel) or as staged blocks (hosted, lam
+    added by torch, rounded alike): a hosted fit from pinned,
+    copy-streamed blocks equals the in-memory fit bit for bit."""
     x, y, src = _host_rows(16384, seed=4)
     cfg = DSEKLConfig(n_grad=1024, n_expand=1024, n_workers=4, loss="hinge",
                       schedule="adagrad", lam=1e-4)
     gen = torch.Generator().manual_seed(5)
     plans = [sampler.parallel_epoch_plan(gen, 16384, 1024, 1024, 4)
              for _ in range(2)]
-    before = block.train_pass_cuda.launches_by_route["fp32"]
+    before = block.train_pass_cuda.launches_by_route["sm90"]
+    before_mem = block.train_pass_indexed_cuda.launches_by_route["sm90"]
     kw = dict(plans=plans, algorithm="parallel", n_epochs=2, tol=0.0,
               device=cuda)
     mem = fit(cfg, x, y, **kw)
     host = fit(cfg, src, None, **kw)
     sync = fit(cfg, src, None, prefetch=False, **kw)
-    assert block.train_pass_cuda.launches_by_route["fp32"] == before + 64
+    assert block.train_pass_cuda.launches_by_route["sm90"] == before + 64
+    assert (block.train_pass_indexed_cuda.launches_by_route["sm90"]
+            == before_mem + 32)
     for other in (host, sync):
         assert torch.equal(mem.state.alpha, other.state.alpha)
         assert torch.equal(mem.state.accum, other.state.accum)

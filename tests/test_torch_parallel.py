@@ -237,16 +237,20 @@ def _counting(plain):
     return f
 
 
-@pytest.mark.parametrize("budget,launched", [
-    (None, {"train_pass_indexed_cuda"}),
-    (0, {"kernel_matvec_cuda", "kernel_vecmat_cuda"}),
-], ids=["one-train-pass", "over-budget"])
-def test_parallel_step_on_cuda_is_one_train_pass(monkeypatch, budget,
+@pytest.mark.parametrize("ne,budget,launched", [
+    (400, None, {"train_pass_indexed_cuda"}),
+    (1400, 0, {"kernel_matvec_cuda", "kernel_vecmat_cuda"}),
+    (1400, None, {"train_pass_indexed_cuda"}),
+    (400, 0, {"train_pass_indexed_cuda"}),
+], ids=["one-train-pass", "over-budget", "one-train-pass-fp32",
+        "one-train-pass-no-budget"])
+def test_parallel_step_on_cuda_is_one_train_pass(monkeypatch, ne, budget,
                                                  launched):
     """On the CUDA backend an Alg.-2 step is ONE indexed train pass over
-    the J union (here 3 x 400 = 1,200 columns: the fp32 route) and lands
-    where the ref step lands; above the stash budget it falls back to
-    matvec then vecmat."""
+    the J union and lands where the ref step lands: 3 x 400 = 1,200
+    columns on the sm90 route (K on chip: the stash budget does not bind
+    it), 3 x 1,400 = 4,200 on the fp32 route, which above the stash budget
+    falls back to matvec then vecmat."""
     stand_ins = {n: _counting(getattr(tblock, p)) for n, p in [
         ("kernel_matvec_cuda", "kernel_matvec_plain"),
         ("kernel_vecmat_cuda", "kernel_vecmat_plain"),
@@ -257,12 +261,13 @@ def test_parallel_step_on_cuda_is_one_train_pass(monkeypatch, budget,
         monkeypatch.setattr(tblock, name, fn)
     if budget is not None:
         monkeypatch.setattr(tblock, "STASH_BUDGET", budget)
-    n, ng, ne = 1300, 64, 400
+    n, ng = 1300 if ne == 400 else 4300, 64
     x, y, _, _ = _problem(n, seed=4)
     tcfg = td.DSEKLConfig(n_grad=ng, n_expand=ne, n_workers=K,
                           kernel_params=(("gamma", 0.5),), lam=1e-3,
                           loss="square", schedule="adagrad")
-    assert tblock.select_train_route(ng, K * ne, D, "rbf") == "fp32"
+    assert tblock.select_train_route(ng, K * ne, D, "rbf") == (
+        "sm90" if ne == 400 else "fp32")
     plans = [tuple(p.numpy() for p in tsampler.parallel_epoch_plan(
         torch.Generator().manual_seed(9), n, ng, ne, K))]
     steps = n // ng

@@ -1,10 +1,11 @@
 """The train pass's route table and its indexed form, on the CPU.
 
-* ``block.select_train_route`` over the main path's shape, ragged I and J,
-  D 3 / 54 / 784 and the seven kinds: ``"sm90"`` (one cluster launch that
-  keeps K on chip, ``csrc/dsekl_train_sm90.cu``) up to
-  ``SM90_TRAIN_MAX_J`` columns, ``"fp32"`` (the K stash of
-  ``csrc/dsekl_train.cu``) past it;
+* ``block.select_train_route`` over the main paths' shapes (Algorithm
+  1's J = 1,024, Algorithm 2's J union of 4,096), ragged I and J, D 3 /
+  54 / 784 and the seven kinds: ``"sm90"`` (one cluster launch that keeps
+  K on chip, ``csrc/dsekl_train_sm90.cu``) up to ``SM90_TRAIN_MAX_J`` =
+  4,096 columns, ``"fp32"`` (the K stash of ``csrc/dsekl_train.cu``) past
+  it;
 * ``block.train_pass_indexed_plain`` and ``ops.kernel_train_pass_indexed``
   (``impl="ref"``) against the JAX package's ``kernel_dual_pass`` with
   ``impl="pallas_interpret"`` (``train_pass_pallas`` run on the CPU) on
@@ -13,9 +14,11 @@
 * the op's CUDA path with counting stand-ins for the CUDA wrappers: the
   indexed wrapper on both routes, and matvec then vecmat above the stash
   budget on the fp32 route;
-* ``step_serial`` resolved to ``"cuda"`` (stand-ins again): one indexed op
-  a step, no gather of x, y or alpha in Python, and the state of the ref
-  step.
+* ``step_serial`` and Algorithm 2's ``_parallel_inner`` resolved to
+  ``"cuda"`` (stand-ins again): one indexed op a step, no gather of x, y
+  or alpha in Python, and the state of the ref step;
+* the indexed plain version against ``train_pass_pallas`` (interpret) at
+  a cut-down Algorithm-2 shape: I = 83 against a J union of 4 x 300.
 
 Tolerance: the JAX suite's float32 one (``tests/test_dual_pass.py::_tols``):
 rtol 2e-4, atol 1e-5 x max(1, |oracle|_inf).
@@ -70,13 +73,17 @@ def _t(*arrs):
 def test_select_train_route(kernel, d):
     route = tblock.select_train_route
     assert route(1024, 1024, d, kernel) == "sm90"          # the main step
+    assert route(1024, 4096, d, kernel) == "sm90"          # Alg. 2's union
     for n_i, n_j in [(1000, 1000), (1, 1), (37, 61), (81, 1024),
-                     (tblock.SM90_TRAIN_MAX_I, 1024)]:
+                     (tblock.SM90_TRAIN_MAX_I, 1024), (1000, 1025),
+                     (1000, 2048), (1000, 4096), (1, 3000),
+                     (tblock.SM90_TRAIN_MAX_I, 4096)]:
         assert route(n_i, n_j, d, kernel) == "sm90", (n_i, n_j)
-    for n_i, n_j in [(1000, 1025), (1000, 5003), (1000, 0),
-                     (tblock.SM90_TRAIN_MAX_I + 1, 1024)]:
+    for n_i, n_j in [(1000, 4097), (1000, 5003), (1000, 0),
+                     (tblock.SM90_TRAIN_MAX_I + 1, 1024),
+                     (tblock.SM90_TRAIN_MAX_I + 1, 4096)]:
         assert route(n_i, n_j, d, kernel) == "fp32", (n_i, n_j)
-    assert tblock.SM90_TRAIN_MAX_J == 1024
+    assert tblock.SM90_TRAIN_MAX_J == 4096
 
 
 def test_select_train_route_refuses_unknown_kernels_and_widths():
@@ -118,6 +125,31 @@ def test_indexed_forms_match_jax_pallas_interpret(kernel, params, loss,
     _close(g, want_g)
 
 
+@pytest.mark.parametrize("loss", ["hinge", "square"])
+def test_indexed_plain_matches_jax_at_an_algorithm2_shape(loss):
+    """Algorithm 2's step shape, cut down: I = 83 against the J union of 4
+    disjoint worker batches of 300 (1,200 columns, on the sm90 route's
+    wide variant on the card): the indexed plain version against JAX's
+    train pass kernel (interpret mode) on the rows gathered with numpy."""
+    n, workers, per = 1500, 4, 300
+    x, y, alpha, idx_i, _ = _problem(seed=7, loss=loss, shape=(83, 1),
+                                     n=n)
+    idx_j = np.random.default_rng(8).permutation(n)[:workers * per]
+    assert tblock.select_train_route(83, len(idx_j), D, "rbf") == "sm90"
+    params, f_scale, lam = (("gamma", 0.6),), n / len(idx_j), 1e-4
+    jf, jg = jops.kernel_dual_pass(
+        jnp.asarray(x[idx_i]), jnp.asarray(x[idx_j]),
+        jnp.asarray(alpha[idx_j]), jnp.asarray(y[idx_i]),
+        kernel_name="rbf", kernel_params=params, loss=loss, f_scale=f_scale,
+        impl="pallas_interpret")
+    tx, ty, ta, ti, tj = _t(x, y, alpha, idx_i, idx_j)
+    f, g = tblock.train_pass_indexed_plain(
+        tx, ty, ta, ti, tj, loss=loss, kernel_name="rbf",
+        params=dict(params), f_scale=f_scale, lam=lam)
+    _close(f, jf)
+    _close(g, np.asarray(jg) + np.float32(lam) * alpha[idx_j])
+
+
 @pytest.mark.parametrize("kernel", KINDS)
 def test_indexed_plain_equals_the_gathered_plain(kernel):
     """Position by position: a duplicate J index gets its own g entry,
@@ -157,13 +189,22 @@ def _stand_ins(monkeypatch):
 
 @pytest.mark.parametrize("n_j,budget,launched", [
     (133, None, {"train_pass_indexed_cuda"}),                  # sm90
-    (2100, None, {"train_pass_indexed_cuda"}),                 # fp32
-    (2100, 0, {"kernel_matvec_cuda", "kernel_vecmat_cuda"}),   # over budget
-], ids=["sm90", "fp32", "fp32-over-budget"])
+    (4200, None, {"train_pass_indexed_cuda"}),                 # fp32
+    (4200, 0, {"kernel_matvec_cuda", "kernel_vecmat_cuda"}),   # over budget
+    (2100, None, {"train_pass_indexed_cuda"}),                 # sm90, K in smem
+    (2100, 0, {"train_pass_indexed_cuda"}),                    # no stash there
+], ids=["sm90", "fp32", "fp32-over-budget", "sm90-wide",
+        "sm90-wide-no-budget"])
 def test_indexed_op_cuda_path(monkeypatch, n_j, budget, launched):
+    """The indexed op on the card's path (stand-ins): one indexed launch on
+    either route; matvec then vecmat only on the fp32 route (J over
+    ``SM90_TRAIN_MAX_J``) above the stash budget, which the sm90 route,
+    holding K on chip, never reads."""
     stand_ins = _stand_ins(monkeypatch)
     if budget is not None:
         monkeypatch.setattr(tblock, "STASH_BUDGET", budget)
+    route = "sm90" if n_j <= tblock.SM90_TRAIN_MAX_J else "fp32"
+    assert tblock.select_train_route(83, n_j, D, "rbf") == route
     x, y, alpha, idx_i, idx_j = _problem(seed=4, shape=(83, n_j), n=3000)
     kw = dict(kernel_name="rbf", kernel_params=(("gamma", 0.9),),
               loss="squared_hinge", f_scale=2.0, lam=1e-2)
@@ -234,6 +275,59 @@ def test_step_serial_on_cuda_reads_rows_by_index(monkeypatch, loss, schedule,
         states[impl] = (st, watch.seen)
     st, seen = states["cuda"]
     assert op_calls == ["cuda"] * 3
+    assert stand_ins["train_pass_indexed_cuda"].launches == 3
+    assert sum(f.launches for f in stand_ins.values()) == 3
+    assert not {"x", "y", "alpha"} & set(seen), seen
+    assert {"x", "y", "alpha"} <= set(states["ref"][1])   # the ref gathers
+    ref = states["ref"][0]
+    _close(st.alpha, ref.alpha)
+    _close(st.accum, ref.accum)
+    assert int(st.step) == int(ref.step) == 3
+
+
+@pytest.mark.parametrize("loss,schedule,unbiased", [
+    ("hinge", "adagrad", False), ("square", "inv_t", True)])
+def test_parallel_inner_on_cuda_reads_rows_by_index(monkeypatch, loss,
+                                                    schedule, unbiased):
+    """Algorithm 2's step (``_parallel_inner``) on the CUDA backend hands
+    the gradient batch and the flat J union of its workers (4 x 300) to
+    the indexed op: one indexed launch a step, no gather of x, y or alpha
+    in Python, and the state of the ref step."""
+    stand_ins = _stand_ins(monkeypatch)
+    op_calls = []
+    real_op = tops.kernel_train_pass_indexed
+
+    def op(*args, **kw):
+        op_calls.append((kw["impl"], args[4].shape[0]))
+        return real_op(*args, **kw)
+
+    monkeypatch.setattr(tops, "kernel_train_pass_indexed", op)
+    n, workers, per = 1500, 4, 300
+    x, y, alpha, _, _ = _problem(seed=9, loss=loss, n=n)
+    rng = np.random.default_rng(10)
+    plan = [(torch.from_numpy(rng.integers(0, n, 83)),
+             torch.from_numpy(rng.permutation(n)[:workers * per]
+                              .reshape(workers, per))) for _ in range(3)]
+    assert tblock.select_train_route(83, workers * per, D, "rbf") == "sm90"
+    cfg = tdsekl.DSEKLConfig(n_grad=83, n_expand=per, n_workers=workers,
+                             loss=loss, schedule=schedule, lam=1e-3,
+                             unbiased_scaling=unbiased,
+                             kernel_params=(("gamma", 0.8),))
+    tx, ty = _t(x, y)
+    states = {}
+    for impl in ("cuda", "ref"):
+        st = tdsekl.init_state(n, device="cpu")
+        st = st._replace(alpha=torch.from_numpy(alpha.copy()))
+        current = {"x": lambda: tx, "y": lambda: ty}
+        watch = _GatherWatch(current)
+        with watch:
+            for idx_i, idx_jk in plan:
+                current["alpha"] = lambda a=st.alpha: a
+                st = tdsekl._parallel_inner(cfg.replace(impl=impl), st, tx,
+                                            ty, idx_i, idx_jk)
+        states[impl] = (st, watch.seen)
+    st, seen = states["cuda"]
+    assert op_calls == [("cuda", workers * per)] * 3
     assert stand_ins["train_pass_indexed_cuda"].launches == 3
     assert sum(f.launches for f in stand_ins.values()) == 3
     assert not {"x", "y", "alpha"} & set(seen), seen
