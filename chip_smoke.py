@@ -121,8 +121,12 @@ result):
                with its launches on the Alg.-2 paths
                (``launches_by_path``) and the clusters the card holds at
                once, and the fp32 route, each a row of its own; the step's
-               call with the fp32 route forced on a line.  Every route of
-               every kernel is a row of the kernels line
+               call with the fp32 route forced on a line; row 2 at the
+               EigenPro correction's shape (I 1,024, J = m 512) as a row of
+               its own (kernel_vecmat_precond: launches 0, they are counted
+               in row 2's kernel_vecmat by path), its error taken on the
+               rows scaled to unit norm, where K is far from I.
+               Every route of every kernel is a row of the kernels line
                (``kernel_route``).
  14. serve-jamba — the LM main path: jamba-v0.1-52b at full width cut to
                one period of 8 layers (7 mamba + 1 attention, 4 MoE FFNs),
@@ -140,7 +144,46 @@ result):
                printed; then torch.profiler over one prefill and 8
                decode steps: device time by kernel (the SSD scan and the
                MoE dispatch's scan among them).
- 15. lm-times — flash attention and the SSD scan (both on the sm90 route)
+ 15. train-precond — EigenPro on the training paths: ``train_dsekl``
+               with ``--precondition-k 64`` (m auto = 512) on the covertype
+               protocol of phase 6 (2 epochs, 1,092 steps) and of phase
+               10 (Algorithm 2, 4 workers, 1 epoch, 546 steps): every step
+               one indexed train-pass launch and one vecmat launch (the
+               correction's K(X_I, X_P)^T v, I 1,024 x m 512), all on the
+               sm90 routes, the evals' matvecs and nothing else; alpha
+               finite and unlike the plain fit's of the same run; the
+               estimate's seconds, ms a step beside the plain step's, the
+               val error beside the plain fit's and the all-zero model's;
+               two more preconditioned steps under the gather watch may
+               index x and y once each a step and alpha never; the profile
+               of 32 preconditioned steps.
+ 16. precond-parity — on the card, the CUDA path against the ref path on
+               the same inputs at the float32 tolerance with atol x
+               |ref|_inf (no floor at 1), on the main path's rows scaled
+               to unit norm (at gamma 1 the raw rows give K ~ I and a
+               correction near zero): the correction at I 1,024 and 1,000
+               against m 512 and 500 (each one vecmat launch on the sm90
+               route), one preconditioned Algorithm-1 step and one
+               Algorithm-2 step (one indexed train pass and one vecmat
+               each, on sm90), each step also on the correction's own
+               share of alpha (the step less the plain step).  Each held
+               value set's median |ref| must lie above 100x the atol.
+ 17. precond-hosted — the estimate from phase 11's memmap and from the
+               same rows on the card, bit for bit; one preconditioned
+               hosted Algorithm-2 epoch (prefetched) against the in-memory
+               epoch on the same plan, bit for bit.
+ 18. precond-converge — the JAX ``precond`` cell's protocol without JAX:
+               n 4,096, d 54, RBF gamma 0.05, labels sign(K alpha*) with
+               alpha* on eigenmodes 16..200 of K (an f64 eigh of the
+               4,096^2 matrix on the card), square loss, const schedule at
+               pre.baseline_step_size(256) in both arms, lam 1e-4,
+               unbiased scaling, |I| = |J| = 256, k 64, m 512, up to 200
+               epochs with an eval every 5: epochs to a 0.35 validation
+               error for each arm, beside the JAX cell's committed
+               reading.  Gates: at the cell's fit seed 3 the preconditioned
+               arm reaches the target in strictly fewer epochs; scale > 1;
+               one vecmat a preconditioned step on sm90; finite values.
+ 19. lm-times — flash attention and the SSD scan (both on the sm90 route)
                at their served shapes: device time, one call by events, the
                plain version's device time, the bound (products at the bf16
                tensor-core peak, the rest at fp32), and for flash SDPA's
@@ -224,6 +267,24 @@ PARALLEL_J = 4 * 1024                        # the step's J union
 EVAL_CHUNK = 4096                            # decision_function_source's
 HOSTED_VS_MEMORY_N = 65536
 MMAP_DIR = os.path.join(ROOT, "build", "chip_smoke_mmap")
+# EigenPro (core/precond.py) on the training paths: rank 64, m auto =
+# min(N, max(4 (k + 1), 512)) = 512 subsample rows, so each step adds one
+# vecmat at I = 1,024 against J = 512.
+PRECOND_K = 64
+PRECOND_M = 512
+PRECOND_ARGS = ["--precondition-k", str(PRECOND_K)]
+PRECOND_FIELDS = ("indices", "rows", "vectors", "damping", "eigenvalues")
+# The JAX package's ``precond`` cell (benchmarks/perf_dsekl.py
+# ``measure_precond``), rebuilt without JAX: band-limited labels on
+# eigenmodes 16..200 of the RBF kernel matrix, square loss, const
+# schedule at the matched step size pre.baseline_step_size(256) in both
+# arms, epochs to a 0.35 validation error.  One data set and the cell's
+# fit seed 3.
+CONVERGE = dict(n=4096, d=54, gamma=0.05, band=(16, 200), n_val=512,
+                batch=256, epochs=200, eval_every=5, target=0.35, seed=3)
+# The cell's committed reading (BENCH_dsekl.json "precond", the JAX
+# package on a CPU): epochs to target with and without the correction.
+JAX_PRECOND_EPOCHS = {"precond": 52, "baseline": 82}
 TRAJ_RTOL, TRAJ_ATOL = 1e-3, 1e-4
 LOSSES = ("hinge", "squared_hinge", "square", "logistic")
 # fp32 outside the tensor cores, dense TF32 and bf16 on the tensor cores
@@ -252,12 +313,15 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def compare(got, want, rtol: float = RTOL, atol: float = ATOL) -> float:
-    """Max abs error; raises unless got matches want at the tolerance."""
+def compare(got, want, rtol: float = RTOL, atol: float = ATOL,
+            floor: bool = True) -> float:
+    """Max abs error; raises unless got matches want at the tolerance:
+    atol x max(1, |want|_inf), or with ``floor=False`` atol x |want|_inf."""
     import torch
     got, want = got.double(), want.double()
     check(bool(torch.isfinite(got).all()), "non-finite kernel output")
-    atol = atol * max(1.0, float(want.abs().max()) if want.numel() else 1.0)
+    top = float(want.abs().max()) if want.numel() else 1.0
+    atol = atol * (max(1.0, top) if floor else top)
     err = (got - want).abs()
     bad = err > atol + rtol * want.abs()
     check(not bool(bad.any()),
@@ -764,14 +828,17 @@ def phase_train():
 GATHERS = ("__getitem__", "index_select", "take", "gather", "index")
 
 
-def _check_no_python_gathers(out) -> None:
+def _check_no_python_gathers(out, pc=None) -> None:
     """Two more Alg.-1 steps of the trained fit under a TorchFunctionMode
     that records every gather, by the tensor it reads: none may read x,
     y or alpha (the kernel reads their rows by index); the scatter's read
-    of the adagrad accumulator is counted."""
+    of the adagrad accumulator is counted.  With an EigenPro block ``pc``
+    each step may read x and y once (the correction's rows and labels at
+    I) and alpha never, and launches one vecmat on the sm90 route."""
     import torch
     from torch.overrides import TorchFunctionMode
     from repro_torch.core import dsekl, sampler
+    from repro_torch.kernels.dsekl import block
     cfg, x, y = out["cfg"], out["x"], out["y"]
     st = out["result"].state
     watched = {x.data_ptr(): "x", y.data_ptr(): "y",
@@ -792,19 +859,32 @@ def _check_no_python_gathers(out) -> None:
                                       cfg.n_expand, 2)
     idx_i, idx_j = list(idx_i), list(idx_j)       # rows taken outside
     before = _indexed_launches()
+    vecmats = block.kernel_vecmat_cuda.launches_by_route["sm90"]
     with Gathers():
         for t in range(2):
-            st = dsekl.step_serial(cfg, st, x, y, idx_i[t], idx_j[t])
+            st = dsekl.step_serial(cfg, st, x, y, idx_i[t], idx_j[t], pc)
             watched[st.alpha.data_ptr()] = "alpha"
     torch.cuda.synchronize()
     block_launches = _indexed_launches() - before
-    bad = [n for n in seen if n in ("x", "y", "alpha")]
-    print(f"[train] 2 steps under a gather watch: {block_launches} indexed "
-          f"train-pass launches; gathers in Python {seen} (none of x, y, "
-          "alpha)")
-    check(not bad and block_launches == 2,
-          f"the step gathered {bad} in Python, or launched the indexed "
-          f"train pass {block_launches} times for 2 steps")
+    vecmats = block.kernel_vecmat_cuda.launches_by_route["sm90"] - vecmats
+    read = sorted(n for n in seen if n in ("x", "y", "alpha"))
+    if pc is None:
+        print(f"[train] 2 steps under a gather watch: {block_launches} "
+              f"indexed train-pass launches; gathers in Python {seen} (none "
+              "of x, y, alpha)")
+        check(not read and block_launches == 2 and vecmats == 0,
+              f"the step gathered {read} in Python, or launched the indexed "
+              f"train pass {block_launches} times and the vecmat {vecmats} "
+              "times for 2 steps")
+        return
+    print(f"[train-precond] 2 preconditioned steps under a gather watch: "
+          f"{block_launches} indexed train-pass and {vecmats} sm90 vecmat "
+          f"launches; gathers in Python {seen} (x and y once a step, alpha "
+          "never)")
+    check(read == ["x", "x", "y", "y"] and block_launches == 2
+          and vecmats == 2,
+          f"the preconditioned step gathered {read} in Python, or launched "
+          f"{block_launches} train passes and {vecmats} vecmats for 2 steps")
 
 
 def _indexed_launches() -> int:
@@ -887,9 +967,10 @@ def _step_inputs(out):
             "aj": alpha[idx_j].contiguous(), "yi": y[idx_i].contiguous()}
 
 
-def phase_profile(out, parallel: bool = False):
+def phase_profile(out, parallel: bool = False, pc=None):
     """torch.profiler over 32 training steps (Algorithm 1's, or with
-    ``parallel`` Algorithm 2's at 4 workers): device time by kernel."""
+    ``parallel`` Algorithm 2's at 4 workers; with the EigenPro block
+    ``pc`` when given): device time by kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import dsekl, sampler
@@ -900,13 +981,15 @@ def phase_profile(out, parallel: bool = False):
                                                     1024, cfg.n_workers)
 
         def step(st, t):
-            return dsekl._parallel_inner(cfg, st, x, y, idx_i[t], idx_jk[t])
+            return dsekl._parallel_inner(cfg, st, x, y, idx_i[t], idx_jk[t],
+                                         pc)
     else:
         idx_i, idx_j = sampler.epoch_plan(gen, x.shape[0], 1024, 1024, 36)
 
         def step(st, t):
-            return dsekl.step_serial(cfg, st, x, y, idx_i[t], idx_j[t])
-    tag = "[profile-parallel]" if parallel else "[profile]"
+            return dsekl.step_serial(cfg, st, x, y, idx_i[t], idx_j[t], pc)
+    tag = ("[profile-parallel" if parallel else "[profile") + (
+        "-precond]" if pc is not None else "]")
     st = out["result"].state
     for t in range(4):                                   # warm-up
         st = step(st, t)
@@ -956,16 +1039,17 @@ def _dsekl_counts() -> dict:
 
 
 def _check_train_steps(counts: dict, steps: int, wrapper: str, route: str,
-                       matvecs: int, what: str) -> None:
+                       matvecs: int, what: str, vecmats: int = 0) -> None:
     """Every step one train-pass launch of ``wrapper`` on ``route`` (none
-    on the other), no other train-pass, dual-pass or vecmat launch, and
-    ``matvecs`` matvec launches (the evals), all on the sm90 route."""
+    on the other), no other train-pass or dual-pass launch, ``matvecs``
+    matvec launches (the evals) and ``vecmats`` vecmat launches (EigenPro's
+    correction, one a preconditioned step), all on the sm90 route."""
     none_t = {"sm90": 0, "fp32": 0}
     train = dict(none_t, **{route: steps})
     want = {"train_pass_indexed_cuda": none_t, "train_pass_cuda": none_t,
             "dual_pass_cuda": none_t,
             "kernel_matvec_cuda": {"sm90": matvecs, "fp32": 0},
-            "kernel_vecmat_cuda": {"sm90": 0, "fp32": 0}}
+            "kernel_vecmat_cuda": {"sm90": vecmats, "fp32": 0}}
     want[wrapper] = train
     check(counts == want, f"{what}: launches by wrapper and route {counts}, "
           f"expected {want}")
@@ -1014,8 +1098,8 @@ def phase_train_parallel():
 def phase_train_hosted():
     """The same protocol out of core: a 561,938 x 54 float32 memmap, 2
     epochs through the prefetcher, then one with the gather inline.  The
-    dataset must never become device-resident."""
-    import shutil
+    dataset must never become device-resident.  The memmap stays for
+    precond-hosted."""
     import torch
     from repro_torch.launch import train
     chunks = -(-TRAIN_N // EVAL_CHUNK)
@@ -1073,7 +1157,7 @@ def phase_train_hosted():
                       ld["gather_s"], "wait_s": ld["wait_s"],
                       "hidden": hidden, "peak_mib": peak / 2**20,
                       "eval_launches": epochs * chunks}
-    shutil.rmtree(MMAP_DIR, ignore_errors=True)
+    runs["source"] = out["source"]
     return runs
 
 
@@ -1150,6 +1234,363 @@ def phase_hosted_vs_memory():
           f"a 2 ms spin each equal SyncGather's: {equal}")
     check(equal, "prefetched blocks differ from SyncGather's")
     shutil.rmtree(d_dir, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# EigenPro preconditioning (core/precond.py): the training paths with the
+# correction, its parity, the out-of-core estimate and the convergence cell.
+# ---------------------------------------------------------------------------
+
+def phase_train_precond(trained, parallel):
+    """``train_dsekl --precondition-k 64`` on the covertype protocols of
+    train (Algorithm 1, 2 epochs) and train-parallel (Algorithm 2, 4
+    workers, 1 epoch): per step one indexed train pass and one vecmat,
+    both on sm90; alpha finite and unlike the plain fit's of this run."""
+    import torch
+    from repro_torch.launch import train
+    runs = {}
+    for tag, base, plain, steps in (
+            ("train-precond", TRAIN_ARGS, trained, TRAIN_STEPS),
+            ("train-precond parallel", PARALLEL_ARGS, parallel,
+             PARALLEL_STEPS)):
+        args = train.parser().parse_args(base + PRECOND_ARGS
+                                         + ["--device", DEVICE])
+        _reset_dsekl_counters()                # the preconditioned path
+        out = train.train_dsekl(args)
+        counts = _dsekl_counts()               # ... and its end
+        res, pre = out["result"], out["result"].precond
+        n_steps = int(res.state.step)
+        print(f"[{tag}] {res.epochs_run} epoch(s), {n_steps} steps; "
+              f"EigenPro k {pre.k}, m {pre.m}, n {pre.n}, scale "
+              f"{pre.scale:.6f} (mu_1 {pre.eigenvalues[0]:.6f}, mu_k+1 "
+              f"{pre.eigenvalues[-1]:.6f}); estimate_s "
+              f"{res.estimate_s:.4f}; launches {counts}")
+        check(n_steps == steps and pre.k == PRECOND_K and pre.m == PRECOND_M,
+              f"{tag}: {n_steps} steps (expected {steps}), k {pre.k}, "
+              f"m {pre.m}")
+        _check_train_steps(counts, n_steps, "train_pass_indexed_cuda",
+                           "sm90", res.epochs_run, tag, vecmats=n_steps)
+        alpha = res.state.alpha
+        plain_res = plain["out"]["result"]
+        check(bool(torch.isfinite(alpha).all()), f"{tag}: non-finite alpha")
+        moved = int((alpha != plain_res.state.alpha).sum())
+        check(moved > 0, f"{tag}: alpha equals the plain fit's: the "
+              "correction did not fire")
+        err, zero = (res.history[-1]["val_error"],
+                     _zero_model_error(out["y_val"]))
+        per = steps // res.epochs_run
+        ms = res.history[-1]["seconds"] / per * 1e3
+        print(f"[{tag}] {ms:.4f} ms/step over the last epoch (the plain "
+              f"step {plain['ms_per_step']:.4f} in this run: "
+              f"{ms / plain['ms_per_step']:.3f}x); val error {err:.6f}, the "
+              f"plain fit's {plain_res.history[-1]['val_error']:.6f}, the "
+              f"all-zero model's {zero:.6f} (beats it: {err < zero}); "
+              f"{moved} alpha entries unlike the plain fit's (max abs diff "
+              f"{float((alpha - plain_res.state.alpha).abs().max()):.3e})")
+        runs[tag] = {"out": out, "launches": n_steps, "ms_per_step": ms,
+                     "estimate_s": res.estimate_s}
+    out = runs["train-precond"]["out"]
+    pc = out["result"].precond.block(out["x"].device)
+    _check_no_python_gathers(out, pc)
+    runs["profile"] = phase_profile(out, pc=pc)
+    return runs
+
+
+def _unit_rows(x):
+    """The rows scaled to unit norm on average: at RBF gamma 1 the raw
+    covertype-like rows (|x|^2 ~ 16.6) give K ~ I, the spectrum flat and
+    the correction near zero (scale 1.08); these give K far from I."""
+    return (x / x.norm(dim=1).mean()).contiguous()
+
+
+def _compare_biting(what, got, want, where=None):
+    """``compare`` at atol x |want|_inf (no floor at 1), after checking
+    that the values it holds (``want[where]``) are not near zero: their
+    median is above 100x that atol, so a zero or sign-flipped answer
+    fails.  Returns (max abs err, |want|_inf, the median)."""
+    top = float(want.abs().max())
+    held = want if where is None else want[where]
+    med = float(held.abs().median())
+    check(med > 100 * ATOL * top, f"{what}: median |ref| {med:.3e} is not "
+          f"above 100x the atol {ATOL * top:.3e}: the comparison cannot "
+          "fail a wrong answer")
+    return compare(got, want, floor=False), top, med
+
+
+def phase_precond_parity(out):
+    """The correction, a preconditioned Algorithm-1 step and Algorithm-2
+    step on the card, CUDA against ref on the same inputs (float32
+    tolerance, atol x |ref|_inf without a floor), on the main path's
+    rows scaled to unit norm (``_unit_rows``); each vecmat on the sm90
+    route.  The steps are also held on the correction's own share of
+    alpha: the preconditioned step less the plain step of its backend."""
+    import torch
+    from repro_torch.core import dsekl, precond, sampler
+    from repro_torch.kernels.dsekl import block
+    cfg, y = out["cfg"], out["y"]
+    x = _unit_rows(out["x"])
+    n, d = x.shape
+    # Small alpha, so that |f| < 1 on most gradient rows and the hinge
+    # gradient v, which the correction maps, is dense.
+    st = out["result"].state
+    st = st._replace(alpha=0.1 * torch.randn(
+        n, generator=torch.Generator(device=DEVICE).manual_seed(16),
+        device=DEVICE))
+    check(block.select_matvec_route(cfg.kernel, d) == "sm90",
+          "the correction's vecmat is not on the sm90 route")
+    pres = {m: precond.estimate_preconditioner(
+        cfg, x[:65536], torch.Generator().manual_seed(13), k=PRECOND_K,
+        m=m, device=DEVICE) for m in (PRECOND_M, 500)}
+    print("[precond-parity] on unit-norm rows: EigenPro scale "
+          + ", ".join(f"{p.scale:.4f} (m {m})" for m, p in pres.items()))
+    pcs = {m: p.block(x.device) for m, p in pres.items()}
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    vecmat, indexed = block.kernel_vecmat_cuda, block.train_pass_indexed_cuda
+    errs = []
+    for n_i in (1024, 1000):
+        idx = torch.randint(0, n, (n_i,), generator=gen, device=DEVICE)
+        xi = x[idx].contiguous()
+        v = torch.randn(n_i, generator=gen, device=DEVICE)
+        for m, pc in pcs.items():
+            got = _routed(lambda: dsekl.precond_correction(cfg, xi, v, pc,
+                                                           1024),
+                          vecmat, "sm90", f"correction I={n_i} m={m}")
+            want = dsekl.precond_correction(cfg.replace(impl="ref"), xi, v,
+                                            pc, 1024)
+            what = f"correction I={n_i} m={m}"
+            errs.append((what, *_compare_biting(what, got, want)))
+    pc = pcs[PRECOND_M]
+    idx_i, idx_j = sampler.epoch_plan(gen, n, 1024, 1024, 1)
+    i_batches, idx_jk = sampler.parallel_epoch_plan(gen, n, 1024, 1024, 4)
+    for name, c, step, ii, jj in (
+            ("Algorithm-1 step", cfg, dsekl.step_serial, idx_i[0], idx_j[0]),
+            ("Algorithm-2 step", cfg.replace(n_workers=4),
+             dsekl._parallel_inner, i_batches[0], idx_jk[0])):
+        before = [dict(f.launches_by_route) for f in (indexed, vecmat)]
+        card = step(c, st, x, y, ii, jj, pc)
+        torch.cuda.synchronize()
+        for b in before:
+            b["sm90"] += 1
+        check([indexed.launches_by_route, vecmat.launches_by_route]
+              == before, f"{name}: not one indexed train pass and one "
+              "vecmat on the sm90 route")
+        ref = step(c.replace(impl="ref"), st, x, y, ii, jj, pc)
+        plain = step(c, st, x, y, ii, jj)
+        plain_ref = step(c.replace(impl="ref"), st, x, y, ii, jj)
+        what = f"{name} correction's share of alpha"
+        errs.append((what, *_compare_biting(what, card.alpha - plain.alpha,
+                                            ref.alpha - plain_ref.alpha,
+                                            pc.indices)))
+        for f in ("alpha", "accum"):
+            want = getattr(ref, f)
+            errs.append((f"{name} {f}", compare(getattr(card, f), want,
+                                                floor=False),
+                         float(want.abs().max()), None))
+    print("[precond-parity] cuda vs ref, max abs err (max|ref|, median "
+          "|ref| held): " + "; ".join(
+              f"{k} {e:.3e} ({w:.3e}"
+              + (f", {med:.3e})" if med is not None else ")")
+              for k, e, w, med in errs)
+          + f"; rtol {RTOL}, atol {ATOL} x |ref|_inf")
+
+
+def phase_precond_hosted(src):
+    """The estimate from train-hosted's memmap and from the same rows on
+    the card: bit for bit.  One preconditioned hosted Algorithm-2 epoch,
+    prefetched, against the in-memory epoch on the same plan: bit for
+    bit.  Removes the memmap at the end."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.core import DSEKLConfig, fit, precond, sampler
+    cfg = DSEKLConfig(n_grad=1024, n_expand=1024, n_workers=4, kernel="rbf",
+                      kernel_params=(("gamma", 1.0),), loss="hinge",
+                      lam=1e-4, schedule="adagrad", precondition_k=PRECOND_K)
+    xs, ys = src.gather(slice(0, src.n))
+    x, y = torch.from_numpy(xs).to(DEVICE), torch.from_numpy(ys).to(DEVICE)
+    pres, secs = [], []
+    for data in (src, x):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pres.append(precond.estimate_preconditioner(
+            cfg, data, torch.Generator().manual_seed(14), device=DEVICE))
+        secs.append(time.perf_counter() - t0)
+    same = all(np.array_equal(getattr(pres[0], f), getattr(pres[1], f))
+               for f in PRECOND_FIELDS)
+    print(f"[precond-hosted] estimate from the memmap ({src.n} x {src.d}, "
+          f"{-(-src.n // 4096)} chunks of 4,096 rows) {secs[0]:.4f}s, from "
+          f"the same rows on the card {secs[1]:.4f}s: bit-identical {same}")
+    check(same, "the estimate from the memmap differs from the one from "
+          "the same rows in memory")
+    plan = sampler.parallel_epoch_plan(torch.Generator().manual_seed(15),
+                                       src.n, 1024, 1024, 4)
+    kw = dict(plans=[plan], algorithm="parallel", n_epochs=1, tol=0.0,
+              precondition=pres[0], device=DEVICE)
+    _reset_dsekl_counters()                    # the hosted path starts
+    host = fit(cfg, src, None, **kw)
+    counts = _dsekl_counts()                   # ... and ends here
+    mem = fit(cfg, x, y, **kw)
+    steps = int(host.state.step)
+    _check_train_steps(counts, steps, "train_pass_cuda", "sm90", 0,
+                       "precond-hosted", vecmats=steps)
+    same = (torch.equal(host.state.alpha, mem.state.alpha)
+            and torch.equal(host.state.accum, mem.state.accum))
+    ms = host.history[-1]["seconds"] / steps * 1e3
+    print(f"[precond-hosted] 1 hosted Algorithm-2 epoch ({steps} steps, "
+          f"prefetched, {ms:.4f} ms/step) vs in memory on the same plan "
+          f"({mem.history[-1]['seconds'] / steps * 1e3:.4f} ms/step): alpha "
+          f"and accum bit-identical {same} (max abs diff "
+          f"{float((host.state.alpha - mem.state.alpha).abs().max()):.3e})")
+    check(same, "the preconditioned hosted epoch differs from the "
+          "in-memory one")
+    shutil.rmtree(MMAP_DIR, ignore_errors=True)
+    return {"launches": steps, "estimate_s": secs}
+
+
+def _epochs_to_target(history, target: float):
+    """The JAX cell's accounting (benchmarks/common.py
+    ``to_target_summary``): the first eval whose best-so-far error is <=
+    target, charged to the next epoch boundary; and the best error."""
+    best, hit = 1.0, None
+    for h in history:
+        if "val_error" in h:
+            best = min(best, h["val_error"])
+            if hit is None and best <= target:
+                hit = h["epoch"] + 1
+    return hit, best
+
+
+def phase_precond_converge():
+    """The JAX ``precond`` cell's protocol on the card (CONVERGE): epochs
+    to a 0.35 validation error with and without the correction, at the
+    same step size, at the cell's fit seed."""
+    import numpy as np
+    import torch
+    from repro_torch.core import DSEKLConfig, fit, precond
+    from repro_torch.core.kernels_fn import get_kernel
+    from repro_torch.data import make_covertype_like
+    from repro_torch.kernels.dsekl import block
+    c = CONVERGE
+    n, d, gamma, target = c["n"], c["d"], c["gamma"], c["target"]
+    xtr, _ = make_covertype_like(n, d, seed=0, device=DEVICE)
+    xva, _ = make_covertype_like(c["n_val"], d, seed=1, device=DEVICE)
+    kern = get_kernel("rbf", gamma=gamma)
+    t0 = time.perf_counter()
+    kmat = kern(xtr.double(), xtr.double())
+    _, u = torch.linalg.eigh(kmat)
+    u = u.flip(1)                                   # descending
+    lo, hi = c["band"]
+    coef = torch.from_numpy(np.random.RandomState(11).randn(hi - lo))
+    a_star = u[:, lo:hi] @ coef.to(DEVICE)
+    ytr = torch.sign(kmat @ a_star).float()
+    yva = torch.sign(kern(xva.double(), xtr.double()) @ a_star).float()
+    torch.cuda.synchronize()
+    t_labels = time.perf_counter() - t0
+    cfg = DSEKLConfig(n_grad=c["batch"], n_expand=c["batch"], kernel="rbf",
+                      kernel_params=(("gamma", gamma),), loss="square",
+                      lam=1e-4, schedule="const", unbiased_scaling=True,
+                      precondition_m=PRECOND_M, precondition_auto_lr=False)
+    pre = precond.estimate_preconditioner(
+        cfg, xtr, torch.Generator().manual_seed(11), k=PRECOND_K,
+        device=DEVICE)
+    cfg = cfg.replace(lr0=pre.baseline_step_size(c["batch"]))
+    print(f"[precond-converge] n {n}, d {d}, RBF gamma {gamma}, labels on "
+          f"eigenmodes {lo}..{hi} (f64 eigh of the {n}^2 kernel matrix and "
+          f"labels {t_labels:.2f}s; {float((ytr > 0).float().mean()):.3f} "
+          f"positive); k {pre.k}, m {pre.m}, scale {pre.scale:.4f}, lr0 "
+          f"{cfg.lr0:.6e} (baseline_step_size({c['batch']})) in both arms")
+    check(pre.scale > 1.0, f"scale {pre.scale} is not above 1")
+    arms = {}
+    for arm, p in (("baseline", 0), ("precond", pre)):
+        def stop(epoch, st, rec):
+            return _epochs_to_target([rec], target)[0] is not None
+
+        before = block.kernel_vecmat_cuda.launches_by_route["sm90"]
+        t0 = time.perf_counter()
+        res = fit(cfg, xtr, ytr, torch.Generator().manual_seed(c["seed"]),
+                  n_epochs=c["epochs"], tol=0.0, x_val=xva, y_val=yva,
+                  eval_every=c["eval_every"], precondition=p,
+                  on_epoch=stop, device=DEVICE)
+        secs = time.perf_counter() - t0
+        vecmats = (block.kernel_vecmat_cuda.launches_by_route["sm90"]
+                   - before)
+        steps = int(res.state.step)
+        check(bool(torch.isfinite(res.state.alpha).all()),
+              f"{arm}: non-finite alpha")
+        check(vecmats == (steps if p else 0),
+              f"{arm}: {vecmats} sm90 vecmats for {steps} steps")
+        hit, best = _epochs_to_target(res.history, target)
+        arms[arm] = hit
+        print(f"[precond-converge] seed {c['seed']} {arm}: epochs to "
+              f"{target} {hit} (best {best:.4f}, {res.epochs_run} epochs "
+              f"run, {secs:.2f}s)")
+    hp, hb = arms["precond"], arms["baseline"]
+    print(f"[precond-converge] epochs to {target}: preconditioned {hp} "
+          f"against baseline {hb}; the JAX cell's committed CPU reading "
+          f"(BENCH_dsekl.json, other data): "
+          f"{JAX_PRECOND_EPOCHS['precond']} against "
+          f"{JAX_PRECOND_EPOCHS['baseline']}")
+    check(hp is not None and (hb is None or hp < hb),
+          f"the preconditioned arm did not reach {target} in fewer epochs "
+          f"than the baseline: {hp} against {hb}")
+    return {"epochs": arms, "scale": pre.scale}
+
+
+def phase_precond_times(out, pre, device_name: str):
+    """Row 2 at the correction's shape: the vecmat K(X_I, X_P)^T v at I =
+    1,024 gradient rows of a step against the m = 512 subsample rows, D
+    54, v the hinge gradient at the step's f; its bound (products at the
+    TF32 tensor peak, the rest at fp32), the plain version and the fp32
+    cross-term GEMM yardstick."""
+    import torch
+    from repro_torch.core.losses import get_loss
+    from repro_torch.kernels.dsekl import block
+    st = _step_inputs(out)
+    xi, xj, aj, yi = st["xi"], st["xj"], st["aj"], st["yi"]
+    f, _ = block.train_pass_plain(xi, xj, aj, yi, loss="hinge")
+    v = get_loss("hinge").grad_f(f, yi).contiguous()
+    rows = torch.from_numpy(pre.rows).to(DEVICE).contiguous()
+    n_i, d = xi.shape
+    n_j = rows.shape[0]
+    check(block.select_matvec_route("rbf", d) == "sm90",
+          "the correction's vecmat is not on the sm90 route")
+
+    def kernel():
+        return block.kernel_vecmat_cuda(xi, rows, v)
+
+    def plain():
+        return block.kernel_vecmat_plain(xi, rows, v)
+
+    # At gamma 1 on these rows K ~ I and most outputs lie below the atol;
+    # the error is taken on the same rows scaled to unit norm, where they
+    # do not (``_unit_rows``), and on the main path's rows as well.
+    s = out["x"].norm(dim=1).mean()
+    xs, rs = (xi / s).contiguous(), (rows / s).contiguous()
+    err, top, med = _compare_biting(
+        "kernel_vecmat_precond", block.kernel_vecmat_cuda(xs, rs, v),
+        block.kernel_vecmat_plain(xs, rs, v))
+    err_main = compare(kernel(), plain(), floor=False)
+    print(f"[times] kernel_vecmat_precond cuda vs plain: max abs err "
+          f"{err:.3e} on unit-norm rows (max|ref| {top:.3e}, median "
+          f"{med:.3e}), {err_main:.3e} on the main path's rows; rtol "
+          f"{RTOL}, atol {ATOL} x |ref|_inf")
+    t = _timed(kernel, plain)
+    products, n_ops, n_bytes = _matvec_work(n_j, n_i, d)
+    row = _row("kernel_vecmat_precond",
+               "src/repro_torch/kernels/dsekl/csrc/dsekl_matvec_sm90.cu",
+               "src/repro/kernels/dsekl/block.py:280", t, n_ops, n_bytes,
+               device_name, err, device_ms(lambda: torch.matmul(xi, rows.T)),
+               tensor_ops=products, tensor="tf32")
+    row["kernel_route"] = "sm90"
+    row["max_abs_err_main_rows"] = err_main
+    # A time row of kernel_vecmat at another shape: its launches are
+    # counted once, in kernel_vecmat's row.
+    row["launches_counted_in"] = "kernel_vecmat"
+    _print_row(row, t, f"I={n_i} J={n_j} D={d}", products + n_ops, n_bytes,
+               "torch.matmul(xi, rows.T); sm90 route,")
+    print(f"[times] kernel_vecmat_precond: {row['bound_ms'] / row['ms']:.1%}"
+          f" of its bound")
+    return row
 
 
 def phase_parallel_times(out, device_name: str):
@@ -2202,10 +2643,24 @@ def main() -> int:
     phase_hosted_vs_memory()
     elapsed("train-parallel, profile-parallel, train-hosted, "
             "hosted-vs-memory")
+    precond = phase_train_precond(trained, parallel)
+    phase_precond_parity(trained["out"])
+    precond_hosted = phase_precond_hosted(hosted["source"])
+    converge = phase_precond_converge()
+    elapsed("train-precond, precond-parity, precond-hosted, "
+            "precond-converge")
     # The wide sm90 train kernel's launches on the Alg.-2 paths, by path.
     wide_paths = {"train-parallel": parallel["launches"],
                   "train-hosted prefetch": hosted["prefetch"]["steps"],
                   "train-hosted sync": hosted["sync"]["steps"]}
+    # The vecmat's launches on the main paths: the two-pass fit, and one
+    # EigenPro correction a preconditioned step (I 1,024 x m 512).
+    precond_paths = {
+        "train-precond": precond["train-precond"]["launches"],
+        "train-precond parallel":
+            precond["train-precond parallel"]["launches"],
+        "precond-hosted": precond_hosted["launches"]}
+    vecmat_paths = dict({"train-two-pass": vecmat_launches}, **precond_paths)
     matvec_paths = {"serve": launches,
                     "train-parallel eval": parallel["eval_launches"],
                     "train-hosted prefetch eval":
@@ -2214,7 +2669,12 @@ def main() -> int:
     rows = phase_times(res, name) + [phase_rbf_times(res, name)]
     rows += phase_train_times(trained["out"], name)
     rows += phase_parallel_times(parallel["out"], name)
+    rows.append(phase_precond_times(
+        trained["out"], precond["train-precond"]["out"]["result"].precond,
+        name))
     del res, trained["out"], parallel["out"]
+    for tag in ("train-precond", "train-precond parallel"):
+        del precond[tag]["out"]
     elapsed("times")
     jamba = phase_serve_jamba()
     del jamba["res"]
@@ -2223,9 +2683,13 @@ def main() -> int:
     elapsed("lm-times")
     # Launches on the main paths; every fp32 route has none there.
     by_path = {"kernel_matvec": matvec_paths,
-               "train_pass_sm90_j4096": wide_paths}
+               "train_pass_sm90_j4096": wide_paths,
+               "kernel_vecmat": vecmat_paths}
+    # kernel_vecmat_precond times kernel_vecmat at the correction's shape;
+    # its launches are counted once, in kernel_vecmat's row.
     launches = {"kernel_matvec": sum(matvec_paths.values()), "rbf_matvec": 0,
-                "kernel_vecmat": vecmat_launches,
+                "kernel_vecmat": sum(vecmat_paths.values()),
+                "kernel_vecmat_precond": 0,
                 "dual_pass": trained["dual_launches"],
                 "train_pass": trained["launches"],
                 "train_pass_sm90_j4096": sum(wide_paths.values()),
@@ -2257,6 +2721,22 @@ def main() -> int:
           f"step; device busy {parallel_profile['busy_ms']:.4f} ms/step, "
           f"{parallel_profile['kernels']:.2f} device kernels a step "
           f"(profiler; the serial step {step_profile['kernels']:.2f})")
+    vec = next(r for r in rows if r["name"] == "kernel_vecmat_precond")
+    pstep = precond["train-precond"]["ms_per_step"]
+    pprof = precond["profile"]
+    print(f"[train-precond] {pstep:.4f} ms/step with EigenPro (the plain "
+          f"step {step_ms:.4f}: +{pstep - step_ms:.4f} ms); Algorithm 2 "
+          f"{precond['train-precond parallel']['ms_per_step']:.4f} (plain "
+          f"{parallel['ms_per_step']:.4f}); the correction's vecmat "
+          f"{vec['ms']:.4f} ms of device time = {vec['ms'] / pstep:.1%} of "
+          f"the step; device busy {pprof['busy_ms']:.4f} ms/step, "
+          f"{pprof['kernels']:.2f} device kernels a step (the plain step "
+          f"{step_profile['kernels']:.2f}); estimate_s "
+          f"{precond['train-precond']['estimate_s']:.4f} in memory, "
+          f"{precond_hosted['estimate_s'][0]:.4f} from the memmap; "
+          f"precond-converge: epochs to target preconditioned "
+          f"{converge['epochs']['precond']} against baseline "
+          f"{converge['epochs']['baseline']}")
     print(f"[device_ms] {READINGS['kept']} readings kept, "
           f"{READINGS['retaken']} taken again behind a longer spin, "
           f"{READINGS['host_paced']} paced by the host")

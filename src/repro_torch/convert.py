@@ -7,6 +7,10 @@
   under the keys ``alpha``, ``accum``, ``step``, ``epoch``: a JAX
   ``DSEKLState`` via ``np.asarray`` of its fields, or a checkpoint's flat
   dict.
+* ``preconditioner_from_jax(pre_or_extra)`` — the port's
+  ``EigenProPreconditioner`` from a JAX ``EigenProPreconditioner`` or from
+  its ``to_extra()`` dict, as a JAX checkpoint stores it under
+  ``extra["precond"]``: the same arrays, bit for bit.
 * ``read_jax_checkpoint(directory, step=None)`` — reads the JAX checkpoint
   layout ``step_<N>/arrays.npz`` + ``manifest.json`` with numpy alone.  A
   step is valid only if both files exist and the npz's crc32 matches the
@@ -30,6 +34,7 @@ import torch
 from repro_torch.checkpoint.manager import read_checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dsekl import DSEKLConfig, DSEKLState
+from repro_torch.core.precond import EigenProPreconditioner
 from repro_torch.device import DeviceLike, resolve_device
 
 _IMPL_MAP = {"pallas": "auto", "pallas_interpret": "auto"}
@@ -64,6 +69,22 @@ def state_from_jax(arrays: Mapping[str, Any],
 
     return DSEKLState(alpha=vec("alpha"), accum=vec("accum"),
                       step=scalar("step"), epoch=scalar("epoch"))
+
+
+def preconditioner_from_jax(pre_or_extra) -> EigenProPreconditioner:
+    """A JAX ``EigenProPreconditioner`` (any object with its fields) or its
+    ``to_extra()`` dict -> the port's, with the same dtypes and bits."""
+    if isinstance(pre_or_extra, Mapping):
+        return EigenProPreconditioner.from_extra(pre_or_extra)
+    p = pre_or_extra
+    return EigenProPreconditioner(
+        indices=np.asarray(p.indices, np.int64),
+        rows=np.asarray(p.rows, np.float32),
+        vectors=np.asarray(p.vectors, np.float32),
+        damping=np.asarray(p.damping, np.float32),
+        eigenvalues=np.asarray(p.eigenvalues, np.float64),
+        n=int(p.n), damping_power=float(p.damping_power),
+        safety=float(p.safety))
 
 
 def read_jax_checkpoint(directory, step: Optional[int] = None

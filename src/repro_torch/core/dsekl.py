@@ -1,11 +1,10 @@
-"""DSEKL model configuration, state, the steps of Algorithms 1 and 2 and
-prediction (port of ``repro/core/dsekl.py``; the mesh hooks and EigenPro
-are not ported yet).
+"""DSEKL model configuration, state, the steps of Algorithms 1 and 2 with
+their EigenPro correction, and prediction (port of ``repro/core/dsekl.py``;
+the mesh hooks are not ported yet).
 
 ``DSEKLConfig`` carries every field of the JAX config, so a JAX config maps
 onto it 1:1 (``repro_torch.convert.config_from_jax``); fields of paths not
-ported yet (``compress_bits``, ``precondition_*``, ``bcd_*``) are kept for
-that mapping.
+ported yet (``compress_bits``, ``bcd_*``) are kept for that mapping.
 
 Algorithm 1 (serial): every step takes two index sets, I (gradient points)
 and J (kernel-map expansion points), computes the dual gradient on the
@@ -20,18 +19,26 @@ workers jointly evaluate f_I = sum_k K_{I,J^k} a_{J^k}, so with
 ``fuse_dual_pass`` the step is one train pass over the J union
 (``grad_block_parallel``), scattered by ``apply_update_parallel``.
 
+EigenPro (DESIGN.md §10): with a ``PrecondBlock`` (``pc``) each step also
+forms the correction delta = U ((|J| q) * (U^T K(X_I, X_P)^T v)) from the
+step's own v = dloss/df(f_I, y_I), one vecmat over the m subsample rows P,
+and scatters alpha_P += lr * delta after the main scatter
+(``precond_correction``; ``core/precond.py`` estimates U and q).  With
+``pc=None`` every step runs exactly what it ran before.
+
 Prediction is the empirical kernel map over any expansion set:
 ``f(x) = K(x, X_train) @ alpha``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core import losses as losses_lib
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import full_fp32_matmul
 from repro_torch.kernels.dsekl import ops as kops
 
 Tensor = torch.Tensor
@@ -217,8 +224,116 @@ def scale_n(cfg: DSEKLConfig, n: int) -> int:
     return n if cfg.unbiased_scaling else 0
 
 
+# ---------------------------------------------------------------------------
+# EigenPro preconditioning (DESIGN.md §10).
+#
+# With U (m, k) the generalized eigenvectors of the squared Nystrom
+# operator, q (k,) the per-unit damping and P the m subsample rows, a step
+# cancels the top-k K^2-eigendirection components of its expected update:
+#
+#     delta = U ((|J| q) * (U^T (K_{I,P}^T v)))    # (m,)
+#     alpha_P += lr * delta                        # after alpha_J -= lr * g
+#
+# |J| is the step's J-union size (Algorithm 1: n_expand; Algorithm 2:
+# n_workers * n_expand): the main update covers |J|/n of the operator per
+# step in expectation while the correction fires every step, and the 1/n
+# lives in q.  K_{I,P}^T v is one kernel_vecmat over the subsample rows.
+# ---------------------------------------------------------------------------
+
+class PrecondBlock(NamedTuple):
+    """The EigenPro preconditioner on the device (``precond.py`` stages
+    it): rows (m, D) the subsample rows; vectors (m, k) U; damping (k,)
+    the per-unit-J q; indices (m,) int64 row ids the correction scatters
+    into (distinct)."""
+    rows: Tensor
+    vectors: Tensor
+    damping: Tensor
+    indices: Tensor
+
+
+def precond_correction(cfg: DSEKLConfig, xi: Tensor, v: Tensor,
+                       pc: PrecondBlock, j_union: int) -> Tensor:
+    """delta = U ((|J| q) * (U^T (K(xi, P)^T v))): the EigenPro correction
+    of one step (v = dloss/df at the gradient rows xi; ``j_union`` the
+    expansion coordinates the step scatters).  The vecmat is the kernel's
+    on the CUDA backend; the two (m, k) products run in full float32."""
+    c = kops.kernel_vecmat(xi, pc.rows, v, kernel_name=cfg.kernel,
+                           kernel_params=cfg.kernel_params, impl=cfg.impl)
+    with full_fp32_matmul():
+        return pc.vectors @ ((float(j_union) * pc.damping)
+                             * (pc.vectors.T @ c))
+
+
+def _delta(cfg: DSEKLConfig, xi: Tensor, yi: Tensor, f: Tensor,
+           pc: PrecondBlock, j_union: int) -> Tensor:
+    """The correction of a step from its gradient rows and its f_I."""
+    v = losses_lib.get_loss(cfg.loss).grad_f(f, yi)
+    return precond_correction(cfg, xi, v, pc, j_union)
+
+
+def _apply_correction(cfg: DSEKLConfig, state: DSEKLState, idx_p: Tensor,
+                      delta: Tensor) -> DSEKLState:
+    """Scatter the correction at the step's scalar rate (adagrad's
+    per-coordinate damp applies to the main update only).  Called after
+    the main scatter, so ``_lr`` reads the incremented step."""
+    alpha = state.alpha.index_add(0, idx_p, _lr(cfg, state) * delta)
+    return state._replace(alpha=alpha)
+
+
+def _maybe_correct(cfg: DSEKLConfig, state: DSEKLState, xi: Tensor,
+                   yi: Tensor, f: Tensor, pc: Optional[PrecondBlock],
+                   j_union: int, idx_i: Optional[Tensor] = None
+                   ) -> DSEKLState:
+    """A step's EigenPro correction after its main scatter; the state
+    untouched when ``pc`` is None.  With ``idx_i``, xi and yi are the
+    whole x and y, gathered at I here (the card's indexed step gathers
+    nothing else)."""
+    if pc is None:
+        return state
+    if idx_i is not None:
+        xi, yi = xi[idx_i], yi[idx_i]
+    return _apply_correction(cfg, state, pc.indices,
+                             _delta(cfg, xi, yi, f, pc, j_union))
+
+
+def grad_block_precond(cfg: DSEKLConfig, xi: Tensor, yi: Tensor, xj: Tensor,
+                       aj: Tensor, pc: PrecondBlock, n: int = 0
+                       ) -> Tuple[Tensor, Tensor]:
+    """``grad_block`` plus the EigenPro correction: (g_J, delta)."""
+    f, g = _grad_block_with_f(cfg, xi, yi, xj, aj, n)
+    return g, _delta(cfg, xi, yi, f, pc, cfg.n_expand)
+
+
+def apply_update_precond(cfg: DSEKLConfig, state: DSEKLState, idx_j: Tensor,
+                         g: Tensor, idx_p: Tensor, delta: Tensor
+                         ) -> DSEKLState:
+    """Alg.-1 scatter, then the EigenPro correction's."""
+    return _apply_correction(cfg, apply_update(cfg, state, idx_j, g),
+                             idx_p, delta)
+
+
+def _train_pass_indexed(cfg: DSEKLConfig, state: DSEKLState, x: Tensor,
+                        y: Tensor, idx_i: Tensor, idx_j: Tensor
+                        ) -> Tuple[Tensor, Tensor]:
+    """The CUDA backend's fused step: ``ops.kernel_train_pass_indexed`` on
+    the indices, whose kernel reads the rows of x, y and alpha itself and
+    adds lam * alpha_J.  Returns (f_I, g_J)."""
+    n = x.shape[0]
+    return kops.kernel_train_pass_indexed(
+        x, y, state.alpha, idx_i, idx_j, kernel_name=cfg.kernel,
+        kernel_params=cfg.kernel_params, loss=cfg.loss,
+        f_scale=(n / idx_j.shape[0]) if cfg.unbiased_scaling else 1.0,
+        lam=cfg.lam, impl="cuda")
+
+
+def _indexed_step(cfg: DSEKLConfig, x: Tensor) -> bool:
+    return (cfg.fuse_dual_pass
+            and kops.resolve_impl(cfg.impl, cfg.kernel, x.device) == "cuda")
+
+
 def step_serial(cfg: DSEKLConfig, state: DSEKLState, x: Tensor, y: Tensor,
-                idx_i: Tensor, idx_j: Tensor) -> DSEKLState:
+                idx_i: Tensor, idx_j: Tensor,
+                pc: Optional[PrecondBlock] = None) -> DSEKLState:
     """One Alg.-1 iteration on the index sets ``idx_i`` (n_grad,) and
     ``idx_j`` (n_expand,) (``sampler.sample_uniform`` draws them; the JAX
     step draws them from its key).  x (N, D), y (N,) on the state's
@@ -227,20 +342,19 @@ def step_serial(cfg: DSEKLConfig, state: DSEKLState, x: Tensor, y: Tensor,
     On the CUDA backend the fused step hands the indices to
     ``ops.kernel_train_pass_indexed``, whose kernel reads the rows of x, y
     and alpha itself (no gather before it) and adds lam * alpha_J.  Every
-    other path gathers the blocks first and runs ``grad_block``."""
+    other path gathers the blocks first and runs ``grad_block``'s body.  A
+    ``PrecondBlock`` adds the EigenPro correction; on the CUDA backend it
+    gathers x and y at I (and nothing else) for its vecmat."""
     n = x.shape[0]
-    if (cfg.fuse_dual_pass
-            and kops.resolve_impl(cfg.impl, cfg.kernel, x.device) == "cuda"):
-        _, g = kops.kernel_train_pass_indexed(
-            x, y, state.alpha, idx_i, idx_j, kernel_name=cfg.kernel,
-            kernel_params=cfg.kernel_params, loss=cfg.loss,
-            f_scale=(n / idx_j.shape[0]) if cfg.unbiased_scaling else 1.0,
-            lam=cfg.lam, impl="cuda")
-        return apply_update(cfg, state, idx_j, g)
+    if _indexed_step(cfg, x):
+        f, g = _train_pass_indexed(cfg, state, x, y, idx_i, idx_j)
+        state = apply_update(cfg, state, idx_j, g)
+        return _maybe_correct(cfg, state, x, y, f, pc, cfg.n_expand, idx_i)
     xi, yi = x[idx_i], y[idx_i]
-    xj, aj = x[idx_j], state.alpha[idx_j]
-    g = grad_block(cfg, xi, yi, xj, aj, scale_n(cfg, n))
-    return apply_update(cfg, state, idx_j, g)
+    f, g = _grad_block_with_f(cfg, xi, yi, x[idx_j], state.alpha[idx_j],
+                              scale_n(cfg, n))
+    state = apply_update(cfg, state, idx_j, g)
+    return _maybe_correct(cfg, state, xi, yi, f, pc, cfg.n_expand)
 
 
 # ---------------------------------------------------------------------------
@@ -289,8 +403,27 @@ def apply_update_parallel(cfg: DSEKLConfig, state: DSEKLState,
     return apply_update(cfg, state, flat_j, flat_g)
 
 
+def grad_block_parallel_precond(cfg: DSEKLConfig, xi: Tensor, yi: Tensor,
+                                xjk: Tensor, ajk: Tensor, pc: PrecondBlock,
+                                n: int = 0) -> Tuple[Tensor, Tensor]:
+    """``grad_block_parallel`` plus the EigenPro correction (|J| =
+    n_workers * n_expand): (flat g, delta)."""
+    f, flat_g = _grad_block_parallel_with_f(cfg, xi, yi, xjk, ajk, n)
+    return flat_g, _delta(cfg, xi, yi, f, pc, cfg.n_workers * cfg.n_expand)
+
+
+def apply_update_parallel_precond(cfg: DSEKLConfig, state: DSEKLState,
+                                  flat_j: Tensor, flat_g: Tensor,
+                                  idx_p: Tensor, delta: Tensor
+                                  ) -> DSEKLState:
+    """Alg.-2 scatter, then the EigenPro correction's."""
+    return _apply_correction(
+        cfg, apply_update_parallel(cfg, state, flat_j, flat_g), idx_p, delta)
+
+
 def _parallel_inner(cfg: DSEKLConfig, state: DSEKLState, x: Tensor,
-                    y: Tensor, idx_i: Tensor, idx_jk: Tensor) -> DSEKLState:
+                    y: Tensor, idx_i: Tensor, idx_jk: Tensor,
+                    pc: Optional[PrecondBlock] = None) -> DSEKLState:
     """One Alg.-2 step: the gradient batch ``idx_i`` (n_grad,) against the
     K worker batches ``idx_jk`` (K, j), x (N, D) and y (N,) on the state's
     device.
@@ -301,31 +434,33 @@ def _parallel_inner(cfg: DSEKLConfig, state: DSEKLState, x: Tensor,
     route; 4 workers x 1,024 at the paper's protocol).  A wider union takes
     the fp32 route, which gathers the rows before it, and above
     ``block.STASH_BUDGET`` falls back to matvec then vecmat.  Every other
-    path gathers the blocks and runs ``grad_block_parallel``."""
+    path gathers the blocks and runs ``grad_block_parallel``'s body.  A
+    ``PrecondBlock`` adds the EigenPro correction, as in ``step_serial``."""
     n = x.shape[0]
     flat_j = idx_jk.reshape(-1)
-    if (cfg.fuse_dual_pass
-            and kops.resolve_impl(cfg.impl, cfg.kernel, x.device) == "cuda"):
-        _, g = kops.kernel_train_pass_indexed(
-            x, y, state.alpha, idx_i, flat_j, kernel_name=cfg.kernel,
-            kernel_params=cfg.kernel_params, loss=cfg.loss,
-            f_scale=(n / flat_j.shape[0]) if cfg.unbiased_scaling else 1.0,
-            lam=cfg.lam, impl="cuda")
-        return apply_update_parallel(cfg, state, flat_j, g)
-    g = grad_block_parallel(cfg, x[idx_i], y[idx_i], x[idx_jk],
-                            state.alpha[idx_jk], scale_n(cfg, n))
-    return apply_update_parallel(cfg, state, flat_j, g)
+    j_union = cfg.n_workers * cfg.n_expand
+    if _indexed_step(cfg, x):
+        f, g = _train_pass_indexed(cfg, state, x, y, idx_i, flat_j)
+        state = apply_update_parallel(cfg, state, flat_j, g)
+        return _maybe_correct(cfg, state, x, y, f, pc, j_union, idx_i)
+    xi, yi = x[idx_i], y[idx_i]
+    f, g = _grad_block_parallel_with_f(cfg, xi, yi, x[idx_jk],
+                                       state.alpha[idx_jk], scale_n(cfg, n))
+    state = apply_update_parallel(cfg, state, flat_j, g)
+    return _maybe_correct(cfg, state, xi, yi, f, pc, j_union)
 
 
 def epoch_parallel(cfg: DSEKLConfig, state: DSEKLState, x: Tensor,
-                   y: Tensor, i_batches: Tensor, idx_jk: Tensor
-                   ) -> DSEKLState:
+                   y: Tensor, i_batches: Tensor, idx_jk: Tensor,
+                   pc: Optional[PrecondBlock] = None) -> DSEKLState:
     """One Alg.-2 epoch on the plan ``(i_batches (Bi, n_grad), idx_jk (Bi,
     K, n_expand))`` (``sampler.parallel_epoch_plan``), int64 indices on
-    the state's device: one ``_parallel_inner`` per gradient batch."""
+    the state's device: one ``_parallel_inner`` per gradient batch (with
+    the EigenPro correction when ``pc`` is given)."""
     state = state._replace(epoch=state.epoch + 1)
     for b in range(i_batches.shape[0]):
-        state = _parallel_inner(cfg, state, x, y, i_batches[b], idx_jk[b])
+        state = _parallel_inner(cfg, state, x, y, i_batches[b], idx_jk[b],
+                                pc)
     return state
 
 

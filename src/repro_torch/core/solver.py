@@ -13,10 +13,13 @@ the data placement and the requested execution to a backend
     ``BlockPrefetcher``, bit-identical to the in-memory fit on the CPU;
 
 and drives ``trainer.fit_loop``: epoch -> truncate -> eval -> snapshot,
-with checkpoint/resume through ``checkpoint.CheckpointManager``.
+with checkpoint/resume through ``checkpoint.CheckpointManager``.  EigenPro
+preconditioning (``precondition=`` or ``cfg.precondition_k``) is estimated
+once before the loop (``core/precond.py``) and rides on every backend.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -60,6 +63,58 @@ def train_epoch_hosted(cfg: DSEKLConfig, state: DSEKLState, source, plan, *,
     return state
 
 
+# The tag that derives the estimate's generator from the fit's: the
+# estimate never draws from the fit's generator, so a preconditioned fit
+# and a plain one draw identical epochs (the JAX fit folds this tag into
+# its key).
+_PRECOND_KEY_TAG = 1337
+
+
+def _precond_generator(generator: torch.Generator) -> torch.Generator:
+    """A CPU generator for the estimate's subsample, seeded from the fit
+    generator's initial seed and ``_PRECOND_KEY_TAG``; ``generator``
+    itself is left untouched."""
+    seed = (generator.initial_seed() * 0x9E3779B97F4A7C15
+            + _PRECOND_KEY_TAG) % (1 << 63)
+    return torch.Generator().manual_seed(seed)
+
+
+def _resolve_preconditioner(cfg: DSEKLConfig, precondition, data,
+                            generator: Optional[torch.Generator], *,
+                            manager, resume: bool, device: torch.device):
+    """``fit``'s ``precondition=``: an ``EigenProPreconditioner`` passes
+    through; otherwise the rank (``None``: ``cfg.precondition_k``; 0:
+    off) is restored from the newest checkpoint's ``extra["precond"]`` on
+    resume, else estimated from ``data`` on ``device`` with a generator
+    derived from ``generator``.  Returns ``(preconditioner or None,
+    seconds the estimate took)``."""
+    if hasattr(precondition, "block"):
+        return precondition, 0.0
+    k = cfg.precondition_k if precondition is None else int(precondition)
+    if k <= 0:
+        return None, 0.0
+    from repro_torch.core import precond as precond_lib
+    if manager is not None and resume:
+        step = manager.latest_valid_step()
+        if step is not None:
+            _, _, extra = manager.restore(step)
+            if "precond" in extra:
+                # Bit-exact: the resumed correction replays the
+                # interrupted fit's.
+                return precond_lib.EigenProPreconditioner.from_extra(
+                    extra["precond"]), 0.0
+    if generator is None:
+        raise ValueError(
+            "a preconditioned fit on explicit plans= needs a built "
+            "EigenProPreconditioner (precondition=estimate_preconditioner("
+            "...)): without a generator there is nothing to draw the "
+            "Nystrom subsample from")
+    t0 = time.perf_counter()
+    pre = precond_lib.estimate_preconditioner(
+        cfg, data, _precond_generator(generator), k=k, device=device)
+    return pre, time.perf_counter() - t0
+
+
 def fit(cfg: DSEKLConfig, x, y=None,
         generator: Optional[torch.Generator] = None, *,
         plans: Optional[Sequence] = None, execution: Optional[str] = None,
@@ -70,7 +125,8 @@ def fit(cfg: DSEKLConfig, x, y=None,
         checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1,
         checkpoint_keep: int = 3, resume: bool = False,
         callback: Optional[Callable[[int, DSEKLState], None]] = None,
-        on_epoch=None, device: DeviceLike = None) -> FitResult:
+        precondition=None, on_epoch=None,
+        device: DeviceLike = None) -> FitResult:
     """Run DSEKL until convergence (paper stopping rule) or ``n_epochs``.
 
     ``x`` is either the ``(N, D)`` rows (a tensor or an array, with ``y``)
@@ -107,9 +163,22 @@ def fit(cfg: DSEKLConfig, x, y=None,
     that was never interrupted.  ``on_epoch(epoch, state, record)``
     returning truthy stops the fit after that boundary's snapshot.
 
+    ``precondition``: EigenPro (DESIGN.md §10).  ``None`` defers to
+    ``cfg.precondition_k`` (0, the default, trains as before); an int is
+    the rank k (0 forces it off); an ``EigenProPreconditioner`` is used as
+    given.  A rank is estimated once from a Nystrom subsample of the
+    training data (``precond.estimate_preconditioner``, one streamed pass,
+    on ``device``), drawn from a generator derived from ``generator`` and
+    ``_PRECOND_KEY_TAG``: the fit's own generator is not drawn from, so the
+    epochs are those of a plain fit.  A fit on ``plans`` without a
+    generator must pass a built preconditioner.  On resume the
+    preconditioner is restored from the checkpoint's ``extra``.  Under
+    ``schedule="const"`` with ``cfg.precondition_auto_lr`` the fit swaps
+    ``lr0`` for ``pre.step_size(|J|)``.  ``FitResult.precond`` and
+    ``.estimate_s`` report it.
+
     Not ported yet, and refused: the ``mesh`` and ``bcd`` executions
-    (``NotImplementedError`` from ``trainer.make_plan``) and EigenPro
-    (``cfg.precondition_k > 0``), with any execution."""
+    (``NotImplementedError``, naming their ROADMAP item)."""
     if generator is None and plans is None:
         raise TypeError("fit() requires a torch.Generator (or explicit "
                         "per-epoch index plans)")
@@ -117,10 +186,6 @@ def fit(cfg: DSEKLConfig, x, y=None,
         raise TypeError(
             "fit() got x_val without y_val: validation labels are required "
             "to evaluate (pass y_val, or drop x_val to skip eval)")
-    if cfg.precondition_k:
-        raise NotImplementedError(
-            "EigenPro preconditioning (cfg.precondition_k > 0) is not "
-            "ported to repro_torch yet: ROADMAP.md section 1, item 4")
     if plans is not None and len(plans) < n_epochs:
         raise ValueError(f"plans holds {len(plans)} epochs; "
                          f"n_epochs={n_epochs}")
@@ -140,6 +205,7 @@ def fit(cfg: DSEKLConfig, x, y=None,
     execution = trainer.resolve_execution(execution, cfg,
                                           algorithm=algorithm,
                                           hosted_data=hosted_data)
+    trainer.check_ported(execution)
     if execution in ("serial", "parallel"):
         algorithm = execution               # the backend IS the algorithm
         if isinstance(source, InMemorySource):
@@ -166,16 +232,33 @@ def fit(cfg: DSEKLConfig, x, y=None,
     if checkpoint_dir is not None:
         from repro_torch.checkpoint import CheckpointManager
         manager = CheckpointManager(checkpoint_dir, keep=checkpoint_keep)
+    pre, estimate_s = _resolve_preconditioner(
+        cfg, precondition, source if source is not None else x, generator,
+        manager=manager, resume=resume, device=dev)
+    snapshot_extra = {"precond": pre.to_extra()} if pre is not None else None
+    if pre is not None:
+        if verbose:
+            print(f"[dsekl] EigenPro: k={pre.k}, m={pre.m}, scale "
+                  f"{pre.scale:.3f}, estimate {estimate_s:.3f}s")
+        if cfg.precondition_auto_lr and cfg.schedule == "const":
+            # The rule wants the expansion coordinates one step scatters.
+            j_union = (cfg.n_workers * cfg.n_expand
+                       if algorithm == "parallel" else cfg.n_expand)
+            cfg = cfg.replace(lr0=pre.step_size(j_union))
     with trainer.make_plan(execution, cfg, x=x, y=y, source=source,
                            algorithm=algorithm, prefetch=prefetch,
-                           eval_cache=eval_cache, device=dev) as plan:
-        return trainer.fit_loop(
+                           eval_cache=eval_cache, device=dev,
+                           precond=pre) as plan:
+        res = trainer.fit_loop(
             plan, generator, plans=plans, n_epochs=n_epochs, tol=tol,
             x_val=x_val, y_val=y_val, eval_every=eval_every,
             verbose=verbose, truncate_every=truncate_every,
             truncate_frac=truncate_frac, callback=callback,
             manager=manager, checkpoint_every=checkpoint_every,
-            resume=resume, on_epoch=on_epoch)
+            resume=resume, snapshot_extra=snapshot_extra,
+            on_epoch=on_epoch)
+    res.precond, res.estimate_s = pre, estimate_s
+    return res
 
 
 def error_rate(cfg: DSEKLConfig, alpha: Tensor, x_train: Tensor, x: Tensor,

@@ -20,13 +20,18 @@ Three backends:
   * ``HostedPlan`` — either algorithm over a host-resident ``DataSource``
     (numpy / ``np.memmap``): the plans are replayed through ONE
     ``BlockPrefetcher`` that lives for the whole fit, the blocks it stages
-    go through the block cores (``dsekl.grad_block`` /
-    ``grad_block_parallel``), and only the O(N) state lives on the
-    device.  The validation eval streams the source too.
+    go through the block cores (the bodies of ``dsekl.grad_block`` /
+    ``grad_block_parallel``, with the EigenPro correction after the
+    scatter when a ``precond`` block is given), and only the
+    O(N) state lives on the device.  The validation eval streams the
+    source too.
 
-The in-memory epochs never synchronise the host.  The JAX package's
-``mesh`` and ``bcd`` backends are not ported yet: ``make_plan`` raises
-``NotImplementedError`` naming their ROADMAP item.
+Every backend takes an EigenPro ``precond`` (``make_plan`` stages an
+``EigenProPreconditioner`` to a ``dsekl.PrecondBlock`` on the plan's
+device) and hands it to each step; without one the steps run exactly what
+they ran before.  The in-memory epochs never synchronise the host.  The
+JAX package's ``mesh`` and ``bcd`` backends are not ported yet:
+``make_plan`` raises ``NotImplementedError`` naming their ROADMAP item.
 
 The equivalence contract (``tests/test_torch_hosted.py``): on the same
 plans a hosted fit equals the in-memory fit of its algorithm bit for bit
@@ -34,7 +39,9 @@ on the CPU, and on the card for Algorithm 2, whose steps scatter no
 duplicate index.
 
 Checkpoint/resume: ``fit_loop`` snapshots ``(state, generator state,
-epoch, history, converged)`` through ``checkpoint.CheckpointManager``.
+epoch, history, converged)`` through ``checkpoint.CheckpointManager``,
+with the caller's ``snapshot_extra`` (the solver's serialized
+preconditioner) merged into the checkpoint's ``extra``.
 The generator state stored is the one that draws the NEXT epoch's plan,
 taken before the loop draws that plan one epoch ahead (the counterpart of
 the JAX snapshot's pre-epoch carry key), as a uint8 array in the npz so
@@ -85,6 +92,10 @@ class FitResult:
     # the last epoch's |dalpha|.
     epochs_to_tol: Optional[int] = None
     final_residual: float = 0.0
+    # The fit's EigenPro preconditioner (None without one) and the
+    # seconds its estimate took (0.0 when it was given or restored).
+    precond: Optional[Any] = None
+    estimate_s: float = 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -127,13 +138,18 @@ def _error_source(cfg: DSEKLConfig, alpha: Tensor, source, x: Tensor,
 
 
 def _apply_then_gather(cfg: DSEKLConfig, state: DSEKLState, idx_j: Tensor,
-                       g: Tensor, idx_next: Tensor
+                       g: Tensor, idx_next: Tensor,
+                       idx_p: Optional[Tensor] = None,
+                       delta: Optional[Tensor] = None
                        ) -> Tuple[DSEKLState, Tensor]:
-    """Step t's scatter, then step t+1's alpha gather: the only two
+    """Step t's scatter (and, with ``idx_p`` / ``delta``, the EigenPro
+    correction's after it), then step t+1's alpha gather: the only
     N-shaped operations of a hosted step.  Alg. 1's and Alg. 2's scatters
     are one function (``dsekl.apply_update_parallel`` is
     ``apply_update`` over the J union)."""
     state = dsekl.apply_update(cfg, state, idx_j, g)
+    if delta is not None:
+        state = dsekl._apply_correction(cfg, state, idx_p, delta)
     return state, state.alpha[idx_next]
 
 
@@ -201,10 +217,12 @@ class ExecutionPlan:
     name = "base"
     algorithm = "serial"
 
-    def __init__(self, cfg: DSEKLConfig, n: int, device: torch.device):
+    def __init__(self, cfg: DSEKLConfig, n: int, device: torch.device,
+                 precond: Optional[dsekl.PrecondBlock] = None):
         self.cfg = cfg
         self.n = int(n)
         self.device = device
+        self.precond = precond
 
     # -- state ----------------------------------------------------------
     def init_state(self) -> DSEKLState:
@@ -280,8 +298,9 @@ class _InMemoryPlan(ExecutionPlan):
     eval through the cached prediction engine or the streamed error."""
 
     def __init__(self, cfg: DSEKLConfig, x: Tensor, y: Tensor, *,
-                 eval_cache: bool = False):
-        super().__init__(cfg, int(x.shape[0]), x.device)
+                 eval_cache: bool = False,
+                 precond: Optional[dsekl.PrecondBlock] = None):
+        super().__init__(cfg, int(x.shape[0]), x.device, precond)
         self.x, self.y = x, y
         self._eval_cache = bool(eval_cache)
         self._val_engine = None
@@ -316,7 +335,7 @@ class SerialPlan(_InMemoryPlan):
         state = state._replace(epoch=state.epoch + 1)
         for t in range(self.steps):
             state = dsekl.step_serial(self.cfg, state, self.x, self.y,
-                                      idx_i[t], idx_j[t])
+                                      idx_i[t], idx_j[t], self.precond)
         return state
 
 
@@ -333,7 +352,7 @@ class ParallelPlan(_InMemoryPlan):
         self.check_plan(plan)
         i_batches, idx_jk = (_indices(p, self.device) for p in plan)
         return dsekl.epoch_parallel(self.cfg, state, self.x, self.y,
-                                    i_batches, idx_jk)
+                                    i_batches, idx_jk, self.precond)
 
 
 class HostedPlan(ExecutionPlan):
@@ -344,16 +363,18 @@ class HostedPlan(ExecutionPlan):
     ``plan_epoch`` extends its plan, so when the driver plans epoch e + 1
     before running epoch e the worker streams straight across the
     boundary.  A step takes the staged blocks, runs the block core
-    (``dsekl.grad_block`` / ``grad_block_parallel``) and
-    ``_apply_then_gather``.  Only alpha, accum and the staged blocks live
-    on the device."""
+    (``dsekl.grad_block`` / ``grad_block_parallel``, with the EigenPro
+    correction when a ``precond`` block is given) and
+    ``_apply_then_gather``.  Only alpha, accum, the staged blocks and the
+    preconditioner live on the device."""
 
     name = "hosted"
 
     def __init__(self, cfg: DSEKLConfig, source, *,
                  algorithm: str = "serial", prefetch: bool = True,
-                 device: torch.device):
-        super().__init__(cfg, source.n, device)
+                 device: torch.device,
+                 precond: Optional[dsekl.PrecondBlock] = None):
+        super().__init__(cfg, source.n, device, precond)
         if algorithm not in ("serial", "parallel"):
             raise ValueError(f"unknown algorithm {algorithm!r}")
         self.source = source
@@ -398,7 +419,7 @@ class HostedPlan(ExecutionPlan):
         if steps == 0:
             # N < n_grad on the parallel path: no step, as in memory.
             return state
-        cfg, loader = self.cfg, self._loader
+        cfg, loader, pc = self.cfg, self._loader, self.precond
         n_eff = dsekl.scale_n(cfg, self.n)
         # The epoch's J indices stay on the host (pinned on the card): each
         # step copies the next step's row of them ahead, asynchronously, so
@@ -410,19 +431,25 @@ class HostedPlan(ExecutionPlan):
         def idx_j(t):
             return idx_host[t].to(self.device, non_blocking=True)
 
+        serial = self.algorithm == "serial"
+        j_union = cfg.n_expand if serial else cfg.n_workers * cfg.n_expand
+        idx_p = None if pc is None else pc.indices
         idx_cur = idx_j(0)
         aj = state.alpha[idx_cur]
         for t in range(steps):
             xi, yi, xj = loader.get()
-            if self.algorithm == "serial":
-                g = dsekl.grad_block(cfg, xi, yi, xj, aj, n_eff)
+            if serial:
+                f, g = dsekl._grad_block_with_f(cfg, xi, yi, xj, aj, n_eff)
             else:
                 k, j = plan_j.shape[1:]
-                g = dsekl.grad_block_parallel(
+                f, g = dsekl._grad_block_parallel_with_f(
                     cfg, xi, yi, xj.reshape(k, j, xj.shape[-1]),
                     aj.reshape(k, j), n_eff)
+            delta = (None if pc is None
+                     else dsekl._delta(cfg, xi, yi, f, pc, j_union))
             idx_next = idx_j(t + 1) if t + 1 < steps else idx_cur
-            state, aj = _apply_then_gather(cfg, state, idx_cur, g, idx_next)
+            state, aj = _apply_then_gather(cfg, state, idx_cur, g, idx_next,
+                                           idx_p, delta)
             idx_cur = idx_next
         self._consumed_steps += steps
         return state
@@ -461,16 +488,19 @@ def _gen_state(generator: Optional[torch.Generator]) -> np.ndarray:
 
 
 def _snapshot(manager, state: DSEKLState, gen_state: np.ndarray,
-              epoch: int, history: List[Dict[str, Any]],
-              converged: bool) -> None:
+              epoch: int, history: List[Dict[str, Any]], converged: bool,
+              extra_fields: Optional[Dict[str, Any]] = None) -> None:
     """Checkpoint the resume closure: state, the generator state that
     draws the next epoch's plan, the epoch counter, history and the
     converged flag (a resumed fit stops where the uninterrupted one
-    stopped)."""
+    stopped).  ``extra_fields`` is merged into ``extra``: the solver
+    stores the serialized preconditioner there, so a resumed
+    preconditioned fit replays the same correction."""
     tree = {"alpha": state.alpha, "accum": state.accum,
             "step": state.step, "epoch": state.epoch,
             "gen_state": gen_state}
     extra = {"epoch": epoch, "history": history, "converged": converged}
+    extra.update(extra_fields or {})
     manager.save(epoch, tree, extra=extra)
 
 
@@ -496,6 +526,7 @@ def fit_loop(plan: ExecutionPlan, generator: Optional[torch.Generator], *,
              truncate_frac: float = 0.1,
              callback: Optional[Callable[[int, DSEKLState], None]] = None,
              manager=None, checkpoint_every: int = 1, resume: bool = False,
+             snapshot_extra: Optional[Dict[str, Any]] = None,
              on_epoch: Optional[
                  Callable[[int, DSEKLState, Dict[str, Any]], Any]] = None
              ) -> FitResult:
@@ -513,7 +544,8 @@ def fit_loop(plan: ExecutionPlan, generator: Optional[torch.Generator], *,
     epochs and at the end; ``resume=True`` restores the newest valid
     snapshot and continues as a run that was never interrupted.
     ``on_epoch(epoch, state, record)`` returning truthy stops the fit
-    after that boundary's snapshot."""
+    after that boundary's snapshot.  ``snapshot_extra`` rides in every
+    snapshot's ``extra``."""
     state = plan.init_state()
     history: List[Dict[str, Any]] = []
     start = 0
@@ -570,7 +602,8 @@ def fit_loop(plan: ExecutionPlan, generator: Optional[torch.Generator], *,
         if manager is not None and (
                 (e + 1) % checkpoint_every == 0 or converged or hook_stop
                 or e == n_epochs - 1):
-            _snapshot(manager, state, gen_state, e + 1, history, converged)
+            _snapshot(manager, state, gen_state, e + 1, history, converged,
+                      snapshot_extra)
         current = upcoming
         if converged or hook_stop:
             break
@@ -606,31 +639,42 @@ def resolve_execution(execution: Optional[str], cfg: DSEKLConfig, *,
     return execution
 
 
+def check_ported(execution: str) -> None:
+    """``NotImplementedError`` naming the ROADMAP item of an execution the
+    port has not reached."""
+    if execution in NOT_PORTED:
+        raise NotImplementedError(
+            f"execution={execution!r} is not ported to repro_torch yet: "
+            f"ROADMAP.md section 1, {NOT_PORTED[execution]}")
+
+
 def make_plan(execution: str, cfg: DSEKLConfig, *,
               x: Optional[Tensor] = None, y: Optional[Tensor] = None,
               source=None, algorithm: str = "serial", prefetch: bool = True,
               eval_cache: bool = False,
-              device: Optional[torch.device] = None) -> ExecutionPlan:
+              device: Optional[torch.device] = None,
+              precond=None) -> ExecutionPlan:
     """The backend for a resolved ``execution``: ``SerialPlan`` /
     ``ParallelPlan`` over device tensors, ``HostedPlan`` over a
     ``DataSource`` (its state on ``device``), or ``NotImplementedError``
-    for a backend the port has not reached."""
+    for a backend the port has not reached.  ``precond`` is an
+    ``EigenProPreconditioner``, staged here to a ``dsekl.PrecondBlock`` on
+    the plan's device, or None (no preconditioning)."""
+    check_ported(execution)
     if execution in ("serial", "parallel"):
         if x is None:
             raise ValueError(
                 f"execution={execution!r} needs device-resident tensors; "
                 "a host-resident DataSource trains via 'hosted'")
         plan_cls = SerialPlan if execution == "serial" else ParallelPlan
-        return plan_cls(cfg, x, y, eval_cache=eval_cache)
+        pc = precond.block(x.device) if precond is not None else None
+        return plan_cls(cfg, x, y, eval_cache=eval_cache, precond=pc)
     if execution == "hosted":
         if source is None:
             raise ValueError("execution='hosted' needs a DataSource")
         if device is None:
             raise ValueError("execution='hosted' needs the state's device")
+        pc = precond.block(device) if precond is not None else None
         return HostedPlan(cfg, source, algorithm=algorithm,
-                          prefetch=prefetch, device=device)
-    if execution in NOT_PORTED:
-        raise NotImplementedError(
-            f"execution={execution!r} is not ported to repro_torch yet: "
-            f"ROADMAP.md section 1, {NOT_PORTED[execution]}")
+                          prefetch=prefetch, device=device, precond=pc)
     raise ValueError(f"unknown execution {execution!r}")

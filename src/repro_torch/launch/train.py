@@ -9,16 +9,18 @@ the device; ``--data mmap`` writes a synthetic float32 dataset to
 ``--mmap-dir`` and trains out of core through the hosted data plane: the
 rows stay on disk, a prefetch thread stages each step's sampled blocks
 (``--no-prefetch`` gathers inline), and only O(n_grad + n_workers *
-n_expand) rows a step and the O(N) dual vector reach the device:
+n_expand) rows a step and the O(N) dual vector reach the device.
+``--precondition-k K`` trains with EigenPro (DESIGN.md §10): a rank-K
+correction estimated once from a Nystrom subsample of the training data:
 
     PYTHONPATH=src python -m repro_torch.launch.train --dsekl \
         --n 100000 --dim 54 --epochs 3 [--device cpu] \
         [--data mmap [--mmap-dir DIR] [--no-prefetch]] \
-        [--algorithm parallel --workers 4] \
+        [--algorithm parallel --workers 4] [--precondition-k 64] \
         [--checkpoint-dir DIR [--resume]]
 
 Modes the port does not have yet exit with an error that names them:
-``--execution mesh`` / ``bcd``, ``--precondition-k``, and the LM path.
+``--execution mesh`` / ``bcd`` and the LM path.
 """
 from __future__ import annotations
 
@@ -46,12 +48,15 @@ def train_dsekl(args) -> Dict[str, Any]:
                       kernel=args.kernel,
                       kernel_params=(("gamma", args.gamma),),
                       lam=1e-4, schedule="adagrad", n_workers=args.workers,
-                      impl="auto")
+                      impl="auto", precondition_k=args.precondition_k)
     # A hosted fit gathers its plans on the host: draw them there, so no
     # epoch plan takes room on the card.
     hosted = args.data == "mmap" or args.execution == "hosted"
     gen = torch.Generator(device="cpu" if hosted else device)
     gen.manual_seed(args.seed)
+    if args.precondition_k:
+        print(f"[train-dsekl] EigenPro preconditioning: "
+              f"top-{args.precondition_k} Nystrom eigensystem")
     ckpt_kw = dict(checkpoint_dir=args.checkpoint_dir, resume=args.resume,
                    checkpoint_every=args.ckpt_every_epochs)
     if args.checkpoint_dir:
@@ -145,7 +150,9 @@ def parser() -> argparse.ArgumentParser:
                     help="training execution backend; mesh and bcd are not "
                          "ported")
     ap.add_argument("--precondition-k", type=int, default=0,
-                    help="EigenPro rank (not ported yet; must be 0)")
+                    help="EigenPro preconditioning rank: damp the top-k "
+                         "eigendirections estimated from a Nystrom "
+                         "subsample (core/precond.py; 0 = off)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checkpoint-dir", default=None,
                     help="snapshot (state, generator state, epoch, history) "
@@ -164,8 +171,6 @@ def unported_modes(args) -> list:
         out.append("the LM path (pass --dsekl)")
     if args.execution in ("mesh", "bcd"):
         out.append(f"--execution {args.execution}")
-    if args.precondition_k:
-        out.append("--precondition-k")
     return out
 
 

@@ -1027,3 +1027,122 @@ def test_hosted_parallel_fit_is_bit_identical_to_in_memory(cuda):
         assert torch.equal(mem.state.alpha, other.state.alpha)
         assert torch.equal(mem.state.accum, other.state.accum)
     assert host.loader["steps"] == 32 and host.loader["gather_s"] > 0
+
+
+# EigenPro (core/precond.py, the correction in core/dsekl.py): each
+# preconditioned step adds one vecmat K(X_I, X_P)^T v over the m subsample
+# rows, on the matvec's sm90 route at D 54.
+
+def _precond_block(cuda, x, m, k=16, seed=6):
+    from repro_torch.core import precond
+    cfg = DSEKLConfig(n_grad=1024, n_expand=1024, loss="hinge", lam=1e-4)
+    pre = precond.estimate_preconditioner(
+        cfg, x, torch.Generator().manual_seed(seed), k=k, m=m, device=cuda)
+    return pre, pre.block(cuda)
+
+
+def _close_biting(got, want, where=None):
+    """``_close`` at atol 1e-5 x max|want| (no floor at 1), after checking
+    that the values it holds (``want[where]``) are not near zero: their
+    median is above 100x that atol, so a zero or sign-flipped answer
+    fails."""
+    atol = 1e-5 * float(want.abs().max())
+    held = want if where is None else want[where]
+    assert float(held.abs().median()) > 100 * atol
+    np.testing.assert_allclose(got.double().cpu().numpy(),
+                               want.double().cpu().numpy(), rtol=2e-4,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("n_i,m", [(1024, 512), (1000, 500)])
+def test_precond_correction_on_the_card_matches_ref(cuda, n_i, m):
+    """The correction on rows of unit norm on average, where K is far
+    from I (on the raw rows K is ~I, the spectrum flat and the correction
+    near zero)."""
+    from repro_torch.core import dsekl
+    x, _, _ = _host_rows(20000, seed=7)
+    x = torch.from_numpy(x / np.float32(np.sqrt(54))).to(cuda)
+    _, pc = _precond_block(cuda, x, m)
+    rng = np.random.default_rng(8)
+    xi = x[torch.from_numpy(rng.integers(0, 20000, n_i)).to(cuda)]
+    v = torch.tensor(rng.standard_normal(n_i), dtype=torch.float32,
+                     device=cuda)
+    cfg = DSEKLConfig(n_grad=n_i, n_expand=1024)
+    assert block.select_matvec_route("rbf", 54) == "sm90"
+    before = dict(block.kernel_vecmat_cuda.launches_by_route)
+    got = dsekl.precond_correction(cfg, xi, v, pc, 1024)
+    before["sm90"] += 1
+    assert block.kernel_vecmat_cuda.launches_by_route == before
+    want = dsekl.precond_correction(cfg.replace(impl="ref"), xi, v, pc, 1024)
+    _close_biting(got, want)
+
+
+@pytest.mark.parametrize("algorithm", ["serial", "parallel"])
+def test_preconditioned_step_on_the_card_matches_ref(cuda, algorithm):
+    """One preconditioned step: one indexed train pass and one vecmat,
+    both on the sm90 route, and the state of the ref step; the
+    correction's own share of alpha (the step less the plain step) held
+    to the ref step's share on the subsample rows."""
+    from repro_torch.core import dsekl
+    x, y, _ = _host_rows(20000, seed=9)
+    # Rows of unit norm on average: K is far from I, so the correction
+    # moves alpha in one step (on the raw rows K is ~I and it does not).
+    x = torch.from_numpy(x / np.float32(np.sqrt(54))).to(cuda)
+    y = torch.from_numpy(y).to(cuda)
+    _, pc = _precond_block(cuda, x, 512)
+    rng = np.random.default_rng(10)
+    alpha = torch.tensor(rng.standard_normal(20000) * 0.1,
+                         dtype=torch.float32, device=cuda)
+    perm = torch.from_numpy(rng.permutation(20000)).to(cuda)
+    workers = 4 if algorithm == "parallel" else 1
+    cfg = DSEKLConfig(n_grad=1024, n_expand=1024, n_workers=workers,
+                      loss="square", schedule="adagrad", lam=1e-4)
+    st = dsekl.init_state(20000, device=cuda)._replace(alpha=alpha)
+    idx_i = perm[:1024]
+    if algorithm == "serial":
+        idx_j = perm[1024:2048]
+        step = dsekl.step_serial
+    else:
+        idx_j = perm[1024:1024 + 4096].reshape(4, 1024)
+        step = dsekl._parallel_inner
+    counters = (block.train_pass_indexed_cuda, block.kernel_vecmat_cuda)
+    before = [dict(c.launches_by_route) for c in counters]
+    card = step(cfg, st, x, y, idx_i, idx_j, pc)
+    for b in before:
+        b["sm90"] += 1
+    assert [c.launches_by_route for c in counters] == before
+    ref = step(cfg.replace(impl="ref"), st, x, y, idx_i, idx_j, pc)
+    _close(card.alpha, ref.alpha)
+    _close(card.accum, ref.accum)
+    plain = step(cfg, st, x, y, idx_i, idx_j)
+    plain_ref = step(cfg.replace(impl="ref"), st, x, y, idx_i, idx_j)
+    _close_biting(card.alpha - plain.alpha, ref.alpha - plain_ref.alpha,
+                  pc.indices)
+
+
+def test_preconditioned_hosted_parallel_fit_is_bit_identical(cuda):
+    """The estimate from a host source equals the estimate from the same
+    rows on the card, bit for bit; a preconditioned hosted Algorithm-2 fit
+    equals the in-memory one bit for bit (the subsample indices are
+    distinct, so the correction's scatter meets no duplicate either)."""
+    from repro_torch.core import precond
+    x, y, src = _host_rows(16384, seed=11)
+    cfg = DSEKLConfig(n_grad=1024, n_expand=1024, n_workers=4, loss="hinge",
+                      schedule="adagrad", lam=1e-4)
+    pres = [precond.estimate_preconditioner(
+        cfg, data, torch.Generator().manual_seed(3), k=16, m=512,
+        device=cuda) for data in (src, torch.from_numpy(x).to(cuda))]
+    for f in ("indices", "rows", "vectors", "damping", "eigenvalues"):
+        np.testing.assert_array_equal(getattr(pres[0], f),
+                                      getattr(pres[1], f))
+    gen = torch.Generator().manual_seed(5)
+    plans = [sampler.parallel_epoch_plan(gen, 16384, 1024, 1024, 4)
+             for _ in range(2)]
+    before = block.kernel_vecmat_cuda.launches_by_route["sm90"]
+    kw = dict(plans=plans, algorithm="parallel", n_epochs=2, tol=0.0,
+              device=cuda, precondition=pres[0])
+    mem = fit(cfg, x, y, **kw)
+    host = fit(cfg, src, None, **kw)
+    assert block.kernel_vecmat_cuda.launches_by_route["sm90"] == before + 64
+    assert torch.equal(mem.state.alpha, host.state.alpha)
+    assert torch.equal(mem.state.accum, host.state.accum)

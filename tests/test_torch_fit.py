@@ -156,18 +156,23 @@ def test_fit_argument_errors():
 
 @pytest.mark.parametrize("execution", ["parallel", "hosted", "mesh", "bcd"])
 def test_unported_executions_raise(execution):
-    """mesh and bcd raise naming their ROADMAP item; parallel and hosted
-    are ported (tests/test_torch_parallel.py, test_torch_hosted.py) and
-    refuse only EigenPro, as every execution does, naming item 4."""
+    """mesh and bcd raise naming their ROADMAP item, with EigenPro or
+    without; parallel and hosted are ported (tests/test_torch_parallel.py,
+    test_torch_hosted.py) and, since EigenPro is ported too
+    (tests/test_torch_precond.py), train with cfg.precondition_k > 0."""
     _, tcfg = _cfgs()
     x, y, _, _ = _problem(16 * NG)
+    pcfg = tcfg.replace(precondition_k=4, precondition_m=32)
     if execution in ("mesh", "bcd"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fit(tcfg, x, y, torch.Generator(), execution=execution,
-                n_epochs=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 4"):
-        fit(tcfg.replace(precondition_k=4), x, y, torch.Generator(),
-            execution=execution, n_epochs=1, device="cpu")
+        for cfg in (tcfg, pcfg):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                fit(cfg, x, y, torch.Generator(), execution=execution,
+                    n_epochs=1, device="cpu")
+        return
+    res = fit(pcfg, x, y, torch.Generator(), execution=execution,
+              n_epochs=1, device="cpu")
+    assert res.precond.k == 4 and res.precond.m == 32
+    assert bool(torch.isfinite(res.state.alpha).all())
 
 
 def test_eval_cache_on_and_off_agree():

@@ -284,9 +284,10 @@ def test_resolution_and_refusals_match_jax(data):
             with pytest.raises(NotImplementedError, match=item):
                 fit(cfg, *args, gen, execution=execution, n_epochs=1,
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        fit(cfg.replace(precondition_k=2), HostSource(x, y), None, gen,
-            n_epochs=1, device="cpu")
+    # EigenPro (item 4) is ported: a hosted fit takes it.
+    res = fit(cfg.replace(precondition_k=2, precondition_m=16),
+              HostSource(x, y), None, gen, n_epochs=1, device="cpu")
+    assert res.precond.k == 2 and res.loader["steps"] == N // NG
 
 
 def test_launcher_trains_parallel_from_a_memmap(tmp_path):

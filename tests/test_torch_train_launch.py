@@ -44,22 +44,28 @@ def test_train_dsekl_result_and_hold_out(capsys):
     assert "val error" in capsys.readouterr().out
 
 
-# --data mmap and --algorithm parallel are ported
-# (tests/test_torch_hosted.py drives them); with either, the modes still
-# missing are refused by name.
+# --data mmap, --algorithm parallel and --precondition-k are ported
+# (tests/test_torch_hosted.py and test_torch_precond.py drive them); with
+# any of them, the modes still missing are refused by name, and
+# --precondition-k is not among them.
 @pytest.mark.parametrize("extra,named", [
     pytest.param(["--data", "mmap", "--execution", "bcd"], "--execution bcd",
                  id="extra0---data mmap"),
-    pytest.param(["--algorithm", "parallel", "--precondition-k", "8"],
-                 "--precondition-k", id="extra1---algorithm parallel"),
+    pytest.param(["--algorithm", "parallel", "--precondition-k", "8",
+                  "--execution", "mesh"],
+                 "--execution mesh", id="extra1---algorithm parallel"),
     (["--execution", "mesh"], "--execution mesh"),
-    (["--precondition-k", "8"], "--precondition-k"),
+    pytest.param(["--precondition-k", "8", "--execution", "bcd"],
+                 "--execution bcd", id="extra3---precondition-k"),
 ])
 def test_unported_modes_exit_naming_them(extra, named, capsys):
     with pytest.raises(SystemExit) as exc:
         train.main(SMALL + extra)
     assert exc.value.code != 0
-    assert named in capsys.readouterr().err
+    refusal = [ln for ln in capsys.readouterr().err.splitlines()
+               if "not ported" in ln]
+    assert len(refusal) == 1 and named in refusal[0]
+    assert "--precondition-k" not in refusal[0]
 
 
 def test_lm_path_is_refused(capsys):
