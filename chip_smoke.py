@@ -7,7 +7,9 @@ Drives the port's main paths on the card — serving a DSEKL model
 through ``repro_torch.launch.serve.serve_dsekl``, training one through
 ``repro_torch.launch.train.train_dsekl`` then serving it, training with
 Algorithm 2 at the paper's parallel covertype protocol in memory and out
-of core from a memmap, and serving the jamba-v0.1-52b language model at
+of core from a memmap, block coordinate descent rounds in memory and out
+of core, the paper's baselines (EmpFix, RKS, the batch SVM) and kernel
+PCA, and serving the jamba-v0.1-52b language model at
 full width through ``repro_torch.launch.serve.serve_lm`` — with every
 kernel built from this checkout's sources and held against its plain
 PyTorch version.  Phases (any failure exits non-zero and prints no
@@ -183,7 +185,48 @@ result):
                reading.  Gates: at the cell's fit seed 3 the preconditioned
                arm reaches the target in strictly fewer epochs; scale > 1;
                one vecmat a preconditioned step on sm90; finite values.
- 19. lm-times — flash attention and the SSD scan (both on the sm90 route)
+ 19. bcd-cell — block coordinate descent (core/bcd.py) on the JAX ``bcd``
+               cell's problem without JAX: CONVERGE's data (shared with
+               precond-converge), lam 1e-4, |J| = row tile = 256, square
+               loss, 40 rounds with an eval each: rounds to 0.35, the best
+               val error, kernel-tile evaluations to target, the dense
+               (K + lam n I)^-1 y val error (float64 on the card) and BCD's
+               gap to it, beside the JAX cell's committed reading.  Gates:
+               0.35 reached; one sm90 matvec an eval and no other launch
+               (the rounds' GEMMs and Cholesky are cuBLAS / cuSOLVER);
+               impl "cuda" and "ref" bit-identical alpha, prefetch and sync
+               too, a fit stopped after round 2 and resumed equal to the
+               uninterrupted one bit for bit; bcd_shards=2 runs.
+ 20. bcd-exact — one full-block round (|J| = n = 1,024, gamma 0.2, no
+               jitter) against the dense float64 solve, at atol 32 cond(A)
+               u |alpha|_inf with cond(A) measured in float64 (u = 2^-24),
+               its median |alpha| above 100x that atol.
+ 21. bcd-hosted — BCD at full width out of core: train-hosted's 559,890 x
+               54 memmap, |J| = row tile = 1,024, 3 rounds prefetched, an
+               eval each (137 sm90 matvecs): seconds a round, host syncs
+               (torch's sync debug mode, counted), peak device memory
+               (below half the dataset), val error beside the all-zero
+               model's, the round's fp32 work and its bound; one more
+               round on a BCDPlan under the profiler (device kernels and
+               host syncs a round) whose residual f_J must equal K(x_J,
+               x_J) alpha_J by the matvec.  Removes the memmap.
+ 22. baselines — on 65,536 covertype-like rows in memory scaled to unit
+               norm (RBF gamma 1, D 54): 16 EmpFix steps of I 1,024
+               against 1,024 landmarks (square) with impl "cuda" (one sm90
+               matvec and one sm90 vecmat a step, one matvec for the
+               decision) and "ref" on the same landmarks and plans; 16 RKS
+               steps at 1,024 features and a batch SVM at n 2,048 for 50
+               iterations, each against the same run on the host's CPU.
+               Each hold at the float32 tolerance with atol x |ref|_inf,
+               its median |ref| above 100x the atol.
+ 23. kpca   — kernel PCA on 65,536 such rows: 8 steps of r 4, J 256 with
+               impl "cuda" and "ref" on the same v0 and plans, then
+               ``transform`` of 4,096 rows (16 chunks): r sm90 matvecs a
+               step and a chunk; the subspaces' principal-angle cosines >=
+               1 - 1e-4, the transform cuda vs ref at the float32
+               tolerance.  Then (shape-times) the sm90 matvec and vecmat at
+               each of these paths' shapes: device ms and bound.
+ 24. lm-times — flash attention and the SSD scan (both on the sm90 route)
                at their served shapes: device time, one call by events, the
                plain version's device time, the bound (products at the bf16
                tensor-core peak, the rest at fp32), and for flash SDPA's
@@ -215,6 +258,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -285,6 +329,25 @@ CONVERGE = dict(n=4096, d=54, gamma=0.05, band=(16, 200), n_val=512,
 # The cell's committed reading (BENCH_dsekl.json "precond", the JAX
 # package on a CPU): epochs to target with and without the correction.
 JAX_PRECOND_EPOCHS = {"precond": 52, "baseline": 82}
+# Block coordinate descent (core/bcd.py) on the JAX ``bcd`` cell's problem
+# (benchmarks/perf_dsekl.py ``measure_bcd``: CONVERGE's data, lam 1e-4,
+# |J| = row tile = 256, square loss, up to 40 rounds, eval every round).
+BCD_CELL = dict(block=256, row_block=256, lam=1e-4, rounds=40, target=0.35)
+# The cell's committed reading (BENCH_dsekl.json "bcd", the JAX package on
+# a CPU): rounds to 0.35 and the gap of the best val error to the dense
+# solve's.
+JAX_BCD = {"rounds_to_target": 2, "exact_gap": 0.0}
+# One full-block round (|J| = n) is the dense solve: rows of the cell's
+# data at gamma 0.2, where cond(A) ~ 4e2 (at the cell's 0.05 it is ~1e7,
+# past what a float32 Cholesky resolves).
+BCD_EXACT = dict(n=1024, gamma=0.2, lam=1e-4)
+BCD_HOSTED_ROUNDS = 3
+U32 = 2.0 ** -24                       # float32's unit roundoff
+# The paper's baselines (core/baselines.py) and kernel PCA (core/kpca.py)
+# at the main path's shape: I 1,024, 1,024 landmarks / features, RBF, D 54.
+BASELINE_N, BASELINE_STEPS = 65536, 16
+SVM_N, SVM_ITERS = 2048, 50
+KPCA = dict(n=65536, r=4, j=256, steps=8, queries=4096)
 TRAJ_RTOL, TRAJ_ATOL = 1e-3, 1e-4
 LOSSES = ("hinge", "squared_hinge", "square", "logistic")
 # fp32 outside the tensor cores, dense TF32 and bf16 on the tensor cores
@@ -1099,7 +1162,7 @@ def phase_train_hosted():
     """The same protocol out of core: a 561,938 x 54 float32 memmap, 2
     epochs through the prefetcher, then one with the gather inline.  The
     dataset must never become device-resident.  The memmap stays for
-    precond-hosted."""
+    precond-hosted and bcd-hosted."""
     import torch
     from repro_torch.launch import train
     chunks = -(-TRAIN_N // EVAL_CHUNK)
@@ -1158,6 +1221,7 @@ def phase_train_hosted():
                       "hidden": hidden, "peak_mib": peak / 2**20,
                       "eval_launches": epochs * chunks}
     runs["source"] = out["source"]
+    runs["x_val"], runs["y_val"] = out["x_val"], out["y_val"]
     return runs
 
 
@@ -1303,7 +1367,7 @@ def _unit_rows(x):
     return (x / x.norm(dim=1).mean()).contiguous()
 
 
-def _compare_biting(what, got, want, where=None):
+def _compare_biting(what, got, want, where=None, atol=ATOL, rtol=RTOL):
     """``compare`` at atol x |want|_inf (no floor at 1), after checking
     that the values it holds (``want[where]``) are not near zero: their
     median is above 100x that atol, so a zero or sign-flipped answer
@@ -1311,10 +1375,10 @@ def _compare_biting(what, got, want, where=None):
     top = float(want.abs().max())
     held = want if where is None else want[where]
     med = float(held.abs().median())
-    check(med > 100 * ATOL * top, f"{what}: median |ref| {med:.3e} is not "
-          f"above 100x the atol {ATOL * top:.3e}: the comparison cannot "
+    check(med > 100 * atol * top, f"{what}: median |ref| {med:.3e} is not "
+          f"above 100x the atol {atol * top:.3e}: the comparison cannot "
           "fail a wrong answer")
-    return compare(got, want, floor=False), top, med
+    return compare(got, want, rtol=rtol, atol=atol, floor=False), top, med
 
 
 def phase_precond_parity(out):
@@ -1398,8 +1462,7 @@ def phase_precond_hosted(src):
     """The estimate from train-hosted's memmap and from the same rows on
     the card: bit for bit.  One preconditioned hosted Algorithm-2 epoch,
     prefetched, against the in-memory epoch on the same plan: bit for
-    bit.  Removes the memmap at the end."""
-    import shutil
+    bit.  The memmap stays for bcd-hosted."""
     import numpy as np
     import torch
     from repro_torch.core import DSEKLConfig, fit, precond, sampler
@@ -1443,7 +1506,6 @@ def phase_precond_hosted(src):
           f"{float((host.state.alpha - mem.state.alpha).abs().max()):.3e})")
     check(same, "the preconditioned hosted epoch differs from the "
           "in-memory one")
-    shutil.rmtree(MMAP_DIR, ignore_errors=True)
     return {"launches": steps, "estimate_s": secs}
 
 
@@ -1460,21 +1522,21 @@ def _epochs_to_target(history, target: float):
     return hit, best
 
 
-def phase_precond_converge():
-    """The JAX ``precond`` cell's protocol on the card (CONVERGE): epochs
-    to a 0.35 validation error with and without the correction, at the
-    same step size, at the cell's fit seed."""
+def _converge_problem():
+    """CONVERGE's band-limited problem (benchmarks/common.py
+    ``make_band_limited_problem``) on the card: covertype-like rows,
+    labels sign(K alpha*) with alpha* on eigenmodes 16..200 of the float64
+    kernel matrix (an eigh on the card).  Shared by precond-converge and
+    bcd-cell."""
     import numpy as np
     import torch
-    from repro_torch.core import DSEKLConfig, fit, precond
     from repro_torch.core.kernels_fn import get_kernel
     from repro_torch.data import make_covertype_like
-    from repro_torch.kernels.dsekl import block
     c = CONVERGE
-    n, d, gamma, target = c["n"], c["d"], c["gamma"], c["target"]
+    n, d = c["n"], c["d"]
     xtr, _ = make_covertype_like(n, d, seed=0, device=DEVICE)
     xva, _ = make_covertype_like(c["n_val"], d, seed=1, device=DEVICE)
-    kern = get_kernel("rbf", gamma=gamma)
+    kern = get_kernel("rbf", gamma=c["gamma"])
     t0 = time.perf_counter()
     kmat = kern(xtr.double(), xtr.double())
     _, u = torch.linalg.eigh(kmat)
@@ -1482,10 +1544,26 @@ def phase_precond_converge():
     lo, hi = c["band"]
     coef = torch.from_numpy(np.random.RandomState(11).randn(hi - lo))
     a_star = u[:, lo:hi] @ coef.to(DEVICE)
+    kva = kern(xva.double(), xtr.double())
     ytr = torch.sign(kmat @ a_star).float()
-    yva = torch.sign(kern(xva.double(), xtr.double()) @ a_star).float()
+    yva = torch.sign(kva @ a_star).float()
     torch.cuda.synchronize()
-    t_labels = time.perf_counter() - t0
+    return {"xtr": xtr, "ytr": ytr, "xva": xva, "yva": yva, "kmat": kmat,
+            "kva": kva, "t_labels": time.perf_counter() - t0}
+
+
+def phase_precond_converge(prob):
+    """The JAX ``precond`` cell's protocol on the card (CONVERGE): epochs
+    to a 0.35 validation error with and without the correction, at the
+    same step size, at the cell's fit seed."""
+    import torch
+    from repro_torch.core import DSEKLConfig, fit, precond
+    from repro_torch.kernels.dsekl import block
+    c = CONVERGE
+    n, d, gamma, target = c["n"], c["d"], c["gamma"], c["target"]
+    lo, hi = c["band"]
+    xtr, ytr, xva, yva = (prob[k] for k in ("xtr", "ytr", "xva", "yva"))
+    t_labels = prob["t_labels"]
     cfg = DSEKLConfig(n_grad=c["batch"], n_expand=c["batch"], kernel="rbf",
                       kernel_params=(("gamma", gamma),), loss="square",
                       lam=1e-4, schedule="const", unbiased_scaling=True,
@@ -1534,6 +1612,450 @@ def phase_precond_converge():
           f"the preconditioned arm did not reach {target} in fewer epochs "
           f"than the baseline: {hp} against {hb}")
     return {"epochs": arms, "scale": pre.scale}
+
+
+# ---------------------------------------------------------------------------
+# Block coordinate descent (core/bcd.py, trainer.BCDPlan): the JAX bcd
+# cell's problem, one exact round, and BCD out of core at full width.
+# ---------------------------------------------------------------------------
+
+def _count_syncs(fn):
+    """``(fn(), the host syncs it made)``: torch's sync debug mode warns at
+    every synchronizing CUDA call (a device-to-host copy, a pageable
+    host-to-device copy, a tensor's truth value, a synchronize), and the
+    warnings are counted."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _zero_one(f, y) -> float:
+    """The error rate of labels f >= 0 -> +1 against y."""
+    import torch
+    return float(torch.mean((torch.where(f >= 0, 1.0, -1.0)
+                             != y.to(f.dtype)).float()))
+
+
+def phase_bcd_cell(prob):
+    """The JAX ``bcd`` cell's problem on the card (CONVERGE's data,
+    BCD_CELL): rounds to a 0.35 validation error, the best val error,
+    kernel-tile evaluations to target, and the dense float64 solve's val
+    error.  Gates: BCD reaches the target; the rounds run no hand kernel,
+    so impl "cuda" and "ref" give the same alpha bit for bit, and so do
+    prefetch and sync; a fit stopped after round 2 and resumed equals the
+    uninterrupted one bit for bit; bcd_shards=2 runs.  Every eval is one
+    matvec launch on the sm90 route."""
+    import torch
+    from repro_torch.core import DSEKLConfig, bcd, fit
+    c, b = CONVERGE, BCD_CELL
+    n, target, rounds = c["n"], b["target"], b["rounds"]
+    xtr, ytr, xva, yva = (prob[k] for k in ("xtr", "ytr", "xva", "yva"))
+    cfg = DSEKLConfig(n_grad=b["row_block"], n_expand=b["block"],
+                      kernel="rbf", kernel_params=(("gamma", c["gamma"]),),
+                      loss="square", lam=b["lam"], bcd_block=b["block"],
+                      bcd_row_block=b["row_block"])
+
+    def run(cfg_=cfg, **kw):
+        args = dict(execution="bcd", n_epochs=rounds, tol=0.0, x_val=xva,
+                    y_val=yva, device=DEVICE)
+        args.update(kw)
+        return fit(cfg_, xtr, ytr, torch.Generator().manual_seed(c["seed"]),
+                   **args)
+
+    _reset_dsekl_counters()                    # the bcd path starts
+    t0 = time.perf_counter()
+    res = run()
+    secs = time.perf_counter() - t0
+    counts = _dsekl_counts()                   # ... and ends here
+    _check_train_steps(counts, 0, "train_pass_cuda", "sm90", rounds,
+                       "bcd-cell")
+    check(bool(torch.isfinite(res.state.alpha).all()), "non-finite alpha")
+    hit, best = _epochs_to_target(res.history, target)
+    per_round = bcd.kernel_tile_evals_per_round(n, b["block"])
+    eye = torch.eye(n, dtype=torch.float64, device=DEVICE)
+    a_ex = torch.linalg.solve(prob["kmat"] + b["lam"] * n * eye,
+                              ytr.double())
+    err_ex = _zero_one(prob["kva"] @ a_ex, yva)
+    round_s = [h["seconds"] for h in res.history]
+    print(f"[bcd-cell] n {n}, d {c['d']}, RBF gamma {c['gamma']}, lam "
+          f"{b['lam']}, |J| {b['block']}, row tile {b['row_block']}, "
+          f"{rounds} rounds ({secs:.2f}s with the evals; a round "
+          f"{statistics.mean(round_s) * 1e3:.2f} ms, eval excluded): rounds "
+          f"to {target} {hit}, best val error {best:.6f}, first "
+          f"{res.history[0]['val_error']:.6f}; kernel-tile evaluations "
+          f"{per_round} a round, "
+          f"{hit * per_round if hit else None} to target; the dense "
+          f"(K + lam n I)^-1 y (float64 on the card) val error "
+          f"{err_ex:.6f}, BCD's gap to it {best - err_ex:+.6f}; launches "
+          f"{counts['kernel_matvec_cuda']} matvec (one eval a round)")
+    print(f"[bcd-cell] the JAX cell's committed CPU reading "
+          f"(BENCH_dsekl.json, its own data): rounds to target "
+          f"{JAX_BCD['rounds_to_target']}, exact_gap_bcd "
+          f"{JAX_BCD['exact_gap']}")
+    check(hit is not None, f"BCD did not reach {target} in {rounds} rounds "
+          f"(best {best})")
+    ref = run(cfg.replace(impl="ref"))
+    sync = run(prefetch=False)
+    ckpt = os.path.join(ROOT, "build", "chip_smoke_bcd_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    run(n_epochs=2, checkpoint_dir=ckpt)
+    resumed = run(checkpoint_dir=ckpt, resume=True)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    sharded = run(cfg.replace(bcd_shards=2))
+    same = {name: torch.equal(r.state.alpha, res.state.alpha)
+            for name, r in (("cuda-vs-ref", ref), ("prefetch-vs-sync", sync),
+                            ("resumed", resumed))}
+    same["resumed history"] = ([h["delta_alpha"] for h in resumed.history]
+                               == [h["delta_alpha"] for h in res.history])
+    s_hit, s_best = _epochs_to_target(sharded.history, target)
+    print(f"[bcd-cell] bit-identical alpha: {same}; val errors cuda vs ref "
+          f"differ on {sum(a['val_error'] != r['val_error'] for a, r in zip(res.history, ref.history))} "
+          f"of {rounds} rounds; bcd_shards=2: rounds to target {s_hit}, "
+          f"best {s_best:.6f}, max |alpha - alpha(1 group)| "
+          f"{float((sharded.state.alpha - res.state.alpha).abs().max()):.3e}"
+          f" (max|alpha| {float(res.state.alpha.abs().max()):.3e})")
+    check(all(same.values()), f"bcd-cell: not bit-identical: {same}")
+    check(bool(torch.isfinite(sharded.state.alpha).all())
+          and sharded.epochs_run == rounds, "bcd_shards=2 did not run")
+    return {"rounds_to_target": hit, "best": best, "exact": err_ex,
+            "eval_launches": rounds, "round_ms":
+                statistics.mean(round_s) * 1e3}
+
+
+def phase_bcd_exact(prob):
+    """One full-block round (|J| = n = 1,024, no jitter) is the dense
+    solve alpha = (K + lam n I)^-1 y, held at the tolerance that the
+    system's float64 cond(A) gives a float32 Cholesky: atol 32 cond(A) u
+    |alpha|_inf, rtol 0, with its median |alpha| above 100x that atol."""
+    import torch
+    from repro_torch.core import DSEKLConfig, fit
+    from repro_torch.core.kernels_fn import get_kernel
+    n, gamma, lam = BCD_EXACT["n"], BCD_EXACT["gamma"], BCD_EXACT["lam"]
+    x = prob["xtr"][:n].contiguous()
+    y = prob["ytr"][:n].contiguous()
+    cfg = DSEKLConfig(n_grad=256, n_expand=n, kernel="rbf",
+                      kernel_params=(("gamma", gamma),), loss="square",
+                      lam=lam, bcd_jitter=0.0)
+    res = fit(cfg, x, y, torch.Generator().manual_seed(0), execution="bcd",
+              n_epochs=1, tol=0.0, device=DEVICE)
+    k = get_kernel("rbf", gamma=gamma)(x.double(), x.double())
+    eye = torch.eye(n, dtype=torch.float64, device=DEVICE)
+    a_star = torch.linalg.solve(k + lam * n * eye, y.double())
+    cond = float(torch.linalg.cond(k @ k + lam * n * k))
+    tol = 32 * cond * U32
+    err, top, med = _compare_biting("bcd-exact", res.state.alpha, a_star,
+                                    atol=tol, rtol=0.0)
+    print(f"[bcd-exact] n {n}, RBF gamma {gamma}, lam {lam}, one round of "
+          f"|J| = n, no jitter: cond(A) {cond:.4e} (float64), tolerance "
+          f"32 cond(A) u = {tol:.3e} x |alpha|_inf {top:.4e}; max abs err "
+          f"{err:.3e} against the float64 solve (median |alpha| {med:.4e})")
+    return {"cond": cond, "err": err, "top": top}
+
+
+def phase_bcd_hosted(hosted, device_name: str):
+    """BCD at full width out of core: train-hosted's 559,890 x 54 memmap,
+    |J| = row tile = 1,024 (the defaults: n_expand, n_grad), 3 rounds
+    prefetched, the streamed eval each round.  Seconds a round, host syncs
+    (the sync debug mode's count), peak device memory (below half the
+    dataset: the rows stay on the host), the val error beside the
+    all-zero model's; then one more round on a BCDPlan under the profiler
+    (device kernels a round) and the sync count, whose residual f at J
+    must equal K(x_J, x_J) alpha_J by the matvec.  Removes the memmap."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import DSEKLConfig, bcd, fit, trainer
+    from repro_torch.kernels.dsekl import ops
+    src, x_val, y_val = hosted["source"], hosted["x_val"], hosted["y_val"]
+    rounds = BCD_HOSTED_ROUNDS
+    cfg = DSEKLConfig(n_grad=1024, n_expand=1024, kernel="rbf",
+                      kernel_params=(("gamma", 1.0),), loss="square",
+                      lam=1e-4)
+    j, rb = bcd.block_size(cfg, src.n), bcd.row_block_size(cfg)
+    blocks = -(-src.n // rb)
+    chunks = -(-src.n // EVAL_CHUNK)
+    _reset_dsekl_counters()                    # the hosted bcd path starts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res, syncs = _count_syncs(lambda: fit(
+        cfg, src, None, torch.Generator().manual_seed(0), execution="bcd",
+        n_epochs=rounds, tol=0.0, x_val=x_val, y_val=y_val,
+        device=DEVICE))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = _dsekl_counts()                   # ... and ends here
+    _check_train_steps(counts, 0, "train_pass_cuda", "sm90",
+                       rounds * chunks, "bcd-hosted")
+    check(res.loader["steps"] == rounds * 2 * blocks,
+          f"{res.loader['steps']} tiles, expected {rounds * 2 * blocks}")
+    alpha = res.state.alpha
+    check(bool(torch.isfinite(alpha).all())
+          and 0 < int((alpha != 0).sum()) <= rounds * j,
+          "bcd-hosted: alpha non-finite or off its blocks")
+    on_disk = src.nbytes
+    check(peak < on_disk / 2, f"peak device memory {peak} B is not below "
+          f"half the dataset's {on_disk} B")
+    peak_f = peaks(device_name)["fp32"]
+    gemm = blocks * 2 * rb * j * (j + 1)               # pass 1's products
+    kblocks = 2 * blocks * 2 * rb * j * src.d          # both passes' K
+    round_s = [h["seconds"] for h in res.history]
+    zero = _zero_model_error(y_val)
+    ld = res.loader
+    print(f"[bcd-hosted] {src.n} x {src.d} memmap, |J| {j}, row tile {rb} "
+          f"({blocks} row blocks a pass), {rounds} rounds prefetched: "
+          f"seconds a round {[round(t, 4) for t in round_s]} (eval "
+          f"excluded); host syncs {syncs / rounds:.1f} a round over the "
+          f"fit (the loop's and the evals' {chunks}-chunk copies "
+          f"included); peak device memory {peak / 2**20:.2f} MiB against "
+          f"the dataset's {on_disk / 2**20:.1f} MiB; gather_s "
+          f"{ld['gather_s']:.3f}, wait_s {ld['wait_s']:.3f} over "
+          f"{ld['steps']} tiles; val errors "
+          f"{[round(h['val_error'], 6) for h in res.history]}, all-zero "
+          f"model {zero:.6f}; launches {counts['kernel_matvec_cuda']} "
+          f"matvec (the evals)")
+    print(f"[bcd-hosted] a round's fp32 work: pass 1 {blocks} x one "
+          f"({j} x {rb}) . ({rb} x {j + 1}) GEMM = {gemm:.4e} FLOP, the K "
+          f"tiles' cross terms {kblocks:.4e} more; bound at the fp32 peak "
+          f"({peak_f / 1e12:.1f} TFLOP/s) {gemm / peak_f * 1e3:.3f} ms "
+          f"(with the K tiles {(gemm + kblocks) / peak_f * 1e3:.3f} ms) "
+          f"against {statistics.mean(round_s) * 1e3:.1f} ms read")
+    # One more round, profiled, on a plan of its own.
+    plan = trainer.BCDPlan(cfg, src, device=torch.device(DEVICE))
+    try:
+        state = plan.init_state()
+        idx = bcd.sample_block(torch.Generator().manual_seed(1), src.n, j)
+        plan.plan_epoch(idx)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, round_syncs = _count_syncs(
+                lambda: plan.run_epoch(state, idx))
+            wall = time.perf_counter() - t0
+        rows = _device_rows(prof)
+        busy = sum(r[0] for r in rows) / 1e3
+        kernels = sum(r[2] for r in rows)
+        idx_j = torch.from_numpy(idx).to(DEVICE)
+        xj = torch.from_numpy(src.gather_x(idx)).to(DEVICE)
+        want = ops.kernel_matvec(xj, xj, state.alpha[idx_j],
+                                 kernel_params=cfg.kernel_params)
+        err, top, med = _compare_biting("bcd-hosted residual",
+                                        plan._f[idx_j], want)
+    finally:
+        plan.close()
+    print(f"[bcd-hosted] one round under the profiler: wall "
+          f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
+          f"({busy / (wall * 1e3):.1%}), {kernels} device kernels (and "
+          f"copies, fills), {round_syncs} host syncs in the round's "
+          f"run_epoch (the partials to the host among them); the "
+          f"residual f_J against K(x_J, x_J) alpha_J by the matvec: max abs "
+          f"err {err:.3e} of |ref|_inf {top:.3e} (median {med:.3e})")
+    for dev_us, key, count in rows[:8]:
+        print(f"[bcd-hosted]   {dev_us / 1e3:9.3f} ms {count:6d}x "
+              f"{key[:80]}")
+    shutil.rmtree(MMAP_DIR, ignore_errors=True)
+    return {"eval_launches": rounds * chunks, "round_s": round_s,
+            "syncs_per_round": round_syncs, "kernels_per_round": kernels,
+            "peak_mib": peak / 2**20, "gemm_flop": gemm}
+
+
+# ---------------------------------------------------------------------------
+# The paper's baselines (core/baselines.py) and kernel PCA (core/kpca.py).
+# ---------------------------------------------------------------------------
+
+def _unit_pair(x, *others):
+    """``x`` and ``others`` divided by x's mean row norm (K far from I at
+    gamma 1; ``_unit_rows``)."""
+    scale = x.norm(dim=1).mean()
+    return tuple((t / scale).contiguous() for t in (x,) + others)
+
+
+def phase_baselines():
+    """The paper's baselines on covertype-like rows in memory, scaled to
+    unit norm, at the main path's shape (I 1,024, RBF gamma 1, D 54):
+    16 EmpFix steps against 1,024 fixed landmarks on impl "cuda" (one
+    sm90 matvec and one sm90 vecmat a step) and on "ref", from the same
+    landmarks and plans; 16 RKS steps at 1,024 features and a batch SVM
+    at n 2,048 for 50 iterations, each held against the same run on the
+    host's CPU.  Each hold at the float32 tolerance with atol x
+    |ref|_inf (no floor), its median |ref| above 100x the atol."""
+    import torch
+    from repro_torch.core import DSEKLConfig, baselines as bl
+    from repro_torch.data import make_covertype_like
+    n = BASELINE_N
+    x, y = make_covertype_like(n, 54, seed=2, device=DEVICE)
+    xv, yv = make_covertype_like(2048, 54, seed=3, device=DEVICE)
+    x, xv = _unit_pair(x, xv)
+    gen = torch.Generator().manual_seed(21)
+    land = torch.randperm(n, generator=gen)[:1024]
+    plans = [torch.randint(0, n, (1024,), generator=gen).to(DEVICE)
+             for _ in range(BASELINE_STEPS)]
+    cfg = DSEKLConfig(n_grad=1024, n_expand=1024, kernel="rbf",
+                      kernel_params=(("gamma", 1.0),), loss="square",
+                      lam=1e-4, lr0=1e-4)
+    models = {}
+    for impl in ("cuda", "ref"):
+        c = cfg.replace(impl=impl)
+        m = bl.emp_fix_init(None, x, 1024, indices=land)
+        if impl == "cuda":
+            _reset_dsekl_counters()            # the EmpFix path starts
+        t0 = time.perf_counter()
+        for idx in plans:
+            m = bl.emp_fix_step(c, m, x, y, idx)
+        f_val = bl.emp_fix_decision(c, m, xv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if impl == "cuda":
+            counts = _dsekl_counts()           # ... and ends here
+            step_ms = secs / BASELINE_STEPS * 1e3
+        models[impl] = (m, f_val)
+    steps = BASELINE_STEPS
+    _check_train_steps(counts, 0, "train_pass_cuda", "sm90", steps + 1,
+                       "baselines emp-fix", vecmats=steps)
+    err_a, top_a, med_a = _compare_biting(
+        "emp-fix alpha", models["cuda"][0].alpha, models["ref"][0].alpha)
+    err_f, top_f, med_f = _compare_biting(
+        "emp-fix decision", models["cuda"][1], models["ref"][1])
+    zero = _zero_model_error(yv)
+    print(f"[baselines] EmpFix: {steps} steps of I 1,024 against 1,024 "
+          f"landmarks (square, lr0 {cfg.lr0}), {step_ms:.4f} ms a step with "
+          f"the decision (host clock); launches {counts}; cuda vs ref: "
+          f"alpha max abs err {err_a:.3e} of |ref|_inf {top_a:.3e} (median "
+          f"{med_a:.3e}), decision on 2,048 rows {err_f:.3e} of {top_f:.3e} "
+          f"(median {med_f:.3e}); val error "
+          f"{_zero_one(models['cuda'][1], yv):.6f}, all-zero model "
+          f"{zero:.6f}")
+    # RKS and the batch SVM run plain GEMMs: held against the CPU.
+    rks = {}
+    for dev in (DEVICE, "cpu"):
+        xd, yd, xvd = (t.to(dev) for t in (x, y, xv))
+        m = bl.rks_init(torch.Generator().manual_seed(22), 54, 1024, 1.0,
+                        device=dev)
+        for idx in plans:
+            m = bl.rks_step(cfg.replace(lr0=5e-3), m, xd, yd, idx.to(dev))
+        rks[dev] = (m.weights, bl.rks_decision(m, xvd))
+    e_w, t_w, m_w = _compare_biting("rks weights", rks[DEVICE][0].cpu(),
+                                    rks["cpu"][0])
+    svm = {}
+    scfg = cfg.replace(lr0=1.0)
+    for dev in (DEVICE, "cpu"):
+        xs, ys = x[:SVM_N].to(dev), y[:SVM_N].to(dev)
+        t0 = time.perf_counter()
+        a = bl.batch_svm_fit(scfg, xs, ys, n_iters=SVM_ITERS, lr0=1.0)
+        svm[dev] = (a, bl.batch_svm_decision(scfg, a, xs, xv.to(dev)),
+                    time.perf_counter() - t0)
+    e_s, t_s, m_s = _compare_biting("batch svm alpha", svm[DEVICE][0].cpu(),
+                                    svm["cpu"][0])
+    print(f"[baselines] RKS: {steps} steps at 1,024 features, card vs CPU "
+          f"weights max abs err {e_w:.3e} of |ref|_inf {t_w:.3e} (median "
+          f"{m_w:.3e}), val error {_zero_one(rks[DEVICE][1], yv):.6f}; "
+          f"batch SVM: n {SVM_N}, {SVM_ITERS} iterations "
+          f"({svm[DEVICE][2]:.3f}s on the card), card vs CPU alpha max abs "
+          f"err {e_s:.3e} of {t_s:.3e} (median {m_s:.3e}), val error "
+          f"{_zero_one(svm[DEVICE][1], yv):.6f}")
+    return {"matvec": steps + 1, "vecmat": steps, "step_ms": step_ms}
+
+
+def phase_kpca():
+    """Kernel PCA on 65,536 covertype-like rows (unit norm, RBF gamma 1):
+    8 steps of r 4, J 256 on impl "cuda" and on "ref" from the same v0 and
+    J plans, then ``transform`` of 4,096 new rows (16 chunks).  r matvec
+    launches a step and r a chunk, all sm90; the subspaces held by their
+    principal-angle cosines (>= 1 - 1e-4), ``transform`` of the same
+    state cuda vs ref at the float32 tolerance, no floor, its median above
+    100x the atol."""
+    import dataclasses
+    import torch
+    from repro_torch.core import kpca
+    from repro_torch.data import make_covertype_like
+    k = KPCA
+    n, r = k["n"], k["r"]
+    x, _ = make_covertype_like(n, 54, seed=4, device=DEVICE)
+    xq, _ = make_covertype_like(k["queries"], 54, seed=5, device=DEVICE)
+    x, xq = _unit_pair(x, xq)
+    gen = torch.Generator().manual_seed(31)
+    v0 = torch.randn((n, r), generator=gen) / n ** 0.5
+    plans = [torch.randint(0, n, (k["j"],), generator=gen)
+             for _ in range(k["steps"])]
+    cfg = kpca.KPCAConfig(n_components=r, n_grad=k["j"], n_expand=k["j"],
+                          kernel="rbf", kernel_params=(("gamma", 1.0),))
+    chunks = -(-n // kpca.TRANSFORM_CHUNK)
+    _reset_dsekl_counters()                    # the kpca path starts
+    t0 = time.perf_counter()
+    state = kpca.fit(cfg, x, None, k["steps"], plans=plans, v0=v0)
+    z = kpca.transform(cfg, state, x, xq)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _dsekl_counts()                   # ... and ends here
+    launches = k["steps"] * r + chunks * r
+    _check_train_steps(counts, 0, "train_pass_cuda", "sm90", launches,
+                       "kpca")
+    ref_cfg = dataclasses.replace(cfg, impl="ref")
+    ref = kpca.fit(ref_cfg, x, None, k["steps"], plans=plans, v0=v0)
+    qa = torch.linalg.qr(state.v.double())[0]
+    qb = torch.linalg.qr(ref.v.double())[0]
+    cos = torch.linalg.svdvals(qa.T @ qb)
+    z_ref = kpca.transform(ref_cfg, state, x, xq)
+    err, top, med = _compare_biting("kpca transform", z, z_ref)
+    print(f"[kpca] n {n}, r {r}, J {k['j']}, {k['steps']} steps + transform "
+          f"of {k['queries']} rows ({chunks} chunks) in {secs:.3f}s; "
+          f"launches {counts}; principal-angle cosines cuda vs ref "
+          f"{[round(float(c), 8) for c in cos]}; transform max abs err "
+          f"{err:.3e} of |ref|_inf {top:.3e} (median {med:.3e})")
+    check(float(cos.min()) >= 1 - 1e-4, f"kpca subspaces differ: cos {cos}")
+    check(bool(torch.isfinite(z).all()) and tuple(z.shape) ==
+          (k["queries"], r), "kpca transform shape or values")
+    return {"matvec": launches}
+
+
+def phase_shape_times(device_name: str):
+    """The sm90 matvec and vecmat at each shape this slice's paths give
+    them (unit-norm rows, RBF gamma 1, D 54): device ms a call
+    (``device_ms``), the bound (products at the TF32 tensor peak, the
+    rest at fp32; bytes at HBM rate), and the error against the plain
+    version.  Returns {label: (ms, bound_ms)}."""
+    import torch
+    from repro_torch.kernels.dsekl import block
+    peak = peaks(device_name)
+    shapes = [("bcd-cell eval", "matvec", 512, 4096),
+              ("bcd-hosted eval", "matvec", 2048, 4096),
+              ("emp-fix step", "matvec", 1024, 1024),
+              ("emp-fix step", "vecmat", 1024, 1024),
+              ("kpca step", "matvec", 65536, 256),
+              ("kpca transform", "matvec", 4096, 4096)]
+    gen = torch.Generator(device=DEVICE).manual_seed(41)
+    out = {}
+    for label, kind, n_i, n_j in shapes:
+        xi = torch.randn((n_i, 54), generator=gen, device=DEVICE) / 54 ** 0.5
+        xj = torch.randn((n_j, 54), generator=gen, device=DEVICE) / 54 ** 0.5
+        vec = torch.randn((n_j if kind == "matvec" else n_i,),
+                          generator=gen, device=DEVICE)
+        fn = (block.kernel_matvec_cuda if kind == "matvec"
+              else block.kernel_vecmat_cuda)
+        plain = (block.kernel_matvec_plain if kind == "matvec"
+                 else block.kernel_vecmat_plain)
+
+        def kernel():
+            return fn(xi, xj, vec, kernel_name="rbf", params={"gamma": 1.0})
+
+        err = compare(kernel(), plain(xi, xj, vec, kernel_name="rbf",
+                                      params={"gamma": 1.0}))
+        ms = statistics.mean([device_ms(kernel), device_ms(kernel)])
+        products, ops_count, bytes_count = _matvec_work(n_i, n_j, 54)
+        bound = max(products / peak["tf32"] + ops_count / peak["fp32"],
+                    bytes_count / peak["bytes"]) * 1e3
+        out[f"{label} {kind}"] = (ms, bound)
+        print(f"[shape-times] kernel_{kind} at {label} (I {n_i}, J {n_j}, D "
+              f"54): device {ms:.4f} ms a call, bound {bound:.6f} ms = "
+              f"{bound / ms:.1%}; vs plain max abs err {err:.3e}")
+    return out
 
 
 def phase_precond_times(out, pre, device_name: str):
@@ -2646,9 +3168,17 @@ def main() -> int:
     precond = phase_train_precond(trained, parallel)
     phase_precond_parity(trained["out"])
     precond_hosted = phase_precond_hosted(hosted["source"])
-    converge = phase_precond_converge()
+    prob = _converge_problem()
+    converge = phase_precond_converge(prob)
     elapsed("train-precond, precond-parity, precond-hosted, "
             "precond-converge")
+    bcd_cell = phase_bcd_cell(prob)
+    bcd_exact = phase_bcd_exact(prob)
+    del prob
+    bcd_hosted = phase_bcd_hosted(hosted, name)
+    base = phase_baselines()
+    kp = phase_kpca()
+    elapsed("bcd-cell, bcd-exact, bcd-hosted, baselines, kpca")
     # The wide sm90 train kernel's launches on the Alg.-2 paths, by path.
     wide_paths = {"train-parallel": parallel["launches"],
                   "train-hosted prefetch": hosted["prefetch"]["steps"],
@@ -2661,17 +3191,23 @@ def main() -> int:
             precond["train-precond parallel"]["launches"],
         "precond-hosted": precond_hosted["launches"]}
     vecmat_paths = dict({"train-two-pass": vecmat_launches}, **precond_paths)
+    vecmat_paths["baselines emp-fix step"] = base["vecmat"]
     matvec_paths = {"serve": launches,
                     "train-parallel eval": parallel["eval_launches"],
                     "train-hosted prefetch eval":
                         hosted["prefetch"]["eval_launches"],
-                    "train-hosted sync eval": hosted["sync"]["eval_launches"]}
+                    "train-hosted sync eval": hosted["sync"]["eval_launches"],
+                    "bcd-cell eval": bcd_cell["eval_launches"],
+                    "bcd-hosted eval": bcd_hosted["eval_launches"],
+                    "baselines emp-fix step and decision": base["matvec"],
+                    "kpca steps and transform": kp["matvec"]}
     rows = phase_times(res, name) + [phase_rbf_times(res, name)]
     rows += phase_train_times(trained["out"], name)
     rows += phase_parallel_times(parallel["out"], name)
     rows.append(phase_precond_times(
         trained["out"], precond["train-precond"]["out"]["result"].precond,
         name))
+    shape_times = phase_shape_times(name)
     del res, trained["out"], parallel["out"]
     for tag in ("train-precond", "train-precond parallel"):
         del precond[tag]["out"]
@@ -2698,6 +3234,11 @@ def main() -> int:
         row["launches"] = launches.get(row["name"], 0)
         if row["name"] in by_path:
             row["launches_by_path"] = by_path[row["name"]]
+        if row["name"] in ("kernel_matvec", "kernel_vecmat"):
+            kind = row["name"][len("kernel_"):]
+            row["ms_bound_by_shape"] = {
+                k[: -len(kind) - 1]: v for k, v in shape_times.items()
+                if k.endswith(kind)}
         check(row["name"] in launches or row["kernel_route"] == "fp32",
               f"no main-path launch count for {row['name']}")
     train = next(r for r in rows if r["name"] == "train_pass")
@@ -2737,6 +3278,18 @@ def main() -> int:
           f"precond-converge: epochs to target preconditioned "
           f"{converge['epochs']['precond']} against baseline "
           f"{converge['epochs']['baseline']}")
+    print(f"[bcd] bcd-cell: rounds to {BCD_CELL['target']} "
+          f"{bcd_cell['rounds_to_target']} (JAX cell "
+          f"{JAX_BCD['rounds_to_target']}), best val error "
+          f"{bcd_cell['best']:.6f} against the dense solve's "
+          f"{bcd_cell['exact']:.6f}, {bcd_cell['round_ms']:.2f} ms a round; "
+          f"bcd-exact cond(A) {bcd_exact['cond']:.4e}, max abs err "
+          f"{bcd_exact['err']:.3e}; bcd-hosted "
+          f"{statistics.mean(bcd_hosted['round_s']):.4f} s a round, "
+          f"{bcd_hosted['kernels_per_round']} device kernels and "
+          f"{bcd_hosted['syncs_per_round']} host syncs a round, peak "
+          f"{bcd_hosted['peak_mib']:.2f} MiB; EmpFix "
+          f"{base['step_ms']:.4f} ms a step")
     print(f"[device_ms] {READINGS['kept']} readings kept, "
           f"{READINGS['retaken']} taken again behind a longer spin, "
           f"{READINGS['host_paced']} paced by the host")

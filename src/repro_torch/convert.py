@@ -11,6 +11,11 @@
   ``EigenProPreconditioner`` from a JAX ``EigenProPreconditioner`` or from
   its ``to_extra()`` dict, as a JAX checkpoint stores it under
   ``extra["precond"]``: the same arrays, bit for bit.
+* ``rks_from_jax(model, device)`` / ``emp_fix_from_jax(model, device)`` /
+  ``kpca_state_from_jax(state, device)`` — the port's ``RKSModel``,
+  ``EmpFixModel`` and ``KPCAState`` from the JAX ones (any object with
+  their fields, ``np.asarray``-able): the same features, landmarks and
+  subspace, bit for bit.
 * ``read_jax_checkpoint(directory, step=None)`` — reads the JAX checkpoint
   layout ``step_<N>/arrays.npz`` + ``manifest.json`` with numpy alone.  A
   step is valid only if both files exist and the npz's crc32 matches the
@@ -33,7 +38,9 @@ import torch
 
 from repro_torch.checkpoint.manager import read_checkpoint
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.baselines import EmpFixModel, RKSModel
 from repro_torch.core.dsekl import DSEKLConfig, DSEKLState
+from repro_torch.core.kpca import KPCAState
 from repro_torch.core.precond import EigenProPreconditioner
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -55,20 +62,21 @@ def config_from_jax(fields: Mapping[str, Any]) -> DSEKLConfig:
     return DSEKLConfig(**kw)
 
 
+def _f32(arr, dev: torch.device) -> torch.Tensor:
+    return torch.tensor(np.asarray(arr), dtype=torch.float32, device=dev)
+
+
+def _i32(arr, dev: torch.device) -> torch.Tensor:
+    return torch.tensor(int(np.asarray(arr)), dtype=torch.int32, device=dev)
+
+
 def state_from_jax(arrays: Mapping[str, Any],
                    device: DeviceLike = None) -> DSEKLState:
     dev = resolve_device(device)
-
-    def vec(key):
-        return torch.tensor(np.asarray(arrays[key]), dtype=torch.float32,
-                            device=dev)
-
-    def scalar(key):
-        return torch.tensor(int(np.asarray(arrays[key])), dtype=torch.int32,
-                            device=dev)
-
-    return DSEKLState(alpha=vec("alpha"), accum=vec("accum"),
-                      step=scalar("step"), epoch=scalar("epoch"))
+    return DSEKLState(alpha=_f32(arrays["alpha"], dev),
+                      accum=_f32(arrays["accum"], dev),
+                      step=_i32(arrays["step"], dev),
+                      epoch=_i32(arrays["epoch"], dev))
 
 
 def preconditioner_from_jax(pre_or_extra) -> EigenProPreconditioner:
@@ -85,6 +93,29 @@ def preconditioner_from_jax(pre_or_extra) -> EigenProPreconditioner:
         eigenvalues=np.asarray(p.eigenvalues, np.float64),
         n=int(p.n), damping_power=float(p.damping_power),
         safety=float(p.safety))
+
+
+def rks_from_jax(model, device: DeviceLike = None) -> RKSModel:
+    """A JAX ``RKSModel`` -> the port's, on ``device``."""
+    dev = resolve_device(device)
+    return RKSModel(w_feat=_f32(model.w_feat, dev),
+                    b_feat=_f32(model.b_feat, dev),
+                    weights=_f32(model.weights, dev),
+                    step=_i32(model.step, dev))
+
+
+def emp_fix_from_jax(model, device: DeviceLike = None) -> EmpFixModel:
+    """A JAX ``EmpFixModel`` -> the port's, on ``device``."""
+    dev = resolve_device(device)
+    return EmpFixModel(landmarks=_f32(model.landmarks, dev),
+                       alpha=_f32(model.alpha, dev),
+                       step=_i32(model.step, dev))
+
+
+def kpca_state_from_jax(state, device: DeviceLike = None) -> KPCAState:
+    """A JAX ``KPCAState`` -> the port's, on ``device``."""
+    dev = resolve_device(device)
+    return KPCAState(v=_f32(state.v, dev), step=_i32(state.step, dev))
 
 
 def read_jax_checkpoint(directory, step: Optional[int] = None

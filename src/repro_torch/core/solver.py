@@ -1,5 +1,6 @@
 """Training front door for DSEKL: ``fit`` and ``train_epoch_hosted`` (port
-of ``repro/core/solver.py``; the serial, parallel and hosted executions).
+of ``repro/core/solver.py``; the serial, parallel, hosted and bcd
+executions).
 
 The paper's stopping rule (§4.2): stop when the L2 norm of the dual
 coefficients' change over one epoch is below ``tol``.  ``fit`` resolves
@@ -11,11 +12,15 @@ the data placement and the requested execution to a backend
   * ``HostedPlan`` — either algorithm over a host-resident ``DataSource``
     (numpy / ``np.memmap``): the plans replayed through one cross-epoch
     ``BlockPrefetcher``, bit-identical to the in-memory fit on the CPU;
+  * ``BCDPlan`` — block coordinate descent rounds over a ``DataSource``
+    (arrays are wrapped in an ``InMemorySource``): exact block solves of
+    the square-loss system, ``execution="bcd"``;
 
 and drives ``trainer.fit_loop``: epoch -> truncate -> eval -> snapshot,
 with checkpoint/resume through ``checkpoint.CheckpointManager``.  EigenPro
 preconditioning (``precondition=`` or ``cfg.precondition_k``) is estimated
-once before the loop (``core/precond.py``) and rides on every backend.
+once before the loop (``core/precond.py``) and rides on every stochastic
+backend.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ import torch
 from repro_torch.core import trainer
 from repro_torch.core.dsekl import DSEKLConfig, DSEKLState
 from repro_torch.core.trainer import (  # noqa: F401  (re-exported API)
-    ExecutionPlan, FitResult, HostedPlan, ParallelPlan, SerialPlan,
+    BCDPlan, ExecutionPlan, FitResult, HostedPlan, ParallelPlan, SerialPlan,
     _EVAL_CACHE_BUDGET_BYTES, _error,
 )
 from repro_torch.data.source import DataSource, InMemorySource
@@ -79,6 +84,15 @@ def _precond_generator(generator: torch.Generator) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
 
 
+def _wants_preconditioner(cfg: DSEKLConfig, precondition) -> bool:
+    """Whether ``fit``'s ``precondition=`` (with ``cfg.precondition_k``)
+    asks for EigenPro: a built preconditioner, or a rank above 0."""
+    if hasattr(precondition, "block"):
+        return True
+    k = cfg.precondition_k if precondition is None else int(precondition)
+    return k > 0
+
+
 def _resolve_preconditioner(cfg: DSEKLConfig, precondition, data,
                             generator: Optional[torch.Generator], *,
                             manager, resume: bool, device: torch.device):
@@ -90,9 +104,9 @@ def _resolve_preconditioner(cfg: DSEKLConfig, precondition, data,
     seconds the estimate took)``."""
     if hasattr(precondition, "block"):
         return precondition, 0.0
-    k = cfg.precondition_k if precondition is None else int(precondition)
-    if k <= 0:
+    if not _wants_preconditioner(cfg, precondition):
         return None, 0.0
+    k = cfg.precondition_k if precondition is None else int(precondition)
     from repro_torch.core import precond as precond_lib
     if manager is not None and resume:
         step = manager.latest_valid_step()
@@ -147,8 +161,18 @@ def fit(cfg: DSEKLConfig, x, y=None,
     that keeps the card for its state takes a CPU generator), or on
     ``plans[e]`` when ``plans`` is given: per epoch ``(idx_i (steps,
     n_grad), idx_j (steps, n_expand))`` for Algorithm 1, ``(i_batches
-    (steps, n_grad), idx_jk (steps, K, n_expand))`` for Algorithm 2 — how
-    the tests feed both packages the JAX sampler's indices.
+    (steps, n_grad), idx_jk (steps, K, n_expand))`` for Algorithm 2, the
+    round's block J ``(|J|,)`` for BCD — how the tests feed both packages
+    the JAX sampler's indices.
+
+    ``execution="bcd"`` runs block coordinate descent rounds instead of
+    stochastic steps (``trainer.BCDPlan``; square loss only, no
+    truncation and no preconditioning, DESIGN.md §14): one epoch is one
+    round on a without-replacement block of ``cfg.bcd_block`` coordinates
+    (default ``n_expand``) streamed in ``cfg.bcd_row_block``-row tiles
+    (default ``n_grad``), in memory (the arrays wrapped in an
+    ``InMemorySource``) or from a ``HostSource``; the state lives on
+    ``device``.
 
     ``truncate_every``: every k epochs the smallest ``truncate_frac`` of
     non-zero |alpha| mass is zeroed (paper §5's budgeted model).
@@ -177,8 +201,8 @@ def fit(cfg: DSEKLConfig, x, y=None,
     ``lr0`` for ``pre.step_size(|J|)``.  ``FitResult.precond`` and
     ``.estimate_s`` report it.
 
-    Not ported yet, and refused: the ``mesh`` and ``bcd`` executions
-    (``NotImplementedError``, naming their ROADMAP item)."""
+    Not ported yet, and refused: the ``mesh`` execution
+    (``NotImplementedError``, naming its ROADMAP item)."""
     if generator is None and plans is None:
         raise TypeError("fit() requires a torch.Generator (or explicit "
                         "per-epoch index plans)")
@@ -232,6 +256,16 @@ def fit(cfg: DSEKLConfig, x, y=None,
     if checkpoint_dir is not None:
         from repro_torch.checkpoint import CheckpointManager
         manager = CheckpointManager(checkpoint_dir, keep=checkpoint_keep)
+    if execution == "bcd" and truncate_every:
+        raise ValueError(
+            "execution='bcd' cannot truncate: zeroing alpha entries "
+            "outside a round would desync the incremental residual "
+            "f = K alpha that the block solves maintain")
+    if execution == "bcd" and _wants_preconditioner(cfg, precondition):
+        raise ValueError(
+            "execution='bcd' solves each block exactly — EigenPro "
+            "preconditioning applies to the stochastic step only (drop "
+            "precondition/cfg.precondition_k)")
     pre, estimate_s = _resolve_preconditioner(
         cfg, precondition, source if source is not None else x, generator,
         manager=manager, resume=resume, device=dev)

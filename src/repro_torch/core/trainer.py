@@ -10,7 +10,7 @@ One ``fit_loop`` drives an ``ExecutionPlan``:
   * ``run_epoch(state, plan) -> state`` — execute one epoch on it;
   * ``eval_error(state, x_val, y_val)`` — the backend's validation eval.
 
-Three backends:
+Four backends:
 
   * ``SerialPlan`` — Algorithm 1 on device-resident tensors: one
     ``dsekl.step_serial`` per row of the plan, ``max(N // n_grad, 1)``
@@ -24,14 +24,20 @@ Three backends:
     ``grad_block_parallel``, with the EigenPro correction after the
     scatter when a ``precond`` block is given), and only the
     O(N) state lives on the device.  The validation eval streams the
-    source too.
+    source too;
+  * ``BCDPlan`` — block coordinate descent rounds (``core/bcd.py``) over
+    a ``DataSource``: one "epoch" is one round on a without-replacement
+    block J, its two streamed passes over ``K_{.,J}`` queued one round
+    ahead on ONE loader, the exact block solve in between, the residual
+    ``f = K alpha`` kept on the device (and in every checkpoint).
 
 Every backend takes an EigenPro ``precond`` (``make_plan`` stages an
 ``EigenProPreconditioner`` to a ``dsekl.PrecondBlock`` on the plan's
 device) and hands it to each step; without one the steps run exactly what
-they ran before.  The in-memory epochs never synchronise the host.  The
-JAX package's ``mesh`` and ``bcd`` backends are not ported yet:
-``make_plan`` raises ``NotImplementedError`` naming their ROADMAP item.
+they ran before (``BCDPlan`` refuses one).  The in-memory epochs never
+synchronise the host.  The JAX package's ``mesh`` backend is not ported
+yet: ``make_plan`` raises ``NotImplementedError`` naming its ROADMAP
+item.
 
 The equivalence contract (``tests/test_torch_hosted.py``): on the same
 plans a hosted fit equals the in-memory fit of its algorithm bit for bit
@@ -40,8 +46,9 @@ duplicate index.
 
 Checkpoint/resume: ``fit_loop`` snapshots ``(state, generator state,
 epoch, history, converged)`` through ``checkpoint.CheckpointManager``,
-with the caller's ``snapshot_extra`` (the solver's serialized
-preconditioner) merged into the checkpoint's ``extra``.
+with the plan's own leaves (``ExecutionPlan.snapshot_leaves``: BCD's
+residual) in the tree and the caller's ``snapshot_extra`` (the solver's
+serialized preconditioner) merged into the checkpoint's ``extra``.
 The generator state stored is the one that draws the NEXT epoch's plan,
 taken before the loop draws that plan one epoch ahead (the counterpart of
 the JAX snapshot's pre-epoch carry key), as a uint8 array in the npz so
@@ -58,7 +65,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import dsekl, sampler
+from repro_torch.core import bcd, dsekl, sampler
 from repro_torch.core.dsekl import DSEKLConfig, DSEKLState
 from repro_torch.data.source import BlockPrefetcher, SyncGather
 
@@ -68,7 +75,6 @@ EXECUTIONS = ("auto", "serial", "parallel", "hosted", "mesh", "bcd")
 # Executions of the JAX package the port has not reached yet, and the
 # ROADMAP.md item (section 1's queue) that ports each.
 NOT_PORTED = {
-    "bcd": "item 5 (BCD)",
     "mesh": "item 6 (the mesh)",
 }
 
@@ -240,6 +246,11 @@ class ExecutionPlan:
 
         return DSEKLState(alpha=vec("alpha"), accum=vec("accum"),
                           step=scalar("step"), epoch=scalar("epoch"))
+
+    def snapshot_leaves(self, state: DSEKLState) -> Dict[str, Any]:
+        """Backend-owned leaves that ride in every checkpoint's tree
+        beside the state (none by default)."""
+        return {}
 
     # -- epochs ---------------------------------------------------------
     @property
@@ -477,6 +488,170 @@ class HostedPlan(ExecutionPlan):
         self._queued.clear()
 
 
+class BCDPlan(ExecutionPlan):
+    """Block coordinate descent rounds (``core/bcd.py``; DESIGN.md §14).
+
+    One "epoch" of the fit loop is one round: the plan is the round's
+    without-replacement coordinate block J, a ``(|J|,)`` index array
+    (``draw_plan`` draws it with ``bcd.sample_block``).  ``K_{.,J}``
+    streams row block by row block through ONE loader for the whole fit
+    (a ``BlockPrefetcher``, or ``SyncGather`` with ``prefetch=False``):
+    ``plan_epoch`` queues the round's two passes, so with the fit loop
+    planning one round ahead the worker streams across rounds.  Pass 1
+    accumulates the augmented Gram/rhs of each of ``cfg.bcd_shards`` row
+    groups; the partials go to the host and are summed there in fixed
+    order; the |J| x |J| system is solved exactly (Cholesky, jitter
+    ladder), alpha_J += d, and pass 2 updates the residual ``f = K
+    alpha`` by ``K_{.,J} d`` on the device.  Square loss only: BCD solves
+    the regularized least-squares dual, and there is no hinge variant of
+    the exact block solve.  The residual rides in every checkpoint
+    (``snapshot_leaves``), so a resumed fit equals the uninterrupted one
+    bit for bit.  The validation eval streams the source
+    (``dsekl.decision_function_source``: the matvec)."""
+
+    name = "bcd"
+
+    def __init__(self, cfg: DSEKLConfig, source, *, prefetch: bool = True,
+                 device: torch.device):
+        super().__init__(cfg, source.n, device)
+        if cfg.loss != "square":
+            raise ValueError(
+                "execution='bcd' solves the regularized square-loss "
+                f"system; cfg.loss={cfg.loss!r} has no exact block solve "
+                "(set loss='square')")
+        self.source = source
+        self.prefetch = bool(prefetch)
+        self.j_size = bcd.block_size(cfg, self.n)
+        self.rb = bcd.row_block_size(cfg)
+        self._lam_n = float(cfg.lam * self.n)
+        self.shards = int(cfg.bcd_shards or 1)
+        idx_np, mask_np = bcd.row_plan(self.n, self.shards, self.rb)
+        self._idx_np = idx_np
+        self.blocks_per_group = idx_np.shape[1]
+        # Round-invariant: each tile's rows and mask, indexed per tile.
+        self._idx_dev = torch.from_numpy(idx_np).to(device)
+        self._mask_dev = torch.from_numpy(mask_np).to(device)
+        self._f: Optional[Tensor] = None
+        self._loader = None
+        # Queued rounds, FIFO: (the plan as given, J as host indices).
+        self._queued: collections.deque = collections.deque()
+        self._consumed_steps = 0
+
+    # -- state ----------------------------------------------------------
+    def init_state(self) -> DSEKLState:
+        self._f = torch.zeros((self.n,), dtype=torch.float32,
+                              device=self.device)
+        return super().init_state()
+
+    def place_state(self, flat: Dict[str, np.ndarray]) -> DSEKLState:
+        if "bcd_f" not in flat:
+            raise ValueError(
+                "checkpoint carries no 'bcd_f' residual leaf — it was "
+                "written by a non-BCD fit; a BCD resume needs the "
+                "incremental f = K alpha to continue bit-identically")
+        n_ckpt = int(np.asarray(flat["alpha"]).shape[0])
+        if n_ckpt != self.n:
+            raise ValueError(
+                f"checkpoint carries alpha of {n_ckpt} rows but this BCD "
+                f"fit trains {self.n}; the (trimmed) row count must stay "
+                "identical across resumes")
+        self._f = torch.tensor(np.asarray(flat["bcd_f"]),
+                               dtype=torch.float32, device=self.device)
+        return super().place_state(flat)
+
+    def snapshot_leaves(self, state: DSEKLState) -> Dict[str, Any]:
+        return {"bcd_f": self._f}
+
+    # -- planning -------------------------------------------------------
+    def draw_plan(self, generator: torch.Generator) -> np.ndarray:
+        return bcd.sample_block(generator, self.n, self.j_size)
+
+    def check_plan(self, plan) -> None:
+        """A round's plan is J: one index array of shape (|J|,)."""
+        shape = tuple(plan.shape)
+        if shape != (self.j_size,):
+            raise ValueError(f"a bcd round plan is J, one index array of "
+                             f"shape ({self.j_size},); got {shape}")
+
+    def plan_epoch(self, plan) -> None:
+        self.check_plan(plan)
+        j_idx = _host_indices(plan)
+        pass1 = self._idx_np.reshape(self.shards * self.blocks_per_group,
+                                     self.rb)
+        plan_i = np.concatenate([pass1, pass1])           # two passes
+        plan_j = np.ascontiguousarray(np.broadcast_to(
+            j_idx, (plan_i.shape[0], self.j_size)))
+        if self._loader is None:
+            cls = BlockPrefetcher if self.prefetch else SyncGather
+            self._loader = cls(self.source, plan_i, plan_j,
+                               device=self.device)
+        else:
+            self._loader.extend(plan_i, plan_j)
+        self._queued.append((plan, j_idx))
+
+    def _pop_plan(self, plan):
+        if not self._queued:
+            self.plan_epoch(plan)
+        elif self._queued[0][0] is not plan:
+            raise RuntimeError(
+                "bcd rounds must be consumed in the order they were "
+                "planned (the prefetcher streams one plan)")
+        return self._queued.popleft()
+
+    # -- rounds ---------------------------------------------------------
+    def run_epoch(self, state: DSEKLState, plan) -> DSEKLState:
+        _, j_idx = self._pop_plan(plan)
+        cfg, j, loader = self.cfg, self.j_size, self._loader
+        blocks, f = self.blocks_per_group, self._f
+        parts = np.empty((self.shards, j, j + 1), np.float32)
+        xj_dev = None
+        for d in range(self.shards):
+            gb = torch.zeros((j, j + 1), dtype=torch.float32,
+                             device=self.device)
+            for t in range(blocks):
+                xi, yi, xj = loader.get()
+                if xj_dev is None:
+                    xj_dev = xj
+                gb = bcd.acc_serial(cfg, xi, yi, xj, f, self._idx_dev[d, t],
+                                    self._mask_dev[t], gb)
+            parts[d] = gb.cpu().numpy()        # the partial to the host
+        g_h, b_h = bcd.split_gram(bcd.combine_partials(parts))
+        idx_j = torch.from_numpy(j_idx).to(self.device)
+        rhs = b_h - np.float32(self._lam_n) * f[idx_j].cpu().numpy()
+        delta, _ = bcd.solve_block(cfg, xj_dev, g_h, rhs, self._lam_n)
+        alpha = bcd.scatter_alpha(state.alpha, idx_j, delta)
+        for d in range(self.shards):
+            for t in range(blocks):
+                xi, _, _ = loader.get()
+                f = bcd.fupd_serial(cfg, xi, xj_dev, delta, f,
+                                    self._idx_dev[d, t], self._mask_dev[t])
+        _sync(f)
+        self._f = f
+        self._consumed_steps += 2 * self.shards * blocks
+        return state._replace(alpha=alpha, step=state.step + 1,
+                              epoch=state.epoch + 1)
+
+    # -- eval / reporting -----------------------------------------------
+    def eval_error(self, state: DSEKLState, x_val: Tensor,
+                   y_val: Tensor) -> float:
+        return _error_source(self.cfg, state.alpha, self.source, x_val,
+                             y_val)
+
+    def loader_stats(self) -> Optional[Dict[str, float]]:
+        if self._loader is None:
+            return None
+        st = dict(self._loader.stats())
+        # Tiles CONSUMED (two passes a round), not planned.
+        st["steps"] = self._consumed_steps
+        return st
+
+    def close(self) -> None:
+        if self._loader is not None:
+            self._loader.close()
+            self._loader = None
+        self._queued.clear()
+
+
 # ---------------------------------------------------------------------------
 # The fit loop.
 # ---------------------------------------------------------------------------
@@ -489,16 +664,19 @@ def _gen_state(generator: Optional[torch.Generator]) -> np.ndarray:
 
 def _snapshot(manager, state: DSEKLState, gen_state: np.ndarray,
               epoch: int, history: List[Dict[str, Any]], converged: bool,
-              extra_fields: Optional[Dict[str, Any]] = None) -> None:
+              extra_fields: Optional[Dict[str, Any]] = None,
+              leaves: Optional[Dict[str, Any]] = None) -> None:
     """Checkpoint the resume closure: state, the generator state that
     draws the next epoch's plan, the epoch counter, history and the
     converged flag (a resumed fit stops where the uninterrupted one
-    stopped).  ``extra_fields`` is merged into ``extra``: the solver
-    stores the serialized preconditioner there, so a resumed
+    stopped).  ``leaves`` (``ExecutionPlan.snapshot_leaves``: BCD's
+    residual) join the tree.  ``extra_fields`` is merged into ``extra``:
+    the solver stores the serialized preconditioner there, so a resumed
     preconditioned fit replays the same correction."""
     tree = {"alpha": state.alpha, "accum": state.accum,
             "step": state.step, "epoch": state.epoch,
             "gen_state": gen_state}
+    tree.update(leaves or {})
     extra = {"epoch": epoch, "history": history, "converged": converged}
     extra.update(extra_fields or {})
     manager.save(epoch, tree, extra=extra)
@@ -603,7 +781,7 @@ def fit_loop(plan: ExecutionPlan, generator: Optional[torch.Generator], *,
                 (e + 1) % checkpoint_every == 0 or converged or hook_stop
                 or e == n_epochs - 1):
             _snapshot(manager, state, gen_state, e + 1, history, converged,
-                      snapshot_extra)
+                      snapshot_extra, leaves=plan.snapshot_leaves(state))
         current = upcoming
         if converged or hook_stop:
             break
@@ -655,11 +833,12 @@ def make_plan(execution: str, cfg: DSEKLConfig, *,
               device: Optional[torch.device] = None,
               precond=None) -> ExecutionPlan:
     """The backend for a resolved ``execution``: ``SerialPlan`` /
-    ``ParallelPlan`` over device tensors, ``HostedPlan`` over a
-    ``DataSource`` (its state on ``device``), or ``NotImplementedError``
-    for a backend the port has not reached.  ``precond`` is an
-    ``EigenProPreconditioner``, staged here to a ``dsekl.PrecondBlock`` on
-    the plan's device, or None (no preconditioning)."""
+    ``ParallelPlan`` over device tensors, ``HostedPlan`` or ``BCDPlan``
+    over a ``DataSource`` (its state on ``device``), or
+    ``NotImplementedError`` for a backend the port has not reached.
+    ``precond`` is an ``EigenProPreconditioner``, staged here to a
+    ``dsekl.PrecondBlock`` on the plan's device, or None (no
+    preconditioning; ``bcd`` takes none)."""
     check_ported(execution)
     if execution in ("serial", "parallel"):
         if x is None:
@@ -677,4 +856,15 @@ def make_plan(execution: str, cfg: DSEKLConfig, *,
         pc = precond.block(device) if precond is not None else None
         return HostedPlan(cfg, source, algorithm=algorithm,
                           prefetch=prefetch, device=device, precond=pc)
+    if execution == "bcd":
+        if source is None:
+            raise ValueError("execution='bcd' needs a DataSource "
+                             "(wrap arrays in InMemorySource)")
+        if device is None:
+            raise ValueError("execution='bcd' needs the state's device")
+        if precond is not None:
+            raise ValueError(
+                "execution='bcd' solves each block exactly — EigenPro "
+                "preconditioning applies to the stochastic step only")
+        return BCDPlan(cfg, source, prefetch=prefetch, device=device)
     raise ValueError(f"unknown execution {execution!r}")

@@ -11,16 +11,23 @@ rows stay on disk, a prefetch thread stages each step's sampled blocks
 (``--no-prefetch`` gathers inline), and only O(n_grad + n_workers *
 n_expand) rows a step and the O(N) dual vector reach the device.
 ``--precondition-k K`` trains with EigenPro (DESIGN.md §10): a rank-K
-correction estimated once from a Nystrom subsample of the training data:
+correction estimated once from a Nystrom subsample of the training data.
+``--execution bcd`` runs block coordinate descent rounds instead
+(DESIGN.md §14; square loss, exact |J| x |J| block solves, ``--epochs``
+rounds of ``--bcd-block`` coordinates streamed in ``--bcd-row-block``-row
+tiles), in memory or from the memmap:
 
     PYTHONPATH=src python -m repro_torch.launch.train --dsekl \
         --n 100000 --dim 54 --epochs 3 [--device cpu] \
         [--data mmap [--mmap-dir DIR] [--no-prefetch]] \
         [--algorithm parallel --workers 4] [--precondition-k 64] \
+        [--execution bcd [--bcd-block J] [--bcd-row-block R]] \
         [--checkpoint-dir DIR [--resume]]
 
 Modes the port does not have yet exit with an error that names them:
-``--execution mesh`` / ``bcd`` and the LM path.
+``--execution mesh`` and the LM path.  ``--precondition-k`` with
+``--execution bcd`` is refused: EigenPro preconditions the stochastic
+step only.
 """
 from __future__ import annotations
 
@@ -48,10 +55,18 @@ def train_dsekl(args) -> Dict[str, Any]:
                       kernel=args.kernel,
                       kernel_params=(("gamma", args.gamma),),
                       lam=1e-4, schedule="adagrad", n_workers=args.workers,
-                      impl="auto", precondition_k=args.precondition_k)
-    # A hosted fit gathers its plans on the host: draw them there, so no
-    # epoch plan takes room on the card.
-    hosted = args.data == "mmap" or args.execution == "hosted"
+                      impl="auto", precondition_k=args.precondition_k,
+                      bcd_block=args.bcd_block,
+                      bcd_row_block=args.bcd_row_block)
+    if args.execution == "bcd":
+        # BCD solves the regularized least-squares system exactly: it has
+        # no hinge variant (core/bcd.py; DESIGN.md §14).
+        cfg = cfg.replace(loss="square")
+        print(f"[train-dsekl] block coordinate descent: |J|="
+              f"{args.bcd_block or args.n_expand} per round")
+    # A hosted or BCD fit gathers its plans on the host: draw them there,
+    # so no epoch plan takes room on the card.
+    hosted = args.data == "mmap" or args.execution in ("hosted", "bcd")
     gen = torch.Generator(device="cpu" if hosted else device)
     gen.manual_seed(args.seed)
     if args.precondition_k:
@@ -73,7 +88,11 @@ def train_dsekl(args) -> Dict[str, Any]:
         # split_holdout copies the held-out rows out of the mapping.
         x_val = torch.from_numpy(x_val).to(device)
         y_val = torch.from_numpy(y_val).to(device)
-        rows = cfg.n_grad + cfg.n_workers * cfg.n_expand
+        if args.execution == "bcd":                # a row tile and x_J
+            rows = ((cfg.bcd_row_block or cfg.n_grad)
+                    + (cfg.bcd_block or cfg.n_expand))
+        else:
+            rows = cfg.n_grad + cfg.n_workers * cfg.n_expand
         print(f"[train-dsekl] mmap dataset: {args.n} x {args.dim} = "
               f"{src.nbytes / 2**20:.1f} MiB on disk at {mmap_dir}; the "
               f"device sees {4 * rows * args.dim / 2**10:.0f} KiB of rows a "
@@ -98,8 +117,10 @@ def train_dsekl(args) -> Dict[str, Any]:
     if res.loader is not None:
         ld = res.loader
         hidden = 1.0 - ld["wait_s"] / ld["gather_s"] if ld["gather_s"] else 0.0
+        kind = ("bcd rounds" if args.execution == "bcd"
+                else f"hosted, {args.algorithm}")
         print(f"[train-dsekl] {res.epochs_run} epochs in {dt:.2f}s "
-              f"(hosted, {args.algorithm}, "
+              f"({kind}, "
               f"{'sync' if args.no_prefetch else 'prefetch'}; host gather "
               f"{ld['gather_s']:.3f}s, consumer wait {ld['wait_s']:.3f}s, "
               f"hidden {hidden:.1%})")
@@ -147,8 +168,14 @@ def parser() -> argparse.ArgumentParser:
                     choices=("auto", "serial", "parallel", "hosted", "mesh",
                              "bcd"),
                     default="auto",
-                    help="training execution backend; mesh and bcd are not "
-                         "ported")
+                    help="training execution backend; bcd runs exact block "
+                         "coordinate descent rounds (square loss); mesh is "
+                         "not ported")
+    ap.add_argument("--bcd-block", type=int, default=0,
+                    help="BCD coordinate-block size |J| per round "
+                         "(0 = n_expand)")
+    ap.add_argument("--bcd-row-block", type=int, default=0,
+                    help="BCD streamed row-tile size (0 = n_grad)")
     ap.add_argument("--precondition-k", type=int, default=0,
                     help="EigenPro preconditioning rank: damp the top-k "
                          "eigendirections estimated from a Nystrom "
@@ -169,8 +196,8 @@ def unported_modes(args) -> list:
     out = []
     if not args.dsekl:
         out.append("the LM path (pass --dsekl)")
-    if args.execution in ("mesh", "bcd"):
-        out.append(f"--execution {args.execution}")
+    if args.execution == "mesh":
+        out.append("--execution mesh")
     return out
 
 
@@ -181,6 +208,10 @@ def main(argv=None):
     if missing:
         ap.error("not ported to repro_torch yet: " + ", ".join(missing)
                  + " (ROADMAP.md section 1)")
+    if args.execution == "bcd" and args.precondition_k > 0:
+        ap.error("--precondition-k with --execution bcd: BCD solves each "
+                 "block exactly — EigenPro preconditioning applies to the "
+                 "stochastic step only")
     train_dsekl(args)
 
 

@@ -1146,3 +1146,68 @@ def test_preconditioned_hosted_parallel_fit_is_bit_identical(cuda):
     assert block.kernel_vecmat_cuda.launches_by_route["sm90"] == before + 64
     assert torch.equal(mem.state.alpha, host.state.alpha)
     assert torch.equal(mem.state.accum, host.state.accum)
+
+
+# BCD (core/bcd.py, trainer.BCDPlan): the rounds run no hand kernel (tile
+# GEMMs and the Cholesky are cuBLAS / cuSOLVER, as JAX computes them
+# outside Pallas); the validation eval runs the matvec.
+
+def test_bcd_fit_on_the_card_matches_ref(cuda):
+    """impl "cuda" and "ref" give the same alpha bit for bit (only the
+    eval differs: one sm90 matvec a round against the plain version);
+    hosted, prefetched or inline, equals in memory bit for bit."""
+    x, y, src = _host_rows(8192, seed=12)
+    x = x / np.float32(np.sqrt(54))
+    src = type(src)(x, y)
+    xv = torch.from_numpy(x[:512]).to(cuda)
+    yv = torch.from_numpy(y[:512]).to(cuda)
+    cfg = DSEKLConfig(n_grad=1024, n_expand=256, loss="square", lam=1e-4,
+                      kernel_params=(("gamma", 1.0),))
+    gen = torch.Generator().manual_seed(13)
+    plans = [np.asarray(torch.randperm(8192, generator=gen)[:256])
+             for _ in range(3)]
+    kw = dict(plans=plans, execution="bcd", n_epochs=3, tol=0.0, x_val=xv,
+              y_val=yv, device=cuda)
+    before = dict(block.kernel_matvec_cuda.launches_by_route)
+    card = fit(cfg, x, y, **kw)
+    before["sm90"] += 3 * 2                      # two 4,096-row chunks
+    assert block.kernel_matvec_cuda.launches_by_route == before
+    ref = fit(cfg.replace(impl="ref"), x, y, **kw)
+    assert block.kernel_matvec_cuda.launches_by_route == before
+    assert torch.equal(card.state.alpha, ref.state.alpha)
+    for a, b in zip(card.history, ref.history):
+        assert a["delta_alpha"] == b["delta_alpha"]
+        assert abs(a["val_error"] - b["val_error"]) <= 1.0 / 512
+    for prefetch in (True, False):
+        host = fit(cfg, src, None, prefetch=prefetch, **kw)
+        assert torch.equal(card.state.alpha, host.state.alpha)
+    assert 0 < int((card.state.alpha != 0).sum()) <= 3 * 256
+
+
+def test_emp_fix_step_on_the_card_matches_ref(cuda):
+    """16 EmpFix steps: one sm90 matvec and one sm90 vecmat a step, alpha
+    held to the ref steps' at the float32 tolerance with no floor."""
+    from repro_torch.core import baselines
+    x, y, _ = _host_rows(20000, seed=14)
+    x = torch.from_numpy(x / np.float32(np.sqrt(54))).to(cuda)
+    y = torch.from_numpy(y).to(cuda)
+    rng = np.random.default_rng(15)
+    land = torch.from_numpy(rng.choice(20000, 1024, replace=False))
+    # lr0 below 2 / |K_IL|^2 (~1e-4 here: K's entries ~0.13 on these rows).
+    cfg = DSEKLConfig(n_grad=1024, n_expand=1024, loss="square", lam=1e-4,
+                      lr0=1e-4)
+    card = baselines.emp_fix_init(None, x, 1024, indices=land)
+    ref = card
+    plans = [torch.from_numpy(rng.integers(0, 20000, 1024)).to(cuda)
+             for _ in range(16)]
+    counters = (block.kernel_matvec_cuda, block.kernel_vecmat_cuda)
+    before = [dict(c.launches_by_route) for c in counters]
+    for idx in plans:
+        card = baselines.emp_fix_step(cfg, card, x, y, idx)
+    for b in before:
+        b["sm90"] += 16
+    assert [c.launches_by_route for c in counters] == before
+    for idx in plans:
+        ref = baselines.emp_fix_step(cfg.replace(impl="ref"), ref, x, y, idx)
+    assert bool(torch.isfinite(ref.alpha).all())
+    _close_biting(card.alpha, ref.alpha)

@@ -156,18 +156,29 @@ def test_fit_argument_errors():
 
 @pytest.mark.parametrize("execution", ["parallel", "hosted", "mesh", "bcd"])
 def test_unported_executions_raise(execution):
-    """mesh and bcd raise naming their ROADMAP item, with EigenPro or
-    without; parallel and hosted are ported (tests/test_torch_parallel.py,
+    """mesh raises naming its ROADMAP item, with EigenPro or without;
+    parallel and hosted are ported (tests/test_torch_parallel.py,
     test_torch_hosted.py) and, since EigenPro is ported too
-    (tests/test_torch_precond.py), train with cfg.precondition_k > 0."""
+    (tests/test_torch_precond.py), train with cfg.precondition_k > 0.
+    bcd is ported (tests/test_torch_bcd.py): it trains the square loss and
+    refuses EigenPro in the JAX package's words."""
     _, tcfg = _cfgs()
     x, y, _, _ = _problem(16 * NG)
     pcfg = tcfg.replace(precondition_k=4, precondition_m=32)
-    if execution in ("mesh", "bcd"):
+    if execution == "mesh":
         for cfg in (tcfg, pcfg):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 fit(cfg, x, y, torch.Generator(), execution=execution,
                     n_epochs=1, device="cpu")
+        return
+    if execution == "bcd":
+        with pytest.raises(ValueError, match="stochastic step only"):
+            fit(pcfg.replace(loss="square"), x, y, torch.Generator(),
+                execution=execution, n_epochs=1, device="cpu")
+        res = fit(tcfg.replace(loss="square"), x, y, torch.Generator(),
+                  execution=execution, n_epochs=1, device="cpu")
+        assert res.precond is None and int(res.state.step) == 1
+        assert bool(torch.isfinite(res.state.alpha).all())
         return
     res = fit(pcfg, x, y, torch.Generator(), execution=execution,
               n_epochs=1, device="cpu")

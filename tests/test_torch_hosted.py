@@ -279,11 +279,18 @@ def test_resolution_and_refusals_match_jax(data):
         ttrainer.make_plan("hosted", cfg, device=torch.device("cpu"))
     with pytest.raises(ValueError, match="device-resident"):
         ttrainer.make_plan("parallel", cfg, source=HostSource(x, y))
-    for execution, item in (("mesh", "item 6"), ("bcd", "item 5")):
-        for args in ((x, y), (HostSource(x, y), None)):
-            with pytest.raises(NotImplementedError, match=item):
-                fit(cfg, *args, gen, execution=execution, n_epochs=1,
-                    device="cpu")
+    for args in ((x, y), (HostSource(x, y), None)):
+        with pytest.raises(NotImplementedError, match="item 6"):
+            fit(cfg, *args, gen, execution="mesh", n_epochs=1,
+                device="cpu")
+        # BCD (item 5) is ported: square loss only, in JAX's words.
+        with pytest.raises(ValueError, match="set loss='square'"):
+            fit(cfg.replace(loss="hinge"), *args, gen, execution="bcd",
+                n_epochs=1, device="cpu")
+        res = fit(cfg.replace(loss="square"), *args, gen, execution="bcd",
+                  n_epochs=1, device="cpu")
+        assert int(res.state.step) == 1 and res.loader["steps"] == 2 * (
+            -(-N // NG))
     # EigenPro (item 4) is ported: a hosted fit takes it.
     res = fit(cfg.replace(precondition_k=2, precondition_m=16),
               HostSource(x, y), None, gen, n_epochs=1, device="cpu")

@@ -44,26 +44,42 @@ def test_train_dsekl_result_and_hold_out(capsys):
     assert "val error" in capsys.readouterr().out
 
 
-# --data mmap, --algorithm parallel and --precondition-k are ported
-# (tests/test_torch_hosted.py and test_torch_precond.py drive them); with
-# any of them, the modes still missing are refused by name, and
-# --precondition-k is not among them.
+# --data mmap, --algorithm parallel, --precondition-k and --execution bcd
+# are ported (tests/test_torch_hosted.py, test_torch_precond.py and
+# test_torch_bcd.py drive them); with any of them, the modes still missing
+# are refused by name, and --precondition-k is not among them.  BCD over
+# the memmap runs; --precondition-k with --execution bcd is refused at
+# parse time, naming the refusal (``named`` None: the command runs).
 @pytest.mark.parametrize("extra,named", [
-    pytest.param(["--data", "mmap", "--execution", "bcd"], "--execution bcd",
+    pytest.param(["--data", "mmap", "--execution", "bcd"], None,
                  id="extra0---data mmap"),
     pytest.param(["--algorithm", "parallel", "--precondition-k", "8",
                   "--execution", "mesh"],
                  "--execution mesh", id="extra1---algorithm parallel"),
     (["--execution", "mesh"], "--execution mesh"),
     pytest.param(["--precondition-k", "8", "--execution", "bcd"],
-                 "--execution bcd", id="extra3---precondition-k"),
+                 "--precondition-k with --execution bcd",
+                 id="extra3---precondition-k"),
 ])
-def test_unported_modes_exit_naming_them(extra, named, capsys):
+def test_unported_modes_exit_naming_them(extra, named, capsys, tmp_path):
+    argv = SMALL + extra + ["--mmap-dir", str(tmp_path)]
+    if named is None:
+        train.main(argv)
+        lines = capsys.readouterr().out.splitlines()
+        assert sum(ln.startswith("[dsekl] epoch") and "val_err=" in ln
+                   for ln in lines) == 2
+        assert any("(bcd rounds, prefetch;" in ln for ln in lines)
+        assert (tmp_path / "manifest.json").is_file()
+        return
     with pytest.raises(SystemExit) as exc:
-        train.main(SMALL + extra)
+        train.main(argv)
     assert exc.value.code != 0
-    refusal = [ln for ln in capsys.readouterr().err.splitlines()
-               if "not ported" in ln]
+    err = capsys.readouterr().err
+    refusal = [ln for ln in err.splitlines() if "not ported" in ln]
+    if named.startswith("--precondition-k"):
+        assert not refusal and named in err
+        assert "stochastic step only" in err
+        return
     assert len(refusal) == 1 and named in refusal[0]
     assert "--precondition-k" not in refusal[0]
 
