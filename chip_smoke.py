@@ -9,7 +9,9 @@ through ``repro_torch.launch.serve.serve_dsekl``, training one through
 Algorithm 2 at the paper's parallel covertype protocol in memory and out
 of core from a memmap, block coordinate descent rounds in memory and out
 of core, the paper's baselines (EmpFix, RKS, the batch SVM) and kernel
-PCA, and serving the jamba-v0.1-52b language model at
+PCA, the online train-to-serve loop and the multi-tenant front door
+(``serve_online``, ``serve_tenants``), and serving the jamba-v0.1-52b
+language model at
 full width through ``repro_torch.launch.serve.serve_lm`` — with every
 kernel built from this checkout's sources and held against its plain
 PyTorch version.  Phases (any failure exits non-zero and prints no
@@ -225,7 +227,9 @@ result):
                step and a chunk; the subspaces' principal-angle cosines >=
                1 - 1e-4, the transform cuda vs ref at the float32
                tolerance.  Then (shape-times) the sm90 matvec and vecmat at
-               each of these paths' shapes: device ms and bound.
+               each of these paths' shapes, and the matvec at the online
+               flush's (1,024 queries against the first window's 262,144
+               rows and the full ring's 524,288): device ms and bound.
  24. lm-times — flash attention and the SSD scan (both on the sm90 route)
                at their served shapes: device time, one call by events, the
                plain version's device time, the bound (products at the bf16
@@ -234,6 +238,55 @@ result):
                yardstick the port never calls); then each kernel's fp32
                route at the same shape in float32 against its plain
                version, on a line of its own.
+
+ 25. online  — the online train-to-serve loop through
+               ``repro_torch.launch.serve.serve_online`` (``--online``): D
+               54, a ring of 524,288 events prefilled with 262,144 of the
+               launcher's event stream (seed 0), 32,768 ingested an epoch
+               for 10 epochs (the ring wraps), |I| = |J| = 1,024, RBF gamma
+               1, hinge, a rebuild at a drift of 0.1, query block 1,024, sv
+               block 4,096; three client threads submit 64-row requests and
+               flush while the fit thread (HostedPlan, Algorithm 1, on a
+               CUDA stream of its own) trains.  Gates: no fit-thread error,
+               every ticket answered once, >= 2 versions served, >= 1
+               rebuild, the ring wrapped; every train-pass launch on the
+               sm90 route (one a step, on the staged rows) and every matvec
+               launch on it, nothing else launched; a sample of responses
+               (and every version's first) bit-identical to a fresh engine
+               on its version's recorded (alpha, snapshot); the last
+               model's error on 4,096 rows of its own snapshot below the
+               all-zero model's.  Prints flush p50 / p99 while training and
+               for the first 1,500 requests of each client replayed after
+               stop() (and the first client's alone), the fit thread's ms
+               a step, staleness, publishes, rebuilds and the peak device
+               memory against two engines and the plan; the interpreter's
+               garbage-collection pauses in each; and a torch.profiler device trace of the fit thread's
+               epoch 3 (no rebuild in it): each stream's kernels and busy
+               time, the device time a flush beside that epoch's flush
+               walls.
+ 26. tenants — the front door through ``serve_tenants`` (``--tenants
+               gold:2,standard:1,batch:1:4:0 --cache-blocks 8``) on
+               covertype-serve's engine, QoS on then off on identical
+               traffic: the launcher's rounds; then, on the same front
+               door, the reference harness's noisy-neighbor trace
+               (benchmarks/load_harness.py ``measure_multi_tenant``) on a
+               clock of one pump a round: the victims gold (flat) and
+               standard (diurnal) arrive at a rate of 0.25 a round at
+               peak, each cycling a pool of 3 full-tile batches (the
+               cacheable working set); the aggressor batch sends bursts of
+               8 unique full-tile batches every 24 rounds, over its budget
+               of 4 tickets; garbage collection held off for the trace, as
+               the harness does.  Then a backlog: gold and standard each
+               queue 48 pool batches at once.  Gates: every response
+               bit-identical to the bare engine on the same rows and
+               version (the cached path, or the streaming one for batch's
+               quota 0 with QoS on), every ticket answered once, gold's
+               rows within 10% of twice standard's while both are
+               backlogged (QoS on), sheds only with QoS on and only of
+               batch, cache hits for gold and standard and no resident
+               tile of batch (QoS on), every matvec launch on the sm90
+               route.  Prints the victims' p99 on and off (the headline),
+               each tenant's p50 / p99, sheds and cache counters.
 
 The DSEKL kernel tolerance is the JAX suite's float32 one
 (tests/test_dual_pass.py ``_tols``): rtol 2e-4, atol 1e-5 * max(1,
@@ -256,6 +309,7 @@ It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -348,6 +402,35 @@ U32 = 2.0 ** -24                       # float32's unit roundoff
 BASELINE_N, BASELINE_STEPS = 65536, 16
 SVM_N, SVM_ITERS = 2048, 50
 KPCA = dict(n=65536, r=4, j=256, steps=8, queries=4096)
+# The online train-to-serve loop (serving/online.py) through the launcher's
+# --online: D 54, a ring of 524,288 events prefilled with 262,144, 32,768
+# ingested an epoch for 10 epochs (the ring wraps), |I| = |J| = 1,024, RBF
+# gamma 1, hinge (the DSEKLConfig defaults JAX's serve_online uses),
+# rebuilds at a drift of 0.1, query block 1,024, sv block 4,096; three
+# client threads flush 64-row requests while it trains.
+ONLINE_ARGS = ["--dsekl", "--online", "--dim", "54", "--capacity", "524288",
+               "--n-prefill", "262144", "--events-per-epoch", "32768",
+               "--epochs", "10", "--n-grad", "1024", "--n-expand", "1024",
+               "--rebuild-drift", "0.1", "--query-block", "1024",
+               "--sv-block", "4096", "--request", "64", "--seed", "0"]
+ONLINE_CLIENTS = 3
+ONLINE_ORACLE_SAMPLE = 1500        # responses held against their oracle
+ONLINE_REPLAY = 1500               # each client's requests replayed idle
+ONLINE_ERROR_ROWS = 4096
+ONLINE_PROFILE_EPOCH = 3           # the fit thread's epoch traced
+# The multi-tenant front door (serving/tenancy.py) through the launcher's
+# --tenants on covertype-serve's engine, QoS on and off on identical
+# traffic; then the reference harness's noisy-neighbor trace
+# (benchmarks/load_harness.py, measure_multi_tenant) on a clock of one pump
+# a round: victims gold (flat) and standard (diurnal) arrive with
+# probability TENANT_VICTIM_P a round at peak, each cycling TENANT_POOL
+# full-tile batches; the aggressor batch sends TENANT_BURST unique
+# full-tile batches every TENANT_BURST_EVERY rounds; then gold and standard
+# each queue TENANT_BACKLOG pool batches at once.
+TENANT_SPEC = "gold:2,standard:1,batch:1:4:0"
+TENANT_ARGS = SERVE_ARGS + ["--tenants", TENANT_SPEC, "--cache-blocks", "8"]
+TENANT_ROUNDS, TENANT_VICTIM_P, TENANT_POOL = 240, 0.25, 3
+TENANT_BURST, TENANT_BURST_EVERY, TENANT_BACKLOG = 8, 24, 48
 TRAJ_RTOL, TRAJ_ATOL = 1e-3, 1e-4
 LOSSES = ("hinge", "squared_hinge", "square", "logistic")
 # fp32 outside the tensor cores, dense TF32 and bf16 on the tensor cores
@@ -2015,6 +2098,517 @@ def phase_kpca():
     return {"matvec": launches}
 
 
+def _replay(service, batches, cap: int) -> list:
+    """Each client's first ``cap`` requests again, one thread a client, each
+    request submitted and flushed: the flushes' host-clock latencies."""
+    import threading
+    lat, lock = [], threading.Lock()
+
+    def client(seq):
+        for q in seq[:cap]:
+            service.submit(q)
+            t0 = time.perf_counter()
+            service.flush()
+            dt = time.perf_counter() - t0
+            with lock:
+                lat.append(dt)
+
+    threads = [threading.Thread(target=client, args=(seq,))
+               for seq in batches]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return lat
+
+
+@contextlib.contextmanager
+def _gc_pauses():
+    """The interpreter's garbage collections while the block runs, as
+    (generation, seconds), timed by a ``gc.callbacks`` entry."""
+    import gc
+    pauses, t0 = [], [0.0]
+
+    def timed(phase, info):
+        if phase == "start":
+            t0[0] = time.perf_counter()
+        else:
+            pauses.append((info["generation"], time.perf_counter() - t0[0]))
+
+    gc.callbacks.append(timed)
+    try:
+        yield pauses
+    finally:
+        gc.callbacks.remove(timed)
+
+
+def _gc_line(pauses) -> str:
+    long = [t for _, t in pauses if t >= 1e-3]
+    gen2 = [t for g, t in pauses if g == 2]
+    top = sorted(long, reverse=True)[:5]
+    return (f"{len(pauses)} collections, {len(gen2)} of generation 2 "
+            f"(longest {max(gen2, default=0.0) * 1e3:.4f} ms), {len(long)} "
+            f"of >= 1 ms summing {sum(long) * 1e3:.4f} ms, the longest "
+            f"[{', '.join(f'{t * 1e3:.4f}' for t in top)}] ms")
+
+
+def _profiled_service(base):
+    """``base`` (the launcher's ``OnlineService``) with each flush timed
+    and torch.profiler's device trace held on over the fit thread's epoch
+    ONLINE_PROFILE_EPOCH, by a watcher thread that ``start`` starts."""
+    import threading
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    class Profiled(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.window = []            # (wall s, served anything) a flush
+            self.window_s, self.prof = 0.0, None
+            self._in_window = False
+            self.watcher = threading.Thread(target=self._watch, daemon=True)
+            self.flushes = []           # (start s, end s) while training
+            self.rebuild_spans = []     # (start s, end s) of each rebuild
+
+        def flush(self):
+            t0 = time.perf_counter()
+            out = super().flush()
+            t1 = time.perf_counter()
+            if self.running:
+                self.flushes.append((t0, t1))
+            if self._in_window:
+                self.window.append((t1 - t0, bool(out)))
+            return out
+
+        def _maybe_rebuild(self):
+            n, t0 = self.rebuilds, time.perf_counter()
+            super()._maybe_rebuild()
+            if self.rebuilds != n:
+                self.rebuild_spans.append((t0, time.perf_counter()))
+
+        def start(self):
+            super().start()
+            self.watcher.start()
+
+        def _watch(self):
+            # The first start of a profiler in a process takes seconds:
+            # take it here, on epoch 0, so that the traced one is whole.
+            warm = profile(activities=[ProfilerActivity.CUDA])
+            warm.start()
+            warm.stop()
+            while self.running and self.epoch < ONLINE_PROFILE_EPOCH:
+                time.sleep(1e-4)
+            if self.epoch != ONLINE_PROFILE_EPOCH:
+                return
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.start()
+            self._in_window = True
+            t0 = time.perf_counter()
+            while self.running and self.epoch == ONLINE_PROFILE_EPOCH:
+                time.sleep(1e-4)
+            self.window_s = time.perf_counter() - t0
+            self._in_window = False
+            torch.cuda.synchronize()
+            prof.stop()
+            self.prof = prof
+
+    return Profiled
+
+
+def _union_ms(spans) -> float:
+    """The length of a union of (start ns, end ns) intervals, in ms."""
+    total, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e6
+
+
+def _streams(prof) -> dict:
+    """A profile's device events (kernels, copies, fills) by CUDA stream:
+    ``{stream: [(start ns, end ns, name), ...]}``."""
+    import torch
+    out = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        out.setdefault(ev.device_resource_id(), []).append(
+            (ev.start_ns(), ev.start_ns() + ev.duration_ns(), ev.name()))
+    return out
+
+
+def _online_profile(svc, serve) -> dict:
+    """The profiled epoch: each stream's role (fit: it ran the train pass;
+    serve: it ran the matvec; other), events and busy ms; the device time
+    a sweep on the serving streams beside the window's flush walls."""
+    import collections
+    streams = _streams(svc.prof)
+    role = {}
+    for sid, evs in streams.items():
+        names = " ".join(n for _, _, n in evs)
+        role[sid] = ("fit" if "train_sm90" in names else
+                     "serve" if "matvec_sm90" in names else "other")
+    busy = {sid: _union_ms([e[:2] for e in evs])
+            for sid, evs in streams.items()}
+    every = _union_ms([e[:2] for evs in streams.values() for e in evs])
+    w_ms = svc.window_s * 1e3
+    for sid, evs in sorted(streams.items()):
+        top = collections.Counter(n for _, _, n in evs).most_common(3)
+        print(f"[online-profile] stream {sid} ({role[sid]}): {len(evs)} "
+              f"device events, busy {busy[sid]:.4f} ms = "
+              f"{busy[sid] / w_ms:.1%} of the epoch; most: " + "; ".join(
+                  f"{c}x {n[:60]}" for n, c in top))
+    sweeps = sum("matvec_sm90" in n for sid, evs in streams.items()
+                 if role[sid] == "serve" for _, _, n in evs)
+    check(sweeps > 0 and "fit" in role.values(),
+          f"the traced epoch holds {sweeps} sweeps and streams {role}")
+    serve_ms = sum(b for sid, b in busy.items() if role[sid] == "serve")
+    served = [w for w, got in svc.window if got]
+    p50 = serve._percentile_ms(served, 50)
+    per_sweep = serve_ms / max(sweeps, 1)
+    host = 1.0 - per_sweep / p50 if p50 else 0.0
+    print(f"[online-profile] the fit thread's epoch {ONLINE_PROFILE_EPOCH} "
+          f"(no rebuild in it): {w_ms:.4f} ms with the profiler on, device "
+          f"busy {every:.4f} ms = {every / w_ms:.1%}; {len(svc.window)} "
+          f"flushes, {len(served)} that served, their p50 {p50:.4f} ms, "
+          f"p99 {serve._percentile_ms(served, 99):.4f} ms; {sweeps} sweeps "
+          f"on the serving streams, {per_sweep:.4f} ms of device time each "
+          f"= host {host:.1%} of that p50")
+    return {"window_ms": w_ms, "busy_share": every / w_ms,
+            "flush_p50": p50, "sweep_ms": per_sweep, "host_share": host,
+            "streams": {r: sum(1 for v in role.values() if v == r)
+                        for r in ("fit", "serve", "other")}}
+
+
+def phase_online():
+    """The online loop through ``serve_online``: three client threads
+    flush while the fit thread trains (HostedPlan, Algorithm 1, on its own
+    stream), publishes every epoch and rebuilds on drift."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.serving import DSEKLPredictionEngine
+    args = serve.parser().parse_args(ONLINE_ARGS + ["--device", DEVICE])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    launcher_service = serve.OnlineService
+    serve.OnlineService = _profiled_service(launcher_service)
+    try:
+        with _gc_pauses() as gc_train:
+            _reset_dsekl_counters()            # the online path starts
+            res = serve.serve_online(args, clients=ONLINE_CLIENTS,
+                                     record_models=True)
+            counts = _dsekl_counts()           # ... and ends here
+    finally:
+        serve.OnlineService = launcher_service
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    svc, st, ring = res["service"], res["stats"], res["ring"]
+    svc.watcher.join()
+    check(svc.prof is not None, f"the fit thread's epoch "
+          f"{ONLINE_PROFILE_EPOCH} was not traced")
+    # Algorithm 1 takes max(n // n_grad, 1) steps an epoch, on the n that
+    # the epoch's publish logs.
+    steps = sum(max(e["n"] // svc.cfg.n_grad, 1) for e in svc.publish_log
+                if e["kind"] == "swap")
+    print(f"[online] {svc.epoch} epochs, {steps} steps; ring total "
+          f"{ring.total} of capacity {ring.capacity}; launches {counts}")
+    check(svc.error is None, f"fit-thread error: {svc.error!r}")
+    tickets = [r.ticket for r in res["responses"]]
+    check(len(tickets) == len(set(tickets)), "a ticket was served twice")
+    check(set(tickets) == set(res["sent"]), "tickets dropped or invented")
+    versions = sorted({r.version for r in res["responses"]})
+    check(len(versions) >= 2, f"versions served {versions}")
+    check(svc.rebuilds >= 1, "no rebuild")
+    check(ring.total > ring.capacity, "the ring never wrapped")
+    none = {"sm90": 0, "fp32": 0}
+    check(counts["train_pass_cuda"] == {"sm90": steps, "fp32": 0},
+          f"train passes {counts['train_pass_cuda']}, expected {steps} "
+          "on sm90")
+    check(counts["train_pass_indexed_cuda"] == none
+          and counts["dual_pass_cuda"] == none
+          and counts["kernel_vecmat_cuda"] == none,
+          f"unexpected launches {counts}")
+    mv = counts["kernel_matvec_cuda"]
+    check(mv["fp32"] == 0 and mv["sm90"] >= len(set(
+        r.version for r in res["responses"])),
+          f"matvec launches {mv}")
+
+    # Every sampled response against a fresh engine on its version's
+    # recorded (alpha, snapshot), one oracle at a time.
+    rs = res["responses"]
+    pick = np.unique(np.linspace(0, len(rs) - 1, min(
+        len(rs), ONLINE_ORACLE_SAMPLE)).astype(int))
+    sample = sorted((rs[i] for i in pick), key=lambda r: r.version)
+    first = {}
+    for r in rs:
+        first.setdefault(r.version, r)
+    sample += [r for v, r in first.items()
+               if v not in {s.version for s in sample}]
+    sample.sort(key=lambda r: r.version)
+    oracle, held = None, 0
+    for r in sample:
+        if oracle is None or oracle.alpha_version != r.version:
+            del oracle
+            alpha, snap = svc.published(r.version)
+            oracle = DSEKLPredictionEngine(
+                svc.cfg, alpha, snap.gather_x(slice(None)),
+                engine_cfg=svc.engine_cfg, device=DEVICE,
+                alpha_version=r.version)
+        check(torch.equal(r.f, oracle.predict(res["sent"][r.ticket])),
+              f"ticket {r.ticket} is not bit-identical to version "
+              f"{r.version}'s oracle")
+        held += 1
+    del oracle
+
+    # The last published model on rows of its own snapshot.
+    alpha, snap = svc.published(svc.version)
+    idx = np.linspace(0, snap.n - 1, ONLINE_ERROR_ROWS).astype(np.int64)
+    xr, yr = snap.gather(idx)
+    eng = DSEKLPredictionEngine(svc.cfg, alpha, snap.gather_x(slice(None)),
+                                engine_cfg=svc.engine_cfg, device=DEVICE)
+    f = eng.predict(xr)
+    del eng
+    yr = torch.from_numpy(yr).to(DEVICE)
+    err = float(torch.mean((torch.where(f >= 0, 1.0, -1.0) != yr).float()))
+    zero = _zero_model_error(yr)
+    print(f"[online] last model (version {svc.version}, n {snap.n}) on "
+          f"{ONLINE_ERROR_ROWS} of its snapshot's rows: error {err:.6f}, "
+          f"all-zero model {zero:.6f}")
+    check(err < zero, f"online model error {err} does not beat the all-zero "
+          f"model's {zero}")
+
+    lat_train = res["latencies_s"]
+    with _gc_pauses() as gc_idle:
+        lat_idle = _replay(svc, res["client_batches"], ONLINE_REPLAY)
+    lat_one = _replay(svc, res["client_batches"][:1], ONLINE_REPLAY)
+    p50, p99 = (serve._percentile_ms(lat_train, q) for q in (50, 99))
+    q50, q99 = (serve._percentile_ms(lat_idle, q) for q in (50, 99))
+    fit_s = sum(svc.epoch_seconds)
+    ms_step = fit_s / steps * 1e3
+    log = svc.publish_log
+    n_max = max(e["n"] for e in log)
+    engine_bytes = 4 * n_max * (54 + 1)
+    plan_bytes = 4 * 2 * n_max + 4 * 2 * (1024 * 54 + 1024 + 1024 * 54)
+    print(f"[online] flush while training: p50 {p50:.4f} ms, p99 "
+          f"{p99:.4f} ms over {len(lat_train)} flushes ({ONLINE_CLIENTS} "
+          f"clients); after stop(), the first {ONLINE_REPLAY} requests of "
+          f"each client again: p50 {q50:.4f} ms, p99 {q99:.4f} ms over "
+          f"{len(lat_idle)} flushes")
+    spans = svc.rebuild_spans
+    during = [b - a for a, b in svc.flushes
+              if any(a < e and b > r for r, e in spans)]
+    apart = [b - a for a, b in svc.flushes
+             if not any(a < e and b > r for r, e in spans)]
+    print(f"[online] {len(spans)} rebuilds on the fit thread, ms each: "
+          f"{', '.join(f'{(e - r) * 1e3:.1f}' for r, e in spans)}; "
+          f"flushes while training that overlap one: {len(during)}, p50 "
+          f"{serve._percentile_ms(during, 50):.4f} ms, p99 "
+          f"{serve._percentile_ms(during, 99):.4f} ms; the other "
+          f"{len(apart)}: p50 {serve._percentile_ms(apart, 50):.4f} ms, p99 "
+          f"{serve._percentile_ms(apart, 99):.4f} ms")
+    print(f"[online] after stop(), the first client's {ONLINE_REPLAY} "
+          f"requests alone: p50 {serve._percentile_ms(lat_one, 50):.4f} ms, "
+          f"p99 {serve._percentile_ms(lat_one, 99):.4f} ms")
+    print(f"[online] garbage collection while training: "
+          f"{_gc_line(gc_train)}; in the replay: {_gc_line(gc_idle)}")
+    print(f"[online] fit thread {ms_step:.4f} ms a step ({steps} steps, "
+          f"{fit_s:.3f} s in epochs; each epoch's wall includes its "
+          f"gathers); staleness mean {st['staleness_mean']:.1f} max "
+          f"{st['staleness_max']} events; {st['publishes']} publishes, "
+          f"{st['rebuilds']} rebuilds, versions served {len(versions)}; "
+          f"{held} responses held bit-identical to their oracle")
+    print(f"[online] peak device memory {peak / 2**20:.2f} MiB above the "
+          f"start, against two engines at n {n_max} "
+          f"({2 * engine_bytes / 2**20:.2f} MiB) plus the plan "
+          f"({plan_bytes / 2**20:.2f} MiB)")
+    out = {"train_launches": steps, "matvec_launches": mv["sm90"],
+           "p50": p50, "p99": p99, "idle_p50": q50, "idle_p99": q99,
+           "ms_per_step": ms_step, "staleness_mean": st["staleness_mean"],
+           "staleness_max": st["staleness_max"],
+           "publishes": st["publishes"], "rebuilds": st["rebuilds"],
+           "peak_mib": peak / 2**20,
+           "profile": _online_profile(svc, serve)}
+    del res, svc
+    return out
+
+
+def _tenant_trace(seed: int, dim: int, rows: int):
+    """The reference harness's noisy-neighbor traffic
+    (benchmarks/load_harness.py, ``measure_multi_tenant``) on a clock of
+    one pump a round: the rounds of ``(tenant, batch)`` submits, and the
+    backlog (one round) that holds gold and standard queued at once.
+    Victims cycle pools of full-tile batches (stable tile hashes: the
+    cacheable working set); the aggressor's batches are unique."""
+    import math
+    import numpy as np
+    rng = np.random.default_rng((seed, 23))
+    pools = {n: [rng.standard_normal((rows, dim)).astype(np.float32)
+                 for _ in range(TENANT_POOL)] for n in ("gold", "standard")}
+    drawn = {"gold": 0, "standard": 0}
+
+    def pool(name):
+        drawn[name] += 1
+        return name, pools[name][(drawn[name] - 1) % TENANT_POOL]
+
+    rounds = []
+    for r in range(TENANT_ROUNDS):
+        # standard's rate follows the harness's raised-cosine day (floor
+        # 0.2 of the peak); gold's is flat.
+        day = 0.2 + 0.8 * 0.5 * (1.0 - math.cos(2.0 * math.pi * r
+                                                 / TENANT_ROUNDS))
+        submits = []
+        if rng.random() < TENANT_VICTIM_P:
+            submits.append(pool("gold"))
+        if rng.random() < TENANT_VICTIM_P * day:
+            submits.append(pool("standard"))
+        if r % TENANT_BURST_EVERY == 0:
+            submits += [("batch", rng.standard_normal((rows, dim))
+                         .astype(np.float32)) for _ in range(TENANT_BURST)]
+        rounds.append(submits)
+    backlog = [[pool(n) for n in ("gold", "standard")
+                for _ in range(TENANT_BACKLOG)]]
+    return rounds, backlog
+
+
+def _backlogged_rows(pumps, gold_rows: int):
+    """(gold, standard) rows served up to the last pump that served
+    standard while gold still had rows queued; None if there was none."""
+    got, fair = {"gold": 0, "standard": 0}, None
+    for responses in pumps:
+        for r in responses:
+            got[r.tenant] += int(r.f.shape[0])
+        if (any(r.tenant == "standard" for r in responses)
+                and got["gold"] < gold_rows):
+            fair = dict(got)
+    return fair
+
+
+def phase_tenants():
+    """The front door through ``serve_tenants`` on covertype-serve's engine
+    with QoS on, then off; on each front door the harness's noisy-neighbor
+    trace and the backlog, the same traffic on both."""
+    import gc
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.serving import DSEKLPredictionEngine, EngineConfig
+    pct = serve._percentile_ms
+    args = serve.parser().parse_args(TENANT_ARGS + ["--device", DEVICE])
+    rows = args.query_block
+    trace, backlog = _tenant_trace(args.seed, args.dim, rows)
+    arms, launches = {}, 0
+    for qos in ("on", "off"):
+        args = serve.parser().parse_args(
+            TENANT_ARGS + ["--qos", qos, "--device", DEVICE])
+        _reset_dsekl_counters()                # the tenants path starts
+        res = serve.serve_tenants(args)
+        fd = res["front_door"]
+        # As the harness does: a generation-2 collection is as long as the
+        # tails measured, so the trace runs with the collector held off.
+        gc.collect()
+        gc.disable()
+        try:
+            run = serve.drive_front_door(fd, trace)
+        finally:
+            gc.enable()
+        back = serve.drive_front_door(fd, backlog)
+        counts = _dsekl_counts()               # ... and ends here
+        mv = counts["kernel_matvec_cuda"]
+        print(f"[tenants] qos {qos}: launches {counts}")
+        check(mv["fp32"] == 0, f"qos {qos}: fp32 matvec launches {mv}")
+        check(all(v == {"sm90": 0, "fp32": 0} for k, v in counts.items()
+                  if k != "kernel_matvec_cuda"), f"qos {qos}: {counts}")
+        launches += mv["sm90"]
+        everything = res["responses"] + [
+            r for got in run["pumps"] + back["pumps"] for r in got]
+        sent_all = {**res["sent"], **run["sent"], **back["sent"]}
+        tickets = [r.ticket for r in everything]
+        check(len(tickets) == len(set(tickets)),
+              f"qos {qos}: a ticket was served twice")
+        check(set(tickets) == set(sent_all),
+              f"qos {qos}: tickets dropped or invented")
+        all_sheds = res["sheds"] + run["sheds"] + back["sheds"]
+        owners = fd.cache_info()["owners"]
+        fair = _backlogged_rows(back["pumps"], TENANT_BACKLOG * rows)
+        if qos == "on":
+            check(len(all_sheds) > 0, "qos on: nothing was shed")
+            check(all(s.tenant == "batch" for s in all_sheds),
+                  f"qos on: sheds outside batch: {all_sheds[:3]}")
+            check(fair is not None and fair["standard"] > 0,
+                  "qos on: standard was never served while backlogged")
+            ratio = fair["gold"] / fair["standard"]
+            check(abs(ratio - 2.0) <= 0.2,
+                  f"qos on: gold served {fair['gold']} rows against "
+                  f"standard's {fair['standard']} (ratio {ratio:.3f})")
+            check(owners["batch"]["resident"] == 0
+                  and owners["batch"]["bypasses"] > 0,
+                  f"qos on: batch's cache {owners['batch']}")
+            check(owners["gold"]["hits"] > 0
+                  and owners["standard"]["hits"] > 0,
+                  f"qos on: the victims' pools never hit: {owners}")
+            check(mv["sm90"] > 0, "qos on: the bypass launched no matvec")
+        else:
+            check(not all_sheds, f"qos off: {len(all_sheds)} sheds")
+            ratio = None
+        # The bare engine on the same rows and version (0): the cached
+        # path for cached tenants, the streaming path for batch (QoS on).
+        eng = res["engine"]
+        ec = eng.engine_cfg
+        oracles = {}
+        for r in everything:
+            tenant, q = sent_all[r.ticket]
+            stream = qos == "on" and tenant == "batch"
+            if stream not in oracles:
+                oracles[stream] = DSEKLPredictionEngine(
+                    eng.cfg, res["alpha"], res["x_train"],
+                    engine_cfg=(EngineConfig(
+                        query_block=ec.query_block, sv_block=ec.sv_block,
+                        max_queue=ec.max_queue) if stream else ec),
+                    device=DEVICE)
+            check(r.version == 0 and torch.equal(
+                r.f, oracles[stream].predict(q)),
+                  f"qos {qos}: ticket {r.ticket} ({tenant}) differs from "
+                  "the bare engine")
+        del oracles
+        stats = fd.stats()["tenants"]
+        lat = run["latencies_s"]
+        for name, ls in lat.items():
+            ts = stats[name]
+            oc = owners.get(name) or {}
+            print(f"[tenants] qos {qos} {name}: p50 {pct(ls, 50):.4f} ms, "
+                  f"p99 {pct(ls, 99):.4f} ms over {len(ls)} requests of the "
+                  f"trace; served rows {ts['served_rows']}; shed "
+                  f"{ts['shed']}; cache hits {oc.get('hits', 0)}, misses "
+                  f"{oc.get('misses', 0)}, bypasses {oc.get('bypasses', 0)}")
+        if qos == "off":
+            oc = owners.get("_default", {})
+            print(f"[tenants] qos off: unattributed cache hits "
+                  f"{oc.get('hits', 0)}, misses {oc.get('misses', 0)}")
+        if ratio is not None:
+            print(f"[tenants] qos on: backlog, gold {fair['gold']} rows "
+                  f"against standard's {fair['standard']} while both queued "
+                  f"(ratio {ratio:.4f}); {len(all_sheds)} sheds, all batch")
+        arms[qos] = {name: (pct(ls, 50), pct(ls, 99))
+                     for name, ls in lat.items()}
+        arms[qos]["victim_p99"] = max(pct(lat[n], 99)
+                                      for n in ("gold", "standard"))
+        arms[qos]["sheds"] = len(all_sheds)
+        arms[qos]["ratio"] = ratio
+        del res, fd, eng
+        torch.cuda.empty_cache()
+    on, off = arms["on"]["victim_p99"], arms["off"]["victim_p99"]
+    print(f"[tenants] the victims' p99 (the worse of gold and standard over "
+          f"the trace): QoS on {on:.4f} ms, off {off:.4f} ms "
+          f"(off / on {off / on:.4f})")
+    arms["launches"] = launches
+    return arms
+
+
 def phase_shape_times(device_name: str):
     """The sm90 matvec and vecmat at each shape this slice's paths give
     them (unit-norm rows, RBF gamma 1, D 54): device ms a call
@@ -2029,7 +2623,9 @@ def phase_shape_times(device_name: str):
               ("emp-fix step", "matvec", 1024, 1024),
               ("emp-fix step", "vecmat", 1024, 1024),
               ("kpca step", "matvec", 65536, 256),
-              ("kpca transform", "matvec", 4096, 4096)]
+              ("kpca transform", "matvec", 4096, 4096),
+              ("online flush n0", "matvec", 1024, 262144),
+              ("online flush full ring", "matvec", 1024, 524288)]
     gen = torch.Generator(device=DEVICE).manual_seed(41)
     out = {}
     for label, kind, n_i, n_j in shapes:
@@ -3179,6 +3775,9 @@ def main() -> int:
     base = phase_baselines()
     kp = phase_kpca()
     elapsed("bcd-cell, bcd-exact, bcd-hosted, baselines, kpca")
+    online = phase_online()
+    tenants = phase_tenants()
+    elapsed("online, tenants")
     # The wide sm90 train kernel's launches on the Alg.-2 paths, by path.
     wide_paths = {"train-parallel": parallel["launches"],
                   "train-hosted prefetch": hosted["prefetch"]["steps"],
@@ -3200,7 +3799,14 @@ def main() -> int:
                     "bcd-cell eval": bcd_cell["eval_launches"],
                     "bcd-hosted eval": bcd_hosted["eval_launches"],
                     "baselines emp-fix step and decision": base["matvec"],
-                    "kpca steps and transform": kp["matvec"]}
+                    "kpca steps and transform": kp["matvec"],
+                    "online serve and rebuild warm-ups":
+                        online["matvec_launches"],
+                    "tenants (qos on: batch's bypass)": tenants["launches"]}
+    # The narrow sm90 train pass: Algorithm 1's indexed step in memory, and
+    # the online fit thread's hosted step on the staged rows.
+    train_paths = {"train": trained["launches"],
+                   "online fit": online["train_launches"]}
     rows = phase_times(res, name) + [phase_rbf_times(res, name)]
     rows += phase_train_times(trained["out"], name)
     rows += phase_parallel_times(parallel["out"], name)
@@ -3219,6 +3825,7 @@ def main() -> int:
     elapsed("lm-times")
     # Launches on the main paths; every fp32 route has none there.
     by_path = {"kernel_matvec": matvec_paths,
+               "train_pass": train_paths,
                "train_pass_sm90_j4096": wide_paths,
                "kernel_vecmat": vecmat_paths}
     # kernel_vecmat_precond times kernel_vecmat at the correction's shape;
@@ -3227,7 +3834,7 @@ def main() -> int:
                 "kernel_vecmat": sum(vecmat_paths.values()),
                 "kernel_vecmat_precond": 0,
                 "dual_pass": trained["dual_launches"],
-                "train_pass": trained["launches"],
+                "train_pass": sum(train_paths.values()),
                 "train_pass_sm90_j4096": sum(wide_paths.values()),
                 "flash_attention": jamba["flash"], "ssd": jamba["ssd"]}
     for row in rows:
@@ -3290,6 +3897,29 @@ def main() -> int:
           f"{bcd_hosted['syncs_per_round']} host syncs a round, peak "
           f"{bcd_hosted['peak_mib']:.2f} MiB; EmpFix "
           f"{base['step_ms']:.4f} ms a step")
+    print(f"[online] flush p50 {online['p50']:.4f} / p99 "
+          f"{online['p99']:.4f} ms while training, {online['idle_p50']:.4f} "
+          f"/ {online['idle_p99']:.4f} ms after stop(); the fit thread "
+          f"{online['ms_per_step']:.4f} ms a step (hosted Algorithm 1 at "
+          f"J 1,024; covertype-train in memory {step_ms:.4f}, hosted-train "
+          f"prefetched {hosted['prefetch']['ms_per_step']:.4f} at J "
+          f"4,096); staleness mean {online['staleness_mean']:.1f} max "
+          f"{online['staleness_max']}; {online['publishes']} publishes, "
+          f"{online['rebuilds']} rebuilds; peak {online['peak_mib']:.2f} "
+          f"MiB")
+    prof = online["profile"]
+    print(f"[online] the fit thread's epoch {ONLINE_PROFILE_EPOCH} traced: "
+          f"device busy {prof['busy_share']:.1%}, a sweep "
+          f"{prof['sweep_ms']:.4f} ms of device time against the window's "
+          f"flush p50 {prof['flush_p50']:.4f} ms (host "
+          f"{prof['host_share']:.1%})")
+    for qos in ("on", "off"):
+        arm = tenants[qos]
+        print(f"[tenants] qos {qos}: victims' p99 "
+              f"{arm['victim_p99']:.4f} ms; " + ", ".join(
+                  f"{n} p50 {arm[n][0]:.4f} p99 {arm[n][1]:.4f} ms"
+                  for n in ("gold", "standard", "batch"))
+              + f"; {arm['sheds']} sheds")
     print(f"[device_ms] {READINGS['kept']} readings kept, "
           f"{READINGS['retaken']} taken again behind a longer spin, "
           f"{READINGS['host_paced']} paced by the host")

@@ -16,6 +16,13 @@
   ``EmpFixModel`` and ``KPCAState`` from the JAX ones (any object with
   their fields, ``np.asarray``-able): the same features, landmarks and
   subspace, bit for bit.
+* ``online_state_from_jax(tree, extra)`` — the flat arrays and ``extra``
+  of a port ``OnlineService`` checkpoint (its resume closure) from a JAX
+  online checkpoint's: alpha, accum, step, epoch and the frozen snapshot's
+  rows bit for bit, the snapshot's high-water mark, the version and the
+  publish log.  The JAX key is dropped: the generator (or ``plan_fn``) is
+  the caller's.  Save the pair with ``CheckpointManager`` and resume the
+  service from it.
 * ``read_jax_checkpoint(directory, step=None)`` — reads the JAX checkpoint
   layout ``step_<N>/arrays.npz`` + ``manifest.json`` with numpy alone.  A
   step is valid only if both files exist and the npz's crc32 matches the
@@ -116,6 +123,27 @@ def kpca_state_from_jax(state, device: DeviceLike = None) -> KPCAState:
     """A JAX ``KPCAState`` -> the port's, on ``device``."""
     dev = resolve_device(device)
     return KPCAState(v=_f32(state.v, dev), step=_i32(state.step, dev))
+
+
+_ONLINE_LEAVES = {"alpha": np.float32, "accum": np.float32,
+                  "step": np.int32, "epoch": np.int32,
+                  "snap_x": np.float32, "snap_y": np.float32}
+
+
+def online_state_from_jax(tree: Mapping[str, Any], extra: Mapping[str, Any]
+                          ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """``(flat, extra)`` of the port's online checkpoint from a JAX one
+    (``tree``: the flat arrays, ``np.asarray``-able; ``extra``: its
+    ``epoch``, ``version``, ``snapshot_hw`` and ``publish_log``).  The
+    arrays keep their bits; ``gen_state`` is empty, so a resumed service
+    keeps the generator it was given."""
+    flat = {k: np.array(np.asarray(tree[k]), dtype=dt, copy=True)
+            for k, dt in _ONLINE_LEAVES.items()}
+    flat["gen_state"] = np.zeros((0,), np.uint8)
+    out = {"epoch": int(extra["epoch"]), "version": int(extra["version"]),
+           "snapshot_hw": int(extra["snapshot_hw"]),
+           "publish_log": [dict(r) for r in extra["publish_log"]]}
+    return flat, out
 
 
 def read_jax_checkpoint(directory, step: Optional[int] = None

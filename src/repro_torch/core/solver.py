@@ -36,7 +36,7 @@ from repro_torch.core.trainer import (  # noqa: F401  (re-exported API)
     BCDPlan, ExecutionPlan, FitResult, HostedPlan, ParallelPlan, SerialPlan,
     _EVAL_CACHE_BUDGET_BYTES, _error,
 )
-from repro_torch.data.source import DataSource, InMemorySource
+from repro_torch.data.source import DataSource, InMemorySource, RingSource
 from repro_torch.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
@@ -174,6 +174,9 @@ def fit(cfg: DSEKLConfig, x, y=None,
     ``InMemorySource``) or from a ``HostSource``; the state lives on
     ``device``.
 
+    A live ``RingSource`` is snapshotted once at entry: appends during the
+    fit cannot reach it.
+
     ``truncate_every``: every k epochs the smallest ``truncate_frac`` of
     non-zero |alpha| mass is zeroed (paper §5's budgeted model).
 
@@ -219,6 +222,11 @@ def fit(cfg: DSEKLConfig, x, y=None,
             raise TypeError(
                 "fit() over a DataSource takes the labels from the source; "
                 "pass y=None")
+        if isinstance(x, RingSource):
+            # A live ring: fit trains a frozen, versioned snapshot of the
+            # current window while the writer keeps appending (the online
+            # service owns the grow-across-epochs loop).
+            x = x.snapshot()
         source, x = x, None
     elif y is None:
         raise TypeError("fit() needs the labels y with arrays (or a "

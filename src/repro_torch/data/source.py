@@ -23,9 +23,12 @@ vector lives on the card:
     / ``ManifestSource`` — a synthetic float32 dataset on disk with a
     manifest, written from numpy's ``default_rng((seed, start))`` granule
     by granule: the same bytes as the JAX package writes.
+  * ``RingSource`` / ``RingSnapshot`` — an appendable ring of labeled
+    events and the frozen, owned copies of its window that online
+    training replays (``serving/online.py``).
 
-The JAX module's ``RingSource`` / ``RingSnapshot`` (ROADMAP item 7) and
-``MeshPrefetcher`` / ``SyncMeshGather`` (item 6) are not ported yet.
+The JAX module's ``MeshPrefetcher`` / ``SyncMeshGather`` (ROADMAP item 6)
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -231,6 +234,205 @@ class InMemorySource(HostSource):
     def split(self, n_shards: int) -> List[HostSource]:
         self._ensure_host()
         return super().split(n_shards)
+
+
+# ---------------------------------------------------------------------------
+# Appendable ring source (online training; DESIGN.md §11).
+# ---------------------------------------------------------------------------
+
+class RingSnapshot(HostSource):
+    """A frozen, owned copy of a ring window: what one training epoch
+    replays while the writer keeps appending.
+
+    ``RingSource.snapshot()`` copies the live window out of the ring, so
+    later appends (wrap-around overwrites of the very rows it captured
+    included) can never alias it.  The snapshot carries its identity in
+    absolute event coordinates: ``high_water`` is the writer's total at
+    snapshot time, and the snapshot covers the absolute rows ``[base,
+    high_water)`` with ``base = high_water - n``.  The online service
+    carries alpha across support-set rebuilds and measures staleness in
+    these coordinates.  Reads past ``n`` are refused by the inherited
+    bounds check."""
+
+    def __init__(self, x: np.ndarray, y: np.ndarray, *, version: int,
+                 high_water: int):
+        super().__init__(x, y)
+        self.version = int(version)
+        self.high_water = int(high_water)
+
+    @property
+    def base(self) -> int:
+        """Absolute event id of row 0 (``high_water - n``)."""
+        return self.high_water - self.n
+
+
+class RingSource(HostSource):
+    """Appendable ring-buffer ``HostSource``: bounded backing, unbounded
+    stream.
+
+    The writer ``append``s labeled events; ``total`` counts every event
+    ever appended, while only the newest ``min(total, capacity)`` rows
+    stay resident (older rows are overwritten in ring order).  Training
+    never reads the live ring: it takes a ``snapshot()``, a versioned,
+    frozen copy of the current window, so an epoch replays a fixed index
+    range while events keep arriving (``solver.fit`` snapshots a live
+    ring at entry).
+
+    Row 0 of the live view is the oldest resident event.  Gathers are
+    mapped through the ring and serialized against ``append`` (no torn
+    rows), but the window can shift between calls: anything that needs
+    repeatable indices takes a snapshot.
+
+    ``RingSource.memmap(directory, capacity, d)`` backs the ring with
+    disk memmaps; the default backing is plain numpy."""
+
+    def __init__(self, capacity: int, d: int, *,
+                 x: Optional[np.ndarray] = None,
+                 y: Optional[np.ndarray] = None):
+        capacity, d = int(capacity), int(d)
+        if capacity <= 0 or d <= 0:
+            raise ValueError(f"capacity and d must be positive; got "
+                             f"{capacity} / {d}")
+        xb = np.zeros((capacity, d), np.float32) if x is None else x
+        yb = np.zeros((capacity,), np.float32) if y is None else y
+        if xb.shape != (capacity, d) or yb.shape != (capacity,):
+            raise ValueError(
+                f"backing must be ({capacity}, {d}) / ({capacity},); got "
+                f"{xb.shape} / {yb.shape}")
+        super().__init__(xb, yb)
+        self._capacity = capacity
+        self._total = 0
+        self._version = 0
+        self._lock = threading.Lock()
+
+    @property
+    def capacity(self) -> int:
+        return self._capacity
+
+    @property
+    def total(self) -> int:
+        """Events ever appended (the monotonic high-water mark)."""
+        return self._total
+
+    @property
+    def n(self) -> int:
+        """Resident rows: ``min(total, capacity)``."""
+        return min(self._total, self._capacity)
+
+    @property
+    def nbytes(self) -> int:
+        return 4 * self.n * (self.d + 1)
+
+    def append(self, x_rows: np.ndarray, y_rows: np.ndarray) -> int:
+        """Append labeled events; returns the new ``total``.  An append
+        larger than the ring would overwrite part of itself, so it is
+        refused rather than truncated."""
+        x_rows = np.asarray(x_rows, np.float32)
+        y_rows = np.asarray(y_rows, np.float32)
+        if x_rows.ndim != 2 or y_rows.ndim != 1 \
+                or x_rows.shape[0] != y_rows.shape[0] \
+                or x_rows.shape[1] != self.d:
+            raise ValueError(
+                f"events must be (m, {self.d}) / (m,); got "
+                f"{x_rows.shape} / {y_rows.shape}")
+        m = int(x_rows.shape[0])
+        if m > self._capacity:
+            raise ValueError(
+                f"append of {m} rows exceeds ring capacity "
+                f"{self._capacity}")
+        with self._lock:
+            pos = self._total % self._capacity
+            end = pos + m
+            if end <= self._capacity:
+                self._x[pos:end] = x_rows
+                self._y[pos:end] = y_rows
+            else:
+                k = self._capacity - pos
+                self._x[pos:] = x_rows[:k]
+                self._y[pos:] = y_rows[:k]
+                self._x[: end - self._capacity] = x_rows[k:]
+                self._y[: end - self._capacity] = y_rows[k:]
+            self._total += m
+            return self._total
+
+    def _window(self) -> Tuple[int, int]:
+        """(live row count, physical index of logical row 0); the caller
+        holds ``self._lock``."""
+        n = min(self._total, self._capacity)
+        start = (self._total % self._capacity
+                 if self._total > self._capacity else 0)
+        return n, start
+
+    def _ring_index(self, idx: Index) -> np.ndarray:
+        """A logical index (0 = the oldest resident row) as physical ring
+        positions: always an index array, since the window may wrap the
+        buffer's edge.  The caller holds ``self._lock``."""
+        n, start = self._window()
+        if isinstance(idx, slice):
+            if idx.step not in (None, 1):
+                raise ValueError("strided row slices are not supported; "
+                                 "gather an index array instead")
+            start_l = idx.start or 0
+            stop_l = n if idx.stop is None else idx.stop
+            if start_l < 0:
+                start_l += n
+            if stop_l < 0:
+                stop_l += n
+            idx = np.arange(min(max(start_l, 0), n),
+                            min(max(stop_l, 0), n))
+        else:
+            idx = np.asarray(idx)
+            if idx.size and (idx.min() < 0 or idx.max() >= n):
+                raise IndexError(
+                    f"indices outside the view's [0, {n}) row range")
+        return (start + idx) % self._capacity
+
+    def gather(self, idx: Index,
+               out_x: Optional[np.ndarray] = None,
+               out_y: Optional[np.ndarray] = None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        with self._lock:
+            ai = self._ring_index(idx)
+            return (self._take(self._x, ai, out_x),
+                    self._take(self._y, ai, out_y))
+
+    def gather_x(self, idx: Index,
+                 out: Optional[np.ndarray] = None) -> np.ndarray:
+        with self._lock:
+            return self._take(self._x, self._ring_index(idx), out)
+
+    def local(self, offset: int, length: int) -> HostSource:
+        raise TypeError("a live RingSource has no stable row range; take "
+                        "a snapshot() and carve views from that")
+
+    def split(self, n_shards: int) -> List[HostSource]:
+        raise TypeError("a live RingSource has no stable row range; take "
+                        "a snapshot() and split that")
+
+    def snapshot(self) -> RingSnapshot:
+        """Freeze the current window: a versioned, owned copy that
+        training can replay while appends continue."""
+        with self._lock:
+            n, start = self._window()
+            self._version += 1
+            phys = (start + np.arange(n)) % self._capacity
+            # Fancy indexing copies: the snapshot owns its rows and never
+            # sees a later append (wrap-around included).
+            return RingSnapshot(
+                np.asarray(self._x[phys], np.float32),
+                np.asarray(self._y[phys], np.float32),
+                version=self._version, high_water=self._total)
+
+    @classmethod
+    def memmap(cls, directory: str, capacity: int, d: int) -> "RingSource":
+        """A ring backed by disk memmaps (mode ``w+``: files of the same
+        shape are reused), the JAX package's file names."""
+        os.makedirs(directory, exist_ok=True)
+        x = np.memmap(os.path.join(directory, f"ring_x_{capacity}x{d}.f32"),
+                      np.float32, mode="w+", shape=(capacity, d))
+        y = np.memmap(os.path.join(directory, f"ring_y_{capacity}.f32"),
+                      np.float32, mode="w+", shape=(capacity,))
+        return cls(capacity, d, x=x, y=y)
 
 
 # ---------------------------------------------------------------------------

@@ -29,27 +29,58 @@ tile cache with ``--cache-blocks N``:
 
 ``--data covertype`` draws the training rows and the queries from the
 covertype stand-in (the queries are held-out rows); ``--data normal``
-draws both from N(0, 1), as the JAX launcher does.  ``--tenants`` and
-``--online`` are not ported yet.
+draws both from N(0, 1), as the JAX launcher does.
+
+``--tenants`` puts the multi-tenant front door (``serving/tenancy.py``;
+DESIGN.md §12) in front of the same engine: per-tenant submit queues
+drained by deficit round-robin, over-budget submits shed with typed
+responses, per-tenant cache quotas.  The spec is
+``name[:weight[:max_tickets[:cache_quota]]],...`` (or a bare integer for N
+equal tenants); ``--qos off`` swaps the scheduler for the global-FIFO
+baseline (no shedding, no cache attribution), so that the two can be
+compared on identical traffic:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --dsekl \
+        --tenants "gold:2,standard:1,batch:1:4:0" --qos on \
+        --queries 4096 --request 64 --cache-blocks 8 [--device cpu]
+
+``--online`` serves while a background thread keeps training
+(``serving/online.py``; DESIGN.md §11): an ``OnlineService`` trains over
+snapshots of an appendable ``RingSource`` fed by a deterministic event
+stream, publishing a model version at every epoch boundary while the
+foreground loop keeps pushing queries; flush latency (p50 / p99) and
+publish staleness are reported at the end.  ``--checkpoint-dir`` /
+``--resume`` make the service kill-and-resume safe:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --dsekl --online \
+        --capacity 4096 --n-prefill 1024 --events-per-epoch 128 \
+        --epochs 8 [--checkpoint-dir DIR [--resume]] [--device cpu]
+
+Each DSEKL mode returns its numbers as a dict (``serve_dsekl``,
+``serve_tenants``, ``serve_online``).
 """
 from __future__ import annotations
 
 import argparse
 import os
+import threading
 import time
-from typing import Any, Dict
+from typing import Any, Dict, List
 
+import numpy as np
 import torch
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.dsekl import DSEKLConfig
+from repro_torch.data.source import RingSource
 from repro_torch.data.synthetic import make_covertype_like
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.blocks import check_supported
 from repro_torch.models.model import LanguageModel
 from repro_torch.serving import (DSEKLPredictionEngine, EngineConfig,
-                                 ServingEngine)
+                                 OnlineService, QoSConfig, ServingEngine,
+                                 ShedResponse, TenantConfig, TenantFrontDoor)
 
 
 def build_model(args, device: torch.device):
@@ -131,6 +162,252 @@ def serve_dsekl(args) -> Dict[str, Any]:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _percentile_ms(lat_s: List[float], q: float) -> float:
+    return float(np.percentile(lat_s, q) * 1e3) if lat_s else 0.0
+
+
+def parse_tenants(spec: str) -> Dict[str, TenantConfig]:
+    """The ``--tenants`` spec as ``{name: TenantConfig}``.
+
+    A bare integer means that many equal tenants (``t0..tN-1``); otherwise
+    a comma list of ``name[:weight[:max_tickets[:cache_quota]]]``, e.g.
+    ``gold:2,standard:1,batch:1:4:0`` gives ``gold`` double credit and
+    caps ``batch`` at 4 outstanding tickets with cache admission denied
+    (quota 0)."""
+    if spec.strip().isdigit():
+        return {f"t{i}": TenantConfig() for i in range(int(spec))}
+    tenants = {}
+    for part in spec.split(","):
+        fields = part.strip().split(":")
+        if not fields[0]:
+            raise ValueError(f"empty tenant name in --tenants spec {spec!r}")
+        tenants[fields[0]] = TenantConfig(
+            weight=float(fields[1]) if len(fields) > 1 else 1.0,
+            max_tickets=int(fields[2]) if len(fields) > 2 else 64,
+            cache_quota=int(fields[3]) if len(fields) > 3 else None)
+    return tenants
+
+
+def drive_front_door(fd: TenantFrontDoor, rounds) -> Dict[str, Any]:
+    """Each round submits its ``(tenant, batch)`` pairs in order, then runs
+    one ``pump()``; after the last round, pumps until nothing is queued.  A
+    ticket's latency runs from its submit to the end of the pump that
+    served it.  Returns the latencies (s) by tenant, each pump's responses
+    in order, what each ticket sent and the sheds."""
+    lat: Dict[str, List[float]] = {n: [] for n in fd.stats()["tenants"]}
+    t_sub: Dict[int, float] = {}
+    sent: Dict[int, tuple] = {}
+    sheds: List[ShedResponse] = []
+    pumps: List[list] = []
+
+    def pump() -> bool:
+        got = fd.pump()
+        now = time.perf_counter()
+        for resp in got:
+            lat[resp.tenant].append(now - t_sub[resp.ticket])
+        if got:
+            pumps.append(got)
+        return bool(got)
+
+    for submits in rounds:
+        for name, q in submits:
+            now = time.perf_counter()
+            r = fd.submit(name, q)
+            if isinstance(r, ShedResponse):
+                sheds.append(r)
+            else:
+                t_sub[r], sent[r] = now, (name, q)
+        pump()
+    while pump():
+        pass
+    return {"latencies_s": lat, "pumps": pumps, "sent": sent,
+            "sheds": sheds}
+
+
+def serve_tenants(args) -> Dict[str, Any]:
+    """Multi-tenant DSEKL serving: ``serve_dsekl``'s engine (the same
+    ``build_model``) behind a ``TenantFrontDoor``.  Each round every tenant
+    submits one request-sized batch from its own N(0, 1) stream
+    (``default_rng((seed, i))``) and one ``pump()`` serves a drain; a
+    ticket's latency runs from its submit to the end of the pump that
+    served it (``drive_front_door``).  Returns the front door, the engine,
+    the model, the per-tenant latencies (s), the responses, what each
+    ticket sent, the sheds, the wall time and the front door's stats."""
+    device = resolve_device(args.device)
+    tenants = parse_tenants(args.tenants)
+    x_train, alpha, _ = build_model(args, device)
+    engine = DSEKLPredictionEngine(
+        DSEKLConfig(kernel=args.kernel, impl="auto"), alpha, x_train,
+        engine_cfg=EngineConfig(query_block=args.query_block,
+                                sv_block=args.sv_block,
+                                max_queue=args.max_queue,
+                                cache_blocks=args.cache_blocks),
+        device=device)
+    qos_on = args.qos == "on"
+    fd = TenantFrontDoor(engine, tenants, qos=QoSConfig(enabled=qos_on))
+    print(f"[serve-tenants] device={device} {len(tenants)} tenant(s) "
+          f"({', '.join(tenants)}) qos={args.qos} "
+          f"query_block={args.query_block} cache_blocks={args.cache_blocks}")
+
+    rounds = max(1, args.queries // (args.request * len(tenants)))
+    rngs = {n: np.random.default_rng((args.seed, i))
+            for i, n in enumerate(tenants)}
+
+    def schedule():
+        for _ in range(rounds):
+            yield [(name, rng.standard_normal((args.request, args.dim))
+                    .astype(np.float32)) for name, rng in rngs.items()]
+
+    t0 = time.perf_counter()
+    run = drive_front_door(fd, schedule())
+    wall = time.perf_counter() - t0
+    lat = run["latencies_s"]
+
+    st = fd.stats()
+    total_rows = sum(t["served_rows"] for t in st["tenants"].values())
+    print(f"[serve-tenants] {total_rows} queries in {wall:.3f}s = "
+          f"{total_rows / wall:,.0f} queries/s over {st['pumps']} pumps")
+    print(f"{'tenant':<12} {'weight':>6} {'served':>8} {'p50ms':>8} "
+          f"{'p99ms':>8} {'shed%':>6}")
+    for name, ts in st["tenants"].items():
+        print(f"{name:<12} {ts['weight']:>6.1f} {ts['served_rows']:>8} "
+              f"{_percentile_ms(lat[name], 50):>8.2f} "
+              f"{_percentile_ms(lat[name], 99):>8.2f} "
+              f"{100 * ts['shed_rate']:>6.1f}")
+    if args.cache_blocks and qos_on:
+        for name, oc in fd.cache_info()["owners"].items():
+            print(f"[serve-tenants] cache[{name}]: {oc['hits']} hits / "
+                  f"{oc['misses']} misses / {oc['bypasses']} bypasses "
+                  f"({oc['resident']} resident, quota={oc['quota']})")
+    print(f"TENANTS_DONE served={total_rows} pumps={st['pumps']}")
+    return {"front_door": fd, "engine": engine, "x_train": x_train,
+            "alpha": alpha, "tenants": tenants, "latencies_s": lat,
+            "responses": [r for got in run["pumps"] for r in got],
+            "sent": run["sent"], "sheds": run["sheds"], "seconds": wall,
+            "stats": st}
+
+
+def make_event_stream(seed: int, d: int):
+    """A deterministic labeled-event stream: ``chunk(epoch, m)`` returns
+    the same rows for the same ``(seed, epoch)`` forever (numpy's
+    ``default_rng((seed, epoch + 1))``, the JAX launcher's stream bit for
+    bit), which makes a resumed service replayable.  Labels are the
+    memmap-dataset family's learnable nonlinear score."""
+    w = np.random.default_rng(seed).standard_normal(d).astype(np.float32)
+
+    def chunk(epoch: int, m: int):
+        r = np.random.default_rng((seed, epoch + 1))  # epoch -1 = prefill
+        x = r.standard_normal((m, d)).astype(np.float32)
+        score = (np.tanh(x @ w / np.sqrt(d)) + 0.5 * np.sin(2.0 * x[:, 0])
+                 + 0.18)
+        return x, np.where(score >= 0.0, 1.0, -1.0).astype(np.float32)
+
+    return chunk
+
+
+# Folded into the query streams' seeds: (seed, tag, client).
+_QUERY_TAG = 0x7175
+
+
+def serve_online(args, *, clients: int = 1,
+                 record_models: bool = False) -> Dict[str, Any]:
+    """Continuous learning under live traffic: one ``OnlineService`` (a
+    background fit thread and the live engine) driven to ``--epochs``,
+    while ``clients`` threads (the foreground loop: one) submit
+    ``--request``-row batches and flush, each flush timed on the host
+    clock.  Returns the service, the per-flush latencies (s) while
+    training, the responses, what each ticket sent, each client's batches
+    in order, the ring, the event stream and the service's stats."""
+    device = resolve_device(args.device)
+    d = args.dim
+    chunk = make_event_stream(args.seed, d)
+    ring = RingSource(args.capacity, d)
+    ring.append(*chunk(-1, args.n_prefill))
+
+    replay_to = 0
+    if args.resume and args.checkpoint_dir:
+        from repro_torch.checkpoint import CheckpointManager
+        man = CheckpointManager(args.checkpoint_dir)
+        step = man.latest_valid_step()
+        if step is not None:
+            _, _, extra = man.restore(step)
+            replay_to = int(extra["epoch"])
+    # Replay the stream up to the restored epoch: the ring ends where the
+    # interrupted run's ring was at its checkpoint.
+    for e in range(replay_to):
+        ring.append(*chunk(e, args.events_per_epoch))
+
+    def feed(svc, epoch):
+        svc.append(*chunk(epoch, args.events_per_epoch))
+
+    cfg = DSEKLConfig(n_grad=args.n_grad, n_expand=args.n_expand,
+                      kernel=args.kernel, impl="auto")
+    svc = OnlineService(
+        cfg, ring, generator=torch.Generator().manual_seed(args.seed),
+        engine_cfg=EngineConfig(query_block=args.query_block,
+                                sv_block=args.sv_block),
+        publish_every=args.publish_every,
+        rebuild_drift=args.rebuild_drift,
+        max_epochs=args.epochs,
+        checkpoint_dir=args.checkpoint_dir or None,
+        resume=args.resume, record_models=record_models,
+        train_nice=args.train_nice or None,
+        ingest_hook=feed, device=device)
+    print(f"[serve-online] device={device} n0={ring.n} "
+          f"capacity={args.capacity} events/epoch={args.events_per_epoch} "
+          f"epochs={args.epochs} resume@{svc.epoch} version={svc.version}")
+
+    lock = threading.Lock()
+    lat: List[float] = []
+    responses = []
+    sent: Dict[int, np.ndarray] = {}
+    batches: List[List[np.ndarray]] = [[] for _ in range(clients)]
+
+    def client(c: int) -> None:
+        rng = np.random.default_rng((args.seed, _QUERY_TAG, c))
+        while svc.running:
+            q = rng.standard_normal((args.request, d)).astype(np.float32)
+            t = svc.submit(q)
+            t0 = time.perf_counter()
+            outs = svc.flush()
+            dt = time.perf_counter() - t0
+            with lock:
+                sent[t] = q
+                batches[c].append(q)
+                lat.append(dt)
+                responses.extend(outs)
+
+    svc.start()
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(1, clients)]
+    for th in threads:
+        th.start()
+    client(0)
+    for th in threads:
+        th.join()
+    svc.join()
+    if svc.error is not None:
+        raise svc.error
+    q = np.random.default_rng((args.seed, _QUERY_TAG, clients)) \
+        .standard_normal((args.request, d)).astype(np.float32)
+    sent[svc.submit(q)] = q
+    responses.extend(svc.flush())
+    st = svc.stats()
+    served = sum(int(r.f.shape[0]) for r in responses)
+    print(f"[serve-online] served {served} queries in {len(lat)} flushes "
+          f"({clients} client(s)): p50={_percentile_ms(lat, 50):.2f}ms "
+          f"p99={_percentile_ms(lat, 99):.2f}ms")
+    print(f"[serve-online] publishes={st['publishes']} "
+          f"rebuilds={st['rebuilds']} staleness mean="
+          f"{st['staleness_mean']:.1f} max={st['staleness_max']} "
+          f"events-behind")
+    print(f"ONLINE_DONE epochs={svc.epoch} version={svc.version} "
+          f"publishes={st['publishes']}")
+    return {"service": svc, "latencies_s": lat, "responses": responses,
+            "sent": sent, "client_batches": batches, "ring": ring,
+            "events": chunk, "stats": st}
 
 
 def serve_lm(cfg: ModelConfig, batch: int, prompt_len: int, new_tokens: int,
@@ -256,13 +533,53 @@ def parser() -> argparse.ArgumentParser:
                          "double-buffered pipeline")
     ap.add_argument("--cache-blocks", type=int, default=0,
                     help="LRU kernel-map tile cache capacity (0 = off)")
+    # Multi-tenant front door (DESIGN.md §12)
+    ap.add_argument("--tenants", default="",
+                    help="serve through the multi-tenant front door: "
+                         "'name[:weight[:max_tickets[:cache_quota]]],...' "
+                         "or a bare integer for N equal tenants")
+    ap.add_argument("--qos", choices=["on", "off"], default="on",
+                    help="'on' = weighted DRR + shedding + cache quotas; "
+                         "'off' = global-FIFO baseline (A/B arm)")
+    # Online train-to-serve mode (DESIGN.md §11)
+    ap.add_argument("--online", action="store_true",
+                    help="serve while a background thread keeps training "
+                         "over an appendable RingSource")
+    ap.add_argument("--capacity", type=int, default=4096,
+                    help="ring-buffer capacity (resident event window)")
+    ap.add_argument("--n-prefill", type=int, default=1024,
+                    help="labeled events preloaded before serving starts")
+    ap.add_argument("--events-per-epoch", type=int, default=128,
+                    help="labeled events ingested at each epoch boundary")
+    ap.add_argument("--epochs", type=int, default=8)
+    ap.add_argument("--n-grad", type=int, default=64)
+    ap.add_argument("--n-expand", type=int, default=64)
+    ap.add_argument("--publish-every", type=int, default=1)
+    ap.add_argument("--rebuild-drift", type=float, default=0.5,
+                    help="rebuild the serving engine when events-behind "
+                         "exceeds this fraction of the training window")
+    ap.add_argument("--train-nice", type=int, default=0,
+                    help="run the fit thread this many nice levels below "
+                         "the serving threads (Linux; 0 = same priority)")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="checkpoint the service (kill-and-resume safe)")
+    ap.add_argument("--resume", action="store_true")
     return ap
 
 
 def main(argv=None):
     ap = parser()
     args = ap.parse_args(argv)
-    if args.dsekl:
+    if args.tenants and args.online:
+        ap.error("--tenants fronts the one-shot engine mode; for a "
+                 "front door over a live OnlineService build a "
+                 "TenantFrontDoor(service, ...) directly "
+                 "(docs/OPERATIONS.md)")
+    if args.dsekl and args.tenants:
+        serve_tenants(args)
+    elif args.dsekl and args.online:
+        serve_online(args)
+    elif args.dsekl:
         serve_dsekl(args)
     else:
         lm_main(ap, args)

@@ -25,7 +25,14 @@ Serving is ``f(x) = K(x, X_sv) @ alpha_sv``:
 
 Thread-safety: one serving thread owns ``submit``/``flush*``/``predict``
 and the cache mutators; ``update_alpha`` may run concurrently from another
-thread (every sweep captures ``(alpha, version)`` once, under a lock).
+thread (every sweep captures ``(alpha, version)`` once, under a lock).  On
+the card the publisher and the server may run on different CUDA streams:
+``update_alpha`` records an event after its copy, and the sweep-start
+capture makes the serving stream (the serving thread's current stream)
+wait on it and ``record_stream``s the captured tensors onto that stream,
+so neither a torn alpha nor a reused allocation can reach a sweep.  The
+pipelined flush's handoff synchronises the serving stream alone: work
+another thread queued on its own stream does not delay it.
 Support-set sharding across cards waits for the mesh slice: this engine
 has no ``mesh`` parameter.
 """
@@ -120,6 +127,9 @@ class DSEKLPredictionEngine:
         self.async_flushes = 0
         self.alpha_version = int(alpha_version)
         self._alpha_lock = threading.Lock()
+        # Recorded after the build's (and each update_alpha's) copies on
+        # the building thread's stream; every sweep's stream waits on it.
+        self._alpha_ready = self._record_ready()
 
         # --- kernel-map tile cache (LRU, content-hash keyed) --------------
         self._cache: "OrderedDict[bytes, Tensor]" = OrderedDict()
@@ -261,10 +271,30 @@ class DSEKLPredictionEngine:
     # Model update.
     # ------------------------------------------------------------------
 
+    def _record_ready(self) -> Optional[torch.cuda.Event]:
+        """On the card, an event recorded on the calling thread's current
+        stream after the copies it queued; ``None`` on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
+
     def _capture_alpha(self) -> Tuple[Tensor, int]:
-        """The sweep-start capture: one coherent ``(alpha, version)``."""
+        """The sweep-start capture: one coherent ``(alpha, version)``.  On
+        the card the serving stream (the caller's current stream) waits on
+        the publish's event, and the captured alpha and support rows are
+        ``record_stream``ed onto it: the allocator does not hand their
+        memory to the publisher's stream while this sweep may read it."""
         with self._alpha_lock:
-            return self._a_sv, self.alpha_version
+            a_sv, version, ready = (self._a_sv, self.alpha_version,
+                                    self._alpha_ready)
+        if ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(ready)
+            a_sv.record_stream(stream)
+            self._x_sv.record_stream(stream)
+        return a_sv, version
 
     def update_alpha(self, alpha, *, version: Optional[int] = None) -> None:
         """Swap in new dual coefficients without rebuilding the engine.
@@ -273,7 +303,9 @@ class DSEKLPredictionEngine:
         kernel-map tiles stay valid (K does not depend on alpha).  A sweep
         already running completes on the alpha it captured; the version
         advances by one, or to an explicit ``version``.  Safe to call from
-        a thread other than the serving thread."""
+        a thread other than the serving thread, on a stream of its own: the
+        copy is queued on the caller's current stream and an event after
+        it orders every later sweep behind it."""
         if self.n_sv != self.n_train:
             raise ValueError(
                 "update_alpha requires a keep-all engine (truncate_tol < 0):"
@@ -283,8 +315,10 @@ class DSEKLPredictionEngine:
             raise ValueError(
                 f"alpha must be ({self.n_train},); got {tuple(alpha.shape)}")
         a_p = _pad_to(alpha, self.n_sv_padded)
+        ready = self._record_ready()
         with self._alpha_lock:
             self._a_sv = a_p
+            self._alpha_ready = ready
             self.alpha_version = (self.alpha_version + 1
                                   if version is None else int(version))
 
@@ -298,6 +332,14 @@ class DSEKLPredictionEngine:
         enabled), all against one captured alpha.  Returns without
         synchronising the device."""
         return self._predict(x_query, self._capture_alpha()[0])
+
+    def warm(self) -> None:
+        """One zero query tile through the serve function on the caller's
+        stream (the kernel's first launch), past the tile cache: no tile
+        is kept and no cache counter moves."""
+        xq = torch.zeros((self.engine_cfg.query_block, self.d),
+                         dtype=torch.float32, device=self.device)
+        self._serve(xq, self._capture_alpha()[0])
 
     def _predict(self, x_query, a_sv: Tensor) -> Tensor:
         n = int(x_query.shape[0])
@@ -341,13 +383,15 @@ class DSEKLPredictionEngine:
         out of staging buffer ``b % 2`` and served; meanwhile the host fills
         the other buffer with tile *b+1*.  Before refilling buffer ``b % 2``
         the host waits for the copy of tile *b-2* out of it.  The only
-        other synchronisation is the one at handoff."""
+        other synchronisation is the one at handoff, of the serving stream
+        (the caller's current stream) alone."""
         n = merged.shape[0]
         if n == 0:
             return torch.zeros((0,), dtype=torch.float32, device=self.device)
         qb = self.engine_cfg.query_block
         bufs = self._staging_buffers()
         cuda = self.device.type == "cuda"
+        stream = torch.cuda.current_stream(self.device) if cuda else None
         copied: List[Optional[torch.cuda.Event]] = [None, None]
         outs: List[Tensor] = []
         for b in range(-(-n // qb)):
@@ -364,14 +408,14 @@ class DSEKLPredictionEngine:
             if cuda:
                 xq = buf.to(self.device, non_blocking=True)
                 copied[slot] = torch.cuda.Event()
-                copied[slot].record()
+                copied[slot].record(stream)
             else:
                 xq = buf.clone()
             outs.append(self._serve(xq, a_sv))
             self.serve_calls += 1
         f = torch.cat(outs)[:n]
         if cuda:
-            torch.cuda.current_stream(self.device).synchronize()  # handoff
+            stream.synchronize()        # handoff: the serving stream alone
         return f
 
     # ------------------------------------------------------------------

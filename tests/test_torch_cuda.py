@@ -28,9 +28,15 @@ step at the protocol's shape (J union 4,096) takes the wide variant,
 and past 4,096 the fp32 route, each held to the same tolerance; the
 hosted prefetcher's pinned, copy-streamed blocks must equal
 ``SyncGather``'s exactly under a delayed consumer, and a hosted
-Algorithm-2 fit must equal the in-memory one bit for bit.
+Algorithm-2 fit must equal the in-memory one bit for bit.  A publish from
+a second thread on a stream of its own must never reach a sweep torn, and
+a flush must not wait for work queued on that stream; the online service
+on the card answers every ticket once, bit-identical to its version's
+oracle, on the sm90 routes.
 """
 import ctypes
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -1211,3 +1217,175 @@ def test_emp_fix_step_on_the_card_matches_ref(cuda):
         ref = baselines.emp_fix_step(cfg.replace(impl="ref"), ref, x, y, idx)
     assert bool(torch.isfinite(ref.alpha).all())
     _close_biting(card.alpha, ref.alpha)
+
+
+# ---------------------------------------------------------------------------
+# Publishing from a second thread on a stream of its own (online serving).
+# ---------------------------------------------------------------------------
+
+def _cycles_per_ms():
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(20_000_000)
+    end.record()
+    end.synchronize()
+    return 20_000_000 / start.elapsed_time(end)
+
+
+def _publish_engine(cuda, n=8192, d=54):
+    rng = np.random.default_rng(16)
+    x = rng.standard_normal((n, d)).astype(np.float32) / np.sqrt(d)
+    a0 = rng.standard_normal(n).astype(np.float32)
+    ec = EngineConfig(query_block=1024, truncate_tol=-1.0)
+    eng = DSEKLPredictionEngine(DSEKLConfig(), a0, x, engine_cfg=ec,
+                                device=cuda)
+    q = rng.standard_normal((300, d)).astype(np.float32) / np.sqrt(d)
+
+    def oracle(alpha):
+        return DSEKLPredictionEngine(DSEKLConfig(), alpha, x, engine_cfg=ec,
+                                     device=cuda).predict(q)
+
+    return eng, a0, q, oracle
+
+
+def test_flush_does_not_wait_for_the_publishers_stream(cuda):
+    """Work another thread queued on its own stream (here a 400-ms spin)
+    does not delay a flush on the serving stream."""
+    eng, a0, q, oracle = _publish_engine(cuda)
+    want = oracle(a0)
+    eng.submit(q)
+    eng.flush_async()                                  # warm
+    per_ms = _cycles_per_ms()
+    side = torch.cuda.Stream(cuda)
+    queued = threading.Event()
+
+    def fit_thread():
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(int(400 * per_ms))
+        queued.set()
+
+    th = threading.Thread(target=fit_thread)
+    th.start()
+    queued.wait()
+    eng.submit(q)
+    t0 = time.perf_counter()
+    ((f, v),) = eng.flush_async_tagged()
+    dt = time.perf_counter() - t0
+    assert not side.query(), "the spin ended before the flush returned"
+    th.join()
+    side.synchronize()
+    assert dt < 0.1, f"the flush took {dt:.3f}s behind the side stream"
+    assert v == 0 and torch.equal(f, want)
+
+
+def test_publish_on_a_side_stream_is_never_torn(cuda):
+    """``update_alpha`` from another thread, its copy queued on that
+    thread's stream behind a 200-ms spin: a sweep that captures the new
+    version serves the new alpha whole (the serving stream waits on the
+    publish's event), never the buffer before the copy landed; the sweep
+    before it serves the old one."""
+    eng, a0, q, oracle = _publish_engine(cuda)
+    a1 = (a0 * -2.0 + 0.5).astype(np.float32)
+    want0, want1 = oracle(a0), oracle(a1)
+    per_ms = _cycles_per_ms()
+    side = torch.cuda.Stream(cuda)
+    a1_dev = torch.from_numpy(a1).to(cuda)
+    for trial in range(3):
+        eng.update_alpha(a0, version=2 * trial)
+        torch.cuda.synchronize()
+        eng.submit(q)
+        ((f, v),) = eng.flush_async_tagged()
+        assert v == 2 * trial and torch.equal(f, want0)
+        published = threading.Event()
+
+        def fit_thread():
+            with torch.cuda.stream(side):
+                torch.cuda._sleep(int(200 * per_ms))
+                # The new alpha is computed on the side stream after the
+                # spin: ready on the device only ~200 ms from now.
+                new = a1_dev * 1.0
+                eng.update_alpha(new, version=2 * trial + 1)
+            published.set()
+
+        th = threading.Thread(target=fit_thread)
+        th.start()
+        published.wait()
+        eng.submit(q)
+        ((f, v),) = eng.flush_async_tagged()
+        th.join()
+        assert v == 2 * trial + 1
+        assert torch.equal(f, want1), "a sweep served a torn alpha"
+    side.synchronize()
+
+
+def test_online_service_soak_on_the_card(cuda):
+    """The service on the card: the fit thread on its own stream, three
+    writers flushing; every ticket answered once, each response
+    bit-identical to a fresh engine on its version's recorded model, every
+    matvec and train-pass launch on the sm90 route."""
+    from repro_torch.data import RingSource
+    from repro_torch.serving import OnlineService
+    d = 54
+
+    def events(seed, m):
+        r = np.random.default_rng(seed)
+        x = r.standard_normal((m, d)).astype(np.float32) / np.sqrt(d)
+        return x, np.where(x[:, 0] + x[:, 1] > 0, 1.0, -1.0).astype(
+            np.float32)
+
+    ring = RingSource(16384, d)
+    ring.append(*events(0, 8192))
+    cfg = DSEKLConfig(n_grad=1024, n_expand=1024)
+    counters = (block.kernel_matvec_cuda, block.train_pass_cuda,
+                block.train_pass_indexed_cuda)
+    before = [dict(c.launches_by_route) for c in counters]
+    svc = OnlineService(
+        cfg, ring, generator=torch.Generator().manual_seed(0),
+        engine_cfg=EngineConfig(query_block=1024),
+        rebuild_drift=0.1, max_epochs=6, record_models=True,
+        ingest_hook=lambda s, e: s.append(*events((1, e), 2048)),
+        device=cuda)
+    svc.start()
+    sent, responses, lock = {}, [], threading.Lock()
+
+    def writer(w):
+        r = np.random.default_rng((w, 5))
+        it = 0
+        while svc.running or it < 10:
+            b = r.standard_normal((64, d)).astype(np.float32)
+            t = svc.submit(b)
+            with lock:
+                sent[t] = b
+            out = svc.flush()
+            with lock:
+                responses.extend(out)
+            it += 1
+
+    threads = [threading.Thread(target=writer, args=(w,)) for w in range(3)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    svc.join(timeout=300)
+    assert svc.error is None, svc.error
+    responses.extend(svc.flush())
+    after = [dict(c.launches_by_route) for c in counters]
+    tickets = [r.ticket for r in responses]
+    assert len(tickets) == len(set(tickets)) and set(tickets) == set(sent)
+    assert svc.rebuilds >= 1 and svc.epoch == 6
+    for b, a in zip(before, after):
+        assert a["fp32"] == b["fp32"]
+    assert after[0]["sm90"] > before[0]["sm90"]
+    assert after[1]["sm90"] - before[1]["sm90"] == sum(
+        max(e["n"] // cfg.n_grad, 1) for e in svc.publish_log
+        if e["kind"] == "swap")
+    oracles = {}
+    for r in responses:
+        if r.version not in oracles:
+            alpha, snap = svc.published(r.version)
+            oracles[r.version] = DSEKLPredictionEngine(
+                cfg, alpha, snap.gather_x(slice(None)),
+                engine_cfg=svc.engine_cfg, device=cuda)
+        assert torch.equal(r.f, oracles[r.version].predict(sent[r.ticket]))
+    assert len(oracles) > 1

@@ -3,7 +3,8 @@ fallback.
 
 * every module of ``repro_torch`` imports, and a CPU predict and an LM
   prefill run, in a process where ``jax`` and ``repro`` cannot be
-  imported;
+  imported; so do the ring, the online service (two epochs), the tenant
+  front door over it and the synthetic generators;
 * an AST scan of ``src/repro_torch/`` and ``chip_smoke.py`` finds no
   ``jax`` / ``repro`` import;
 * an entry point (serving, ``fit``, the training launcher) called with no
@@ -68,6 +69,48 @@ def test_imports_and_predicts_without_jax():
         assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                        for m, v in sys.modules.items() if v is not None)
         assert "triton" not in sys.modules
+        print("ISOLATED_OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "ISOLATED_OK" in out.stdout
+
+
+def test_online_and_tenancy_run_without_jax():
+    """The ring, the online service, the front door and the synthetic
+    generators import and run where ``jax`` and ``repro`` cannot be
+    imported."""
+    script = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import numpy as np
+        import torch
+        from repro_torch.core.dsekl import DSEKLConfig
+        from repro_torch.data import RingSource, make_xor, train_test_split
+        from repro_torch.serving import (OnlineService, EngineConfig,
+                                         TenantConfig, TenantFrontDoor)
+        x, y = make_xor(256, device="cpu")
+        ring = RingSource(512, 2)
+        ring.append(x.numpy(), y.numpy())
+        svc = OnlineService(DSEKLConfig(n_grad=32, n_expand=32), ring,
+                            generator=torch.Generator().manual_seed(0),
+                            engine_cfg=EngineConfig(query_block=32),
+                            max_epochs=2, device="cpu")
+        fd = TenantFrontDoor(svc, {"a": TenantConfig(),
+                                   "b": TenantConfig(weight=2.0)})
+        svc.start()
+        fd.submit("a", x[:5].numpy())
+        fd.submit("b", x[5:9].numpy())
+        out = fd.flush()
+        svc.join()
+        assert svc.error is None and svc.epoch == 2
+        assert sorted(r.ticket for r in out) == [0, 1]
+        assert train_test_split(x, y, perm=np.arange(256))[0].shape[0] == 128
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m, v in sys.modules.items() if v is not None)
         print("ISOLATED_OK")
     """)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
