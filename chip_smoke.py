@@ -10,9 +10,11 @@ Algorithm 2 at the paper's parallel covertype protocol in memory and out
 of core from a memmap, block coordinate descent rounds in memory and out
 of core, the paper's baselines (EmpFix, RKS, the batch SVM) and kernel
 PCA, the online train-to-serve loop and the multi-tenant front door
-(``serve_online``, ``serve_tenants``), and serving the jamba-v0.1-52b
-language model at
-full width through ``repro_torch.launch.serve.serve_lm`` — with every
+(``serve_online``, ``serve_tenants``), serving the jamba-v0.1-52b
+language model at full width through
+``repro_torch.launch.serve.serve_lm``, training mamba2-780m at full
+width and depth through ``repro_torch.launch.train.train_lm`` and the
+DSEKL readout over its frozen features — with every
 kernel built from this checkout's sources and held against its plain
 PyTorch version.  Phases (any failure exits non-zero and prints no
 result):
@@ -287,6 +289,40 @@ result):
                tile of batch (QoS on), every matvec launch on the sm90
                route.  Prints the victims' p99 on and off (the headline),
                each tenant's p50 / p99, sheds and cache counters.
+ 27. lm-train — LM training through ``repro_torch.launch.train.train_lm``
+               on mamba2-780m at full width and depth (48 layers, d_model
+               1,536, vocab 50,280, bf16 parameters, f32 AdamW moments,
+               cosine at lr 1e-3, loss_chunks 4, remat per layer): batch
+               8 x 1,024 tokens, 12 steps, a checkpoint at step 6 (under
+               build/); then step 6 restored into freshly built state
+               (another init seed) and run to step 12.  First step 0's
+               loss and grad norm in bf16 are held against the same
+               weights and batch in float32 (rtol 1e-2 and 5e-2).  Gates:
+               every loss and grad norm
+               finite, the mean of the last three losses below the first,
+               the resumed losses, grad norms and parameters equal to the
+               uninterrupted run's bit for bit, no flash, SSD or DSEKL
+               launch while training (no kernel has a backward).  Prints
+               ms a step over steps 2-12 and tokens/s, model FLOPs (6 x
+               parameters x tokens) against the bf16 dense peak with the
+               remat recompute apart, peak device memory, and device busy
+               and the largest kernels over two profiled steps.
+ 28. lm-readout — the trained model frozen: ``extract_features`` of
+               4,096 sequences of 512 tokens from a 24-token alphabet, in
+               batches of 32 (48 SSD launches a batch, all sm90, at n 128;
+               the last batch's held against the plain version on their
+               activations), then ``KernelReadout.fit`` by Algorithm 2 (4
+               workers, |I| = |J| = 512: every step one launch of the
+               sm90 train kernel's wide variant at a J union of 2,048) on
+               2,048 rows, at most 60 epochs, gamma 3.2 / D, and the
+               decisions on the other 2,048 rows and the train rows (the
+               matvec's fp32 route at D 1,536, counted by route).  Gates:
+               held-out error <= 0.35 and train error <= 0.05
+               (tests/test_readout.py's), the card's decision equal to
+               ``decision_function_ref`` at the DSEKL tolerance.  Times
+               the SSD at B*nh 1,536, S 512, n 128 and the fp32 matvec at
+               the decision's shape with their bounds (the kernels line's
+               ``ms_bound_by_shape`` of rows ssd and kernel_matvec_fp32).
 
 The DSEKL kernel tolerance is the JAX suite's float32 one
 (tests/test_dual_pass.py ``_tols``): rtol 2e-4, atol 1e-5 * max(1,
@@ -311,6 +347,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import shutil
 import statistics
@@ -3316,7 +3353,8 @@ def _held_bytes(calls) -> int:
     return sum(seen.values())
 
 
-def _hold_main_path(flash_calls, ssd_calls) -> None:
+def _hold_main_path(flash_calls, ssd_calls, tag: str = "serve-jamba",
+                    what: str = "the timed prefill's") -> None:
     """Each recorded launch of the main path against its plain version on
     the activations it was given, in float32: bfloat16 outputs at
     BF16_RTOL with atol FLASH_BF16_ATOL (flash) or SSD_ATOL (SSD), float32
@@ -3345,7 +3383,7 @@ def _hold_main_path(flash_calls, ssd_calls) -> None:
         worst["ssd final"] = max(worst["ssd final"],
                                  compare(final, wf, SSD_RTOL, SSD_ATOL))
         del x, dt, a, bm, cm, wy, wf
-    print(f"[serve-jamba] the timed prefill's {len(flash_calls)} flash and "
+    print(f"[{tag}] {what} {len(flash_calls)} flash and "
           f"{len(ssd_calls)} ssd launches vs their plain versions on the "
           "activations they were given (float32): max abs err "
           + ", ".join(f"{k} {e:.3e}" for k, e in worst.items())
@@ -3722,6 +3760,419 @@ def phase_lm_times(device_name: str):
     return rows
 
 
+# LM training at mamba2-780m's full width and depth (48 layers, d_model
+# 1,536, vocab 50,280, bf16, f32 AdamW moments) through the launcher's
+# train_lm: batch 8 x 1,024 tokens, 12 steps, a checkpoint at step 6; then
+# step 6 restored into freshly built state and run to step 12.  lr 1e-3:
+# at the launcher's default 3e-3 (one warmup step) Adam's first steps
+# raise the loss for all 12 steps (the launcher at each rate; PERF.md §6).
+LM_TRAIN = dict(arch="mamba2-780m", batch=8, seq=1024, steps=12,
+                ckpt_every=6, lr=1e-3)
+LM_CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_lm_ckpt")
+# Step 0 in bf16 against the same weights and batch in float32 (full
+# float32 products): the loss to rtol 1e-2, the grad norm to rtol 5e-2.
+LM_DTYPE_RTOL = {"loss": 1e-2, "grad_norm": 5e-2}
+BF16_PEAK_FLOPS = 989e12            # PERF.md's dense bf16 peak of the H100
+LM_PROFILED_STEPS = 2
+# The readout over the trained model, frozen: 4,096 sequences of 512
+# tokens (two SSD chunks) from a 24-token alphabet (tests/test_readout.py's
+# recipe), extracted in batches of 32; Algorithm 2 (4 workers, |I| = |J| =
+# 512: a J union of 2,048) on 2,048 rows, at most 60 epochs, the other
+# 2,048 held out; gamma x D = 3.2, as the JAX test's 0.05 at D 64.
+READOUT = dict(n=4096, seq=512, alphabet=24, batch=32, n_train=2048,
+               workers=4, n_grad=512, n_expand=512, epochs=60, gamma_d=3.2,
+               lam=1e-5, seed=7)
+
+
+def _loss_and_grad_norm(model, batch) -> tuple:
+    """The training step's loss and grad norm (loss_chunks 4, remat on)
+    of ``model`` on ``batch``, the parameters left as they are."""
+    import torch
+    from repro_torch.optim import global_norm
+    from repro_torch.train import trainable
+    params = trainable(model)
+    loss = model.loss(batch["tokens"], batch["labels"], loss_chunks=4)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return (float(loss.detach()),
+            float(global_norm(dict(zip(params, grads)))))
+
+
+def _lm_step0_dtypes(cfg) -> dict:
+    """Step 0 of lm-train (init seed 0, the pipeline's first batch) in
+    bf16, and on float32 copies of the same weights with float32
+    compute."""
+    import torch
+    from repro_torch.data.pipeline import BigramPipeline, to_device
+    from repro_torch.kernels import full_fp32_matmul
+    from repro_torch.models.model import LanguageModel
+    batch = to_device(BigramPipeline(cfg.vocab_size, LM_TRAIN["batch"],
+                                     LM_TRAIN["seq"], seed=1).peek_batch(0),
+                      torch.device(DEVICE))
+    bf16 = LanguageModel(cfg, device=DEVICE).init(
+        torch.Generator(device=DEVICE).manual_seed(0))
+    out = {"bf16": _loss_and_grad_norm(bf16, batch)}
+    f32 = LanguageModel(cfg.replace(param_dtype="float32",
+                                    compute_dtype="float32"), device=DEVICE)
+    with torch.no_grad():
+        f32.load_state_dict(bf16.state_dict())
+    del bf16
+    with full_fp32_matmul():
+        out["float32"] = _loss_and_grad_norm(f32, batch)
+    del f32, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_kernel_launches() -> dict:
+    """Launches of every kernel wrapper an LM or DSEKL path can reach."""
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.dsekl import block
+    return {"flash": fk.flash_attention_cuda.launches,
+            "ssd": sk.ssd_cuda.launches,
+            **{f.__name__: f.launches for f in (
+                block.train_pass_indexed_cuda, block.train_pass_cuda,
+                block.dual_pass_cuda, block.kernel_matvec_cuda,
+                block.kernel_vecmat_cuda)}}
+
+
+def _reset_lm_counters() -> None:
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
+    _reset_dsekl_counters()
+    fk.flash_attention_cuda.launches = 0
+    fk.flash_attention_cuda.launches_by_route = dict.fromkeys(fk.ROUTES, 0)
+    sk.ssd_cuda.launches = 0
+    sk.ssd_cuda.launches_by_route = dict.fromkeys(sk.ROUTES, 0)
+
+
+def _lm_train_args(resume: bool, seed: int):
+    from repro_torch.launch import train
+    argv = ["--arch", LM_TRAIN["arch"], "--full", "--device", DEVICE,
+            "--steps", str(LM_TRAIN["steps"]), "--batch",
+            str(LM_TRAIN["batch"]), "--seq", str(LM_TRAIN["seq"]),
+            "--lr", str(LM_TRAIN["lr"]), "--ckpt-dir", LM_CKPT_DIR,
+            "--ckpt-every", str(LM_TRAIN["ckpt_every"]), "--seed", str(seed)]
+    return train.parser().parse_args(argv + ["--resume"] * resume)
+
+
+def phase_lm_train():
+    """mamba2-780m at full width and depth trained through ``train_lm``
+    (AdamW, cosine, bf16 parameters, f32 moments); a checkpoint at step 6
+    restored into freshly built state runs to step 12 bit for bit; no
+    kernel launches (training runs the plain differentiable functions:
+    no kernel has a backward); then two steps under torch.profiler.
+    First step 0 in bf16 is held against the same weights in float32."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch import train
+    cfg = get_config(LM_TRAIN["arch"])
+    args = _lm_train_args(resume=False, seed=0)
+    refusal = train.lm_refusal(args)
+    check(not refusal, f"lm-train: {refusal}")
+    # A checkpoint holds the parameters in float32 and the two moments.
+    ckpt_bytes = 12 * cfg.param_count_estimate()
+    shutil.rmtree(LM_CKPT_DIR, ignore_errors=True)
+    os.makedirs(LM_CKPT_DIR)
+    free = shutil.disk_usage(LM_CKPT_DIR).free
+    check(free > 2.2 * ckpt_bytes, f"lm-train: no room for two "
+          f"{ckpt_bytes / 1e9:.1f} GB checkpoints in {LM_CKPT_DIR}: "
+          f"{free / 1e9:.1f} GB free")
+    state_gb = train.lm_state_bytes(cfg) / 1e9
+    print(f"[lm-train] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.param_dtype}; "
+          f"parameters + gradients + f32 moments ~{state_gb:.1f} GB; "
+          f"checkpoints of ~{ckpt_bytes / 1e9:.1f} GB to {LM_CKPT_DIR} "
+          f"({free / 1e9:.0f} GB free)")
+    step0 = _lm_step0_dtypes(cfg)
+    (l16, n16), (l32, n32) = step0["bf16"], step0["float32"]
+    print(f"[lm-train] step 0 in {cfg.param_dtype}: loss {l16:.6f}, grad "
+          f"norm {n16:.6f};"
+          f" the same weights in float32: loss {l32:.6f}, grad norm "
+          f"{n32:.6f} (relative gaps {abs(l16 - l32) / abs(l32):.3e}, "
+          f"{abs(n16 - n32) / abs(n32):.3e}; held to {LM_DTYPE_RTOL})")
+    for key, got, want in (("loss", l16, l32), ("grad_norm", n16, n32)):
+        check(math.isfinite(got) and abs(got - want)
+              <= LM_DTYPE_RTOL[key] * abs(want),
+              f"lm-train: step 0's bf16 {key} {got} is not within "
+              f"{LM_DTYPE_RTOL[key]} of float32's {want}")
+    _reset_lm_counters()                      # the training path starts
+    t0 = time.perf_counter()
+    clean = train.train_lm(args)
+    torch.cuda.synchronize()
+    clean_s = time.perf_counter() - t0
+    launches = _lm_kernel_launches()          # ... and ends here
+    hist = clean["history"]
+    params = {k: p.detach().clone()
+              for k, p in clean["model"].named_parameters()}
+    n_params, peak = clean["n_params"], clean["peak_bytes"]
+    del clean
+    torch.cuda.empty_cache()
+    steps = sorted(int(s[5:]) for s in os.listdir(LM_CKPT_DIR)
+                   if s.startswith("step_") and s[5:].isdigit())
+    check(steps == [LM_TRAIN["ckpt_every"], LM_TRAIN["steps"]],
+          f"lm-train: checkpoints at steps {steps}")
+    shutil.rmtree(os.path.join(LM_CKPT_DIR, f"step_{LM_TRAIN['steps']:010d}"))
+    t0 = time.perf_counter()
+    resumed = train.train_lm(_lm_train_args(resume=True, seed=1))
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    # Two more steps under the profiler (they change the state).
+    model, step_fn = resumed["model"], resumed["step"]
+    tparams = dict(model.named_parameters())
+    opt_state, pipe = resumed["opt_state"], resumed["pipeline"]
+    rhist = resumed["history"]
+    same = all(torch.equal(p, params[k]) for k, p in tparams.items())
+    del params
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(LM_PROFILED_STEPS):
+            _, opt_state, m = step_fn(tparams, opt_state, to_device(
+                pipe.next_batch(), torch.device(DEVICE)))
+            float(m["loss"])
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    shutil.rmtree(LM_CKPT_DIR, ignore_errors=True)
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    print(f"[lm-train] kernel launches during training: {launches}")
+    check(not any(launches.values()),
+          f"lm-train: kernels launched while training: {launches}")
+    check(len(hist) == LM_TRAIN["steps"], f"lm-train: {len(hist)} steps")
+    check(all(map(math.isfinite, losses + norms)),
+          f"lm-train: non-finite loss or grad norm: {losses} {norms}")
+    tail = statistics.mean(losses[-3:])
+    check(tail < losses[0], f"lm-train: the last three losses' mean {tail} "
+          f"is not below the first {losses[0]}")
+    print("[lm-train] loss " + " ".join(f"{v:.4f}" for v in losses)
+          + "; grad norm " + " ".join(f"{v:.3f}" for v in norms))
+    first = LM_TRAIN["ckpt_every"]
+    check([h["step"] for h in rhist] == list(range(first, LM_TRAIN["steps"])),
+          f"lm-train: the resumed run's steps {[h['step'] for h in rhist]}")
+    check([h["loss"] for h in rhist] == losses[first:]
+          and [h["grad_norm"] for h in rhist] == norms[first:],
+          "lm-train: the resumed run's losses or grad norms differ from the "
+          f"uninterrupted run's: {[h['loss'] for h in rhist]} vs "
+          f"{losses[first:]}")
+    check(same, "lm-train: the resumed run's parameters differ from the "
+          "uninterrupted run's")
+    print(f"[lm-train] step {first} restored into freshly built state (init "
+          f"seed 1) and run to step {LM_TRAIN['steps']}: losses, grad norms "
+          f"and all {n_params:,} parameters equal the uninterrupted run's bit "
+          f"for bit; wall {clean_s:.1f} s uninterrupted (init, 12 steps, "
+          f"checkpoints at 6 and 12), {resume_s:.1f} s resumed")
+    secs = [h["seconds"] for h in hist[1:]]
+    ms = statistics.mean(secs) * 1e3
+    tokens = LM_TRAIN["batch"] * LM_TRAIN["seq"]
+    embed = cfg.vocab_size * cfg.d_model
+    model_flops = 6 * n_params * tokens
+    recompute = 2 * (n_params - embed) * tokens
+    mfu = model_flops / (ms / 1e3) / BF16_PEAK_FLOPS
+    print(f"[lm-train] {ms:.3f} ms a step over steps 2-{LM_TRAIN['steps']} "
+          f"(host clock, each step ending in a device sync; min "
+          f"{min(secs) * 1e3:.3f}, max {max(secs) * 1e3:.3f}) = "
+          f"{tokens / (ms / 1e3):,.0f} tokens/s; model FLOPs 6 x "
+          f"{n_params:,} parameters x {tokens} tokens = {model_flops:.4e} a "
+          f"step = {model_flops / (ms / 1e3) / 1e12:.2f} TFLOP/s = {mfu:.2%} "
+          f"of the {BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16 dense peak; "
+          f"remat recomputes the layers' and the head's forward, 2 x "
+          f"{n_params - embed:,} x {tokens} = {recompute:.4e} more "
+          f"(model + recompute {(model_flops + recompute) / (ms / 1e3) / 1e12:.2f}"
+          f" TFLOP/s; the SSD's intra-chunk products not counted); peak "
+          f"device memory {peak / 2**30:.2f} GiB")
+    rows = _device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3
+    check(busy > 0, "lm-train: torch.profiler recorded no device time")
+    wall = prof_wall * 1e3
+    print(f"[lm-train] torch.profiler over {LM_PROFILED_STEPS} steps: wall "
+          f"{wall:.3f} ms (profiler on), device busy {busy:.3f} ms = "
+          f"{busy / wall:.1%}; {sum(r[2] for r in rows) / LM_PROFILED_STEPS:.0f}"
+          f" device kernels (and copies, fills) a step; the largest:")
+    for dev_us, key, count in rows[:12]:
+        print(f"[lm-train]   {dev_us / 1e3 / LM_PROFILED_STEPS:9.3f} ms/step "
+              f"{count // LM_PROFILED_STEPS:6d}x {key[:90]}")
+    return {"model": model, "ms_per_step": ms, "tokens_per_s":
+            tokens / (ms / 1e3), "mfu": mfu, "peak_gib": peak / 2**30,
+            "busy_share": busy / wall, "step0": step0}
+
+
+def _ssd_shape_time(case, device_name: str):
+    """The sm90 SSD kernel at ``case`` (b, s, nh, hd, g, n, chunk) in
+    bf16: device ms a call (``device_ms``), the bound (products at the bf16
+    tensor peak, the rest at fp32; bytes at HBM rate), error against the
+    plain version on the same values in float32."""
+    import torch
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd import ssd_chunked
+    args = _ssd_inputs(case, torch.bfloat16, seed=13)
+    b, s, nh, hd, g, n, chunk = case
+    check(sk.select_route(torch.bfloat16, hd, n, chunk) == "sm90",
+          f"ssd {case} does not take the sm90 route")
+
+    def kernel():
+        return sk.ssd_cuda(*args, chunk=chunk)
+
+    gy, gf = kernel()
+    wy, wf = ssd_chunked(*(a.float() for a in args), chunk=chunk, impl="ref")
+    err = max(compare(gy.float(), wy, BF16_RTOL, SSD_ATOL),
+              compare(gf, wf, SSD_RTOL, SSD_ATOL))
+    del gy, gf, wy, wf
+    ms = statistics.mean([device_ms(kernel), device_ms(kernel)])
+    peak = peaks(device_name)
+    n_tensor, n_ops = (b * nh * x for x in _ssd_ops(s, chunk, n, hd))
+    n_bytes = (2 * (2 * b * s * nh * hd + b * s * nh + 2 * b * s * g * n)
+               + 4 * nh + 4 * b * nh * hd * n)
+    t_ops = (n_tensor / peak["bf16"] + n_ops / peak["fp32"]) * 1e3
+    bound = max(t_ops, n_bytes / peak["bytes"] * 1e3)
+    return ms, bound, err
+
+
+def phase_lm_readout(model, device_name: str):
+    """The DSEKL readout over the trained model, frozen: features of 4,096
+    sequences through the SSD kernel (48 launches a batch, sm90; the last
+    batch's held against the plain version on its activations), then
+    ``KernelReadout.fit`` by Algorithm 2 (every step one launch of the
+    sm90 train kernel's wide variant) and its decision through the fp32
+    matvec route (D 1,536); gates as tests/test_readout.py."""
+    import torch
+    from repro_torch.core.dsekl import (DSEKLConfig, decision_function_ref)
+    from repro_torch.core.readout import KernelReadout, extract_features
+    from repro_torch.kernels.dsekl import block
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.models import ssm
+    cfg = model.cfg
+    r = READOUT
+    d = cfg.d_model
+    gen = torch.Generator(device=DEVICE).manual_seed(r["seed"])
+    tokens = torch.randint(0, r["alphabet"], (r["n"], r["seq"]),
+                           generator=gen, device=DEVICE)
+    n_batches = r["n"] // r["batch"]
+    ssd_calls = []
+    undo = _recorder(ssm, "ssd_chunked", ssd_calls, cfg.n_layers)
+    _reset_lm_counters()                      # the readout path starts
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = extract_features(model, tokens, batch_size=r["batch"])
+        torch.cuda.synchronize()
+        extract_s = time.perf_counter() - t0
+    finally:
+        undo()
+    ssd_routes = dict(sk.ssd_cuda.launches_by_route)
+    ssd_n = sk.ssd_cuda.launches
+    fwd_flops = 2 * (sum(p.numel() for p in model.parameters())
+                     - cfg.vocab_size * d) * r["n"] * r["seq"]
+    print(f"[lm-readout] extract_features: {r['n']} x {r['seq']} tokens in "
+          f"{n_batches} batches of {r['batch']}: {extract_s:.3f} s (host "
+          f"clock ending in a sync; {fwd_flops:.3e} FLOPs of frozen forward "
+          f"by 2 x parameters x tokens = {fwd_flops / extract_s / 1e12:.1f} "
+          f"TFLOP/s); ssd launches {ssd_n} by route {ssd_routes}")
+    check(ssd_n == cfg.n_layers * n_batches and ssd_routes["sm90"] == ssd_n,
+          f"lm-readout: {ssd_n} ssd launches ({ssd_routes}), expected "
+          f"{cfg.n_layers} x {n_batches}, all sm90")
+    check(tuple(feats.shape) == (r["n"], d)
+          and bool(torch.isfinite(feats).all()),
+          f"lm-readout: features {tuple(feats.shape)} or non-finite")
+    _hold_main_path([], ssd_calls, "lm-readout", "the last batch's")
+    del ssd_calls
+    w = torch.randn(d, generator=gen, device=DEVICE)
+    y = torch.sign(feats @ w / d ** 0.5 + 1e-6)
+    ntr = r["n_train"]
+    hcfg = DSEKLConfig(n_grad=r["n_grad"], n_expand=r["n_expand"],
+                       n_workers=r["workers"], lam=r["lam"], lr0=1.0,
+                       schedule="adagrad",
+                       kernel_params=(("gamma", r["gamma_d"] / d),))
+    head = KernelReadout(hcfg)
+    train_before = dict(block.train_pass_indexed_cuda.launches_by_route)
+    t0 = time.perf_counter()
+    res = head.fit(feats[:ntr].contiguous(), y[:ntr].contiguous(),
+                   torch.Generator(device=DEVICE).manual_seed(r["seed"]),
+                   n_epochs=r["epochs"])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    steps = int(res.state.step)
+    counts = _dsekl_counts()
+    j_union = r["workers"] * r["n_expand"]
+    wide_smem = block._train_sm90_lib().dsekl_train_sm90_smem_bytes(j_union)
+    check(counts["train_pass_indexed_cuda"] == {"sm90": steps, "fp32": 0}
+          and train_before == {"sm90": 0, "fp32": 0} and wide_smem > 0
+          and counts["train_pass_cuda"] == {"sm90": 0, "fp32": 0},
+          f"lm-readout: {steps} steps, train launches {counts}; J union "
+          f"{j_union} takes {wide_smem} B of dynamic shared memory (the wide "
+          "variant takes > 0)")
+    matvec_fit = dict(block.kernel_matvec_cuda.launches_by_route)
+    test_feats = feats[ntr:].contiguous()
+    dec = head.decision(test_feats)
+    pred = torch.sign(dec)
+    tr_pred = head.predict(feats[:ntr].contiguous())
+    torch.cuda.synchronize()
+    matvec = {k: v - matvec_fit[k]
+              for k, v in block.kernel_matvec_cuda.launches_by_route.items()}
+    launches = _lm_kernel_launches()          # ... and ends here
+    err = float((pred != y[ntr:]).float().mean())
+    tr_err = float((tr_pred != y[:ntr]).float().mean())
+    n_sv = head.x_train.shape[0]
+    print(f"[lm-readout] Algorithm 2 (4 workers x |J| {r['n_expand']}, J "
+          f"union {j_union}: the sm90 train kernel's wide variant, "
+          f"{wide_smem} B of dynamic shared memory) on {ntr} rows x D {d}, "
+          f"gamma {r['gamma_d'] / d:.6f}: {res.epochs_run} epochs, {steps} "
+          f"steps in {fit_s:.3f} s ({fit_s / steps * 1e3:.3f} ms a step); "
+          f"{n_sv} support vectors; held-out error {err:.4f} (gate 0.35), "
+          f"train error {tr_err:.4f} (gate 0.05); matvec launches by route "
+          f"for the decisions {matvec}, in the fit {matvec_fit}")
+    check(err <= 0.35 and tr_err <= 0.05,
+          f"lm-readout: held-out error {err}, train error {tr_err}")
+    route = block.select_matvec_route("rbf", d)     # fp32 at D 1,536
+    check(matvec == dict({"sm90": 0, "fp32": 0}, **{route: 2})
+          and sum(matvec_fit.values()) == 0,
+          f"lm-readout: decision matvecs by route {matvec}, expected 2 on "
+          f"the {route} route; in the fit {matvec_fit}")
+    want = decision_function_ref(hcfg.replace(impl="ref"), head.alpha,
+                                 head.x_train, test_feats)
+    derr = compare(dec, want)
+    print(f"[lm-readout] the card's decision vs decision_function_ref: max "
+          f"abs err {derr:.3e} (rtol {RTOL}, atol {ATOL} x max(1, |ref|), "
+          f"|ref|_inf {float(want.abs().max()):.4f})")
+    # The two shapes this path gives its kernels, timed with their bounds.
+    ssd_case = (r["batch"], r["seq"], cfg.ssm_heads, cfg.ssm_head_dim,
+                cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_chunk)
+    ssd_ms, ssd_bound, ssd_err = _ssd_shape_time(ssd_case, device_name)
+    print(f"[lm-readout] ssd sm90 at B*nh {r['batch'] * cfg.ssm_heads}, S "
+          f"{r['seq']}, hd {cfg.ssm_head_dim}, n {cfg.ssm_state}, chunk "
+          f"{cfg.ssm_chunk}: device {ssd_ms:.4f} ms a call, bound "
+          f"{ssd_bound:.4f} ms = {ssd_bound / ssd_ms:.1%}; vs plain max abs "
+          f"err {ssd_err:.3e}")
+    params = {"gamma": r["gamma_d"] / d}
+    alpha_sv = head.alpha.contiguous()
+
+    def mv():
+        return block.kernel_matvec_cuda(test_feats, head.x_train, alpha_sv,
+                                        kernel_name="rbf", params=params)
+
+    mv_err = compare(mv(), block.kernel_matvec_plain(
+        test_feats, head.x_train, alpha_sv, kernel_name="rbf",
+        params=params))
+    mv_ms = statistics.mean([device_ms(mv), device_ms(mv)])
+    peak = peaks(device_name)
+    products, ops_count, bytes_count = _matvec_work(test_feats.shape[0],
+                                                    n_sv, d)
+    mv_bound = max((products + ops_count) / peak["fp32"],
+                   bytes_count / peak["bytes"]) * 1e3
+    print(f"[lm-readout] kernel_matvec fp32 route at (I {test_feats.shape[0]}"
+          f", J {n_sv}, D {d}): device {mv_ms:.4f} ms a call, bound "
+          f"{mv_bound:.6f} ms = {mv_bound / mv_ms:.1%} (all operations at the "
+          f"fp32 peak); vs plain max abs err {mv_err:.3e}")
+    return {"ssd": ssd_n, "train": steps, "matvec": sum(matvec.values()),
+            "launches": launches, "extract_s": extract_s,
+            "ssd_time": (ssd_ms, ssd_bound), "matvec_time": (mv_ms, mv_bound),
+            "err": err, "tr_err": tr_err, "ssd_case": ssd_case,
+            "matvec_shape": (test_feats.shape[0], n_sv, d)}
+
+
 def main() -> int:
     try:
         import torch
@@ -3821,22 +4272,35 @@ def main() -> int:
     jamba = phase_serve_jamba()
     del jamba["res"]
     elapsed("serve-jamba")
+    lm_train = phase_lm_train()
+    elapsed("lm-train")
+    readout = phase_lm_readout(lm_train.pop("model"), name)
+    elapsed("lm-readout")
     rows += phase_lm_times(name)
     elapsed("lm-times")
-    # Launches on the main paths; every fp32 route has none there.
+    # Launches on the main paths; every fp32 route but the matvec's (the
+    # readout's decision at D 1,536) has none there.
+    wide_paths["lm-readout fit (J union 2,048)"] = readout["train"]
+    # The readout's decisions at D 1,536 take the matvec's fp32 route.
+    matvec_fp32_paths = {"lm-readout decisions (D 1,536)": readout["matvec"]}
+    ssd_paths = {"serve-jamba": jamba["ssd"],
+                 "lm-readout (mamba2-780m, n 128)": readout["ssd"]}
     by_path = {"kernel_matvec": matvec_paths,
                "train_pass": train_paths,
                "train_pass_sm90_j4096": wide_paths,
-               "kernel_vecmat": vecmat_paths}
+               "kernel_vecmat": vecmat_paths, "ssd": ssd_paths,
+               "kernel_matvec_fp32": matvec_fp32_paths}
     # kernel_vecmat_precond times kernel_vecmat at the correction's shape;
     # its launches are counted once, in kernel_vecmat's row.
     launches = {"kernel_matvec": sum(matvec_paths.values()), "rbf_matvec": 0,
+                "kernel_matvec_fp32": sum(matvec_fp32_paths.values()),
                 "kernel_vecmat": sum(vecmat_paths.values()),
                 "kernel_vecmat_precond": 0,
                 "dual_pass": trained["dual_launches"],
                 "train_pass": sum(train_paths.values()),
                 "train_pass_sm90_j4096": sum(wide_paths.values()),
-                "flash_attention": jamba["flash"], "ssd": jamba["ssd"]}
+                "flash_attention": jamba["flash"],
+                "ssd": sum(ssd_paths.values())}
     for row in rows:
         row["launches"] = launches.get(row["name"], 0)
         if row["name"] in by_path:
@@ -3846,6 +4310,14 @@ def main() -> int:
             row["ms_bound_by_shape"] = {
                 k[: -len(kind) - 1]: v for k, v in shape_times.items()
                 if k.endswith(kind)}
+        if row["name"] == "kernel_matvec_fp32":
+            row["ms_bound_by_shape"] = {
+                "lm-readout decision (I %d, J %d, D %d)"
+                % readout["matvec_shape"]: readout["matvec_time"]}
+        if row["name"] == "ssd":
+            row["ms_bound_by_shape"] = {
+                "lm-readout (B %d, S %d, nh %d, hd %d, g %d, n %d, chunk %d)"
+                % readout["ssd_case"]: readout["ssd_time"]}
         check(row["name"] in launches or row["kernel_route"] == "fp32",
               f"no main-path launch count for {row['name']}")
     train = next(r for r in rows if r["name"] == "train_pass")
@@ -3920,6 +4392,16 @@ def main() -> int:
                   f"{n} p50 {arm[n][0]:.4f} p99 {arm[n][1]:.4f} ms"
                   for n in ("gold", "standard", "batch"))
               + f"; {arm['sheds']} sheds")
+    print(f"[lm-train] {LM_TRAIN['arch']} at full width and depth: "
+          f"{lm_train['ms_per_step']:.3f} ms a step, "
+          f"{lm_train['tokens_per_s']:,.0f} tokens/s, {lm_train['mfu']:.2%} "
+          f"of the bf16 dense peak (6 x parameters x tokens), peak "
+          f"{lm_train['peak_gib']:.2f} GiB, device busy "
+          f"{lm_train['busy_share']:.1%} (profiled); step 0's bf16 loss "
+          f"{lm_train['step0']['bf16'][0]:.6f} vs float32's "
+          f"{lm_train['step0']['float32'][0]:.6f}; lm-readout "
+          f"extract {readout['extract_s']:.3f} s, held-out error "
+          f"{readout['err']:.4f}, train error {readout['tr_err']:.4f}")
     print(f"[device_ms] {READINGS['kept']} readings kept, "
           f"{READINGS['retaken']} taken again behind a longer spin, "
           f"{READINGS['host_paced']} paced by the host")

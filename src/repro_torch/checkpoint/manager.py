@@ -11,9 +11,13 @@ Layout per step: ``<dir>/step_<N:010d>/arrays.npz`` + ``manifest.json``.
   mid-write never leaves a "latest" step that loads corrupt data: the
   readers walk back to the newest valid step.
 
-A tree is a flat ``{name: array}`` mapping (tensors are copied to host
-numpy on the calling thread).  The JAX package's ``CheckpointManager``
-reads what this one writes, and the other way round
+A tree is a mapping ``{name: array}``, nested mappings flattening to
+``a/b/c`` keys as JAX's ``flatten_tree`` names them (tensors are copied
+to host numpy on the calling thread; bfloat16 is stored as float32, which
+holds it exactly, as JAX stores it).  ``unflatten_into`` rebuilds a
+template tree from the flat arrays, each leaf in the template's dtype and
+on its device.  The JAX package's ``CheckpointManager`` reads what this
+one writes, and the other way round
 (``repro_torch.convert.read_jax_checkpoint`` is ``read_checkpoint``).
 """
 from __future__ import annotations
@@ -30,14 +34,61 @@ import numpy as np
 import torch
 
 
-def flatten(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """Host numpy copies of a flat tree's leaves."""
+SEP = "/"
+
+
+def flatten(tree: Mapping[str, Any], prefix: str = ""
+            ) -> Dict[str, np.ndarray]:
+    """Host numpy copies of a tree's leaves, nested keys joined by
+    ``SEP``; bfloat16 tensors become float32 (exact)."""
     flat = {}
     for key, leaf in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(leaf, Mapping):
+            flat.update(flatten(leaf, name + SEP))
+            continue
         if isinstance(leaf, torch.Tensor):
-            leaf = leaf.detach().cpu().numpy()
-        flat[str(key)] = np.array(leaf, copy=True)
+            leaf = leaf.detach()
+            if leaf.dtype == torch.bfloat16:
+                leaf = leaf.float()
+            flat[name] = leaf.to("cpu", copy=True).numpy()
+        else:
+            flat[name] = np.array(leaf, copy=True)
     return flat
+
+
+def unflatten_into(template: Mapping[str, Any],
+                   flat: Mapping[str, np.ndarray], prefix: str = ""
+                   ) -> Dict[str, Any]:
+    """A tree shaped like ``template`` (nested mappings of tensors) from
+    ``flat``'s arrays, each leaf cast to the template leaf's dtype and
+    placed on its device (port of JAX's ``unflatten_into``)."""
+    out: Dict[str, Any] = {}
+    for key, leaf in template.items():
+        name = f"{prefix}{key}"
+        if isinstance(leaf, Mapping):
+            out[key] = unflatten_into(leaf, flat, name + SEP)
+            continue
+        if name not in flat:
+            raise KeyError(f"checkpoint missing key {name}")
+        arr = np.asarray(flat[name])
+        if tuple(arr.shape) != tuple(leaf.shape):
+            raise ValueError(f"shape mismatch for {name}: "
+                             f"{arr.shape} vs {tuple(leaf.shape)}")
+        out[key] = torch.as_tensor(arr).to(device=leaf.device,
+                                           dtype=leaf.dtype, copy=True)
+    return out
+
+
+def _crc32(path: pathlib.Path) -> int:
+    """zlib's crc32 of a file, read in 64 MiB pieces."""
+    crc = 0
+    with open(path, "rb") as f:
+        while True:
+            piece = f.read(64 << 20)
+            if not piece:
+                return crc
+            crc = zlib.crc32(piece, crc)
 
 
 def _step_dir(directory: pathlib.Path, step: int) -> pathlib.Path:
@@ -60,7 +111,7 @@ def _manifest_if_valid(d: pathlib.Path) -> Optional[Dict[str, Any]]:
         return None
     try:
         man = json.loads(man_p.read_text())
-        crc = zlib.crc32(npz_p.read_bytes())
+        crc = _crc32(npz_p)
     except (OSError, ValueError):
         return None
     if not isinstance(man, dict) or man.get("crc32") != crc:
@@ -68,12 +119,19 @@ def _manifest_if_valid(d: pathlib.Path) -> Optional[Dict[str, Any]]:
     return man
 
 
-def latest_valid_step(directory) -> Optional[int]:
-    directory = pathlib.Path(directory)
+def _latest_valid(directory: pathlib.Path
+                  ) -> Tuple[Optional[int], Optional[Dict[str, Any]]]:
+    """(step, manifest) of the newest valid step, or (None, None); each
+    step's npz is checksummed once."""
     for step in reversed(all_steps(directory)):
-        if _manifest_if_valid(_step_dir(directory, step)) is not None:
-            return step
-    return None
+        man = _manifest_if_valid(_step_dir(directory, step))
+        if man is not None:
+            return step, man
+    return None, None
+
+
+def latest_valid_step(directory) -> Optional[int]:
+    return _latest_valid(pathlib.Path(directory))[0]
 
 
 def read_checkpoint(directory, step: Optional[int] = None
@@ -82,12 +140,13 @@ def read_checkpoint(directory, step: Optional[int] = None
     ``step``, which must be valid.  numpy alone: no pickles are loaded."""
     directory = pathlib.Path(directory)
     if step is None:
-        step = latest_valid_step(directory)
+        step, man = _latest_valid(directory)
         if step is None:
             raise FileNotFoundError(f"no valid checkpoint in {directory}")
-    man = _manifest_if_valid(_step_dir(directory, step))
-    if man is None:
-        raise ValueError(f"checkpoint step {step} is corrupt/missing")
+    else:
+        man = _manifest_if_valid(_step_dir(directory, step))
+        if man is None:
+            raise ValueError(f"checkpoint step {step} is corrupt/missing")
     with np.load(_step_dir(directory, step) / "arrays.npz",
                  allow_pickle=False) as z:
         flat = {k: z[k] for k in z.files}
@@ -140,7 +199,7 @@ class CheckpointManager:
             npz = tmp / "arrays.npz"
             np.savez(npz, **flat)
             manifest = {
-                "step": step, "crc32": zlib.crc32(npz.read_bytes()),
+                "step": step, "crc32": _crc32(npz),
                 "extra": extra,
                 "keys": {k: {"shape": list(v.shape), "dtype": str(v.dtype)}
                          for k, v in flat.items()},
@@ -165,7 +224,10 @@ class CheckpointManager:
         self._thread.start()
 
     def _gc(self) -> None:
-        valid = [s for s in self.all_steps()
+        steps = self.all_steps()
+        if self.keep and len(steps) <= self.keep:
+            return          # nothing to delete, valid or not: skip the crcs
+        valid = [s for s in steps
                  if _manifest_if_valid(_step_dir(self.directory, s))]
         for s in valid[:-self.keep] if self.keep else []:
             shutil.rmtree(_step_dir(self.directory, s), ignore_errors=True)

@@ -33,7 +33,16 @@
   ``np.asarray``-able): parameters keep their shapes, and the period stack
   ``stack/scan/pos{i}`` (leading axis = period index ``p``) is unstacked
   into ``layers.{p * period + i}``, the remainder ``stack/rem/pos{i}``
-  following as ``layers.{n_periods * period + i}``.
+  following as ``layers.{n_periods * period + i}``.  bfloat16 arrays
+  (``ml_dtypes``) become bfloat16 tensors.
+* ``lm_train_state_from_jax(cfg, params, opt_state, extra)`` — the flat
+  arrays and ``extra`` of a port LM training checkpoint (``train_loop``
+  resumes from it) from a JAX one: the parameters and the optimizer's
+  moments unstacked as ``lm_params_from_jax`` unstacks the parameters,
+  ``count``, and ``extra``'s pipeline state and step.  ``nest(flat)``
+  turns ``read_jax_checkpoint``'s flat ``a/b/c`` keys back into the
+  trees: ``tree = nest(flat)``, then ``tree["params"]`` and
+  ``tree["opt"]``.
 """
 from __future__ import annotations
 
@@ -171,7 +180,12 @@ def lm_params_from_jax(cfg: ModelConfig, params: Mapping[str, Any]
     out: Dict[str, torch.Tensor] = {}
 
     def put(name, arr):
-        out[name] = torch.from_numpy(np.array(arr))
+        arr = np.array(arr)
+        if arr.dtype.name == "bfloat16":     # ml_dtypes: no numpy kind
+            out[name] = torch.from_numpy(arr.astype(np.float32)).to(
+                torch.bfloat16)
+        else:
+            out[name] = torch.from_numpy(arr)
 
     for name, arr in _flat({k: v for k, v in params.items() if k != "stack"}):
         put(name, arr)
@@ -188,3 +202,44 @@ def lm_params_from_jax(cfg: ModelConfig, params: Mapping[str, Any]
         for name, arr in _flat(sub):
             put(f"layers.{base + i}.{name}", arr)
     return out
+
+
+def nest(flat: Mapping[str, Any], sep: str = "/") -> Dict[str, Any]:
+    """Nested dicts from ``a/b/c`` flat keys (a checkpoint's arrays)."""
+    out: Dict[str, Any] = {}
+    for key, val in flat.items():
+        node = out
+        *parents, leaf = key.split(sep)
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = val
+    return out
+
+
+def lm_train_state_from_jax(cfg: ModelConfig, params: Mapping[str, Any],
+                            opt_state: Mapping[str, Any],
+                            extra: Mapping[str, Any]
+                            ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """``(flat, extra)`` of the port's LM training checkpoint from a JAX
+    one: ``params`` and ``opt_state`` the JAX trees (``{"count", "m",
+    "v"}`` / ``"g2"``), ``extra`` its ``pipeline`` and ``train_step``.
+    Save the pair with ``CheckpointManager.save(step, ...)``-compatible
+    keys (``params/<name>``, ``opt/count``, ``opt/<moment>/<name>``) and
+    ``train_loop`` resumes from it."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def put(prefix, tree):
+        for name, t in lm_params_from_jax(cfg, tree).items():
+            if t.dtype == torch.bfloat16:
+                t = t.float()
+            flat[f"{prefix}/{name}"] = t.numpy()
+
+    put("params", params)
+    for key, val in opt_state.items():
+        if key == "count":
+            flat["opt/count"] = np.array(np.asarray(val), dtype=np.int32)
+        else:
+            put(f"opt/{key}", val)
+    out = {"pipeline": {k: int(v) for k, v in extra["pipeline"].items()},
+           "train_step": int(extra["train_step"])}
+    return flat, out

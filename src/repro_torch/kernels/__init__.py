@@ -10,7 +10,8 @@ hand-written Hopper kernel (sources under ``<op>/csrc/``, built by
   * ``"auto"`` — ``cuda`` for CUDA tensors, ``ref`` for CPU tensors.
 
 ``"auto"`` honours the ``REPRO_TORCH_IMPL`` env override (``REPRO_IMPL``
-belongs to the JAX package's CI legs).  There is no silent fallback.
+belongs to the JAX package's CI legs).  There is no silent fallback: a
+kernel path asked for a gradient raises (``refuse_backward``).
 """
 from __future__ import annotations
 
@@ -35,6 +36,20 @@ def resolve_backend(impl: str, device: torch.device) -> str:
     if impl == "auto":
         impl = "cuda" if torch.device(device).type == "cuda" else "ref"
     return impl
+
+
+def refuse_backward(op: str, *inputs: torch.Tensor) -> None:
+    """Raise when the kernel path of ``op`` is asked for a gradient: grad
+    mode is on and an input requires grad.  No hand-written kernel has a
+    backward (nor has any TPU kernel), and the op never swaps in its plain
+    version to get one: train through the model's plain functions
+    (``LanguageModel.loss``) or run the kernel under ``torch.no_grad()``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{op}: the hand-written kernel has no backward kernel, and the "
+            "op does not fall back to its plain version for one; train "
+            "through the model's plain differentiable path "
+            "(LanguageModel.loss) or call it under torch.no_grad()")
 
 
 @contextlib.contextmanager

@@ -6,7 +6,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import resolve_backend
+from repro_torch.kernels import refuse_backward, resolve_backend
 from repro_torch.kernels.ssd import kernel as _k
 from repro_torch.kernels.ssd import ref as _ref
 
@@ -22,7 +22,9 @@ def ssd_chunked(x: Tensor, dt: Tensor, a: Tensor, bmat: Tensor,
 
     As in JAX, the ref path returns the recurrence's float32 y and the
     kernel path y in x's dtype.  The kernel takes x, dt, bmat, cmat of one
-    dtype, float32 or bfloat16, and a float32 a."""
+    dtype, float32 or bfloat16, and a float32 a.  The kernel path raises
+    when grad mode is on and an input requires grad: no kernel has a
+    backward."""
     b, s, nh, hd = x.shape
     g, n = bmat.shape[2], bmat.shape[3]
     if resolve_backend(impl, x.device) == "ref":
@@ -31,5 +33,6 @@ def ssd_chunked(x: Tensor, dt: Tensor, a: Tensor, bmat: Tensor,
             x, dt, a, torch.repeat_interleave(bmat, hpg, dim=2),
             torch.repeat_interleave(cmat, hpg, dim=2),
             torch.zeros((b, nh, hd, n), dtype=torch.float32, device=x.device))
+    refuse_backward("ssd_chunked", x, dt, a, bmat, cmat)
     return _k.ssd_cuda(x.contiguous(), dt.contiguous(), a.contiguous(),
                        bmat.contiguous(), cmat.contiguous(), chunk=chunk)

@@ -1,6 +1,23 @@
-"""DSEKL training on the card (port of the ``--dsekl`` modes of
-``repro/launch/train.py``: in memory or out of core from a memmap,
-Algorithm 1 or 2).
+"""Training on the card (port of ``repro/launch/train.py``): a language
+model, or (``--dsekl``) the DSEKL kernel machine, in memory or out of core
+from a memmap, Algorithm 1 or 2.
+
+LM training (``train_lm``) runs the JAX launcher's recipe on one device:
+AdamW over a cosine schedule with ``max(steps // 10, 1)`` warmup steps,
+``loss_chunks=4``, the bigram token pipeline with seed 1, the
+fault-tolerant loop with checkpoints every ``--ckpt-every`` steps into
+``--ckpt-dir`` (``--resume`` continues from its newest valid step), at the
+reduced config, or ``--full`` at the config's published widths when
+parameters, gradients and float32 moments fit the device:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-20b \
+        --steps 100 [--batch 8 --seq 128 --lr 3e-3] [--full] \
+        [--ckpt-dir DIR --ckpt-every 25 [--resume]] [--device cpu]
+
+A larger model, ``--data-par`` / ``--model-par`` > 1 and ``--multi-pod``
+need the mesh (ROADMAP.md section 1, item 6) and are refused.
+
+DSEKL:
 
 Trains the kernel machine with the JAX launcher's configuration (hinge
 loss, adagrad, lam = 1e-4) and hold-out (the last ``max(min(2048,
@@ -25,7 +42,7 @@ tiles), in memory or from the memmap:
         [--checkpoint-dir DIR [--resume]]
 
 Modes the port does not have yet exit with an error that names them:
-``--execution mesh`` and the LM path.  ``--precondition-k`` with
+``--execution mesh`` and the mesh flags.  ``--precondition-k`` with
 ``--execution bcd`` is refused: EigenPro preconditions the stochastic
 step only.
 """
@@ -39,10 +56,72 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.core import DSEKLConfig, fit
-from repro_torch.data import make_memmap_dataset, split_holdout
+from repro_torch.data import BigramPipeline, make_memmap_dataset, \
+    split_holdout
 from repro_torch.data.synthetic import make_covertype_like
 from repro_torch.device import resolve_device
+from repro_torch.models.blocks import check_supported
+from repro_torch.models.model import LanguageModel
+from repro_torch.optim import make_optimizer, make_schedule
+from repro_torch.train import (TrainLoopConfig, make_train_step, trainable,
+                               train_loop)
+
+MESH_ITEM = "the mesh: ROADMAP.md section 1, item 6"
+
+
+def _device_bytes(device: torch.device) -> int:
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def lm_state_bytes(cfg, moment_bytes: int = 4) -> int:
+    """Bytes of parameters, gradients and AdamW's two moments."""
+    p_bytes = torch.finfo(cfg.pdtype).bits // 8
+    return cfg.param_count_estimate() * (2 * p_bytes + 2 * moment_bytes)
+
+
+def train_lm(args) -> Dict[str, Any]:
+    """Train an LM with the JAX launcher's recipe (module docstring).
+    Returns the loop's ``history`` (a record a step), the model, its
+    config, the optimizer state, the step function, the pipeline (at the
+    loop's end), the parameter count, the checkpoint directory and, on a
+    card, the peak device memory."""
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch, reduced=not args.full)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    model = LanguageModel(cfg, device=device).init(gen)
+    params = trainable(model)
+    n_params = sum(p.numel() for p in params.values())
+    print(f"[launch] arch={cfg.name} device={device} params="
+          f"{n_params / 1e6:.1f}M ({cfg.param_dtype})")
+    opt = make_optimizer("adamw", make_schedule(
+        "cosine", args.lr, warmup_steps=max(args.steps // 10, 1),
+        total_steps=args.steps))
+    opt_state = opt.init(params)
+    step_fn = make_train_step(model, opt, loss_chunks=4)
+    pipe = BigramPipeline(cfg.vocab_size, args.batch, args.seq, seed=1)
+    ckpt_dir = args.ckpt_dir or os.path.join(tempfile.gettempdir(),
+                                             "repro_torch_launch_ckpt")
+    ckpt = CheckpointManager(ckpt_dir, keep=3)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    out = train_loop(step_fn, params, opt_state, pipe, ckpt,
+                     TrainLoopConfig(n_steps=args.steps,
+                                     ckpt_every=args.ckpt_every,
+                                     log_every=10),
+                     resume=args.resume, device=device, verbose=True)
+    losses = [h["loss"] for h in out["history"]]
+    if losses:
+        print(f"[launch] done: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    return {"history": out["history"], "model": model, "cfg": cfg,
+            "opt_state": out["opt_state"], "step": step_fn, "pipeline": pipe,
+            "n_params": n_params, "ckpt_dir": ckpt_dir,
+            "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                           if device.type == "cuda" else None)}
 
 
 def train_dsekl(args) -> Dict[str, Any]:
@@ -138,11 +217,30 @@ def train_dsekl(args) -> Dict[str, Any]:
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--dsekl", action="store_true",
-                    help="train the DSEKL kernel machine (the only mode "
-                         "ported so far)")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
+    # LM training
+    ap.add_argument("--arch", default="granite-20b")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--full", action="store_true",
+                    help="the config's published widths on one device "
+                         "(default: the reduced config)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="LM checkpoints (default: a directory under the "
+                         "temporary directory)")
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--data-par", type=int, default=1,
+                    help="data-parallel mesh axis: not ported (item 6)")
+    ap.add_argument("--model-par", type=int, default=1,
+                    help="model-parallel mesh axis: not ported (item 6)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="multi-pod mesh: not ported (item 6)")
+    # DSEKL kernel training
+    ap.add_argument("--dsekl", action="store_true",
+                    help="train the DSEKL kernel machine instead of an LM")
     ap.add_argument("--data", choices=("memory", "mmap"), default="memory",
                     help="device-resident arrays, or a float32 memmap on "
                          "disk trained out of core")
@@ -187,18 +285,44 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every-epochs", type=int, default=1)
     ap.add_argument("--resume", action="store_true",
                     help="continue from the newest valid checkpoint in "
-                         "--checkpoint-dir (fresh start if empty)")
+                         "--checkpoint-dir (--dsekl) or --ckpt-dir (LM); a "
+                         "fresh start if there is none")
     return ap
 
 
 def unported_modes(args) -> list:
-    """The requested modes the port does not have yet."""
+    """The requested modes the port does not have yet (each needs the
+    mesh, item 6)."""
     out = []
-    if not args.dsekl:
-        out.append("the LM path (pass --dsekl)")
     if args.execution == "mesh":
         out.append("--execution mesh")
+    for flag in ("data_par", "model_par"):
+        if getattr(args, flag) > 1:
+            out.append(f"--{flag.replace('_', '-')} {getattr(args, flag)}")
+    if args.multi_pod:
+        out.append("--multi-pod")
     return out
+
+
+def lm_refusal(args) -> str:
+    """Why the LM path cannot run ``args`` on one device, or ''."""
+    if args.arch not in ARCHS:
+        return f"unknown arch {args.arch!r}; available: {sorted(ARCHS)}"
+    cfg = get_config(args.arch, reduced=not args.full)
+    try:
+        check_supported(cfg)
+    except NotImplementedError as e:
+        return str(e)
+    if args.full:
+        device = resolve_device(args.device)
+        need, have = lm_state_bytes(cfg), _device_bytes(device)
+        if need > have:
+            return (f"--full {cfg.name}: {need / 1e9:.1f} GB of "
+                    f"{cfg.param_dtype} parameters and gradients and float32 "
+                    f"AdamW moments do not fit the {have / 1e9:.1f} GB of "
+                    f"{device}; the full model needs the sharded mesh path, "
+                    f"which is not ported yet ({MESH_ITEM})")
+    return ""
 
 
 def main(argv=None):
@@ -207,11 +331,17 @@ def main(argv=None):
     missing = unported_modes(args)
     if missing:
         ap.error("not ported to repro_torch yet: " + ", ".join(missing)
-                 + " (ROADMAP.md section 1)")
+                 + f" ({MESH_ITEM})")
     if args.execution == "bcd" and args.precondition_k > 0:
         ap.error("--precondition-k with --execution bcd: BCD solves each "
                  "block exactly — EigenPro preconditioning applies to the "
                  "stochastic step only")
+    if not args.dsekl:
+        refusal = lm_refusal(args)
+        if refusal:
+            ap.error(refusal)
+        train_lm(args)
+        return
     train_dsekl(args)
 
 

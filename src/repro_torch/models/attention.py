@@ -4,6 +4,8 @@ cache (port of the GQA part of ``repro/models/attention.py``).
   * prefill: the full-sequence attention runs through the flash-attention
     op (``kernels/flash_attn``) where JAX runs ``mha_full``, its XLA form
     of the same online-softmax schedule;
+  * train: ``gqa_forward`` runs ``mha_full``, the port of JAX's plain
+    q-chunked attention, through autograd (no kernel has a backward);
   * decode: one query token against the cache, in plain torch.  Caches
     are ring buffers: ``slot = pos % cache_len`` with a per-slot position
     array for masking, so sliding-window layers carry only ``window``
@@ -20,6 +22,7 @@ from __future__ import annotations
 import math
 from typing import Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -67,6 +70,46 @@ def init_kv_cache(cfg: ModelConfig, batch: int, cache_len: int,
     )
 
 
+def _pick_q_chunk(s: int, q_chunk: int) -> int:
+    """Largest divisor of s that is <= the requested chunk."""
+    q_chunk = min(q_chunk, s)
+    for d in range(q_chunk, 0, -1):
+        if s % d == 0:
+            return d
+    return 1
+
+
+def mha_full(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor, k_pos: Tensor,
+             *, window: int, causal: bool, q_chunk: int = 512) -> Tensor:
+    """q (B,S,H,Dh); k/v (B,T,Kv,Dh); positions (S,)/(T,) -> (B,S,H,Dv).
+
+    Loops over q chunks so the transient score tile is (B,Kv,G,qc,T); the
+    kv heads are grouped (q reshaped to (B,S,Kv,G,Dh)), never repeated.
+    Scores and softmax in float32 (bf16 products are exact in float32, so
+    casting first is JAX's ``preferred_element_type``); masked scores are
+    -1e30."""
+    b, s, h, dh = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = h // kv
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(dh)))
+    qg = q.reshape(b, s, kv, g, dh)
+    qc = _pick_q_chunk(s, q_chunk)
+    kf = k.float()
+    outs = []
+    for c0 in range(0, s, qc):
+        p_blk = q_pos[c0:c0 + qc]
+        scores = torch.einsum("bqkgd,btkd->bkgqt", qg[:, c0:c0 + qc].float(),
+                              kf) * scale
+        valid = (p_blk[:, None] - k_pos[None, :]) < window
+        if causal:
+            valid &= k_pos[None, :] <= p_blk[:, None]
+        scores = torch.where(valid, scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        outs.append(torch.einsum("bkgqt,btkd->bqkgd", probs.to(v.dtype), v))
+    return torch.cat(outs, dim=1).reshape(b, s, h, dv)
+
+
 def _build_kv_cache(k: Tensor, v: Tensor, positions: Tensor, cache_len: int,
                     dtype) -> KVCache:
     """Lay freshly-computed K/V out as a ring-buffer cache of ``cache_len``."""
@@ -94,6 +137,17 @@ def _qkv(p: ParamTree, cfg: ModelConfig, x: Tensor, positions: Tensor):
     q = apply_rope(q, positions[None], cfg.rope_theta)
     k = apply_rope(k, positions[None], cfg.rope_theta)
     return q, k, v
+
+
+def gqa_forward(p: ParamTree, cfg: ModelConfig, x: Tensor,
+                positions: Tensor, *, window: int, causal: bool = True,
+                q_chunk: int = 512) -> Tensor:
+    """The training path, no cache: x (B,S,D); positions (S,); attention
+    through ``mha_full`` (differentiable)."""
+    q, k, v = _qkv(p, cfg, x, positions)
+    out = mha_full(q, k, v, positions, positions, window=window,
+                   causal=causal, q_chunk=q_chunk)
+    return torch.einsum("bshk,hkd->bsd", out, p.w_o)
 
 
 def gqa_prefill(p: ParamTree, cfg: ModelConfig, x: Tensor,

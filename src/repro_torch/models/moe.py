@@ -5,9 +5,12 @@ Dispatch is sort-free: a cumsum over a (slots, E) one-hot builds the
 (E, capacity) token table, and tokens past an expert's capacity are dropped
 (standard capacity-factor semantics).  Each expert's batch is gathered,
 run through its gated FFN as one batched product, and scattered back with
-its router weight.  The expert-parallel collectives of the JAX module
-come with the mesh (ROADMAP.md section 1, item 6); the load-balance loss
-with LM training.
+its router weight.  Autograd flows through the dispatch (the gather, the
+router weights in the prob table, the scatter-add) with drops: a dropped
+choice lands in the trash slot and gets no gradient.  ``moe_forward(...,
+with_aux=True)`` also returns the Switch-style load-balance loss
+(``load_balance_loss``) for training.  The expert-parallel collectives of
+the JAX module come with the mesh (ROADMAP.md section 1, item 6).
 """
 from __future__ import annotations
 
@@ -89,8 +92,21 @@ def _moe_inner(xt: Tensor, top_ids: Tensor, top_probs: Tensor,
     return y[:t]
 
 
-def moe_forward(p: ParamTree, cfg: ModelConfig, x: Tensor) -> Tensor:
-    """x (B, S, D) -> (B, S, D).  Router in f32; top-k renormalized."""
+def load_balance_loss(probs: Tensor, top_ids: Tensor, n_experts: int
+                      ) -> Tensor:
+    """Switch-style aux loss: E * sum_e f_e * p_e (f_e = routed-token
+    fraction over the top-k assignments, p_e = mean router prob).
+    Minimized (= 1) by a uniform router."""
+    f = torch.mean(F.one_hot(top_ids.long(), n_experts).to(torch.float32),
+                   dim=(0, 1))
+    p = torch.mean(probs, dim=0)
+    return n_experts * torch.sum(f * p)
+
+
+def moe_forward(p: ParamTree, cfg: ModelConfig, x: Tensor,
+                with_aux: bool = False):
+    """x (B, S, D) -> (B, S, D) [, aux load-balance loss].  Router in f32;
+    top-k renormalized."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     logits = xt.to(torch.float32) @ p.router.to(torch.float32)
@@ -98,10 +114,12 @@ def moe_forward(p: ParamTree, cfg: ModelConfig, x: Tensor) -> Tensor:
     top_probs, top_ids = torch.topk(probs, cfg.top_k, dim=-1)
     top_probs = top_probs / torch.sum(top_probs, dim=-1, keepdim=True)
     top_probs = top_probs.to(x.dtype)
+    aux = (load_balance_loss(probs, top_ids, cfg.n_experts)
+           if with_aux else None)
     cap = max(1, math.ceil(b * s * cfg.top_k * cfg.capacity_factor
                            / cfg.n_experts))
     y = _moe_inner(xt, top_ids, top_probs, p.w_gate, p.w_up, p.w_down,
                    cfg.n_experts, cap).reshape(b, s, d)
     if cfg.n_shared_experts:
         y = y + layers.mlp(p.shared, cfg, x)
-    return y
+    return (y, aux) if with_aux else y

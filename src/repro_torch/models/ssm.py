@@ -2,7 +2,9 @@
 
 The full-sequence block runs its chunked scan through the SSD op
 (``kernels/ssd``) where JAX runs ``models/ssm.ssd``, its XLA form of the
-same chunked scan.  Decode is the plain one-token recurrence, in torch.
+same chunked scan; the training block, ``mamba_train``, runs ``ssd``, the
+port of that chunked form, through autograd (no kernel has a backward).
+Decode is the plain one-token recurrence, in torch.
 
 Layout: x (B, S, D); inner width di = expand * D; heads nh = di / hd;
 state n = ssm_state; groups g (B/C shared across nh/g heads).  The conv
@@ -79,6 +81,68 @@ def _causal_conv(xbc: Tensor, w: Tensor, b: Tensor) -> Tensor:
     return F.silu(out + b[None, None, :])
 
 
+def ssd(x: Tensor, dt: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor,
+        init_state: Tensor, chunk: int) -> Tuple[Tensor, Tensor]:
+    """Chunked SSD scan, differentiable (port of JAX's ``models/ssm.ssd``).
+
+    x (B,S,nh,hd): pre-scaled inputs; dt (B,S,nh): softplus'd step sizes;
+    a (nh,): negative decay rates; bmat/cmat (B,S,g,n); init_state
+    (B,nh,hd,n).  Within a chunk the recurrence is its (Q, Q) masked dual
+    form; between chunks a loop carries the (n, hd) state in float32.
+    Returns (y (B,S,nh,hd) in x's dtype, final_state (B,nh,hd,n) f32).
+    Products JAX takes with ``preferred_element_type=float32`` are taken
+    on float32 casts."""
+    b, s, nh, hd = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    hpg = nh // g
+    q = min(chunk, s)
+    while s % q:
+        q //= 2
+    q = max(q, 1)
+    nc = s // q
+
+    da = dt * a[None, None, :]                                 # (B,S,nh) <= 0
+    xdt = x * dt[..., None]                                    # (B,S,nh,hd)
+
+    def ck(t):
+        return t.reshape((b, nc, q) + tuple(t.shape[2:]))
+
+    cum = torch.cumsum(ck(da), dim=2)                          # (B,nc,Q,nh)
+    xdtc = ck(xdt)                                             # (B,nc,Q,nh,hd)
+    bh = torch.repeat_interleave(ck(bmat), hpg, dim=3)         # (B,nc,Q,nh,n)
+    chh = torch.repeat_interleave(ck(cmat), hpg, dim=3)
+
+    # Intra-chunk (dual / attention-like form).
+    cum_t = cum.transpose(2, 3)                                # (B,nc,nh,Q)
+    ldiff = cum_t[..., :, None] - cum_t[..., None, :]          # (B,nc,nh,Q,Q)
+    tril = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    # Clamp BEFORE the exp: exp(ldiff) overflows on the masked (upper
+    # triangle) entries and a mask after it gives 0 * inf = NaN in the
+    # backward.  exp(-1e30) is exactly 0, with a 0 gradient.
+    lmask = torch.exp(torch.where(tril, ldiff, -1e30))
+    scores = torch.einsum("bcqhn,bckhn->bchqk", chh.float(), bh.float())
+    y_intra = torch.einsum("bchqk,bckhp->bcqhp",
+                           (scores * lmask).to(x.dtype), xdtc)
+
+    # Chunk summaries for the inter-chunk recurrence.
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)          # (B,nc,Q,nh)
+    s_chunk = torch.einsum("bckhn,bckhp->bchnp",
+                           bh * decay_to_end[..., None].to(bh.dtype), xdtc)
+    t_chunk = torch.exp(cum[:, :, -1, :])                      # (B,nc,nh)
+    c_in = chh * torch.exp(cum)[..., None].to(chh.dtype)       # (B,nc,Q,nh,n)
+
+    state = init_state.transpose(2, 3).float()                 # (B,nh,n,hd)
+    ys = []
+    for i in range(nc):
+        # y from the state BEFORE absorbing this chunk.
+        ys.append(torch.einsum("bqhn,bhnp->bqhp", c_in[:, i],
+                               state.to(c_in.dtype)))
+        state = (state * t_chunk[:, i, :, None, None]
+                 + s_chunk[:, i].float())
+    y = (y_intra + torch.stack(ys, dim=1)).reshape(b, s, nh, hd)
+    return y, state.transpose(2, 3)                            # (B,nh,hd,n)
+
+
 def _gated_norm(y: Tensor, z: Tensor, scale: Tensor, eps: float) -> Tensor:
     h = y * F.silu(z)
     hf = h.to(torch.float32)
@@ -92,9 +156,9 @@ def _dt_a(p: ParamTree, dt_raw: Tensor) -> Tuple[Tensor, Tensor]:
     return dt, -torch.exp(p.a_log.to(torch.float32))
 
 
-def mamba_forward(p: ParamTree, cfg: ModelConfig, x: Tensor,
-                  impl: str = "auto") -> Tuple[Tensor, MambaCache]:
-    """Full-sequence mamba-2 block.  x (B,S,D) -> (y (B,S,D), cache)."""
+def _mixer_in(p: ParamTree, cfg: ModelConfig, x: Tensor):
+    """The in-projections and the causal conv of x (B,S,D): (z, x_raw,
+    bc_raw, the scan's inputs (x_ssm, dt, a, bmat, cmat))."""
     b, s, d = x.shape
     di, nh, n, g, conv_ch = _dims(cfg)
     hd = cfg.ssm_head_dim
@@ -109,15 +173,39 @@ def mamba_forward(p: ParamTree, cfg: ModelConfig, x: Tensor,
     bmat = bc_conv[..., :g * n].reshape(b, s, g, n)
     cmat = bc_conv[..., g * n:].reshape(b, s, g, n)
     dt, a = _dt_a(p, dt_raw)
-
     # dt goes into the scan in x's dtype, as JAX's mamba_forward casts it:
     # in bf16 that rounding is part of the function.
-    y, final_state = ssd_chunked(x_ssm, dt.to(x.dtype), a, bmat, cmat,
-                                 chunk=cfg.ssm_chunk, impl=impl)
-    y = y.to(x.dtype)
+    return z, x_raw, bc_raw, (x_ssm, dt.to(x.dtype), a, bmat, cmat)
+
+
+def _mixer_out(p: ParamTree, cfg: ModelConfig, y: Tensor, x_ssm: Tensor,
+               z: Tensor) -> Tensor:
+    """The skip, the gated norm and the out-projection of the scan's y."""
+    b, s = y.shape[:2]
     y = y + p.d_skip.to(y.dtype)[None, None, :, None] * x_ssm
-    y = _gated_norm(y.reshape(b, s, di), z, p.norm, cfg.norm_eps)
-    out = y @ p.w_out
+    y = _gated_norm(y.reshape(b, s, cfg.d_inner), z, p.norm, cfg.norm_eps)
+    return y @ p.w_out
+
+
+def mamba_train(p: ParamTree, cfg: ModelConfig, x: Tensor) -> Tensor:
+    """Full-sequence mamba-2 block for training, no cache: x (B,S,D) ->
+    y (B,S,D), the scan through ``ssd`` (differentiable)."""
+    z, _, _, scan_in = _mixer_in(p, cfg, x)
+    b, s, nh, hd = scan_in[0].shape
+    state0 = x.new_zeros((b, nh, hd, cfg.ssm_state), dtype=torch.float32)
+    y, _ = ssd(*scan_in, state0, cfg.ssm_chunk)
+    return _mixer_out(p, cfg, y, scan_in[0], z)
+
+
+def mamba_forward(p: ParamTree, cfg: ModelConfig, x: Tensor,
+                  impl: str = "auto") -> Tuple[Tensor, MambaCache]:
+    """Full-sequence mamba-2 block.  x (B,S,D) -> (y (B,S,D), cache), the
+    scan through the SSD op on backend ``impl``."""
+    b, s, d = x.shape
+    conv_ch = _dims(cfg)[4]
+    z, x_raw, bc_raw, scan_in = _mixer_in(p, cfg, x)
+    y, final_state = ssd_chunked(*scan_in, chunk=cfg.ssm_chunk, impl=impl)
+    out = _mixer_out(p, cfg, y.to(x.dtype), scan_in[0], z)
 
     xbc_raw = torch.cat([x_raw, bc_raw], dim=-1)         # cache layout
     keep = cfg.ssm_conv_width - 1

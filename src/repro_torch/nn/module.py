@@ -5,8 +5,9 @@ one device).
 Model code declares its parameters as nested dicts of ``Param`` specs, in
 the JAX package's own shapes (``w_q`` stays (d, h, hd)), so carrying
 weights across is a re-keying with no transposes.  ``ParamTree`` turns a
-spec dict into a module: a ``Param`` becomes an ``nn.Parameter`` (no
-gradient: serving only), a dict a child ``ParamTree``.  ``init_params``
+spec dict into a module: a ``Param`` becomes an ``nn.Parameter`` (created
+without gradients, for serving; ``train.trainable`` turns them on), a
+dict a child ``ParamTree``.  ``init_params``
 fills every parameter of a module with its spec's initializer, drawn from
 a ``torch.Generator``.
 """

@@ -1,0 +1,132 @@
+"""SGD / momentum / AdaGrad (paper Alg. 2) / AdamW over a model's
+parameters (port of ``repro/optim/optimizers.py``).
+
+``params`` and ``grads`` are mappings name -> tensor (a model's
+``named_parameters``); the optimizer state mirrors them leaf by leaf
+(``{"count", "m", "v"}`` / ``"g2"``), so a checkpoint flattens it beside
+the parameters.  ``update(grads, state, params) -> (new_params,
+new_state)`` is functional, as in JAX.
+
+Written out rather than taken from ``torch.optim``, which is another
+function in three places:
+
+  * AdaGrad's accumulator starts at 1 (paper Alg. 2 line 4), not at 0;
+  * AdamW adds ``weight_decay * p`` inside the update, where
+    ``torch.optim.AdamW`` decays ``p`` before the step;
+  * every update is taken in float32 and the new parameter cast back to
+    its own dtype: with bfloat16 parameters that cast is part of the
+    function.
+
+The step count and the learning rate are 0-d CPU tensors (the schedule's
+float32 arithmetic, ``schedules.py``): the device never waits for them.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
+
+import torch
+
+Tensor = torch.Tensor
+Tree = Dict[str, Tensor]
+NAMES = ("sgd", "momentum", "adagrad", "adamw")
+
+
+class Optimizer(NamedTuple):
+    init: Callable[[Mapping[str, Tensor]], dict]
+    update: Callable[[Mapping[str, Tensor], dict, Mapping[str, Tensor]],
+                     Tuple[Tree, dict]]
+
+
+def global_norm(tree: Mapping[str, Tensor]) -> Tensor:
+    """sqrt of the sum over leaves (in order) of sum(x ** 2) in float32."""
+    total = None
+    for x in tree.values():
+        s = torch.sum(torch.square(x.float()))
+        total = s if total is None else total + s
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(tree: Mapping[str, Tensor], max_norm: float
+                        ) -> Tree:
+    norm = global_norm(tree)
+    # torch.div of two tensors: ``float / tensor`` is a reciprocal times
+    # the float in torch, which rounds differently.
+    scale = torch.clamp(torch.div(torch.full_like(norm, max_norm),
+                                  norm + 1e-9), max=1.0)
+    return {k: (g.float() * scale).to(g.dtype) for k, g in tree.items()}
+
+
+def make_optimizer(name: str, schedule: Callable, *, b1: float = 0.9,
+                   b2: float = 0.95, eps: float = 1e-8,
+                   weight_decay: float = 0.0, momentum: float = 0.9,
+                   moment_dtype: torch.dtype = torch.float32,
+                   grad_clip: Optional[float] = 1.0) -> Optimizer:
+    """name: sgd | momentum | adagrad | adamw."""
+    if name not in NAMES:
+        raise ValueError(f"unknown optimizer {name!r}")
+    f32 = torch.float32
+
+    def init(params: Mapping[str, Tensor]) -> dict:
+        def filled(value):
+            return {k: torch.full(p.shape, value, dtype=moment_dtype,
+                                  device=p.device)
+                    for k, p in params.items()}
+
+        state = {"count": torch.zeros((), dtype=torch.int32)}
+        if name == "momentum":
+            state["m"] = filled(0.0)
+        elif name == "adagrad":
+            # Paper Alg. 2 line 4: G <- 1 (identity damping at t = 0).
+            state["g2"] = filled(1.0)
+        elif name == "adamw":
+            state["m"] = filled(0.0)
+            state["v"] = filled(0.0)
+        return state
+
+    def update(grads: Mapping[str, Tensor], state: dict,
+               params: Mapping[str, Tensor]) -> Tuple[Tree, dict]:
+        count = state["count"] + 1
+        neg_lr = -schedule(count)
+        if grad_clip is not None:
+            grads = clip_by_global_norm(grads, grad_clip)
+        new_state = {"count": count}
+        new_params: Tree = {}
+
+        def put(k, upd):       # the new parameter, in its own dtype
+            p = params[k]
+            new_params[k] = (p.float() + upd).to(p.dtype)
+
+        if name == "sgd":
+            for k, g in grads.items():
+                put(k, neg_lr * g.float())
+        elif name == "momentum":
+            new_state["m"] = {}
+            for k, g in grads.items():
+                mo = state["m"][k]
+                m = momentum * mo.float() + g.float()
+                new_state["m"][k] = m.to(mo.dtype)
+                put(k, neg_lr * m)
+        elif name == "adagrad":
+            new_state["g2"] = {}
+            for k, g in grads.items():
+                acc = state["g2"][k]
+                g2 = acc.float() + torch.square(g.float())
+                new_state["g2"][k] = g2.to(acc.dtype)
+                put(k, neg_lr * g.float() * torch.rsqrt(g2 + eps))
+        else:
+            c = count.to(f32)
+            bc1 = 1 - torch.pow(torch.tensor(b1, dtype=f32), c)
+            bc2 = 1 - torch.pow(torch.tensor(b2, dtype=f32), c)
+            new_state["m"], new_state["v"] = {}, {}
+            for k, g in grads.items():
+                mo, vo = state["m"][k], state["v"][k]
+                gf = g.float()
+                m = b1 * mo.float() + (1 - b1) * gf
+                v = b2 * vo.float() + (1 - b2) * torch.square(gf)
+                new_state["m"][k] = m.to(mo.dtype)
+                new_state["v"][k] = v.to(vo.dtype)
+                put(k, neg_lr * ((m / bc1) / (torch.sqrt(v / bc2) + eps)
+                                 + weight_decay * params[k].float()))
+        return new_params, new_state
+
+    return Optimizer(init=init, update=update)

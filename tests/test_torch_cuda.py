@@ -1389,3 +1389,67 @@ def test_online_service_soak_on_the_card(cuda):
                 engine_cfg=svc.engine_cfg, device=cuda)
         assert torch.equal(r.f, oracles[r.version].predict(sent[r.ticket]))
     assert len(oracles) > 1
+
+
+# --- LM training on the card ------------------------------------------------
+
+def test_training_ssd_matches_the_sm90_kernel_at_mamba2s_shape(cuda):
+    """``models/ssm.ssd``, the differentiable chunked scan LM training
+    runs, in float32 against the sm90 SSD kernel on the same bf16 values
+    at mamba2-780m's shape (48 heads, hd 64, n 128, g 1, chunk 256, S
+    1,024: four chunks): y at one bf16 rounding (rtol 8e-3, atol 1e-4 x
+    max(1, |want|_inf)), the final state at the SSD tolerance."""
+    from repro_torch.kernels.ssd import kernel
+    from repro_torch.models import ssm
+    x, dt, a, bm, cm = _ssd_data((2, 1024, 48, 64, 1, 128, 256), cuda)
+    x, dt, bm, cm = (t.to(torch.bfloat16) for t in (x, dt, bm, cm))
+    assert kernel.select_route(torch.bfloat16, 64, 128, 256) == "sm90"
+    before = kernel.ssd_cuda.launches_by_route["sm90"]
+    y, final = kernel.ssd_cuda(x, dt, a, bm, cm, chunk=256)
+    torch.cuda.synchronize()
+    assert kernel.ssd_cuda.launches_by_route["sm90"] == before + 1
+    state0 = torch.zeros((2, 48, 64, 128), device=cuda)
+    wy, wf = ssm.ssd(x.float(), dt.float(), a, bm.float(), cm.float(),
+                     state0, 256)
+    scale = max(1.0, float(wy.abs().max()))
+    np.testing.assert_allclose(y.float().cpu().numpy(), wy.cpu().numpy(),
+                               rtol=8e-3, atol=1e-4 * scale)
+    _ssd_close(final, wf)
+
+
+def test_kernel_ops_refuse_a_gradient_on_the_card(cuda):
+    """On the card the flash and SSD ops raise for inputs that need a
+    gradient (no kernel has a backward; no fallback to the plain
+    version), launch nothing, and run under no_grad."""
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.kernels.ssd import ssd_chunked
+    q = torch.randn(1, 128, 4, 64, device=cuda, dtype=torch.bfloat16)
+    k = torch.randn(1, 128, 4, 64, device=cuda, dtype=torch.bfloat16)
+    x, dt, a, bm, cm = _ssd_data((1, 256, 4, 64, 1, 16, 256), cuda)
+    flash_before, ssd_before = (fk.flash_attention_cuda.launches,
+                                sk.ssd_cuda.launches)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        flash_attention(q.requires_grad_(), k, k)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        ssd_chunked(x.requires_grad_(), dt, a, bm, cm, chunk=256)
+    assert fk.flash_attention_cuda.launches == flash_before
+    assert sk.ssd_cuda.launches == ssd_before
+    with torch.no_grad():
+        flash_attention(q, k, k)
+        ssd_chunked(x, dt, a, bm, cm, chunk=256)
+    assert fk.flash_attention_cuda.launches == flash_before + 1
+    assert sk.ssd_cuda.launches == ssd_before + 1
+
+
+def test_lm_launcher_refuses_a_model_larger_than_the_card(cuda, capsys):
+    """``--full granite-20b``: its bf16 parameters and gradients and f32
+    AdamW moments (~240 GB) do not fit the card; the launcher exits and
+    names the mesh, ROADMAP item 6."""
+    from repro_torch.launch import train
+    with pytest.raises(SystemExit) as exc:
+        train.main(["--arch", "granite-20b", "--full", "--steps", "1"])
+    assert exc.value.code != 0
+    err = capsys.readouterr().err
+    assert "--full granite-20b" in err and "item 6" in err

@@ -4,7 +4,9 @@ fallback.
 * every module of ``repro_torch`` imports, and a CPU predict and an LM
   prefill run, in a process where ``jax`` and ``repro`` cannot be
   imported; so do the ring, the online service (two epochs), the tenant
-  front door over it and the synthetic generators;
+  front door over it and the synthetic generators; and LM training (two
+  steps of the launcher's recipe, a checkpoint) with the kernel readout
+  over the trained model;
 * an AST scan of ``src/repro_torch/`` and ``chip_smoke.py`` finds no
   ``jax`` / ``repro`` import;
 * an entry point (serving, ``fit``, the training launcher) called with no
@@ -120,6 +122,42 @@ def test_online_and_tenancy_run_without_jax():
     assert "ISOLATED_OK" in out.stdout
 
 
+def test_lm_training_and_readout_run_without_jax(tmp_path):
+    """The optimizers, the pipeline, the train step and loop, the
+    checkpoints and the readout import and run where ``jax`` and
+    ``repro`` cannot be imported."""
+    script = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import torch
+        from repro_torch.core.dsekl import DSEKLConfig
+        from repro_torch.core.readout import KernelReadout, extract_features
+        from repro_torch.launch import train
+        args = train.parser().parse_args([
+            "--arch", "mamba2-780m", "--device", "cpu", "--steps", "2",
+            "--batch", "2", "--seq", "16", "--ckpt-dir", {str(tmp_path)!r}])
+        res = train.train_lm(args)
+        assert [h["step"] for h in res["history"]] == [0, 1]
+        model = res["model"]
+        tok = torch.randint(0, 24, (40, 16),
+                            generator=torch.Generator().manual_seed(0))
+        feats = extract_features(model, tok, batch_size=16)
+        y = torch.sign(feats[:, 0] + 1e-6)
+        head = KernelReadout(DSEKLConfig(n_grad=8, n_expand=8))
+        head.fit(feats, y, torch.Generator().manual_seed(1), n_epochs=2)
+        assert head.predict(feats).shape == (40,)
+        assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+                       for m, v in sys.modules.items() if v is not None)
+        print("ISOLATED_OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "ISOLATED_OK" in out.stdout
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -169,6 +207,8 @@ def test_entry_points_need_cuda_without_a_device(monkeypatch):
         lambda: LanguageModel(get_config("jamba-v0.1-52b", reduced=True)),
         lambda: serve.serve_lm(get_config("mamba2-780m", reduced=True), 1, 4,
                                2, 8),
+        lambda: train.train_lm(train.parser().parse_args(
+            ["--arch", "mamba2-780m", "--steps", "1"])),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -1,12 +1,16 @@
 """The port's training launcher end to end on the CPU at a small size:
 ``python -m repro_torch.launch.train --dsekl --device cpu`` trains, prints
 its per-epoch validation errors and the JAX launcher's summary lines, and
-refuses the modes the port does not have yet, naming them."""
+refuses the modes the port does not have yet, naming them.  The LM path
+(``--arch granite-20b --steps 4 --device cpu``) trains, checkpoints and
+``--resume``s; the mesh flags and a ``--full`` model larger than the
+device are refused, naming ROADMAP item 6."""
 import os
 import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from repro_torch.launch import train
@@ -84,7 +88,46 @@ def test_unported_modes_exit_naming_them(extra, named, capsys, tmp_path):
     assert "--precondition-k" not in refusal[0]
 
 
-def test_lm_path_is_refused(capsys):
-    with pytest.raises(SystemExit):
-        train.main(["--device", "cpu"])
-    assert "LM path" in capsys.readouterr().err
+LM = ["--arch", "granite-20b", "--device", "cpu", "--batch", "2",
+      "--seq", "16"]
+
+
+@pytest.mark.parametrize("extra,named", [
+    (["--data-par", "2"], "--data-par 2"),
+    (["--model-par", "4"], "--model-par 4"),
+    (["--multi-pod"], "--multi-pod"),
+    (["--arch", "kimi-k2-1t-a32b", "--full"], "--full kimi-k2-1t-a32b"),
+    (["--arch", "deepseek-v3-671b"], "MLA"),
+])
+def test_lm_path_is_refused(extra, named, capsys):
+    """The LM path is ported; what needs the mesh (or an unported
+    attention) is refused by name."""
+    with pytest.raises(SystemExit) as exc:
+        train.main(LM + ["--steps", "1"] + extra)
+    assert exc.value.code != 0
+    err = capsys.readouterr().err
+    assert named in err
+    if named != "MLA":
+        assert "item 6" in err
+
+
+def test_lm_trains_checkpoints_and_resumes(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train",
+            "--arch", "granite-20b", "--device", "cpu", "--ckpt-dir",
+            str(tmp_path), "--ckpt-every", "2"]
+    out = subprocess.run(base + ["--steps", "4"], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "[launch] arch=granite-20b" in out.stdout
+    assert "[launch] done: loss" in out.stdout
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "step_0000000002", "step_0000000004"]
+    args = train.parser().parse_args(LM + [
+        "--steps", "6", "--ckpt-dir", str(tmp_path), "--ckpt-every", "2",
+        "--resume"])
+    res = train.train_lm(args)
+    assert [h["step"] for h in res["history"]] == [4, 5]
+    assert int(res["opt_state"]["count"]) == 6
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+               for h in res["history"])
