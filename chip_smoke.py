@@ -3310,11 +3310,11 @@ def phase_lm_parity():
           f"{BF16_RTOL}, the final state at {SSD_RTOL})")
 
 
-def _greedy(engine, tokens, n_new):
+def _greedy(engine, tokens, n_new, frontend=None):
     """(prefill logits, greedy tokens (B, n_new)) with the engine's model
     as it is set up (impl)."""
     import torch
-    logits, cache = engine.prefill(tokens)
+    logits, cache = engine.prefill(tokens, frontend)
     out = [torch.argmax(logits, dim=-1)]
     for i in range(n_new - 1):
         step, cache = engine.decode_step(out[-1], cache,
@@ -3499,11 +3499,12 @@ def phase_serve_jamba():
           f"cuda prefill differs by {float((again - logits).abs().max()):.1e};"
           f" ref generate {ref_s:.2f}s")
     check(err <= LOGITS_TOL * scale, "cuda and ref prefill logits differ")
-    _profile_jamba(engine, res["tokens"])
+    _profile_serve(engine, res["tokens"])
     return {"flash": flash_n, "ssd": ssd_n, "res": res}
 
 
-def _profile_jamba(engine, tokens, steps: int = 8):
+def _profile_serve(engine, tokens, tag: str = "profile-jamba",
+                   steps: int = 8, frontend=None):
     """torch.profiler over one prefill, then over ``steps`` decode steps:
     wall, device busy, and device time by kernel (the ten largest and the
     port's own)."""
@@ -3511,14 +3512,14 @@ def _profile_jamba(engine, tokens, steps: int = 8):
     from torch.profiler import ProfilerActivity, profile
     s = tokens.shape[1]
     for what in ("prefill", "decode"):
-        logits, cache = engine.prefill(tokens)
+        logits, cache = engine.prefill(tokens, frontend)
         tok = torch.argmax(logits, dim=-1)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             if what == "prefill":
-                engine.prefill(tokens)
+                engine.prefill(tokens, frontend)
             else:
                 for i in range(steps):
                     step, cache = engine.decode_step(tok, cache, s + i)
@@ -3528,7 +3529,7 @@ def _profile_jamba(engine, tokens, steps: int = 8):
         rows = _device_rows(prof)
         total = sum(r[0] for r in rows) / 1e3
         per = 1 if what == "prefill" else steps
-        print(f"[profile-jamba] {what} ({per} call{'s' * (per > 1)}): wall "
+        print(f"[{tag}] {what} ({per} call{'s' * (per > 1)}): wall "
               f"{wall:.3f} ms (profiler on), device busy {total:.3f} ms = "
               f"{total / wall:.1%} of the wall; {len(rows)} kernel names")
         # The ten largest, and wherever they rank those in a top-level
@@ -3538,7 +3539,7 @@ def _profile_jamba(engine, tokens, steps: int = 8):
             if rank < 10 or key.startswith(("void (anonymous namespace)::",
                                             "(anonymous namespace)::")) or (
                     "scan" in key.lower()):
-                print(f"[profile-jamba]   {dev_us / 1e3 / per:9.3f} ms/call "
+                print(f"[{tag}]   {dev_us / 1e3 / per:9.3f} ms/call "
                       f"{count // per:5d}x {key[:90]}")
 
 
@@ -3758,6 +3759,379 @@ def phase_lm_times(device_name: str):
         (n_tensor + n_ops) / peak["fp32"] * 1e3,
         bytes32 / peak["bytes"] * 1e3, err32))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# MLA, cross-attention and whisper served at full width: the flash
+# kernel's non-causal route on a main path.
+# ---------------------------------------------------------------------------
+
+# llama-3.2-vision-11b at its published widths and full depth (40 layers:
+# 32 self-attention, GQA 32/8 x 128, and 8 gated cross-attention layers
+# over 1,601 image-patch embeddings), bf16, 4 prompts of 2,048 tokens.
+LLAMA_V = dict(batch=4, prompt_len=2048, new_tokens=32, cache_len=2080,
+               seed=0)
+# whisper-tiny at full width and depth: 8 x 1,500 frames through the
+# 4-layer non-causal encoder, 8 prompts of 448 tokens (the decoder's
+# context) through 4 attn_cross blocks (6 heads of 64).
+WHISPER = dict(batch=8, prompt_len=448, new_tokens=32, cache_len=480,
+               seed=0)
+# deepseek-v3-671b at full width (d_model 7,168, 128 MLA heads, q_lora
+# 1,536, kv_lora 512, 256 routed experts top-8 + 1 shared), cut to 2 of
+# its 61 layers (~11.5B parameters a layer: ~50 GB of bf16 with the
+# embedding and the head); 4 prompts of 2,048 tokens.
+DEEPSEEK = dict(batch=4, prompt_len=2048, new_tokens=32, cache_len=2080,
+                seed=0)
+DEEPSEEK_LAYERS = 2
+# The absorbed MLA decode of token S against the expanded prefill's
+# output for token S, on layer 0's attention alone.  float32 (copies of
+# the layer's weights): the same function summed in another order (over
+# r_kv 512 and 2,048 keys against 128 + 64 dims a head), held at 1e-4 x
+# |expanded|_inf.  bfloat16 (the served weights): each form rounds
+# another set of intermediates to bf16 (q W_UK^T, the context c and its
+# W_UV against k_nope, v and the per-head output; 2^-9 relative each),
+# and both round the probabilities; those errors add to ~1e-2 of the
+# output's scale, so 3e-2 x |expanded|_inf.  A wrong scale (sqrt(128)
+# for sqrt(192)) or a dropped rope term moves the output by far more;
+# the gate also checks that token S - 1's output sits > 10x the limit
+# away.
+MLA_F32_TOL, MLA_BF16_TOL = 1e-4, 3e-2
+
+
+def _flash_shape_time(case, device_name: str) -> dict:
+    """One flash shape of a main path, timed alone on bf16 values: the
+    sm90 kernel's device ms (two ``device_ms`` readings), the plain
+    version's, and SDPA's (``enable_gqa=True``, kv heads not expanded,
+    (B, H, S, D) made contiguous beforehand); the bound: 4 D bf16
+    products a kept (query, key) pair at the tensor peak plus 3 fp32
+    operations a pair, against q, k, v read and the output written once.
+    The kernel is held against its plain version in float32."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.flash_attn import kernel as fk
+    b, s, t, h, kv, d, causal, window = case
+    q, k, v = _flash_inputs(case, torch.bfloat16, seed=13)
+    check(fk.select_route(q.dtype, d, h, kv) == "sm90",
+          f"flash {case}: not on the sm90 route")
+
+    def kernel():
+        return fk.flash_attention_cuda(q, k, v, causal=causal,
+                                       window=window)
+
+    def plain():
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               impl="ref")
+
+    before = fk.flash_attention_cuda.launches_by_route["sm90"]
+    got = kernel()
+    check(fk.flash_attention_cuda.launches_by_route["sm90"] == before + 1,
+          f"flash {case}: the launch missed the sm90 route")
+    err = compare(got.float(), flash_attention(
+        q.float(), k.float(), v.float(), causal=causal, window=window,
+        impl="ref"), BF16_RTOL, FLASH_BF16_ATOL)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=True)
+
+    lib_err = float((library().transpose(1, 2).float() - got.float())
+                    .abs().max())
+    ms = statistics.mean([device_ms(kernel), device_ms(kernel)])
+    lib_ms = statistics.mean([device_ms(library), device_ms(library)])
+    plain_ms = device_ms(plain, reps=5)
+    pairs = _pairs(s, t, causal, window) * b * h
+    n_tensor, n_ops = pairs * 4 * d, pairs * 3
+    n_bytes = 2 * (2 * b * s * h * d + 2 * b * t * kv * d)
+    peak = peaks(device_name)
+    t_ops = (n_ops / peak["fp32"] + n_tensor / peak["bf16"]) * 1e3
+    t_bytes = n_bytes / peak["bytes"] * 1e3
+    bound = max(t_ops, t_bytes)
+    print(f"[times] flash_attention sm90 at B={b} S={s} T={t} H={h} "
+          f"Kv={kv} D={d} {'causal' if causal else 'non-causal'}: device "
+          f"{ms:.4f} ms = {bound / ms:.1%} of the bound {bound:.4f} ms "
+          f"({'operations' if t_ops >= t_bytes else 'bytes'}: "
+          f"{n_tensor:.3e} bf16 tensor ops + {n_ops:.3e} fp32, "
+          f"{n_bytes:.3e} B); SDPA (enable_gqa) {lib_ms:.4f} ms, the kernel "
+          f"{ms / lib_ms:.2f}x SDPA (max abs diff {lib_err:.3e}); plain "
+          f"{plain_ms:.4f} ms; vs plain on float32 values max abs err "
+          f"{err:.3e}")
+    del q, k, v, qt, kt, vt, got
+    return {"ms": ms, "bound_ms": bound, "library_ms": lib_ms,
+            "plain_ms": plain_ms, "max_abs_err": err}
+
+
+def _serve_main_path(tag: str, cfg, run: dict, n_flash: int,
+                     prepare=None) -> dict:
+    """``serve_lm`` on ``cfg`` at ``run``'s sizes, the flash counters set
+    to 0 just before and read just after; the timed prefill's ``n_flash``
+    launches recorded at the model's call site and each held against its
+    plain version on its activations; all on the sm90 route, ``n_flash``
+    a prefill and none in decode; then the cuda prefill's logits against
+    the ``impl="ref"`` prefill at LOGITS_TOL.  ``prepare(model)`` runs on
+    the model as soon as its weights are drawn."""
+    import torch
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.launch import serve
+    from repro_torch.models import attention
+    t_start = time.perf_counter()
+    flash_calls = []
+    undo = [_recorder(attention, "flash_attention", flash_calls,
+                      max(n_flash, 1))]
+    if prepare is not None:
+        base = serve.LanguageModel
+
+        class Prepared(base):
+            def init(self, generator):
+                super().init(generator)
+                prepare(self)
+                return self
+
+        serve.LanguageModel = Prepared
+        undo.append(lambda: setattr(serve, "LanguageModel", base))
+    fk.flash_attention_cuda.launches = 0          # the main path starts here
+    fk.flash_attention_cuda.launches_by_route = dict.fromkeys(fk.ROUTES, 0)
+    ssd_before = sk.ssd_cuda.launches
+    try:
+        res = serve.serve_lm(cfg, device=DEVICE, **run)
+    finally:
+        for fn in undo:
+            fn()
+    flash_n = fk.flash_attention_cuda.launches    # ... and ends here
+    routes = dict(fk.flash_attention_cuda.launches_by_route)
+    model, engine = res["model"], res["engine"]
+    tokens, frontend, out = res["tokens"], res["frontend"], res["out"]
+    n_params = sum(p.numel() for p in model.parameters())
+    shapes = {}
+    for args, kw, _ in flash_calls:
+        key = (tuple(args[0].shape), tuple(args[1].shape),
+               "causal" if kw["causal"] else "non-causal")
+        shapes[key] = shapes.get(key, 0) + 1
+    held = _held_bytes(flash_calls)
+    kinds = [f"{cfg.layer_pattern.count(k) * cfg.n_periods} {k}"
+             for k in dict.fromkeys(cfg.layer_pattern)]
+    if cfg.encoder_layers:
+        kinds.append(f"encoder {cfg.encoder_layers}")
+    fe_shape = ("" if frontend is None
+                else f", frontend {tuple(frontend.shape)}")
+    print(f"[{tag}] {cfg.name}: {cfg.n_layers} layers ({', '.join(kinds)})"
+          f", d_model {cfg.d_model}, {n_params:,} parameters in "
+          f"{cfg.param_dtype}; batch {run['batch']} x {run['prompt_len']} "
+          f"tokens{fe_shape}"
+          f", cache {run['cache_len']}, {run['new_tokens']} greedy tokens; "
+          f"init {res['init_s']:.2f}s; peak "
+          f"{res['peak_bytes'] / 2**30:.2f} GiB (timed prefill + decode), of "
+          f"which up to {held / 2**30:.2f} GiB are the kernels' inputs and "
+          "outputs kept for the check")
+    print(f"[{tag}] {res['prefills']} prefills (1 warm-up): flash "
+          f"launches={flash_n} (by route {routes}); the last prefill's by "
+          "(q, k, mask): " + "; ".join(f"{q} x {k} {m}: {n}" for (q, k, m), n
+                                       in shapes.items()))
+    check(routes["sm90"] == flash_n, f"[{tag}] flash launches off the sm90 "
+          f"route: {routes}")
+    check(flash_n == n_flash * res["prefills"] and
+          len(flash_calls) == (n_flash or len(flash_calls)),
+          f"[{tag}] {flash_n} flash launches, expected {n_flash} a prefill "
+          f"and none in decode; {len(flash_calls)} recorded")
+    check(sk.ssd_cuda.launches == ssd_before, f"[{tag}] an SSD launch")
+    check(tuple(out.shape) == (run["batch"], run["new_tokens"]),
+          f"[{tag}] generated {tuple(out.shape)}")
+    check(bool(torch.isfinite(res["logits"].float()).all()),
+          f"[{tag}] non-finite logits")
+    check(int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
+          f"[{tag}] token ids out of range")
+    print(f"[{tag}] prefill {res['prefill_s'] * 1e3:.3f} ms = "
+          f"{res['prefill_tokens_per_s']:.1f} tokens/s; decode "
+          f"{res['decode_ms_per_step']:.4f} ms/step = "
+          f"{res['decode_tokens_per_s']:.2f} tokens/s (host clock, each "
+          "ending in a device synchronisation; warm-up excluded)")
+    if flash_calls:
+        _hold_main_path(flash_calls, [], tag)
+    del flash_calls
+    logits = res["logits"]
+    again, _ = engine.prefill(tokens, frontend)
+    t0 = time.perf_counter()
+    model.impl = "ref"
+    try:
+        ref_logits, ref_out = _greedy(engine, tokens, run["new_tokens"],
+                                      frontend)
+        torch.cuda.synchronize()
+    finally:
+        model.impl = "auto"
+    ref_s = time.perf_counter() - t0
+    scale = float(ref_logits.float().abs().max())
+    err = float((logits.float() - ref_logits.float()).abs().max())
+    agree = float((out == ref_out).float().mean())
+    print(f"[{tag}] cuda vs ref prefill logits: max abs err {err:.4e} "
+          f"(tolerance {LOGITS_TOL} x max|ref| = {LOGITS_TOL * scale:.4e}); "
+          f"greedy tokens agree {agree:.1%} (first token "
+          f"{float((out[:, 0] == ref_out[:, 0]).float().mean()):.0%}); a "
+          f"second cuda prefill differs by "
+          f"{float((again - logits).abs().max()):.1e}; ref generate "
+          f"{ref_s:.2f}s")
+    check(err <= LOGITS_TOL * scale, f"[{tag}] cuda and ref prefill logits "
+          "differ")
+    _profile_serve(engine, tokens, "profile-" + tag[len("serve-"):],
+                   frontend=frontend)
+    return {"flash": flash_n, "res": res, "shapes": shapes,
+            "seconds": time.perf_counter() - t_start}
+
+
+def _release(res) -> None:
+    import gc
+
+    import torch
+    res.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_llama_vision(device_name: str):
+    """llama-3.2-vision-11b served at full width and depth: 32 causal
+    flash launches a prefill at (4, 2,048, 32/8, 128) and 8 non-causal ones
+    at S 2,048 against T 1,601 (the cross layers).  The gates are set to
+    1.0: at 0 (the init) tanh(0) would switch every cross layer off."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llama-3.2-vision-11b")
+    n_cross = cfg.layer_pattern.count("cross_attn") * cfg.n_periods
+
+    def open_gates(model):
+        for blk in model.layers:
+            if blk.kind == "cross_attn":
+                blk.xattn.gate.fill_(1.0)
+
+    print(f"[serve-llama-vision] the {n_cross} cross layers' gates set to "
+          "1.0 after the seeded init (0 there: tanh(0) = 0 would switch "
+          "them off)")
+    out = _serve_main_path("serve-llama-vision", cfg, LLAMA_V, cfg.n_layers,
+                           prepare=open_gates)
+    non_causal = sum(n for (_, _, m), n in out["shapes"].items()
+                     if m == "non-causal")
+    check(non_causal == n_cross, f"[serve-llama-vision] {non_causal} "
+          f"non-causal launches a prefill, expected {n_cross}")
+    b, s = LLAMA_V["batch"], LLAMA_V["prompt_len"]
+    hd = cfg.resolved_head_dim
+    cross = (b, s, cfg.n_frontend_tokens, cfg.n_heads, cfg.n_kv_heads, hd,
+             False, 1 << 30)
+    _release(out.pop("res"))
+    times = {"serve-llama-vision cross (B %d, S %d, T %d, H %d, Kv %d, D "
+             "%d, non-causal)" % cross[:6]: dict(
+                 _flash_shape_time(cross, device_name),
+                 launches_per_prefill=n_cross)}
+    print(f"[serve-llama-vision] {out['seconds']:.1f}s")
+    return dict(out, times=times)
+
+
+def phase_serve_whisper(device_name: str):
+    """whisper-tiny served at full width and depth: 12 flash launches a
+    prefill at D 64, all sm90: 4 encoder (non-causal, S = T = 1,500), 4
+    decoder self-attention (causal, 448) and 4 cross-attention (S 448
+    against T 1,500)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper-tiny")
+    n = cfg.encoder_layers + 2 * cfg.n_layers
+    out = _serve_main_path("serve-whisper", cfg, WHISPER, n)
+    non_causal = sum(c for (_, _, m), c in out["shapes"].items()
+                     if m == "non-causal")
+    check(non_causal == cfg.encoder_layers + cfg.n_layers,
+          f"[serve-whisper] {non_causal} non-causal launches a prefill")
+    b, s, t = WHISPER["batch"], WHISPER["prompt_len"], cfg.n_frontend_tokens
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    _release(out.pop("res"))
+    times = {}
+    for what, case, per in (
+            ("encoder", (b, t, t, h, kv, hd, False, 1 << 30),
+             cfg.encoder_layers),
+            ("cross", (b, s, t, h, kv, hd, False, 1 << 30), cfg.n_layers)):
+        times["serve-whisper %s (B %d, S %d, T %d, H %d, Kv %d, D %d, "
+              "non-causal)" % ((what,) + case[:6])] = dict(
+            _flash_shape_time(case, device_name), launches_per_prefill=per)
+    print(f"[serve-whisper] {out['seconds']:.1f}s")
+    return dict(out, times=times)
+
+
+def _mla_decode_gate(model, tokens) -> dict:
+    """Layer 0's attention at full width: ``mla_decode`` of token S after
+    ``mla_prefill`` of tokens 0..S-1 against ``mla_prefill`` of tokens
+    0..S at token S, on the model's input to that attention (its embedded,
+    normed prompts), in bf16 and on float32 copies of the weights."""
+    import torch
+    from repro_torch.models import attention, layers
+    from repro_torch.nn.module import ParamTree
+    cfg, blk = model.cfg, model.layers[0]
+    s = tokens.shape[1] - 1
+    pos = torch.arange(s + 1, dtype=torch.int32, device=tokens.device)
+    p32 = ParamTree(attention.mla_specs(cfg), dtype=torch.float32,
+                    device=tokens.device)
+    p32.load_state_dict({k: v.float() for k, v in
+                         blk.attn.state_dict().items()})
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    out = {}
+    with torch.no_grad():
+        h = layers.rmsnorm(blk.ln_attn, layers.embed(model.embed, cfg,
+                                                     tokens), cfg.norm_eps)
+        for name, c, p, x, tol in (("bf16", cfg, blk.attn, h, MLA_BF16_TOL),
+                                   ("f32", cfg32, p32, h.float(),
+                                    MLA_F32_TOL)):
+            _, cache = attention.mla_prefill(p, c, x[:, :s], pos[:s],
+                                             cache_len=s + 1)
+            got, _ = attention.mla_decode(p, c, x[:, s:], cache, s)
+            want, _ = attention.mla_prefill(p, c, x, pos, cache_len=s + 1)
+            got, prev, want = (got[:, 0].float(), want[:, s - 1].float(),
+                               want[:, s].float())
+            top = float(want.abs().max())
+            err = compare(got, want, rtol=0.0, atol=tol, floor=False)
+            away = float((prev - want).abs().max())
+            check(away > 10 * tol * top, f"the MLA gate cannot bite: token "
+                  f"S - 1 is {away:.3e} from token S, limit {tol * top:.3e}")
+            out[name] = (err, tol * top, away)
+            del cache, want
+    return out
+
+
+def phase_serve_deepseek():
+    """deepseek-v3-671b at full width, cut to 2 layers: MLA and the MoE on
+    the main path, no flash launch (MLA's prefill runs ``mha_full``, as
+    JAX's does: qk 192 against v 128 takes no flash route); then the
+    absorbed decode gate on layer 0's attention."""
+    import torch
+    from repro_torch.configs import get_config
+    full = get_config("deepseek-v3-671b")
+    cfg = full.replace(n_layers=DEEPSEEK_LAYERS)
+    run = dict(DEEPSEEK)
+    per_layer = (cfg.param_count_estimate()
+                 - 2 * cfg.vocab_size * cfg.d_model) // cfg.n_layers
+    print(f"[serve-deepseek] cut to {cfg.n_layers} of {full.n_layers} "
+          f"layers: {per_layer / 1e9:.2f}B parameters a layer, "
+          f"{cfg.param_count_estimate() * 2 / 1e9:.1f} GB of bf16 weights "
+          f"with the embedding and the head (all {full.n_layers}: "
+          f"{full.param_count_estimate() * 2 / 1e12:.2f} TB)")
+    try:
+        out, oom = _serve_main_path("serve-deepseek", cfg, run, 0), None
+    except torch.cuda.OutOfMemoryError as e:
+        out, oom = None, str(e).splitlines()[0]
+    if out is None:             # retried outside the handler: its traceback
+        _release({})            # holds the first model
+        run["batch"] //= 2
+        print(f"[serve-deepseek] out of device memory at batch "
+              f"{DEEPSEEK['batch']} ({oom}); the batch is halved to "
+              f"{run['batch']}")
+        out = _serve_main_path("serve-deepseek", cfg, run, 0)
+    check(out["flash"] == 0, f"[serve-deepseek] {out['flash']} flash "
+          "launches, expected 0")
+    res = out.pop("res")
+    gate = _mla_decode_gate(res["model"], res["tokens"])
+    print(f"[serve-deepseek] layer 0's absorbed mla_decode of token "
+          f"{run['prompt_len'] - 1} vs the expanded mla_prefill of "
+          f"{run['prompt_len']} tokens (batch {run['batch']}): "
+          + "; ".join(f"{k} max abs err {e:.3e} (limit {lim:.3e}; token "
+                      f"S - 1 lies {away:.3e} away)"
+                      for k, (e, lim, away) in gate.items()))
+    _release(res)
+    print(f"[serve-deepseek] {out['seconds']:.1f}s")
+    return dict(out, gate=gate, batch=run["batch"])
 
 
 # LM training at mamba2-780m's full width and depth (48 layers, d_model
@@ -4166,7 +4540,46 @@ def phase_lm_readout(model, device_name: str):
           f", J {n_sv}, D {d}): device {mv_ms:.4f} ms a call, bound "
           f"{mv_bound:.6f} ms = {mv_bound / mv_ms:.1%} (all operations at the "
           f"fp32 peak); vs plain max abs err {mv_err:.3e}")
+    # The wide sm90 train variant alone at the fit's step (I n_grad, a J
+    # union of 2,048, D 1,536), as the step calls it (rows by index, lam),
+    # counted as phase_parallel_times counts the step at D 54.
+    xs, ys, a_full = feats[:ntr].contiguous(), y[:ntr].contiguous(), \
+        res.state.alpha
+    tgen = torch.Generator(device=DEVICE).manual_seed(r["seed"] + 1)
+    idx_i = torch.randperm(ntr, generator=tgen, device=DEVICE)[:r["n_grad"]]
+    idx_j = torch.randperm(ntr, generator=tgen, device=DEVICE)[:j_union]
+    scale = ntr / j_union if hcfg.unbiased_scaling else 1.0
+    tkw = dict(loss=hcfg.loss, params=params, f_scale=scale, lam=hcfg.lam)
+    check(block.select_train_route(r["n_grad"], j_union, d, "rbf") ==
+          "sm90", "lm-readout: the fit's step is not on the sm90 route")
+
+    def wide():
+        return block.train_pass_indexed_cuda(xs, ys, a_full, idx_i, idx_j,
+                                             **tkw)
+
+    def wide_plain():
+        return block.train_pass_indexed_plain(xs, ys, a_full, idx_i, idx_j,
+                                              **tkw)
+
+    got, want = wide(), wide_plain()
+    w_err = max(compare(got[0], want[0]), compare(got[1], want[1]))
+    w_ms = statistics.mean([device_ms(wide), device_ms(wide)])
+    w_plain = device_ms(wide_plain, reps=5)
+    n_i = r["n_grad"]
+    w_ops = (2 * n_i * j_union * d + 2 * d * (n_i + j_union)
+             + 8 * n_i * j_union + 2 * n_i * j_union + 4 * n_i + 2 * j_union)
+    w_bytes = 4 * (n_i * d + j_union * d + 2 * j_union + 2 * n_i) \
+        + 8 * (n_i + j_union)
+    w_bound = max(w_ops / peak["fp32"], w_bytes / peak["bytes"]) * 1e3
+    print(f"[lm-readout] train_pass_sm90_j4096 (the wide variant) at the "
+          f"fit's step (I {n_i}, J union {j_union}, D {d}, rows by index, "
+          f"lam): device {w_ms:.4f} ms a call, bound {w_bound:.6f} ms = "
+          f"{w_bound / w_ms:.1%} ({w_ops:.3e} operations at the fp32 peak, "
+          f"{w_bytes:.3e} B); plain {w_plain:.4f} ms; vs plain max abs err "
+          f"{w_err:.3e}")
     return {"ssd": ssd_n, "train": steps, "matvec": sum(matvec.values()),
+            "train_time": (w_ms, w_bound, w_plain),
+            "train_shape": (n_i, j_union, d),
             "launches": launches, "extract_s": extract_s,
             "ssd_time": (ssd_ms, ssd_bound), "matvec_time": (mv_ms, mv_bound),
             "err": err, "tr_err": tr_err, "ssd_case": ssd_case,
@@ -4272,6 +4685,10 @@ def main() -> int:
     jamba = phase_serve_jamba()
     del jamba["res"]
     elapsed("serve-jamba")
+    llama = phase_serve_llama_vision(name)
+    whisper = phase_serve_whisper(name)
+    deepseek = phase_serve_deepseek()
+    elapsed("serve-llama-vision, serve-whisper, serve-deepseek")
     lm_train = phase_lm_train()
     elapsed("lm-train")
     readout = phase_lm_readout(lm_train.pop("model"), name)
@@ -4283,12 +4700,20 @@ def main() -> int:
     wide_paths["lm-readout fit (J union 2,048)"] = readout["train"]
     # The readout's decisions at D 1,536 take the matvec's fp32 route.
     matvec_fp32_paths = {"lm-readout decisions (D 1,536)": readout["matvec"]}
+    # Flash: causal prefills (jamba, llama-3.2-vision's self-attention,
+    # whisper's decoder) and, since the frontend slice, non-causal ones
+    # (the cross layers, whisper's encoder); none in deepseek's (MLA).
+    flash_paths = {"serve-jamba": jamba["flash"],
+                   "serve-llama-vision": llama["flash"],
+                   "serve-whisper": whisper["flash"],
+                   "serve-deepseek": deepseek["flash"]}
     ssd_paths = {"serve-jamba": jamba["ssd"],
                  "lm-readout (mamba2-780m, n 128)": readout["ssd"]}
     by_path = {"kernel_matvec": matvec_paths,
                "train_pass": train_paths,
                "train_pass_sm90_j4096": wide_paths,
                "kernel_vecmat": vecmat_paths, "ssd": ssd_paths,
+               "flash_attention": flash_paths,
                "kernel_matvec_fp32": matvec_fp32_paths}
     # kernel_vecmat_precond times kernel_vecmat at the correction's shape;
     # its launches are counted once, in kernel_vecmat's row.
@@ -4299,7 +4724,7 @@ def main() -> int:
                 "dual_pass": trained["dual_launches"],
                 "train_pass": sum(train_paths.values()),
                 "train_pass_sm90_j4096": sum(wide_paths.values()),
-                "flash_attention": jamba["flash"],
+                "flash_attention": sum(flash_paths.values()),
                 "ssd": sum(ssd_paths.values())}
     for row in rows:
         row["launches"] = launches.get(row["name"], 0)
@@ -4314,6 +4739,13 @@ def main() -> int:
             row["ms_bound_by_shape"] = {
                 "lm-readout decision (I %d, J %d, D %d)"
                 % readout["matvec_shape"]: readout["matvec_time"]}
+        if row["name"] == "flash_attention":
+            row["ms_bound_by_shape"] = dict(llama["times"],
+                                            **whisper["times"])
+        if row["name"] == "train_pass_sm90_j4096":
+            row["ms_bound_by_shape"] = {
+                "lm-readout fit (I %d, J union %d, D %d)"
+                % readout["train_shape"]: readout["train_time"]}
         if row["name"] == "ssd":
             row["ms_bound_by_shape"] = {
                 "lm-readout (B %d, S %d, nh %d, hd %d, g %d, n %d, chunk %d)"

@@ -9,6 +9,7 @@ takes the first ``n_rem`` kinds of the pattern).  Kinds:
   * ``attn_local``  — sliding-window causal self-attention (``window``)
   * ``mamba``       — mamba-2 SSD block (attention-free)
   * ``cross_attn``  — cross-attention block over frontend embeddings (VLM)
+  * ``attn_cross``  — whisper's decoder block: self- then cross-attention
 
 ``moe_pattern`` marks which period positions use a mixture-of-experts FFN.
 """

@@ -33,7 +33,9 @@
   ``np.asarray``-able): parameters keep their shapes, and the period stack
   ``stack/scan/pos{i}`` (leading axis = period index ``p``) is unstacked
   into ``layers.{p * period + i}``, the remainder ``stack/rem/pos{i}``
-  following as ``layers.{n_periods * period + i}``.  bfloat16 arrays
+  following as ``layers.{n_periods * period + i}``; whisper's encoder
+  stack ``encoder/scan`` (leading axis = encoder layer) likewise into
+  ``encoder.layers.{i}``, beside ``encoder.ln_f``.  bfloat16 arrays
   (``ml_dtypes``) become bfloat16 tensors.
 * ``lm_train_state_from_jax(cfg, params, opt_state, extra)`` — the flat
   arrays and ``extra`` of a port LM training checkpoint (``train_loop``
@@ -187,16 +189,27 @@ def lm_params_from_jax(cfg: ModelConfig, params: Mapping[str, Any]
         else:
             out[name] = torch.from_numpy(arr)
 
-    for name, arr in _flat({k: v for k, v in params.items() if k != "stack"}):
+    def unstack(sub, prefix, stride=1, offset=0):
+        """A stacked subtree: entry p along the leading axis goes to
+        ``{prefix}.{p * stride + offset}``."""
+        for name, arr in _flat(sub):
+            arr = np.asarray(arr)
+            for p in range(arr.shape[0]):
+                put(f"{prefix}.{p * stride + offset}.{name}", arr[p])
+
+    encoder = dict(params.get("encoder", {}))
+    if "scan" in encoder:
+        unstack(encoder.pop("scan"), "encoder.layers")
+    rest = {k: v for k, v in params.items() if k not in ("stack", "encoder")}
+    if encoder:
+        rest["encoder"] = encoder
+    for name, arr in _flat(rest):
         put(name, arr)
     stack = params.get("stack", {})
     base = cfg.n_periods * cfg.period
     for pos, sub in stack.get("scan", {}).items():
         i = int(pos[len("pos"):])
-        for name, arr in _flat(sub):
-            arr = np.asarray(arr)
-            for p in range(arr.shape[0]):
-                put(f"layers.{p * cfg.period + i}.{name}", arr[p])
+        unstack(sub, "layers", cfg.period, i)
     for pos, sub in stack.get("rem", {}).items():
         i = int(pos[len("pos"):])
         for name, arr in _flat(sub):

@@ -10,11 +10,13 @@ and SSD kernels on a card:
         --arch jamba-v0.1-52b --batch 4 --prompt-len 32 --new-tokens 16 \\
         [--full] [--device cpu]
 
-``--full`` on a config whose parameters do not fit the device exits with
-an error naming the sharded path it needs (ROADMAP.md section 1, items 6
-and 10); ``serve_lm`` takes any config, as ``chip_smoke.py`` calls it with
-a depth-cut one.  MLA (deepseek-v3) and cross-attention
-(llama-3.2-vision, whisper) exit with an error naming their ROADMAP item.
+Where the config has a frontend (llama-3.2-vision's image embeddings,
+whisper's audio frames), a random one of shape (B, ``n_frontend_tokens``,
+d_model) is drawn from the same generator, as the JAX launcher draws one.
+``--full`` on a config whose parameters do not fit the device (deepseek-v3
+on one card) exits with an error naming the sharded path it needs
+(ROADMAP.md section 1, item 6); ``serve_lm`` takes any config, as
+``chip_smoke.py`` calls it with depth-cut ones.
 
 DSEKL kernel-prediction serving builds a trained DSEKL model from
 ``--seed`` (random sparse alpha over synthetic training rows), compacts it
@@ -76,7 +78,6 @@ from repro_torch.core.dsekl import DSEKLConfig
 from repro_torch.data.source import RingSource
 from repro_torch.data.synthetic import make_covertype_like
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.blocks import check_supported
 from repro_torch.models.model import LanguageModel
 from repro_torch.serving import (DSEKLPredictionEngine, EngineConfig,
                                  OnlineService, QoSConfig, ServingEngine,
@@ -414,25 +415,32 @@ def serve_lm(cfg: ModelConfig, batch: int, prompt_len: int, new_tokens: int,
              cache_len: int, device: DeviceLike = None, seed: int = 0
              ) -> Dict[str, Any]:
     """Greedy generation of ``new_tokens`` for ``batch`` random prompts of
-    ``prompt_len`` tokens through a model initialized from ``seed``.
+    ``prompt_len`` tokens (and, where the config has one, a random
+    frontend (batch, ``n_frontend_tokens``, d_model)) through a model
+    initialized from ``seed``.
 
     One prefill and one decode step run first as a warm-up (kernel builds,
     allocator); then the prefill and the ``new_tokens - 1`` decode steps
     are timed on the host clock, each ending in a device synchronisation.
-    Returns the model, the engine, the prompts, the generated tokens
-    (B, new_tokens), the timed prefill's logits, the number of prefills
-    run (2), the timings and, on a card, the peak device memory."""
+    Returns the model, the engine, the prompts, the frontend (or None),
+    the generated tokens (B, new_tokens), the timed prefill's logits, the
+    number of prefills run (2), the timings and, on a card, the peak
+    device memory."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     t0 = time.perf_counter()
     model = LanguageModel(cfg, device=device).init(gen)
     tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=gen, device=device)
+    frontend = None
+    if cfg.n_frontend_tokens:
+        frontend = torch.randn((batch, cfg.n_frontend_tokens, cfg.d_model),
+                               generator=gen, device=device)
     _sync(device)
     init_s = time.perf_counter() - t0
     engine = ServingEngine(model, cache_len)
 
-    logits, cache = engine.prefill(tokens)                   # warm-up
+    logits, cache = engine.prefill(tokens, frontend)         # warm-up
     engine.decode_step(torch.argmax(logits, dim=-1), cache, prompt_len)
     _sync(device)
     del cache
@@ -440,7 +448,7 @@ def serve_lm(cfg: ModelConfig, batch: int, prompt_len: int, new_tokens: int,
         torch.cuda.reset_peak_memory_stats(device)
 
     t0 = time.perf_counter()
-    logits, cache = engine.prefill(tokens)
+    logits, cache = engine.prefill(tokens, frontend)
     _sync(device)
     prefill_s = time.perf_counter() - t0
     out = [torch.argmax(logits, dim=-1)]
@@ -454,7 +462,8 @@ def serve_lm(cfg: ModelConfig, batch: int, prompt_len: int, new_tokens: int,
     steps = max(new_tokens - 1, 0)
     res = {
         "model": model, "engine": engine, "tokens": tokens,
-        "out": torch.stack(out, dim=1), "logits": logits, "prefills": 2,
+        "frontend": frontend, "out": torch.stack(out, dim=1),
+        "logits": logits, "prefills": 2,
         "init_s": init_s, "prefill_s": prefill_s, "decode_s": decode_s,
         "prefill_tokens_per_s": batch * prompt_len / prefill_s,
         "decode_ms_per_step": decode_s / steps * 1e3 if steps else 0.0,
@@ -483,10 +492,6 @@ def lm_main(ap: argparse.ArgumentParser, args) -> Dict[str, Any]:
     if args.arch not in ARCHS:
         ap.error(f"unknown arch {args.arch!r}; available: {sorted(ARCHS)}")
     cfg = get_config(args.arch, reduced=not args.full)
-    try:
-        check_supported(cfg)
-    except NotImplementedError as e:
-        ap.error(str(e))
     device = resolve_device(args.device)
     if args.full:
         need = cfg.param_count_estimate() * torch.finfo(cfg.pdtype).bits // 8
@@ -496,7 +501,7 @@ def lm_main(ap: argparse.ArgumentParser, args) -> Dict[str, Any]:
                      f"{cfg.param_dtype} parameters do not fit the "
                      f"{have / 1e9:.1f} GB of {device}; the full model needs "
                      "the sharded mesh path, which is not ported yet "
-                     "(ROADMAP.md section 1, items 6 and 10)")
+                     "(ROADMAP.md section 1, item 6)")
     return serve_lm(cfg, args.batch, args.prompt_len, args.new_tokens,
                     args.cache_len, device, args.seed)
 

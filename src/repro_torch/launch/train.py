@@ -15,7 +15,10 @@ parameters, gradients and float32 moments fit the device:
         [--ckpt-dir DIR --ckpt-every 25 [--resume]] [--device cpu]
 
 A larger model, ``--data-par`` / ``--model-par`` > 1 and ``--multi-pod``
-need the mesh (ROADMAP.md section 1, item 6) and are refused.
+need the mesh (ROADMAP.md section 1, item 6) and are refused.  So are the
+configs with a frontend (llama-3.2-vision, whisper): the launcher, like
+JAX's, builds no frontend for them to attend over (``train_step`` takes
+one in ``batch["frontend"]`` from a caller that has one).
 
 DSEKL:
 
@@ -63,7 +66,6 @@ from repro_torch.data import BigramPipeline, make_memmap_dataset, \
     split_holdout
 from repro_torch.data.synthetic import make_covertype_like
 from repro_torch.device import resolve_device
-from repro_torch.models.blocks import check_supported
 from repro_torch.models.model import LanguageModel
 from repro_torch.optim import make_optimizer, make_schedule
 from repro_torch.train import (TrainLoopConfig, make_train_step, trainable,
@@ -309,10 +311,11 @@ def lm_refusal(args) -> str:
     if args.arch not in ARCHS:
         return f"unknown arch {args.arch!r}; available: {sorted(ARCHS)}"
     cfg = get_config(args.arch, reduced=not args.full)
-    try:
-        check_supported(cfg)
-    except NotImplementedError as e:
-        return str(e)
+    if cfg.n_frontend_tokens:
+        return (f"{cfg.name}: its cross-attention needs a frontend "
+                f"({cfg.n_frontend_tokens} embeddings a sequence), and the "
+                "LM training launcher builds none, as JAX's does not: pass "
+                "one in batch['frontend'] to train.make_train_step")
     if args.full:
         device = resolve_device(args.device)
         need, have = lm_state_bytes(cfg), _device_bytes(device)

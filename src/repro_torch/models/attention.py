@@ -1,26 +1,33 @@
-"""GQA self-attention (global / sliding-window) with a ring-buffer KV
-cache (port of the GQA part of ``repro/models/attention.py``).
+"""Attention: GQA (global / sliding-window), MLA (deepseek-v3) and
+cross-attention (llama-3.2-vision, whisper) with their decode caches (port
+of ``repro/models/attention.py``).
 
-  * prefill: the full-sequence attention runs through the flash-attention
-    op (``kernels/flash_attn``) where JAX runs ``mha_full``, its XLA form
-    of the same online-softmax schedule;
-  * train: ``gqa_forward`` runs ``mha_full``, the port of JAX's plain
-    q-chunked attention, through autograd (no kernel has a backward);
+  * prefill: GQA's full-sequence attention, causal or not, and
+    cross-attention's run through the flash-attention op
+    (``kernels/flash_attn``) where JAX runs ``mha_full``, its XLA form of
+    the same online-softmax schedule (cross-attention with zero positions:
+    every key is valid, as in the non-causal op);
+  * train: ``gqa_forward``, ``cross_forward`` and ``mla_forward`` run
+    ``mha_full``, the port of JAX's plain q-chunked attention, through
+    autograd (no kernel has a backward);
+  * MLA's full-sequence attention runs ``mha_full`` in prefill too, as
+    JAX's ``mla_prefill`` does: its qk head dim (192) differs from its v
+    head dim (128), which neither flash route takes;
   * decode: one query token against the cache, in plain torch.  Caches
     are ring buffers: ``slot = pos % cache_len`` with a per-slot position
     array for masking, so sliding-window layers carry only ``window``
-    slots.  Unlike JAX's functional update, ``gqa_decode`` writes the new
-    token into the cache tensors in place (no copy of the cache a step)
-    and returns the same cache.
+    slots.  Unlike JAX's functional update, ``gqa_decode`` and
+    ``mla_decode`` write the new token into the cache tensors in place
+    (no copy of the cache a step) and return the same cache.  MLA decodes
+    in the absorbed form: scores and context in the compressed c_kv
+    space.
 
-All softmax statistics are f32 regardless of compute dtype.  MLA
-(deepseek-v3) and cross-attention (llama-3.2-vision, whisper) are not
-ported yet.
+All softmax statistics are f32 regardless of compute dtype.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,13 +41,6 @@ Tensor = torch.Tensor
 
 GLOBAL_WINDOW = 1 << 30   # "window" of a global-attention layer
 NEG_INF = -1e30
-UNPORTED = {
-    "mla": "MLA attention (deepseek-v3) is not ported yet: ROADMAP.md "
-           "section 1, item 10 (LM substrate: MLA)",
-    "cross": "cross-attention (llama-3.2-vision's cross_attn, whisper's "
-             "attn_cross and encoder) is not ported yet: ROADMAP.md "
-             "section 1, item 10 (LM substrate: cross-attention, whisper)",
-}
 
 
 def gqa_specs(cfg: ModelConfig) -> Dict[str, Param]:
@@ -51,6 +51,38 @@ def gqa_specs(cfg: ModelConfig) -> Dict[str, Param]:
         "w_v": Param((d, kv, hd), init="fan_in"),
         "w_o": Param((h, hd, d), init="fan_in"),
     }
+
+
+def mla_specs(cfg: ModelConfig) -> Dict[str, Param]:
+    d, h = cfg.d_model, cfg.n_heads
+    rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
+    qk_n, qk_r, vh = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "w_dq": Param((d, rq), init="fan_in"),
+        "q_norm": Param((rq,), init="ones"),
+        "w_uq": Param((rq, h, qk_n + qk_r), init="fan_in"),
+        "w_dkv": Param((d, rkv + qk_r), init="fan_in"),
+        "kv_norm": Param((rkv,), init="ones"),
+        "w_uk": Param((rkv, h, qk_n), init="fan_in"),
+        "w_uv": Param((rkv, h, vh), init="fan_in"),
+        "w_o": Param((h, vh, d), init="fan_in"),
+    }
+
+
+def cross_specs(cfg: ModelConfig) -> Dict[str, Param]:
+    """GQA's projections and llama-3.2-vision's tanh gate (zero at init;
+    kept where it is unused, as in whisper, so that JAX's tree loads
+    whole)."""
+    specs = gqa_specs(cfg)
+    specs["gate"] = Param((1,), init="zeros")
+    return specs
+
+
+def _rms(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
+    """MLA's low-rank norms: RMSNorm in f32, cast back to x's dtype."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
 class KVCache(NamedTuple):
@@ -141,12 +173,18 @@ def _qkv(p: ParamTree, cfg: ModelConfig, x: Tensor, positions: Tensor):
 
 def gqa_forward(p: ParamTree, cfg: ModelConfig, x: Tensor,
                 positions: Tensor, *, window: int, causal: bool = True,
-                q_chunk: int = 512) -> Tensor:
-    """The training path, no cache: x (B,S,D); positions (S,); attention
-    through ``mha_full`` (differentiable)."""
+                q_chunk: int = 512, impl: Optional[str] = None) -> Tensor:
+    """Full-sequence attention, no cache: x (B,S,D); positions (S,) =
+    arange(S).  ``impl`` None runs ``mha_full`` (differentiable: the
+    training path); a backend name runs the flash op on it (the encoder
+    in serving, non-causal)."""
     q, k, v = _qkv(p, cfg, x, positions)
-    out = mha_full(q, k, v, positions, positions, window=window,
-                   causal=causal, q_chunk=q_chunk)
+    if impl is None:
+        out = mha_full(q, k, v, positions, positions, window=window,
+                       causal=causal, q_chunk=q_chunk)
+    else:
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              impl=impl)
     return torch.einsum("bshk,hkd->bsd", out, p.w_o)
 
 
@@ -187,3 +225,170 @@ def gqa_decode(p: ParamTree, cfg: ModelConfig, x: Tensor, cache: KVCache,
     o = torch.einsum("bkgt,btkd->bkgd", probs.to(cache.v.dtype), cache.v)
     o = o.reshape(b, 1, h, hd)
     return torch.einsum("bshk,hkd->bsd", o, p.w_o), cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (llama-3.2-vision's image layers, whisper's decoder).
+# ---------------------------------------------------------------------------
+
+class CrossCache(NamedTuple):
+    k: Tensor   # (B, Tf, Kv, Dh): projected frontend keys (static a request)
+    v: Tensor
+
+
+def init_cross_cache(cfg: ModelConfig, batch: int, frontend_len: int,
+                     device: torch.device) -> CrossCache:
+    shape = (batch, frontend_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return CrossCache(k=torch.zeros(shape, dtype=cfg.cdtype, device=device),
+                      v=torch.zeros(shape, dtype=cfg.cdtype, device=device))
+
+
+def cross_kv(p: ParamTree, cfg: ModelConfig, frontend: Tensor) -> CrossCache:
+    k = torch.einsum("btd,dhk->bthk", frontend, p.w_k)
+    v = torch.einsum("btd,dhk->bthk", frontend, p.w_v)
+    return CrossCache(k=k, v=v)
+
+
+def cross_forward(p: ParamTree, cfg: ModelConfig, x: Tensor,
+                  kv_cache: CrossCache, *, gated: bool = True,
+                  impl: Optional[str] = None) -> Tensor:
+    """x (B,S,D) attends over the precomputed frontend K/V, no causality
+    (JAX: ``mha_full`` with zero positions, every key valid).  ``impl``
+    None runs ``mha_full`` (training, and decode's S = 1); a backend name
+    runs the flash op, non-causal (prefill).  ``tanh(gate)`` scales the
+    output when ``gated``."""
+    q = torch.einsum("bsd,dhk->bshk", x, p.w_q)
+    if impl is None:
+        s, t = q.shape[1], kv_cache.k.shape[1]
+        out = mha_full(q, kv_cache.k, kv_cache.v,
+                       torch.zeros(s, dtype=torch.int32, device=x.device),
+                       torch.zeros(t, dtype=torch.int32, device=x.device),
+                       window=GLOBAL_WINDOW, causal=False)
+    else:
+        out = flash_attention(q, kv_cache.k, kv_cache.v, causal=False,
+                              window=GLOBAL_WINDOW, impl=impl)
+    out = torch.einsum("bshk,hkd->bsd", out, p.w_o)
+    if gated:
+        out = torch.tanh(p.gate.to(out.dtype)) * out
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v3): compressed KV; absorbed decode.
+# ---------------------------------------------------------------------------
+
+class MLACache(NamedTuple):
+    c_kv: Tensor     # (B, C, r_kv)
+    k_rope: Tensor   # (B, C, qk_rope)
+    pos: Tensor      # (C,) int32, -1 = empty
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                   device: torch.device, dtype=None) -> MLACache:
+    dtype = dtype or cfg.cdtype
+    return MLACache(
+        c_kv=torch.zeros((batch, cache_len, cfg.kv_lora_rank), dtype=dtype,
+                         device=device),
+        k_rope=torch.zeros((batch, cache_len, cfg.qk_rope_dim), dtype=dtype,
+                           device=device),
+        pos=torch.full((cache_len,), -1, dtype=torch.int32, device=device),
+    )
+
+
+def _mla_q(p: ParamTree, cfg: ModelConfig, x: Tensor, positions: Tensor
+           ) -> Tuple[Tensor, Tensor]:
+    """q_nope (B,S,H,qk_nope), q_rope (B,S,H,qk_rope) (roped)."""
+    cq = _rms(x @ p.w_dq, p.q_norm)
+    q = torch.einsum("bsr,rhk->bshk", cq, p.w_uq)
+    q_nope, q_rope = q.split([cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, positions[None], cfg.rope_theta)
+
+
+def _mla_ckv(p: ParamTree, cfg: ModelConfig, x: Tensor, positions: Tensor
+             ) -> Tuple[Tensor, Tensor]:
+    """c_kv (B,S,r) (normed), k_rope (B,S,qk_rope) (roped, shared by the
+    heads)."""
+    c_kv, k_rope = (x @ p.w_dkv).split([cfg.kv_lora_rank, cfg.qk_rope_dim],
+                                       dim=-1)
+    c_kv = _rms(c_kv, p.kv_norm)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions[None],
+                        cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def _mla_attend(p: ParamTree, cfg: ModelConfig, x: Tensor,
+                positions: Tensor, q_chunk: int):
+    """The expanded form: K/V per head from c_kv, then causal
+    ``mha_full`` (qk head dim nope + rope, v head dim v_head_dim).
+    Returns (out (B,S,D), c_kv, k_rope)."""
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_ckv(p, cfg, x, positions)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p.w_uk)
+    v = torch.einsum("bsr,rhv->bshv", c_kv, p.w_uv)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        k_nope.shape[:3] + (cfg.qk_rope_dim,))], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = mha_full(q, k, v, positions, positions, window=GLOBAL_WINDOW,
+                   causal=True, q_chunk=q_chunk)
+    return torch.einsum("bshv,hvd->bsd", out, p.w_o), c_kv, k_rope
+
+
+def mla_forward(p: ParamTree, cfg: ModelConfig, x: Tensor,
+                positions: Tensor, *, q_chunk: int = 512) -> Tensor:
+    """Full-sequence MLA, no cache (training; differentiable)."""
+    return _mla_attend(p, cfg, x, positions, q_chunk)[0]
+
+
+def mla_prefill(p: ParamTree, cfg: ModelConfig, x: Tensor,
+                positions: Tensor, *, cache_len: int, q_chunk: int = 512
+                ) -> Tuple[Tensor, MLACache]:
+    """Full-sequence MLA and the compressed cache it leaves: the last
+    ``cache_len`` tokens in order when S >= cache_len (JAX lays them out
+    so, not by slot), else the S tokens padded with position -1."""
+    out, c_kv, k_rope = _mla_attend(p, cfg, x, positions, q_chunk)
+    s, dtype = x.shape[1], cfg.cdtype
+    if s >= cache_len:
+        return out, MLACache(c_kv=c_kv[:, -cache_len:].to(dtype),
+                             k_rope=k_rope[:, -cache_len:].to(dtype),
+                             pos=positions[-cache_len:].to(torch.int32))
+    pad = cache_len - s
+
+    def padded(t):
+        return torch.cat([t.to(dtype), t.new_zeros(
+            (t.shape[0], pad, t.shape[2]), dtype=dtype)], dim=1)
+
+    return out, MLACache(c_kv=padded(c_kv), k_rope=padded(k_rope),
+                         pos=torch.cat([positions.to(torch.int32),
+                                        positions.new_full(
+                                            (pad,), -1, dtype=torch.int32)]))
+
+
+def mla_decode(p: ParamTree, cfg: ModelConfig, x: Tensor, cache: MLACache,
+               cur_pos: int) -> Tuple[Tensor, MLACache]:
+    """One-token decode in the absorbed form: W_UK folded into the query,
+    scores and context taken in c_kv space, scaled by 1 / sqrt(qk_nope +
+    qk_rope).  x (B,1,D); cur_pos a Python int.  Writes the new token
+    into ``cache`` in place and returns it."""
+    pos1 = torch.tensor([cur_pos], dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, pos1)                # (B,1,H,*)
+    c_new, r_new = _mla_ckv(p, cfg, x, pos1)                # (B,1,r), (B,1,p)
+
+    slot = cur_pos % cache.c_kv.shape[1]
+    cache.c_kv[:, slot] = c_new[:, 0].to(cache.c_kv.dtype)
+    cache.k_rope[:, slot] = r_new[:, 0].to(cache.k_rope.dtype)
+    cache.pos[slot] = cur_pos
+
+    q_eff = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p.w_uk)
+    scores = (torch.einsum("bhr,btr->bht", q_eff.float(), cache.c_kv.float())
+              + torch.einsum("bhp,btp->bht", q_rope[:, 0].float(),
+                             cache.k_rope.float()))
+    scores = scores / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    cpos = cache.pos
+    valid = (cpos >= 0) & (cpos <= cur_pos)
+    scores = torch.where(valid[None, None], scores,
+                         torch.tensor(NEG_INF, device=x.device))
+    probs = torch.softmax(scores, dim=-1)
+    ctx_c = torch.einsum("bht,btr->bhr", probs.to(cache.c_kv.dtype),
+                         cache.c_kv)
+    o = torch.einsum("bhr,rhv->bhv", ctx_c, p.w_uv)
+    return torch.einsum("bhv,hvd->bd", o, p.w_o)[:, None, :], cache

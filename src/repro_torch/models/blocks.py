@@ -1,12 +1,17 @@
 """Transformer / SSM blocks (port of the train, prefill, decode and
 cache-init modes of ``repro/models/blocks.py``).
 
-Block kinds ported:
-  attn / attn_local : [rmsnorm -> GQA self-attention] + [rmsnorm -> FFN/MoE]
+Block kinds:
+  attn / attn_local : [rmsnorm -> self-attention (GQA, or MLA when
+                      ``cfg.use_mla``)] + [rmsnorm -> FFN/MoE]
   mamba             : [rmsnorm -> mamba-2 mixer] (+ FFN/MoE when d_ff > 0,
                       as in jamba)
-``cross_attn`` and ``attn_cross`` (and MLA attention) raise
-``NotImplementedError`` naming their ROADMAP item.  ``Block.forward_train``,
+  cross_attn        : [rmsnorm -> gated cross-attention over the frontend]
+                      + [rmsnorm -> FFN] (llama-3.2-vision)
+  attn_cross        : whisper's decoder block: self-attention, then
+                      ungated cross-attention, then the FFN; its cache is
+                      ``{"self": KVCache, "cross": CrossCache}``
+An unknown kind raises ``ValueError``.  ``Block.forward_train``,
 ``Block.prefill``, ``Block.decode`` and ``Block.cache_init`` are JAX's
 ``block_train``, ``block_prefill``, ``block_decode`` and
 ``block_cache_init``; ``Block._ffn`` and ``_window`` keep their names.
@@ -21,7 +26,7 @@ of the period body).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -32,15 +37,10 @@ from repro_torch.models import layers, moe as moe_lib, ssm
 from repro_torch.nn.module import ParamTree
 
 Tensor = torch.Tensor
-KINDS = ("attn", "attn_local", "mamba")
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot run yet."""
-    if cfg.use_mla:
-        raise NotImplementedError(f"{cfg.name}: {attn.UNPORTED['mla']}")
-    if cfg.encoder_layers or any(k not in KINDS for k in cfg.layer_pattern):
-        raise NotImplementedError(f"{cfg.name}: {attn.UNPORTED['cross']}")
+def _attn_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    return attn.mla_specs(cfg) if cfg.use_mla else attn.gqa_specs(cfg)
 
 
 def block_specs(cfg: ModelConfig, kind: str, is_moe: bool) -> Dict[str, Any]:
@@ -48,7 +48,15 @@ def block_specs(cfg: ModelConfig, kind: str, is_moe: bool) -> Dict[str, Any]:
     specs: Dict[str, Any] = {}
     if kind in ("attn", "attn_local"):
         specs["ln_attn"] = layers.rmsnorm_specs(d)
+        specs["attn"] = _attn_specs(cfg)
+    elif kind == "cross_attn":
+        specs["ln_attn"] = layers.rmsnorm_specs(d)
+        specs["xattn"] = attn.cross_specs(cfg)
+    elif kind == "attn_cross":
+        specs["ln_attn"] = layers.rmsnorm_specs(d)
         specs["attn"] = attn.gqa_specs(cfg)
+        specs["ln_x"] = layers.rmsnorm_specs(d)
+        specs["xattn"] = attn.cross_specs(cfg)
     elif kind == "mamba":
         specs["ln_mix"] = layers.rmsnorm_specs(d)
         specs["mixer"] = ssm.mamba_specs(cfg)
@@ -97,57 +105,110 @@ class Block(ParamTree):
             x = x + out
         return (x, aux) if with_aux else x
 
-    def forward_train(self, x: Tensor,
-                      positions: Tensor) -> Tuple[Tensor, Tensor]:
+    def _norm(self, name: str, x: Tensor) -> Tensor:
+        return layers.rmsnorm(getattr(self, name), x, self.cfg.norm_eps)
+
+    def forward_train(self, x: Tensor, positions: Tensor,
+                      frontend: Optional[Tensor] = None, causal: bool = True,
+                      impl: Optional[str] = None) -> Tuple[Tensor, Tensor]:
         """(x, moe aux loss) after the full sequence x (B,S,D), no cache,
         through the plain differentiable functions (``mha_full``,
-        ``ssm.ssd``), as JAX trains."""
-        cfg = self.cfg
-        if self.kind == "mamba":
-            h = layers.rmsnorm(self.ln_mix, x, cfg.norm_eps)
-            out = ssm.mamba_train(self.mixer, cfg, h)
+        ``ssm.ssd``), as JAX trains.  ``frontend`` (B,Tf,D) feeds the
+        cross-attention kinds; ``causal`` is False in whisper's encoder.
+        ``impl`` (a backend name) runs self-attention through the flash op
+        instead, as the encoder does in serving."""
+        cfg, kind = self.cfg, self.kind
+        if kind == "mamba":
+            out = ssm.mamba_train(self.mixer, cfg, self._norm("ln_mix", x))
+            return self._ffn(x + out, with_aux=True)
+        h = self._norm("ln_attn", x)
+        if kind == "cross_attn":
+            x = x + attn.cross_forward(self.xattn, cfg, h,
+                                       attn.cross_kv(self.xattn, cfg,
+                                                     frontend))
+        elif cfg.use_mla and kind != "attn_cross":
+            x = x + attn.mla_forward(self.attn, cfg, h, positions)
         else:
-            h = layers.rmsnorm(self.ln_attn, x, cfg.norm_eps)
-            out = attn.gqa_forward(self.attn, cfg, h, positions,
-                                   window=_window(cfg, self.kind))
-        return self._ffn(x + out, with_aux=True)
+            x = x + attn.gqa_forward(self.attn, cfg, h, positions,
+                                     window=_window(cfg, kind),
+                                     causal=causal, impl=impl)
+        if kind == "attn_cross":
+            x = x + attn.cross_forward(
+                self.xattn, cfg, self._norm("ln_x", x),
+                attn.cross_kv(self.xattn, cfg, frontend), gated=False)
+        return self._ffn(x, with_aux=True)
 
     def prefill(self, x: Tensor, positions: Tensor, cache_len: int,
-                impl: str = "auto"):
-        """(x, cache) after the full sequence x (B,S,D)."""
-        cfg = self.cfg
-        if self.kind == "mamba":
-            h = layers.rmsnorm(self.ln_mix, x, cfg.norm_eps)
-            out, cache = ssm.mamba_forward(self.mixer, cfg, h, impl=impl)
+                frontend: Optional[Tensor] = None, impl: str = "auto"):
+        """(x, cache) after the full sequence x (B,S,D); ``frontend``
+        (B,Tf,D) feeds the cross-attention kinds."""
+        cfg, kind = self.cfg, self.kind
+        if kind == "mamba":
+            out, cache = ssm.mamba_forward(self.mixer, cfg,
+                                           self._norm("ln_mix", x), impl=impl)
+            return self._ffn(x + out), cache
+        h = self._norm("ln_attn", x)
+        if kind == "cross_attn":
+            cache = attn.cross_kv(self.xattn, cfg, frontend)
+            out = attn.cross_forward(self.xattn, cfg, h, cache, impl=impl)
+        elif cfg.use_mla and kind != "attn_cross":
+            out, cache = attn.mla_prefill(self.attn, cfg, h, positions,
+                                          cache_len=cache_len)
         else:
-            h = layers.rmsnorm(self.ln_attn, x, cfg.norm_eps)
             out, cache = attn.gqa_prefill(
-                self.attn, cfg, h, positions, window=_window(cfg, self.kind),
-                cache_len=_cache_len(cfg, self.kind, cache_len), impl=impl)
-        return self._ffn(x + out), cache
+                self.attn, cfg, h, positions, window=_window(cfg, kind),
+                cache_len=_cache_len(cfg, kind, cache_len), impl=impl)
+        x = x + out
+        if kind == "attn_cross":
+            kv = attn.cross_kv(self.xattn, cfg, frontend)
+            x = x + attn.cross_forward(self.xattn, cfg, self._norm("ln_x", x),
+                                       kv, gated=False, impl=impl)
+            cache = {"self": cache, "cross": kv}
+        return self._ffn(x), cache
 
     def decode(self, x: Tensor, cache, cur_pos: int):
         """(x, cache) after one token x (B,1,D) at position ``cur_pos``."""
-        cfg = self.cfg
-        if self.kind == "mamba":
-            h = layers.rmsnorm(self.ln_mix, x, cfg.norm_eps)
-            out, cache = ssm.mamba_decode(self.mixer, cfg, h, cache)
+        cfg, kind = self.cfg, self.kind
+        if kind == "mamba":
+            out, cache = ssm.mamba_decode(self.mixer, cfg,
+                                          self._norm("ln_mix", x), cache)
+            return self._ffn(x + out), cache
+        h = self._norm("ln_attn", x)
+        if kind == "cross_attn":
+            out = attn.cross_forward(self.xattn, cfg, h, cache)
+        elif cfg.use_mla and kind != "attn_cross":
+            out, cache = attn.mla_decode(self.attn, cfg, h, cache, cur_pos)
+        elif kind == "attn_cross":
+            out, _ = attn.gqa_decode(self.attn, cfg, h, cache["self"],
+                                     cur_pos, window=attn.GLOBAL_WINDOW)
         else:
-            h = layers.rmsnorm(self.ln_attn, x, cfg.norm_eps)
             out, cache = attn.gqa_decode(self.attn, cfg, h, cache, cur_pos,
-                                         window=_window(cfg, self.kind))
-        return self._ffn(x + out), cache
+                                         window=_window(cfg, kind))
+        x = x + out
+        if kind == "attn_cross":
+            x = x + attn.cross_forward(self.xattn, cfg, self._norm("ln_x", x),
+                                       cache["cross"], gated=False)
+        return self._ffn(x), cache
 
-    def cache_init(self, batch: int, cache_len: int, device: torch.device):
-        if self.kind == "mamba":
-            return ssm.init_mamba_cache(self.cfg, batch, device)
-        return attn.init_kv_cache(
-            self.cfg, batch, _cache_len(self.cfg, self.kind, cache_len),
-            device)
+    def cache_init(self, batch: int, cache_len: int, frontend_len: int,
+                   device: torch.device):
+        cfg, kind = self.cfg, self.kind
+        if kind == "mamba":
+            return ssm.init_mamba_cache(cfg, batch, device)
+        if kind == "cross_attn":
+            return attn.init_cross_cache(cfg, batch, frontend_len, device)
+        if kind == "attn_cross":
+            return {"self": attn.init_kv_cache(cfg, batch, cache_len, device),
+                    "cross": attn.init_cross_cache(cfg, batch, frontend_len,
+                                                   device)}
+        c_len = _cache_len(cfg, kind, cache_len)
+        if cfg.use_mla:
+            return attn.init_mla_cache(cfg, batch, c_len, device)
+        return attn.init_kv_cache(cfg, batch, c_len, device)
 
 
 def apply_stack_train(blocks: Sequence[Block], cfg: ModelConfig, x: Tensor,
-                      positions: Tensor,
+                      positions: Tensor, frontend: Optional[Tensor] = None,
                       remat: bool = True) -> Tuple[Tensor, Tensor]:
     """x through the layers in order; returns (x, the MoE aux losses
     summed in layer order).  With ``remat`` each period's layers run under
@@ -157,7 +218,7 @@ def apply_stack_train(blocks: Sequence[Block], cfg: ModelConfig, x: Tensor,
 
     def run(layer_blocks, h, aux):
         for blk in layer_blocks:
-            h, a = blk.forward_train(h, positions)
+            h, a = blk.forward_train(h, positions, frontend)
             aux = aux + a
         return h, aux
 

@@ -23,20 +23,23 @@ class ServingEngine:
         self.model = model
         self.cache_len = cache_len
 
-    def prefill(self, tokens: Tensor) -> Tuple[Tensor, List[Any]]:
-        return self.model.prefill(tokens, self.cache_len)
+    def prefill(self, tokens: Tensor, frontend: Optional[Tensor] = None
+                ) -> Tuple[Tensor, List[Any]]:
+        return self.model.prefill(tokens, self.cache_len, frontend)
 
     def decode_step(self, token: Tensor, cache: List[Any], pos: int
                     ) -> Tuple[Tensor, List[Any]]:
         return self.model.decode_step(token, cache, int(pos))
 
     def generate(self, tokens: Tensor, n_new: int, *,
+                 frontend: Optional[Tensor] = None,
                  temperature: float = 0.0,
                  generator: Optional[torch.Generator] = None) -> Tensor:
-        """Greedy (temperature=0) or sampled generation.  Returns
-        (B, n_new) int64."""
+        """Greedy (temperature=0) or sampled generation, the prompts
+        attending over ``frontend`` where the model has cross-attention.
+        Returns (B, n_new) int64."""
         s = tokens.shape[1]
-        logits, cache = self.prefill(tokens)
+        logits, cache = self.prefill(tokens, frontend)
         out = [self._pick(logits, temperature, generator)]
         for i in range(n_new - 1):
             logits, cache = self.decode_step(out[-1], cache, s + i)

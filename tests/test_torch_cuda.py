@@ -32,7 +32,9 @@ Algorithm-2 fit must equal the in-memory one bit for bit.  A publish from
 a second thread on a stream of its own must never reach a sweep torn, and
 a flush must not wait for work queued on that stream; the online service
 on the card answers every ticket once, bit-identical to its version's
-oracle, on the sm90 routes.
+oracle, on the sm90 routes.  deepseek-v3's absorbed MLA decode equals its
+expanded prefill at full attention widths (float32 at 1e-4, bfloat16 at
+3e-2 x |expanded|_inf).
 """
 import ctypes
 import threading
@@ -674,6 +676,11 @@ SM90_CASES = [
     (2, 200, 200, 32, 8, 128, True, 1 << 30),    # ragged S
     (2, 200, 333, 4, 1, 64, False, 1 << 30),     # S != T
     (1, 333, 200, 4, 1, 128, True, 1 << 30),     # S > T
+    # The main paths' non-causal shapes, cut in batch: llama-3.2-vision's
+    # cross layers (S 2,048 against 1,601 patch embeddings, GQA 32/8) and
+    # whisper's encoder (1,500 frames, 6 heads of 64).
+    (1, 2048, 1601, 32, 8, 128, False, 1 << 30),
+    (1, 1500, 1500, 6, 6, 64, False, 1 << 30),
 ] + [c for n in (127, 128, 129, 255, 257) for c in (
     (1, n, n, 32, 8, 128, True, 1 << 30),
     (1, n, n + 3, 4, 1, 64, False, 1 << 30))]
@@ -1453,3 +1460,40 @@ def test_lm_launcher_refuses_a_model_larger_than_the_card(cuda, capsys):
     assert exc.value.code != 0
     err = capsys.readouterr().err
     assert "--full granite-20b" in err and "item 6" in err
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_mla_absorbed_decode_matches_the_expanded_prefill(cuda, dtype, tol):
+    """deepseek-v3's attention at its full widths (d_model 7,168, 128
+    heads, q_lora 1,536, kv_lora 512, qk 128 + 64, v 128), one layer of
+    random weights: ``mla_decode`` of token S after ``mla_prefill`` of S
+    tokens against token S of ``mla_prefill`` over S + 1 tokens, at tol x
+    |expanded|_inf: float32 sums in another order (1e-4); bfloat16 rounds
+    another set of intermediates in each form, ~1e-2 of the output's
+    scale (3e-2; ``chip_smoke.py``'s MLA_BF16_TOL gives the count).  Token
+    S - 1's output must lie over 10x the limit away."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention
+    from repro_torch.nn.module import ParamTree, init_params
+    name = str(dtype)[len("torch."):]
+    cfg = get_config("deepseek-v3-671b").replace(param_dtype=name,
+                                                 compute_dtype=name)
+    p = ParamTree(attention.mla_specs(cfg), dtype=dtype, device=cuda)
+    init_params(p, torch.Generator(device=cuda).manual_seed(0))
+    b, s = 2, 255
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((b, s + 1, cfg.d_model), generator=gen, device=cuda
+                    ).to(dtype)
+    pos = torch.arange(s + 1, dtype=torch.int32, device=cuda)
+    with torch.no_grad():
+        _, cache = attention.mla_prefill(p, cfg, x[:, :s], pos[:s],
+                                         cache_len=s + 1)
+        got, _ = attention.mla_decode(p, cfg, x[:, s:], cache, s)
+        want, _ = attention.mla_prefill(p, cfg, x, pos, cache_len=s + 1)
+    got, want, prev = (got[:, 0].float().cpu().numpy(),
+                       want[:, s].float().cpu().numpy(),
+                       want[:, s - 1].float().cpu().numpy())
+    limit = tol * float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=0, atol=limit)
+    assert float(np.abs(prev - want).max()) > 10 * limit

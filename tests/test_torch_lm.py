@@ -1,7 +1,11 @@
 """The port's LM serving path against the JAX package's, on the CPU at the
 reduced configs (float32): MoE forward with and without capacity drops,
-then, for each of the seven architectures the port supports, prefill
-logits, the decode cache and one decode step, and jamba's greedy tokens.
+then, for each of the ten architectures, prefill logits, every layer's
+decode cache (``KVCache``, ``MambaCache``, ``MLACache``, ``CrossCache`` and
+whisper's ``{"self", "cross"}`` dict) and one decode step, with a frontend
+(B, n_frontend_tokens, d_model) drawn with numpy where the config has one
+and llama-3.2-vision's cross-attention gates drawn nonzero (JAX inits them
+to 0, which switches those layers off); and jamba's greedy tokens.
 
 The JAX params are carried across with ``convert.lm_params_from_jax``;
 tokens and activations are made with numpy from a seed.  Tolerance: rtol
@@ -25,13 +29,14 @@ from repro.serving import ServingEngine as JaxEngine
 from repro_torch.configs import get_config
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.models import moe
-from repro_torch.models.attention import KVCache
+from repro_torch.models.attention import CrossCache, KVCache, MLACache
 from repro_torch.models.model import LanguageModel
 from repro_torch.nn.module import ParamTree
 from repro_torch.serving import ServingEngine
 
-SUPPORTED = ["mamba2-780m", "granite-20b", "starcoder2-15b", "internlm2-20b",
-             "gemma3-27b", "jamba-v0.1-52b", "kimi-k2-1t-a32b"]
+ARCHS = ["mamba2-780m", "granite-20b", "starcoder2-15b", "internlm2-20b",
+         "gemma3-27b", "jamba-v0.1-52b", "kimi-k2-1t-a32b",
+         "deepseek-v3-671b", "llama-3.2-vision-11b", "whisper-tiny"]
 B, S, CACHE = 2, 24, 40
 
 
@@ -48,11 +53,33 @@ def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+def draw_gates(params, seed=11):
+    """JAX's params with every cross-attention ``gate`` drawn from
+    U(0.5, 1.5) (JAX inits it to 0: tanh(0) switches the layer off)."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, a):
+        if path[-1].key != "gate":
+            return a
+        return jnp.asarray(rng.uniform(0.5, 1.5, a.shape), a.dtype)
+
+    return jax.tree_util.tree_map_with_path(leaf, params)
+
+
+def frontend_of(cfg, seed, b=B):
+    """A (b, n_frontend_tokens, d_model) float32 frontend, or None."""
+    if not cfg.n_frontend_tokens:
+        return None
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((b, cfg.n_frontend_tokens, cfg.d_model)
+                               ).astype(np.float32)
+
+
 def _models(name):
     jcfg = jax_get_config(name, reduced=True)
     cfg = get_config(name, reduced=True)
     jmodel = JaxLM(jcfg)
-    params = jmodel.init(jax.random.PRNGKey(0))
+    params = draw_gates(jmodel.init(jax.random.PRNGKey(0)))
     model = LanguageModel(cfg, device="cpu")
     model.load_state_dict(lm_params_from_jax(cfg, _np_tree(params)),
                           strict=True)
@@ -127,28 +154,41 @@ def _jax_layer_cache(cfg, jcache, layer):
     return _np_tree(jcache["rem"][f"pos{i}"])
 
 
+def _check_layer_cache(cfg, c, jc):
+    if isinstance(c, dict):                      # whisper's attn_cross
+        assert set(c) == set(jc) == {"self", "cross"}
+        for key in c:
+            _check_layer_cache(cfg, c[key], jc[key])
+        return
+    assert type(c).__name__ == type(jc).__name__
+    for field in c._fields:
+        got, want = getattr(c, field), getattr(jc, field)
+        if field == "pos":
+            np.testing.assert_array_equal(got.numpy(), want)
+        else:
+            _close(got, want)
+    if isinstance(c, (KVCache, MLACache, CrossCache)):
+        assert c[0].dtype == cfg.cdtype
+
+
 def _check_cache(cfg, cache, jcache):
     assert len(cache) == cfg.n_layers
     for layer, c in enumerate(cache):
-        jc = _jax_layer_cache(cfg, jcache, layer)
-        assert type(c).__name__ == type(jc).__name__
-        for field in c._fields:
-            got, want = getattr(c, field), getattr(jc, field)
-            if field == "pos":
-                np.testing.assert_array_equal(got.numpy(), want)
-            else:
-                _close(got, want)
-        if isinstance(c, KVCache):
-            assert c.k.dtype == cfg.cdtype
+        _check_layer_cache(cfg, c, _jax_layer_cache(cfg, jcache, layer))
 
 
-@pytest.mark.parametrize("name", SUPPORTED)
+@pytest.mark.parametrize("name", ARCHS)
 def test_prefill_cache_and_decode_match_jax(name):
     jcfg, jmodel, params, cfg, model = _models(name)
     ctx = MeshCtx.single_device()
     tok = _tokens(cfg, 1)
-    want, jcache = jmodel.prefill(params, ctx, jnp.asarray(tok[:, :S]), CACHE)
-    got, cache = model.prefill(torch.from_numpy(tok[:, :S]).long(), CACHE)
+    fe = frontend_of(cfg, 7)
+    want, jcache = jmodel.prefill(
+        params, ctx, jnp.asarray(tok[:, :S]), CACHE,
+        frontend=None if fe is None else jnp.asarray(fe))
+    got, cache = model.prefill(
+        torch.from_numpy(tok[:, :S]).long(), CACHE,
+        frontend=None if fe is None else torch.from_numpy(fe))
     _close(got, want)
     _check_cache(cfg, cache, jcache)
 
@@ -182,14 +222,22 @@ def test_temperature_sampling_draws_from_the_generator():
     assert int(draws[0].min()) >= 0 and int(draws[0].max()) < cfg.vocab_size
 
 
-@pytest.mark.parametrize("name", ["deepseek-v3-671b", "llama-3.2-vision-11b",
+@pytest.mark.parametrize("name", ARCHS)
+def test_every_config_builds_with_jaxs_parameter_tree(name):
+    """The state_dict's names and shapes are JAX's tree, unstacked."""
+    cfg = get_config(name, reduced=True)
+    model = LanguageModel(cfg, device="cpu")
+    jmodel = JaxLM(jax_get_config(name, reduced=True))
+    want = lm_params_from_jax(cfg, jax.tree.map(
+        lambda a: np.zeros(a.shape, np.float32), jmodel.abstract()))
+    got = model.state_dict()
+    assert set(got) == set(want)
+    assert all(got[k].shape == want[k].shape for k in got)
+
+
+@pytest.mark.parametrize("name", ["gemma3-27b", "jamba-v0.1-52b",
+                                  "deepseek-v3-671b", "llama-3.2-vision-11b",
                                   "whisper-tiny"])
-def test_unported_archs_raise_naming_the_roadmap(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LanguageModel(get_config(name, reduced=True), device="cpu")
-
-
-@pytest.mark.parametrize("name", ["gemma3-27b", "jamba-v0.1-52b"])
 def test_init_cache_matches_jax(name):
     jcfg, jmodel, _, cfg, model = _models(name)
     _check_cache(cfg, model.init_cache(B, CACHE), jmodel.init_cache(B, CACHE))

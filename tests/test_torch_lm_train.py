@@ -9,12 +9,16 @@ the reduced configs (float32, one period plus the remainder), B 2, S 16.
 * ``load_balance_loss`` equals JAX's;
 * ``loss`` and the whole gradient tree equal ``jax.value_and_grad`` of
   JAX's ``model.loss`` (JAX's grads carried across by
-  ``lm_params_from_jax``) on five archs with remat on, and on mamba2 and
+  ``lm_params_from_jax``) on eight archs with remat on (deepseek-v3's
+  MLA; llama-3.2-vision's cross-attention over a numpy frontend, its
+  gates drawn nonzero; whisper's encoder over numpy frames, its unused
+  gates' gradient 0 on both sides), and on mamba2 and
   jamba with remat off (against the same JAX oracle, taken once an arch
   with JAX's default remat: the same function, and one JAX compile an
   arch); remat on and off give the same loss and gradients in the port,
   bit for bit;
-* a step with ``microbatches=2`` equals one with ``microbatches=1``;
+* a step with ``microbatches=2`` equals one with ``microbatches=1``,
+  also on whisper with its frames (the step slices ``batch["frontend"]``);
 * a 5-step AdamW ``train_step`` trajectory at lr 3e-3 (losses, grad
   norms, parameters, moments) equals JAX's on mamba2 and granite;
 * the loss, the gradients and the trajectory also in bfloat16
@@ -108,7 +112,11 @@ def _jax_params(jmodel, cfg, state_dict):
     def leaf(path, _):
         keys = [p.key for p in path]
         rest = ".".join(keys[3:])
-        if keys[:2] == ["stack", "scan"]:
+        if keys[:2] == ["encoder", "scan"]:
+            rest = ".".join(keys[2:])
+            arr = np.stack([sd[f"encoder.layers.{i}.{rest}"]
+                            for i in range(cfg.encoder_layers)])
+        elif keys[:2] == ["stack", "scan"]:
             i = int(keys[2][3:])
             arr = np.stack([sd[f"layers.{p * cfg.period + i}.{rest}"]
                             for p in range(cfg.n_periods)])
@@ -127,6 +135,13 @@ def _models(name, seed=0, dtype="float32"):
     jmodel = JaxLM(jax_get_config(name, reduced=True).replace(**kw))
     model = LanguageModel(cfg, device="cpu").init(
         torch.Generator().manual_seed(seed))
+    # Cross-attention gates start at 0 (tanh(0) switches the layer off):
+    # draw them nonzero so that the cross layers count.
+    rng = np.random.default_rng(seed + 100)
+    with torch.no_grad():
+        for key, p in model.named_parameters():
+            if key.endswith(".gate"):
+                p.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, p.shape)))
     params = _jax_params(jmodel, cfg, model.state_dict())
     assert all(torch.equal(v, model.state_dict()[k]) for k, v in
                lm_params_from_jax(cfg, _np_tree(params)).items())
@@ -138,6 +153,18 @@ def _batch(cfg, seed=1, b=B):
     tok = rng.integers(0, cfg.vocab_size, (b, S)).astype(np.int32)
     lab = rng.integers(0, cfg.vocab_size, (b, S)).astype(np.int32)
     return tok, lab
+
+
+def _frontend(cfg, seed=2, b=B):
+    """A (b, n_frontend_tokens, d_model) float32 frontend, or None."""
+    if not cfg.n_frontend_tokens:
+        return None
+    return np.random.default_rng(seed).standard_normal(
+        (b, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
 
 
 # --- the plain functions ----------------------------------------------------
@@ -229,21 +256,29 @@ def test_load_balance_loss_matches_jax():
 
 @functools.lru_cache(maxsize=None)
 def _oracle(name, dtype="float32"):
-    """(port model, config, batch, JAX loss, JAX grads as port names)."""
+    """(port model, config, batch, frontend, JAX loss, JAX grads as port
+    names)."""
     jmodel, params, cfg, model = _models(name, dtype=dtype)
     tok, lab = _batch(cfg)
+    fe = _frontend(cfg)
     fn = jax.jit(jax.value_and_grad(
-        lambda p, t, l: jmodel.loss(p, CTX, t, l, loss_chunks=4)))
-    jl, jg = fn(params, jnp.asarray(tok), jnp.asarray(lab))
-    return model, cfg, tok, lab, jl, lm_params_from_jax(cfg, _np_tree(jg))
+        lambda p, t, l, f: jmodel.loss(p, CTX, t, l, frontend=f,
+                                       loss_chunks=4)))
+    jl, jg = fn(params, jnp.asarray(tok), jnp.asarray(lab),
+                None if fe is None else jnp.asarray(fe))
+    return (model, cfg, tok, lab, fe, jl,
+            lm_params_from_jax(cfg, _np_tree(jg)))
 
 
-def _port_value_and_grad(model, tok, lab, remat):
+def _port_value_and_grad(model, tok, lab, remat, fe=None):
+    """Unused parameters (whisper's gates) get a zero gradient, as in
+    ``train_step`` and in JAX."""
     params = trainable(model)
     loss = model.loss(torch.from_numpy(tok).long(),
-                      torch.from_numpy(lab).long(), loss_chunks=4,
-                      remat=remat)
-    grads = torch.autograd.grad(loss, list(params.values()))
+                      torch.from_numpy(lab).long(), frontend=_t(fe),
+                      loss_chunks=4, remat=remat)
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True, materialize_grads=True)
     return loss, dict(zip(params, grads))
 
 
@@ -251,6 +286,9 @@ CASES = [("mamba2-780m", True, "float32"), ("granite-20b", True, "float32"),
          ("gemma3-27b", True, "float32"),
          ("jamba-v0.1-52b", True, "float32"),
          ("kimi-k2-1t-a32b", True, "float32"),
+         ("deepseek-v3-671b", True, "float32"),
+         ("llama-3.2-vision-11b", True, "float32"),
+         ("whisper-tiny", True, "float32"),
          ("mamba2-780m", False, "float32"),
          ("jamba-v0.1-52b", False, "float32"),
          ("mamba2-780m", True, "bfloat16"), ("granite-20b", True, "bfloat16")]
@@ -258,8 +296,8 @@ CASES = [("mamba2-780m", True, "float32"), ("granite-20b", True, "float32"),
 
 @pytest.mark.parametrize("name,remat,dtype", CASES)
 def test_loss_and_gradients_match_jax(name, remat, dtype):
-    model, cfg, tok, lab, jl, want = _oracle(name, dtype)
-    loss, grads = _port_value_and_grad(model, tok, lab, remat)
+    model, cfg, tok, lab, fe, jl, want = _oracle(name, dtype)
+    loss, grads = _port_value_and_grad(model, tok, lab, remat, fe)
     assert set(want) == set(grads)
     if dtype == "bfloat16":
         _close_bf16(loss, jl, scalar=True)
@@ -300,10 +338,21 @@ def test_remat_on_and_off_agree(name):
 
 
 def test_microbatches_two_equal_one():
-    _, _, cfg, model = _models("granite-20b")
+    _microbatches_two_equal_one("granite-20b")
+
+
+def test_microbatches_two_equal_one_with_a_frontend():
+    _microbatches_two_equal_one("whisper-tiny")
+
+
+def _microbatches_two_equal_one(name):
+    _, _, cfg, model = _models(name)
     tok, lab = _batch(cfg, seed=6, b=4)
     batch = {"tokens": torch.from_numpy(tok).long(),
              "labels": torch.from_numpy(lab).long()}
+    fe = _frontend(cfg, seed=7, b=4)
+    if fe is not None:
+        batch["frontend"] = torch.from_numpy(fe)
     out = {}
     init = {k: v.clone() for k, v in model.state_dict().items()}
     for mb in (1, 2):

@@ -2,9 +2,10 @@
 
 The LM path at the reduced configs: ``python -m repro_torch.launch.serve
 --arch ... --device cpu`` prefills, decodes and prints its timing lines;
-``serve_lm``'s greedy tokens are the engine's ``generate``; unported
-architectures and a ``--full`` model larger than the device exit with an
-error naming what is missing.
+``serve_lm``'s greedy tokens are the engine's ``generate`` (for
+llama-3.2-vision and whisper over the frontend it draws, for deepseek-v3
+through MLA); a ``--full`` model larger than the device exits with an
+error naming the mesh it needs, and one that fits is served.
 
 The DSEKL ``--online`` and ``--tenants`` modes at small sizes: the event
 stream and the tenant spec equal the JAX launcher's; each mode runs and
@@ -62,17 +63,46 @@ def test_serve_lm_tokens_are_the_engines_greedy_tokens(name):
     assert res["peak_bytes"] is None
 
 
-@pytest.mark.parametrize("name,named", [
-    ("deepseek-v3-671b", "MLA"),
-    ("llama-3.2-vision-11b", "cross-attention"),
-    ("whisper-tiny", "cross-attention"),
-])
-def test_unported_archs_exit_naming_them(name, named, capsys):
+@pytest.mark.parametrize("name", ["llama-3.2-vision-11b", "whisper-tiny",
+                                  "deepseek-v3-671b"])
+def test_serve_lm_serves_mla_and_frontend_archs(name):
+    """A frontend (B, n_frontend_tokens, d_model) is drawn where the
+    config has one (as JAX's launcher draws one), none for deepseek-v3;
+    the greedy tokens are the engine's over it."""
+    cfg = get_config(name, reduced=True)
+    res = serve.serve_lm(cfg, batch=2, prompt_len=12, new_tokens=3,
+                         cache_len=16, device="cpu", seed=4)
+    fe = res["frontend"]
+    if cfg.n_frontend_tokens:
+        assert fe.shape == (2, cfg.n_frontend_tokens, cfg.d_model)
+    else:
+        assert fe is None
+    assert bool(torch.isfinite(res["logits"]).all())
+    want = res["engine"].generate(res["tokens"], 3, frontend=fe)
+    assert torch.equal(res["out"], want)
+
+
+@pytest.mark.parametrize("name", ["llama-3.2-vision-11b", "whisper-tiny"])
+def test_full_frontend_archs_fit_one_card_and_are_served(name, monkeypatch):
+    """At their published widths llama-3.2-vision (~21 GB of bf16) and
+    whisper fit an 80-GB card: the launcher serves them (serve_lm stubbed
+    here), at the full config."""
+    seen = {}
+    monkeypatch.setattr(serve, "_device_bytes", lambda device: 80 * 10 ** 9)
+    monkeypatch.setattr(serve, "serve_lm",
+                        lambda cfg, *a, **kw: seen.setdefault("cfg", cfg))
+    serve.main(["--arch", name, "--full", "--device", "cpu"])
+    assert seen["cfg"] == get_config(name)
+
+
+def test_full_deepseek_exits_naming_the_mesh(monkeypatch, capsys):
+    monkeypatch.setattr(serve, "_device_bytes", lambda device: 80 * 10 ** 9)
     with pytest.raises(SystemExit) as exc:
-        serve.main(["--arch", name, "--device", "cpu"])
+        serve.main(["--arch", "deepseek-v3-671b", "--full", "--device",
+                    "cpu"])
     assert exc.value.code != 0
     err = capsys.readouterr().err
-    assert named in err and "ROADMAP" in err
+    assert "sharded mesh path" in err and "item 6" in err
 
 
 def test_full_model_larger_than_the_device_exits(monkeypatch, capsys):

@@ -3,8 +3,10 @@
 its per-epoch validation errors and the JAX launcher's summary lines, and
 refuses the modes the port does not have yet, naming them.  The LM path
 (``--arch granite-20b --steps 4 --device cpu``) trains, checkpoints and
-``--resume``s; the mesh flags and a ``--full`` model larger than the
-device are refused, naming ROADMAP item 6."""
+``--resume``s, deepseek-v3 (MLA) trains at its reduced widths; the mesh
+flags and a ``--full`` model larger than the device are refused, naming
+ROADMAP item 6, and so are the configs with a frontend, which the
+launcher (as JAX's) does not build."""
 import os
 import pathlib
 import subprocess
@@ -97,18 +99,37 @@ LM = ["--arch", "granite-20b", "--device", "cpu", "--batch", "2",
     (["--model-par", "4"], "--model-par 4"),
     (["--multi-pod"], "--multi-pod"),
     (["--arch", "kimi-k2-1t-a32b", "--full"], "--full kimi-k2-1t-a32b"),
-    (["--arch", "deepseek-v3-671b"], "MLA"),
 ])
 def test_lm_path_is_refused(extra, named, capsys):
-    """The LM path is ported; what needs the mesh (or an unported
-    attention) is refused by name."""
+    """The LM path is ported; what needs the mesh is refused by name."""
     with pytest.raises(SystemExit) as exc:
         train.main(LM + ["--steps", "1"] + extra)
     assert exc.value.code != 0
     err = capsys.readouterr().err
     assert named in err
-    if named != "MLA":
-        assert "item 6" in err
+    assert "item 6" in err
+
+
+@pytest.mark.parametrize("name", ["llama-3.2-vision-11b", "whisper-tiny"])
+def test_lm_launcher_refuses_a_config_with_a_frontend(name, capsys):
+    """JAX's launcher builds no frontend for the cross-attention configs;
+    the port's says so rather than inventing one."""
+    with pytest.raises(SystemExit) as exc:
+        train.main(LM + ["--steps", "1", "--arch", name])
+    assert exc.value.code != 0
+    err = capsys.readouterr().err
+    assert name in err and "frontend" in err and "builds none" in err
+
+
+def test_lm_launcher_trains_deepseek_at_reduced_widths(tmp_path):
+    args = train.parser().parse_args(LM + [
+        "--arch", "deepseek-v3-671b", "--steps", "2", "--ckpt-dir",
+        str(tmp_path), "--ckpt-every", "2"])
+    assert train.lm_refusal(args) == ""
+    res = train.train_lm(args)
+    assert res["cfg"].use_mla and res["cfg"].name == "deepseek-v3-671b"
+    assert [h["step"] for h in res["history"]] == [0, 1]
+    assert all(np.isfinite(h["loss"]) for h in res["history"])
 
 
 def test_lm_trains_checkpoints_and_resumes(tmp_path):
