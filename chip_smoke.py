@@ -13,8 +13,9 @@ PCA, the online train-to-serve loop and the multi-tenant front door
 (``serve_online``, ``serve_tenants``), serving the jamba-v0.1-52b
 language model at full width through
 ``repro_torch.launch.serve.serve_lm``, training mamba2-780m at full
-width and depth through ``repro_torch.launch.train.train_lm`` and the
-DSEKL readout over its frozen features — with every
+width and depth through ``repro_torch.launch.train.train_lm``, the
+DSEKL readout over its frozen features and the DSEKL mesh (four
+``torch.distributed`` ranks sharing the card) — with every
 kernel built from this checkout's sources and held against its plain
 PyTorch version.  Phases (any failure exits non-zero and prints no
 result):
@@ -323,6 +324,36 @@ result):
                the SSD at B*nh 1,536, S 512, n 128 and the fp32 matvec at
                the decision's shape with their bounds (the kernels line's
                ``ms_bound_by_shape`` of rows ssd and kernel_matvec_fp32).
+
+ 29. mesh    — the DSEKL mesh (``core/distributed.py``), run after
+               bcd-exact: ranks under ``python -m torch.distributed.run
+               --standalone`` (this script with ``--mesh-rank``, killed
+               whole at a time limit; any rank's non-zero exit fails),
+               four gloo ranks sharing the one card (so a step's time is
+               no multi-card figure), the kernels built by phase 2 before
+               any rank starts (a rank that ran nvcc fails).  (a) parity
+               on a (2, 2) world: 8 steps at D 54, |I| = |J| = 1,024 a
+               shard on unit-norm covertype-like rows, square, adagrad,
+               impl "cuda", one shared plan, against the port's
+               simulate_step with impl "ref" on rank 0; again with
+               compress_bits=8 (one const-rate step within
+               compression_error_bound of the exact one, times the most
+               copies of an index in J) and with EigenPro (k 64, const at
+               its step size); every step on every rank one sm90 matvec
+               and one sm90 vecmat (EigenPro two), no train pass, the
+               ranks' counts summed by all_reduce.  (d) bcd-cell's
+               problem, 8 rounds on (2, 2) against the serial BCDPlan
+               at bcd_shards=2 on the card at 32 cond(A) u |ref|_inf.
+               (b) the launcher, ``--execution mesh --data-par 2
+               --model-par 2 --dist-backend gloo --data mmap``, 561,936 x
+               54 (559,888 train rows, divisible by 4), hinge, adagrad,
+               1,024 a shard, 2 epochs with a checkpoint each: ms a step,
+               the step's all_reduce host time, gather_s / wait_s, peak
+               device memory per rank, the val error beside
+               covertype-train's and below the all-zero model's; the
+               epoch-1 checkpoint resumed twice on (4, 1), the two at the
+               trajectory tolerance.  (c) a world of one, 1 x 1, nccl
+               against gloo, one epoch on the same plan.
 
 The DSEKL kernel tolerance is the JAX suite's float32 one
 (tests/test_dual_pass.py ``_tols``): rtol 2e-4, atol 1e-5 * max(1,
@@ -4586,6 +4617,517 @@ def phase_lm_readout(model, device_name: str):
             "matvec_shape": (test_feats.shape[0], n_sv, d)}
 
 
+# ---------------------------------------------------------------------------
+# The DSEKL mesh (core/distributed.py): four gloo ranks sharing the card.
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+MESH_DIR = os.path.join(ROOT, "build", "chip_smoke_mesh")
+# (a) parity: covertype-like rows scaled to unit norm (K far from I), D 54,
+# I = J = 1,024 a shard on a (2, 2) mesh, square loss, 8 steps.
+MESH_PARITY = dict(n=65536, steps=8, seed=5)
+# (b) the covertype protocol through the launcher on a (2, 2) mesh from
+# the memmap: 561,936 rows (559,888 after the hold-out: divisible by 4, so
+# the (4, 1) resume keeps N), RBF, hinge, adagrad, 1,024 a shard.
+MESH_ARGS = ["--dsekl", "--execution", "mesh", "--data", "mmap", "--n",
+             "561936", "--dim", "54", "--n-grad", "1024", "--n-expand",
+             "1024", "--kernel", "rbf", "--gamma", "1.0", "--seed", "0"]
+MESH_TRAIN_N = 561936 - 2048
+MESH_BCD_ROUNDS = 8
+MESH_TIMEOUT_S = 300
+
+
+def _torchrun(part: str, spec: dict) -> dict:
+    """Run this script's ``--mesh-rank`` program on ``MESH_RANKS`` ranks
+    under ``torch.distributed.run --standalone`` (a new session, killed
+    whole at the time limit); fails on any rank's non-zero exit.  Returns
+    each rank's JSON result by rank."""
+    spec = dict(spec, part=part, dir=MESH_DIR)
+    path = os.path.join(MESH_DIR, f"spec_{part}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(spec.get("ranks", MESH_RANKS)),
+           os.path.abspath(__file__), "--mesh-rank", path]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=MESH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, err = proc.communicate()
+        print(out[-4000:], err[-4000:], sep="\n")
+        raise SmokeFailure(f"mesh {part}: the ranks did not finish within "
+                           f"{MESH_TIMEOUT_S} s")
+    for line in out.splitlines():
+        if line.startswith("[mesh"):
+            print(line)
+    if proc.returncode != 0:
+        print(out[-4000:], err[-6000:], sep="\n")
+        raise SmokeFailure(f"mesh {part}: torch.distributed.run exited "
+                           f"{proc.returncode}")
+    print(f"[mesh] {part}: {spec.get('ranks', MESH_RANKS)} ranks under "
+          f"torch.distributed.run in {time.perf_counter() - t0:.1f}s")
+    results = {}
+    for r in range(spec.get("ranks", MESH_RANKS)):
+        with open(os.path.join(MESH_DIR, f"{part}_rank{r}.json")) as f:
+            results[r] = json.load(f)
+    return results
+
+
+def _mesh_counts_summed(counts: dict):
+    """Every rank's launches by wrapper and route, summed by all_reduce."""
+    import torch
+    import torch.distributed as dist
+    keys = [(w, r) for w in sorted(counts) for r in sorted(counts[w])]
+    t = torch.tensor([float(counts[w][r]) for w, r in keys])
+    dist.all_reduce(t)
+    out = {}
+    for (w, r), v in zip(keys, t.tolist()):
+        out.setdefault(w, {})[r] = int(v)
+    return out
+
+
+def _mesh_parity():
+    """(a) 8 mesh steps with impl "cuda" on one shared plan against the
+    port's simulate_step with impl "ref" (rank 0, on the card), then with
+    compress_bits=8 and with EigenPro; each step on each rank one sm90
+    matvec and one sm90 vecmat (EigenPro: two), summed by all_reduce."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import DSEKLConfig, dsekl, losses, precond, sampler
+    from repro_torch.core import distributed as D
+    from repro_torch.data import make_covertype_like
+    from repro_torch.distributed import compression
+    from repro_torch.launch.mesh import make_local_mesh
+    p = MESH_PARITY
+    mesh = make_local_mesh(2, 2, backend="gloo", device=DEVICE)
+    dev, n, steps = mesh.device, p["n"], p["steps"]
+    rank, (d, m) = mesh.rank, mesh.coordinate
+    x, y = make_covertype_like(n, 54, seed=0, device=dev)
+    x = _unit_rows(x)
+    cfg = DSEKLConfig(n_grad=1024, n_expand=1024, kernel="rbf",
+                      kernel_params=(("gamma", 1.0),), loss="square",
+                      lam=1e-4, schedule="adagrad", impl="cuda")
+    xg, yg, xe = D.shard_inputs(mesh, x, y)
+    gen = torch.Generator().manual_seed(p["seed"])
+    rows = (n // 2, n // 2)
+    plans = [sampler.mesh_step_plan(gen, 1024, 1024, rows, rows)
+             for _ in range(steps)]
+    rows_m = n // 2
+
+    def run(c, pc=None, compress=False):
+        st = D.init_sharded_state(mesh, n)
+        g = torch.Generator(device=dev) if compress else None
+        _reset_dsekl_counters()                 # the mesh path starts
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if pc is None:
+            step = D.make_distributed_step(c, mesh, n)
+            for t, plan in enumerate(plans):
+                if g is not None:
+                    g.manual_seed(1000 + t)
+                st = step(xg, yg, xe, st, plan, generator=g)
+        else:
+            step = D.make_distributed_block_step(c, mesh, n,
+                                                 precondition=True)
+            for ii, jj in plans:
+                i, j = ii[d].to(dev), jj[m].to(dev)
+                st = step(xg[i], yg[i], xe[j], j, st, pc)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        counts = _dsekl_counts()                # ... and ends here
+        _check_train_steps(counts, 0, "train_pass_cuda", "sm90", steps,
+                           f"mesh parity rank {rank}",
+                           vecmats=steps * (2 if pc is not None else 1))
+        return st, _mesh_counts_summed(counts), ms
+
+    def reference(c, pc=None):
+        """simulate_step with impl "ref" on rank 0, sent to every rank."""
+        full = torch.zeros(n, device=dev)
+        if rank == 0:
+            cr = c.replace(impl="ref")
+            a, g = torch.zeros(n, device=dev), torch.ones(n, device=dev)
+            t = torch.zeros((), dtype=torch.int32, device=dev)
+            for ii, jj in plans:
+                a, g, t = D.simulate_step(cr, 2, 2, x, y, a, g, t, ii, jj,
+                                          pc)
+            full = a
+        dist.broadcast(full, src=0)
+        return full[m * rows_m:(m + 1) * rows_m]
+
+    out = {}
+    st, counts, ms = run(cfg)
+    ref = reference(cfg)
+    err = compare(st.alpha, ref, TRAJ_RTOL, TRAJ_ATOL)
+    out["plain"] = {"launches": counts, "ms": ms, "err": err,
+                    "top": float(ref.abs().max())}
+    # compress_bits = 8: the trajectory, and one const-rate step against
+    # the exact one on the same state within the error bound.
+    st_c, counts_c, ms_c = run(cfg.replace(compress_bits=8), compress=True)
+    check(bool(torch.isfinite(st_c.alpha).all()), "compressed: non-finite")
+    one = cfg.replace(schedule="const", lr0=0.5)
+    st0 = D.init_sharded_state(mesh, n)._replace(
+        alpha=torch.randn(rows_m, generator=torch.Generator(
+            device=dev).manual_seed(7), device=dev))
+    ii, jj = plans[0]
+    i, j = ii[d].to(dev), jj[m].to(dev)
+    aj = st0.alpha[j]
+    f = D._sum(dsekl._block_f(one, xg[i], xe[j], aj, n), mesh, "model")
+    v = losses.get_loss(one.loss).grad_f(f, yg[i])
+    gmax = dsekl._block_grad(one.replace(lam=0.0), xg[i], xe[j], aj,
+                             v).abs().max().reshape(1)
+    dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=mesh.group("data"))
+    exact = D.make_distributed_step(one, mesh, n)(xg, yg, xe, st0, plans[0])
+    comp = D.make_distributed_step(one.replace(compress_bits=8), mesh, n)(
+        xg, yg, xe, st0, plans[0],
+        generator=torch.Generator(device=dev).manual_seed(1))
+    # J repeats (drawn with replacement): an entry takes each copy's error.
+    mult = int(torch.bincount(j).max())
+    bound = mult * one.lr0 * compression.compression_error_bound(
+        float(gmax[0]), 8, 2)
+    c_err = float((comp.alpha - exact.alpha).abs().max())
+    check(c_err <= bound * (1 + 1e-5) + 1e-7,
+          f"compressed step {c_err:.3e} past the bound {bound:.3e}")
+    out["compress"] = {"launches": counts_c, "ms": ms_c, "err": c_err,
+                       "bound": bound, "traj_diff": float(
+                           (st_c.alpha - st.alpha).abs().max())}
+    # EigenPro: the block estimated on every rank, replicated from rank 0;
+    # the const schedule at its step size for the step's J union.
+    pre = precond.estimate_preconditioner(
+        cfg, x, torch.Generator().manual_seed(11), k=PRECOND_K, device=dev)
+    pc = D.broadcast_block(mesh, pre.block(dev))
+    cfg_p = cfg.replace(schedule="const", lr0=pre.step_size(2 * 1024))
+    st_p, counts_p, ms_p = run(cfg_p, pc=pc)
+    ref_p = reference(cfg_p, pc)
+    err_p = compare(st_p.alpha, ref_p, TRAJ_RTOL, TRAJ_ATOL)
+    moved = float((ref_p - reference(cfg_p)).abs().max())
+    check(moved > 100 * TRAJ_ATOL * max(1.0, float(ref_p.abs().max())),
+          f"EigenPro moved alpha by only {moved:.3e}")
+    out["precond"] = {"launches": counts_p, "ms": ms_p, "err": err_p,
+                      "moved": moved}
+    if rank == 0:
+        print(f"[mesh-a] rank 0: 8 steps at I = J = 1,024 a shard, D 54: "
+              f"plain {ms:.4f} ms a step, max err {err:.3e} (|ref| "
+              f"{out['plain']['top']:.3e}); compressed {ms_c:.4f} ms, one "
+              f"step {c_err:.3e} <= bound {bound:.3e}; EigenPro {ms_p:.4f} "
+              f"ms, err {err_p:.3e}, its correction {moved:.3e}")
+    return out
+
+
+def _mesh_bcd(spec: dict) -> dict:
+    """(d) bcd-cell's problem, MESH_BCD_ROUNDS rounds on the (2, 2) mesh;
+    rank 0 saves the full alpha."""
+    import numpy as np
+    import torch
+    from repro_torch.core import DSEKLConfig, fit
+    from repro_torch.core import distributed as D
+    from repro_torch.data import HostSource
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(2, 2, backend="gloo", device=DEVICE)
+    z = np.load(spec["bcd_problem"])
+    xva = torch.from_numpy(z["xva"]).to(mesh.device)
+    yva = torch.from_numpy(z["yva"]).to(mesh.device)
+    _reset_dsekl_counters()                     # the mesh BCD path starts
+    t0 = time.perf_counter()
+    res = fit(_bcd_cell_cfg(), HostSource(z["xtr"], z["ytr"]), None,
+              torch.Generator().manual_seed(CONVERGE["seed"]),
+              execution="bcd", mesh=mesh, n_epochs=MESH_BCD_ROUNDS, tol=0.0,
+              x_val=xva, y_val=yva, device=DEVICE)
+    secs = time.perf_counter() - t0
+    counts = _dsekl_counts()                    # ... and ends here
+    full = D.gather_model_shards(mesh, res.state.alpha)
+    if mesh.rank == 0:
+        np.save(os.path.join(MESH_DIR, "bcd_alpha.npy"), full.cpu().numpy())
+    return {"launches": _mesh_counts_summed(counts), "seconds": secs,
+            "val": [h["val_error"] for h in res.history]}
+
+
+def _mesh_launch(argv, what: str) -> dict:
+    """The launcher's ``train_dsekl`` on this rank, instrumented: the host
+    time of the step's reductions (1,024 floats: f over model, g over
+    data), the launches, the peak device memory; rank 0 saves the full
+    alpha under ``what``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.distributed import gather_model_shards
+    from repro_torch.launch import train
+    ar = {"n": 0, "s": 0.0}
+    orig = dist.all_reduce
+
+    def timed(t, *a, **k):
+        t0 = time.perf_counter()
+        r = orig(t, *a, **k)
+        if t.numel() == 1024:
+            ar["n"] += 1
+            ar["s"] += time.perf_counter() - t0
+        return r
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _reset_dsekl_counters()                     # the launcher's path starts
+    dist.all_reduce = timed
+    try:
+        out = train.train_dsekl(train.parser().parse_args(
+            argv + ["--device", DEVICE]))
+    finally:
+        dist.all_reduce = orig
+    torch.cuda.synchronize()
+    counts = _dsekl_counts()                    # ... and ends here
+    peak = torch.cuda.max_memory_allocated() - base
+    res, mesh = out["result"], out["mesh"]
+    full = gather_model_shards(mesh, res.state.alpha)
+    check(bool(torch.isfinite(full).all()), f"{what}: non-finite alpha")
+    if mesh.rank == 0:
+        np.save(os.path.join(MESH_DIR, f"{what}_alpha.npy"),
+                full.cpu().numpy())
+    steps = int(res.state.step)
+    last = res.history[-1]
+    spe = MESH_TRAIN_N // (1024 * mesh.size("data"))
+    return {"steps": steps, "epochs": res.epochs_run,
+            "ms_per_step": last["seconds"] / spe * 1e3,
+            "ar_ms_per_step": ar["s"] * 1e3 / max(steps, 1),
+            "ar_count": ar["n"], "loader": res.loader,
+            "peak_mib": peak / 2**20, "val": [h.get("val_error")
+                                               for h in res.history],
+            "zero": _zero_model_error(out["y_val"]),
+            "launches": _mesh_counts_summed(counts),
+            "rank_launches": counts}
+
+
+def _mesh_protocol(spec: dict) -> dict:
+    """(b) the launcher on a (2, 2) mesh, 2 epochs, a checkpoint each."""
+    argv = MESH_ARGS + ["--data-par", "2", "--model-par", "2",
+                        "--dist-backend", "gloo", "--epochs", "2",
+                        "--mmap-dir", spec["mmap"], "--checkpoint-dir",
+                        spec["ckpt"]]
+    return _mesh_launch(argv, "protocol")
+
+
+def _mesh_resume(spec: dict) -> dict:
+    """(b) the epoch-1 checkpoint resumed on (4, 1), from each copy."""
+    out = {}
+    for i, ck in enumerate(spec["dirs"]):
+        argv = MESH_ARGS + ["--data-par", "4", "--model-par", "1",
+                            "--dist-backend", "gloo", "--epochs", "2",
+                            "--mmap-dir", spec["mmap"], "--checkpoint-dir",
+                            ck, "--resume"]
+        out[f"resume{i}"] = _mesh_launch(argv, f"resume{i}")
+    return out
+
+
+def mesh_rank(spec_path: str) -> int:
+    """One rank of the mesh phase, under torch.distributed.run: the world
+    from its environment (gloo: four ranks share the one card), the part
+    the spec names, its JSON result to MESH_DIR.  The kernels were built
+    by the parent's build phase: a rank that had to run nvcc fails."""
+    sys.path.insert(0, SRC)
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import init_world
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(spec_path) as f:
+        spec = json.load(f)
+    init_world("gloo", DEVICE)
+    rank = dist.get_rank()
+    try:
+        out = {}
+        if spec["part"] == "main":
+            out["parity"] = _mesh_parity()
+            out["bcd"] = _mesh_bcd(spec)
+            out["protocol"] = _mesh_protocol(spec)
+        else:
+            out.update(_mesh_resume(spec))
+        built = sorted(r.name for r in _build._records.values()
+                       if r.seconds > 0)
+        check(not built, f"rank {rank} ran nvcc for {built}")
+        with open(os.path.join(spec["dir"],
+                               f"{spec['part']}_rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _bcd_cell_cfg():
+    from repro_torch.core import DSEKLConfig
+    b = BCD_CELL
+    return DSEKLConfig(n_grad=b["row_block"], n_expand=b["block"],
+                       kernel="rbf",
+                       kernel_params=(("gamma", CONVERGE["gamma"]),),
+                       loss="square", lam=b["lam"], bcd_block=b["block"],
+                       bcd_row_block=b["row_block"])
+
+
+def _bcd_cond(prob, rounds: int) -> float:
+    """The largest float64 cond(A) over the rounds' blocks J (drawn as the
+    fit draws them): A = K_{.,J}^T K_{.,J} + lam n K_{J,J}."""
+    import torch
+    from repro_torch.core import bcd
+    n, lam = CONVERGE["n"], BCD_CELL["lam"]
+    gen = torch.Generator().manual_seed(CONVERGE["seed"])
+    conds = []
+    for _ in range(rounds):
+        j = torch.from_numpy(bcd.sample_block(gen, n, BCD_CELL["block"]))
+        kj = prob["kmat"][:, j.to(prob["kmat"].device)]
+        a = kj.T @ kj + lam * n * kj[j.to(kj.device)]
+        conds.append(float(torch.linalg.cond(a)))
+    return max(conds)
+
+
+def phase_mesh(prob, smi: str, covertype_err: float) -> dict:
+    """The DSEKL mesh on the one card: (a) parity, (d) BCD and (b) the
+    covertype protocol on a (2, 2) gloo world of 4 ranks, then (b)'s
+    epoch-1 checkpoint resumed twice on (4, 1), then (c) a world of one
+    with nccl against gloo.  Four ranks share one card: the step times are
+    not a multi-card figure."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import fit
+    from repro_torch.launch import train
+    t0 = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    mmap = os.path.join(MESH_DIR, "mmap")
+    ckpt = os.path.join(MESH_DIR, "ckpt")
+    bcd_npz = os.path.join(MESH_DIR, "bcd_problem.npz")
+    np.savez(bcd_npz, **{k: prob[k].cpu().numpy()
+                         for k in ("xtr", "ytr", "xva", "yva")})
+    main = _torchrun("main", {"bcd_problem": bcd_npz, "mmap": mmap,
+                              "ckpt": ckpt})
+    r0 = main[0]
+    # (a): launches summed over the ranks, by route.
+    steps = MESH_PARITY["steps"]
+    for arm, vec in (("plain", 1), ("compress", 1), ("precond", 2)):
+        got = r0["parity"][arm]["launches"]
+        want = {"sm90": MESH_RANKS * steps, "fp32": 0}
+        check(got["kernel_matvec_cuda"] == want
+              and got["kernel_vecmat_cuda"] == {"sm90": vec * MESH_RANKS
+                                                * steps, "fp32": 0}
+              and all(sum(got[w].values()) == 0 for w in (
+                  "train_pass_cuda", "train_pass_indexed_cuda",
+                  "dual_pass_cuda")),
+              f"mesh parity {arm}: launches summed over the ranks {got}")
+    pa = r0["parity"]
+    print(f"[mesh-a] ({smi}) 4 ranks x {steps} steps: sm90 matvec "
+          f"{pa['plain']['launches']['kernel_matvec_cuda']['sm90']}, "
+          f"vecmat {pa['plain']['launches']['kernel_vecmat_cuda']['sm90']}"
+          f" (EigenPro {pa['precond']['launches']['kernel_vecmat_cuda']['sm90']}"
+          f"), no train pass; max err against ref {max(r['parity']['plain']['err'] for r in main.values()):.3e}"
+          f", EigenPro {max(r['parity']['precond']['err'] for r in main.values()):.3e}"
+          f" (rtol {TRAJ_RTOL}, atol {TRAJ_ATOL} x max(1, |ref|)); "
+          f"compressed step {max(r['parity']['compress']['err'] for r in main.values()):.3e}"
+          f" within its bound {pa['compress']['bound']:.3e}")
+    # (d): mesh BCD against the serial BCDPlan at bcd_shards = 2.
+    ser = fit(_bcd_cell_cfg().replace(bcd_shards=2), prob["xtr"],
+              prob["ytr"], torch.Generator().manual_seed(CONVERGE["seed"]),
+              execution="bcd", n_epochs=MESH_BCD_ROUNDS, tol=0.0,
+              x_val=prob["xva"], y_val=prob["yva"], device=DEVICE)
+    got = torch.from_numpy(np.load(os.path.join(MESH_DIR, "bcd_alpha.npy")))
+    want = ser.state.alpha.cpu()
+    cond = _bcd_cond(prob, MESH_BCD_ROUNDS)
+    tol = 32 * cond * U32
+    err = compare(got, want, rtol=0.0, atol=tol, floor=False)
+    bd = r0["bcd"]
+    check(bd["launches"]["kernel_matvec_cuda"]["sm90"] == MESH_RANKS
+          * MESH_BCD_ROUNDS, f"mesh bcd: launches {bd['launches']}")
+    print(f"[mesh-d] ({smi}) bcd-cell's problem, {MESH_BCD_ROUNDS} rounds "
+          f"on (2, 2) in {bd['seconds']:.2f}s: max |alpha - serial "
+          f"(bcd_shards 2)| {err:.3e}, bit-identical "
+          f"{torch.equal(got, want)}; tolerance 32 cond(A) u |ref| with "
+          f"cond(A) {cond:.4e} (float64, the rounds' largest); val errors "
+          f"{[round(v, 4) for v in bd['val']]} against serial "
+          f"{[round(h['val_error'], 4) for h in ser.history]}")
+    # (b): the protocol on (2, 2).
+    pr = [main[r]["protocol"] for r in range(MESH_RANKS)]
+    b0 = pr[0]
+    check(b0["steps"] == 2 * (MESH_TRAIN_N // 2048),
+          f"protocol: {b0['steps']} steps")
+    check(b0["val"][-1] < b0["zero"], f"protocol: val error {b0['val'][-1]}"
+          f" does not beat the all-zero model's {b0['zero']}")
+    print(f"[mesh-b] ({smi}) --execution mesh --data-par 2 --model-par 2 "
+          f"--dist-backend gloo --data mmap, {MESH_TRAIN_N} x 54, 2 epochs "
+          f"of {MESH_TRAIN_N // 2048} steps: {b0['ms_per_step']:.4f} ms a "
+          f"step (rank 0, epoch 2 wall, eval excluded; four ranks share one "
+          f"card: not a multi-card figure), the step's two 1,024-float "
+          f"all_reduces {b0['ar_ms_per_step']:.4f} ms a step on the host "
+          f"(their wait for the kernels included); loader gather_s "
+          f"{b0['loader']['gather_s']:.4f} wait_s "
+          f"{b0['loader']['wait_s']:.4f}; peak device memory per rank "
+          f"{[round(p['peak_mib'], 2) for p in pr]} MiB; val errors "
+          f"{[round(v, 6) for v in b0['val']]} (all-zero "
+          f"{b0['zero']:.6f}; covertype-train {covertype_err:.6f}); "
+          f"launches {b0['launches']}")
+    # (b): the epoch-1 checkpoint resumed twice on (4, 1).
+    dirs = []
+    for i in range(2):
+        d = os.path.join(MESH_DIR, f"resume{i}")
+        os.makedirs(d)
+        shutil.copytree(os.path.join(ckpt, "step_0000000001"),
+                        os.path.join(d, "step_0000000001"))
+        dirs.append(d)
+    res = _torchrun("resume", {"dirs": dirs, "mmap": mmap})
+    alphas = [torch.from_numpy(np.load(os.path.join(
+        MESH_DIR, f"resume{i}_alpha.npy"))) for i in range(2)]
+    rs = res[0]["resume0"]
+    check(rs["steps"] == MESH_TRAIN_N // 2048 + MESH_TRAIN_N // 4096,
+          f"resume: {rs['steps']} steps")
+    r_err = compare(alphas[0], alphas[1], TRAJ_RTOL, TRAJ_ATOL)
+    print(f"[mesh-b] ({smi}) epoch-1 checkpoint resumed on (4, 1) twice: "
+          f"epoch 2 of {MESH_TRAIN_N // 4096} steps, "
+          f"{rs['ms_per_step']:.4f} ms a step; the two resumes differ by "
+          f"{r_err:.3e} (bit-identical {torch.equal(*alphas)}); val error "
+          f"{rs['val'][-1]:.6f}")
+    # (c): a world of one, nccl against gloo, one epoch on the same plan.
+    one = {}
+    for backend in ("nccl", "gloo"):
+        argv = MESH_ARGS + ["--data-par", "1", "--model-par", "1",
+                            "--dist-backend", backend, "--epochs", "1",
+                            "--mmap-dir", mmap, "--device", DEVICE]
+        _reset_dsekl_counters()                 # the 1 x 1 path starts
+        out = train.train_dsekl(train.parser().parse_args(argv))
+        counts = _dsekl_counts()                # ... and ends here
+        check(not dist.is_initialized(), f"{backend}: the world of one "
+              "was left initialised")
+        st = out["result"]
+        one[backend] = (st.state.alpha, counts,
+                        st.history[-1]["seconds"] / (MESH_TRAIN_N // 1024)
+                        * 1e3)
+    c_err = compare(one["nccl"][0], one["gloo"][0], TRAJ_RTOL, TRAJ_ATOL)
+    print(f"[mesh-c] ({smi}) a world of one, 1 x 1, one epoch of "
+          f"{MESH_TRAIN_N // 1024} steps: nccl {one['nccl'][2]:.4f} ms a "
+          f"step, gloo {one['gloo'][2]:.4f}; alphas differ by {c_err:.3e}")
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    print(f"[mesh] ({smi}) the phase took {secs:.1f}s")
+    paths = {"matvec": {}, "vecmat": {}}
+    for tag, lc in (("mesh-a parity, 4 ranks", pa["plain"]["launches"]),
+                    ("mesh-a compressed", pa["compress"]["launches"]),
+                    ("mesh-a EigenPro", pa["precond"]["launches"]),
+                    ("mesh-d bcd evals", bd["launches"]),
+                    ("mesh-b protocol (2, 2)", b0["launches"]),
+                    ("mesh-b resumes (4, 1)",
+                     _sum_counts(res[0]["resume0"]["launches"],
+                                 res[0]["resume1"]["launches"])),
+                    ("mesh-c nccl 1 x 1", one["nccl"][1]),
+                    ("mesh-c gloo 1 x 1", one["gloo"][1])):
+        paths["matvec"][tag] = lc["kernel_matvec_cuda"]["sm90"]
+        paths["vecmat"][tag] = lc["kernel_vecmat_cuda"]["sm90"]
+    return {"paths": paths, "seconds": secs, "protocol": b0, "resume": rs,
+            "parity": pa, "nccl_ms": one["nccl"][2]}
+
+
+def _sum_counts(a: dict, b: dict) -> dict:
+    return {w: {r: a[w][r] + b[w][r] for r in a[w]} for w in a}
+
+
 def main() -> int:
     try:
         import torch
@@ -4634,11 +5176,13 @@ def main() -> int:
             "precond-converge")
     bcd_cell = phase_bcd_cell(prob)
     bcd_exact = phase_bcd_exact(prob)
+    mesh = phase_mesh(prob, smi,
+                      trained["out"]["result"].history[-1]["val_error"])
     del prob
     bcd_hosted = phase_bcd_hosted(hosted, name)
     base = phase_baselines()
     kp = phase_kpca()
-    elapsed("bcd-cell, bcd-exact, bcd-hosted, baselines, kpca")
+    elapsed("bcd-cell, bcd-exact, mesh, bcd-hosted, baselines, kpca")
     online = phase_online()
     tenants = phase_tenants()
     elapsed("online, tenants")
@@ -4655,6 +5199,7 @@ def main() -> int:
         "precond-hosted": precond_hosted["launches"]}
     vecmat_paths = dict({"train-two-pass": vecmat_launches}, **precond_paths)
     vecmat_paths["baselines emp-fix step"] = base["vecmat"]
+    vecmat_paths.update(mesh["paths"]["vecmat"])
     matvec_paths = {"serve": launches,
                     "train-parallel eval": parallel["eval_launches"],
                     "train-hosted prefetch eval":
@@ -4667,6 +5212,7 @@ def main() -> int:
                     "online serve and rebuild warm-ups":
                         online["matvec_launches"],
                     "tenants (qos on: batch's bypass)": tenants["launches"]}
+    matvec_paths.update(mesh["paths"]["matvec"])
     # The narrow sm90 train pass: Algorithm 1's indexed step in memory, and
     # the online fit thread's hosted step on the staged rows.
     train_paths = {"train": trained["launches"],
@@ -4847,6 +5393,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(sys.argv[2]))
     try:
         sys.exit(main())
     except Exception as exc:  # report the failed phase, exit non-zero

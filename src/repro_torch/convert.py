@@ -7,6 +7,10 @@
   under the keys ``alpha``, ``accum``, ``step``, ``epoch``: a JAX
   ``DSEKLState`` via ``np.asarray`` of its fields, or a checkpoint's flat
   dict.
+* ``mesh_state_from_jax(arrays, mesh)`` — this rank's shards of a JAX
+  ``ShardedDSEKLState`` (its global alpha, accum and step as numpy, or a
+  checkpoint's flat dict with an ``epoch``): the alpha / accum rows of the
+  rank's model shard and the step, on the rank's device.
 * ``preconditioner_from_jax(pre_or_extra)`` — the port's
   ``EigenProPreconditioner`` from a JAX ``EigenProPreconditioner`` or from
   its ``to_extra()`` dict, as a JAX checkpoint stores it under
@@ -95,6 +99,19 @@ def state_from_jax(arrays: Mapping[str, Any],
                       accum=_f32(arrays["accum"], dev),
                       step=_i32(arrays["step"], dev),
                       epoch=_i32(arrays["epoch"], dev))
+
+
+def mesh_state_from_jax(arrays: Mapping[str, Any], mesh) -> DSEKLState:
+    """This rank's ``DSEKLState`` shards of JAX's global mesh state
+    (``epoch`` 0 when the arrays carry none): a model shard of alpha and
+    accum, on ``mesh.device``."""
+    from repro_torch.core.distributed import state_shard
+    dev = mesh.device
+    epoch = arrays["epoch"] if "epoch" in arrays else 0
+    return DSEKLState(
+        alpha=state_shard(mesh, _f32(arrays["alpha"], dev)).clone(),
+        accum=state_shard(mesh, _f32(arrays["accum"], dev)).clone(),
+        step=_i32(arrays["step"], dev), epoch=_i32(epoch, dev))
 
 
 def preconditioner_from_jax(pre_or_extra) -> EigenProPreconditioner:

@@ -1,5 +1,5 @@
-"""Block coordinate descent over the empirical kernel map (port of the
-serial part of ``repro/core/bcd.py``; DESIGN.md §14).
+"""Block coordinate descent over the empirical kernel map (port of
+``repro/core/bcd.py``; DESIGN.md §14).
 
 Tu et al., *Large Scale Kernel Learning using Block Coordinate Descent*
 (PAPERS.md), solve the regularized empirical-kernel-map system
@@ -31,17 +31,20 @@ same bits however the groups were computed.  The solve is one Cholesky
 on the host-combined system (``torch.linalg.cholesky_ex``, the
 ``JITTER_LADDER`` walked on the host from its ``info``).
 
-Not ported yet: the mesh placement (``MeshBCDOps`` /
-``make_mesh_bcd_ops``), which waits for ROADMAP.md section 1, item 6
-(the mesh).
+On a mesh (``make_mesh_bcd_ops``) each data shard is one row group: its
+ranks stream the shard's tiles, keep its residual, and send its partial
+home through the slot stack, so a mesh fit equals the serial one with
+``bcd_shards = n_data``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import distributed
 from repro_torch.core.dsekl import DSEKLConfig
 from repro_torch.kernels import full_fp32_matmul
 from repro_torch.kernels.dsekl import ops as kops
@@ -213,3 +216,48 @@ def solve_block(cfg: DSEKLConfig, xj: Tensor, g: np.ndarray,
         "BCD block solve failed: Cholesky not finite at the top of the "
         f"jitter ladder (bcd_jitter={cfg.bcd_jitter!r}; raise it, or "
         "shrink bcd_block)")
+
+
+# ---------------------------------------------------------------------------
+# Mesh round ops: row groups are the data shards, x_J on every rank.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MeshBCDOps:
+    """One rank's cross-rank ops of a mesh BCD round (the tiles are
+    ``acc_serial`` / ``fupd_serial`` on the rank's rows)."""
+    scatter: Callable     # (alpha_shard, idx_j GLOBAL, delta) -> shard
+    partials: Callable    # (gb) -> (n_data, |J|, |J|+1) host array
+    f_at: Callable        # (f_loc, idx_j GLOBAL) -> f_J host array
+
+
+def make_mesh_bcd_ops(mesh) -> MeshBCDOps:
+    """The mesh round's cross-rank ops, for the rank at (d, m).  Its data
+    shard's tiles (LOCAL rows into its residual f_loc) against x_J from the
+    whole source accumulate a private (|J|, |J|+1) partial with the serial
+    tile ops, no reduction on the device; ``partials`` brings every data
+    shard's home through the slot stack (``distributed.gather_slots``,
+    exact) for the host's fixed-order ``combine_partials``; ``f_at`` reads
+    f at the global J the same way (each data shard its own entries, the
+    rest an exact 0); ``scatter`` adds the replicated solution to the
+    entries of J this model shard owns.  So a mesh fit equals the serial
+    fit with ``bcd_shards = n_data`` bit for bit on the CPU."""
+    d, m = mesh.index(distributed.DATA), mesh.index(distributed.MODEL)
+
+    def scatter(alpha_loc: Tensor, idx_j: Tensor, delta: Tensor) -> Tensor:
+        return distributed.scatter_owned(alpha_loc, idx_j, delta,
+                                         m * alpha_loc.shape[0])
+
+    def partials(gb: Tensor) -> np.ndarray:
+        return distributed.gather_slots(mesh, gb,
+                                        distributed.DATA).cpu().numpy()
+
+    def f_at(f_loc: Tensor, idx_j: Tensor) -> np.ndarray:
+        rows = f_loc.shape[0]
+        local = idx_j - d * rows
+        own = (local >= 0) & (local < rows)
+        part = torch.where(own, f_loc[torch.where(own, local, 0)], 0.0)
+        return distributed._sum(part, mesh,
+                                distributed.DATA).cpu().numpy()
+
+    return MeshBCDOps(scatter=scatter, partials=partials, f_at=f_at)

@@ -1,10 +1,8 @@
 """DSEKL model configuration, state, the steps of Algorithms 1 and 2 with
-their EigenPro correction, and prediction (port of ``repro/core/dsekl.py``;
-the mesh hooks are not ported yet).
+their EigenPro correction, and prediction (port of ``repro/core/dsekl.py``).
 
 ``DSEKLConfig`` carries every field of the JAX config, so a JAX config maps
-onto it 1:1 (``repro_torch.convert.config_from_jax``); fields of paths not
-ported yet (``compress_bits``, ``bcd_*``) are kept for that mapping.
+onto it 1:1 (``repro_torch.convert.config_from_jax``).
 
 Algorithm 1 (serial): every step takes two index sets, I (gradient points)
 and J (kernel-map expansion points), computes the dual gradient on the
@@ -131,16 +129,20 @@ def _fused_f_and_grad(cfg: DSEKLConfig, xi: Tensor, yi: Tensor, xj: Tensor,
 
 def streaming_train_pass(cfg: DSEKLConfig, xi: Tensor, yi: Tensor,
                          xj: Tensor, aj: Tensor, n: int, *,
-                         row_block: int) -> Tuple[Tensor, Tensor]:
+                         row_block: int, f_reduce=None
+                         ) -> Tuple[Tensor, Tensor]:
     """The fused step body consuming K_{I,J} in (row_block, |J|) tiles of
     the gradient batch, each evaluated ONCE:
 
-        f_b = f_scale * K_b @ a_J;  v_b = dloss/df(f_b, y_b);  g += K_b^T v_b
+        f_b = f_reduce(f_scale * K_b @ a_J)
+        v_b = dloss/df(f_b, y_b);  g += K_b^T v_b
 
-    so the peak kernel-block intermediate is O(row_block * |J|).  Zero-
-    padded tail rows get their v masked to zero.  Returns ``(f (|I|,),
-    g (|J|,))``, g without the lam*alpha_J term.  (The JAX function's
-    ``f_reduce`` hook serves the mesh step, which is not ported yet.)"""
+    so the peak kernel-block intermediate is O(row_block * |J|).
+    ``f_reduce`` lets the mesh step complete the model axis's reduction
+    of the partial decision values per row block, before the loss
+    gradient is taken (None: the identity).  Zero-padded tail rows get
+    their v masked to zero.  Returns ``(f (|I|,), g (|J|,))``, g without
+    the lam*alpha_J term."""
     loss = losses_lib.get_loss(cfg.loss)
     n_i = xi.shape[0]
     f_scale = (n / xj.shape[0]) if cfg.unbiased_scaling else 1.0
@@ -154,6 +156,8 @@ def streaming_train_pass(cfg: DSEKLConfig, xi: Tensor, yi: Tensor,
         kb = kops.kernel_block(xb, xj, kernel_name=cfg.kernel,
                                kernel_params=cfg.kernel_params)   # ONCE
         fb = f_scale * (kb @ aj)
+        if f_reduce is not None:
+            fb = f_reduce(fb)
         vb = loss.grad_f(fb, yb) * mb
         g = g + kb.T @ vb
         fs.append(fb)

@@ -1,6 +1,5 @@
-"""Index samplers of Algorithms 1 and 2 (port of ``repro/core/sampler.py``'s
-``sample_uniform``, ``epoch_plan``, ``epoch_batches``,
-``paired_epoch_batches`` and ``parallel_epoch_plan``).
+"""Index samplers of Algorithms 1 and 2 and of the mesh (port of
+``repro/core/sampler.py``).
 
 All draw from an explicit ``torch.Generator``, on the generator's device.
 They cannot reproduce the JAX package's threefry draws, so every consumer
@@ -14,10 +13,15 @@ indices.
   without replacement each epoch (``epoch_batches``), and hands each
   gradient batch K expansion batches, cycling through the epoch's
   J-partition (``parallel_epoch_plan``).
+* The mesh samples each shard's indices from its own LOCAL row range:
+  with replacement each step (``mesh_step_plan``, ``mesh_epoch_plan``:
+  the whole mesh's plan, so every rank that draws it from the same
+  generator state holds the same plan and takes its own rows), or
+  without replacement (``sharded_batches``).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -78,3 +82,45 @@ def parallel_epoch_plan(gen: torch.Generator, n: int, i_batch: int,
     assign = (torch.arange(n_i, device=dev)[:, None] * k
               + torch.arange(k, device=dev)[None, :]) % n_j
     return i_batches, j_batches[assign]                 # (Bi, K, j_batch)
+
+
+def sharded_batches(gen: torch.Generator, n_local: int, batch: int
+                    ) -> Tensor:
+    """Without-replacement batches over one shard's LOCAL range [0,
+    n_local): a permutation cut into ``max(n_local // batch, 1)`` batches,
+    ``(n_batches, batch)``.  A shard smaller than one batch wraps its
+    permutation so the batch keeps its shape (indices then repeat).  The
+    JAX function folds the shard id into its key; here each shard's
+    generator state is the caller's."""
+    n_batches = max(n_local // batch, 1)
+    perm = torch.randperm(n_local, generator=gen, device=gen.device)
+    if batch > n_local:
+        perm = perm.repeat(-(-batch // n_local))
+    return perm[: n_batches * batch].reshape(n_batches, batch)
+
+
+def mesh_step_plan(gen: torch.Generator, n_grad: int, n_expand: int,
+                   rows_data: Sequence[int], rows_model: Sequence[int]
+                   ) -> Tuple[Tensor, Tensor]:
+    """One mesh step's plan, LOCAL indices: ``(idx_i (n_data, n_grad),
+    idx_j (n_model, n_expand))``, row d uniform in [0, rows_data[d]) and
+    row m in [0, rows_model[m]), with replacement."""
+    i, j = mesh_epoch_plan(gen, n_grad, n_expand, rows_data, rows_model, 1)
+    return i[0], j[0]
+
+
+def mesh_epoch_plan(gen: torch.Generator, n_grad: int, n_expand: int,
+                    rows_data: Sequence[int], rows_model: Sequence[int],
+                    steps: int) -> Tuple[Tensor, Tensor]:
+    """A whole mesh epoch's plan, LOCAL indices, drawn in one call a shard
+    on the generator's device: ``(idx_i (steps, n_data, n_grad), idx_j
+    (steps, n_model, n_expand))``.  I is drawn per data shard and J per
+    model shard, so the ranks of one model column scatter the same J."""
+    dev = gen.device
+    idx_i = torch.stack([torch.randint(0, int(r), (steps, n_grad),
+                                       generator=gen, device=dev)
+                         for r in rows_data], dim=1)
+    idx_j = torch.stack([torch.randint(0, int(r), (steps, n_expand),
+                                       generator=gen, device=dev)
+                         for r in rows_model], dim=1)
+    return idx_i, idx_j

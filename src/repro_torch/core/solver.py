@@ -1,6 +1,5 @@
 """Training front door for DSEKL: ``fit`` and ``train_epoch_hosted`` (port
-of ``repro/core/solver.py``; the serial, parallel, hosted and bcd
-executions).
+of ``repro/core/solver.py``).
 
 The paper's stopping rule (§4.2): stop when the L2 norm of the dual
 coefficients' change over one epoch is below ``tol``.  ``fit`` resolves
@@ -14,7 +13,10 @@ the data placement and the requested execution to a backend
     ``BlockPrefetcher``, bit-identical to the in-memory fit on the CPU;
   * ``BCDPlan`` — block coordinate descent rounds over a ``DataSource``
     (arrays are wrapped in an ``InMemorySource``): exact block solves of
-    the square-loss system, ``execution="bcd"``;
+    the square-loss system, ``execution="bcd"``, serially or on a mesh;
+  * ``MeshPlan`` — the 2-D (data x model) mesh of ``torch.distributed``
+    ranks, ``execution="mesh"`` (or a ``mesh=``): the doubly stochastic
+    step of ``core/distributed.py`` on every rank;
 
 and drives ``trainer.fit_loop``: epoch -> truncate -> eval -> snapshot,
 with checkpoint/resume through ``checkpoint.CheckpointManager``.  EigenPro
@@ -33,8 +35,8 @@ import torch
 from repro_torch.core import trainer
 from repro_torch.core.dsekl import DSEKLConfig, DSEKLState
 from repro_torch.core.trainer import (  # noqa: F401  (re-exported API)
-    BCDPlan, ExecutionPlan, FitResult, HostedPlan, ParallelPlan, SerialPlan,
-    _EVAL_CACHE_BUDGET_BYTES, _error,
+    BCDPlan, ExecutionPlan, FitResult, HostedPlan, MeshPlan, ParallelPlan,
+    SerialPlan, _EVAL_CACHE_BUDGET_BYTES, _error,
 )
 from repro_torch.data.source import DataSource, InMemorySource, RingSource
 from repro_torch.device import DeviceLike, resolve_device
@@ -139,7 +141,7 @@ def fit(cfg: DSEKLConfig, x, y=None,
         checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1,
         checkpoint_keep: int = 3, resume: bool = False,
         callback: Optional[Callable[[int, DSEKLState], None]] = None,
-        precondition=None, on_epoch=None,
+        precondition=None, on_epoch=None, mesh=None,
         device: DeviceLike = None) -> FitResult:
     """Run DSEKL until convergence (paper stopping rule) or ``n_epochs``.
 
@@ -174,6 +176,19 @@ def fit(cfg: DSEKLConfig, x, y=None,
     ``InMemorySource``) or from a ``HostSource``; the state lives on
     ``device``.
 
+    ``execution="mesh"`` (or ``mesh=`` a ``launch.mesh.LocalMesh``) trains
+    on the 2-D (data x model) mesh, one process a coordinate, each calling
+    ``fit`` with the same arguments and the same generator state
+    (``trainer.MeshPlan``): the data as a ``DataSource`` split per shard
+    (arrays are wrapped in an ``InMemorySource``), the state, ``x_val``
+    and ``y_val`` on the rank's mesh device, the epoch plans ``(idx_i
+    (steps, n_data, n_grad), idx_j (steps, n_model, n_expand))`` of LOCAL
+    indices.  Without ``mesh`` it runs on ``(world, 1)`` over an
+    initialised world, else on a world of one that it tears down again.
+    ``execution="bcd"`` with ``mesh`` runs the rounds on the mesh.  Rank 0
+    alone prints and writes checkpoints, which hold the full vectors, so a
+    fit resumes on another mesh shape (the same N).
+
     A live ``RingSource`` is snapshotted once at entry: appends during the
     fit cannot reach it.
 
@@ -202,10 +217,7 @@ def fit(cfg: DSEKLConfig, x, y=None,
     preconditioner is restored from the checkpoint's ``extra``.  Under
     ``schedule="const"`` with ``cfg.precondition_auto_lr`` the fit swaps
     ``lr0`` for ``pre.step_size(|J|)``.  ``FitResult.precond`` and
-    ``.estimate_s`` report it.
-
-    Not ported yet, and refused: the ``mesh`` execution
-    (``NotImplementedError``, naming its ROADMAP item)."""
+    ``.estimate_s`` report it."""
     if generator is None and plans is None:
         raise TypeError("fit() requires a torch.Generator (or explicit "
                         "per-epoch index plans)")
@@ -236,8 +248,39 @@ def fit(cfg: DSEKLConfig, x, y=None,
                                                         InMemorySource)
     execution = trainer.resolve_execution(execution, cfg,
                                           algorithm=algorithm,
-                                          hosted_data=hosted_data)
-    trainer.check_ported(execution)
+                                          hosted_data=hosted_data, mesh=mesh)
+    owns_mesh = False
+    if execution == "mesh" and mesh is None:
+        mesh, owns_mesh = trainer.default_mesh(dev)
+    try:
+        return _fit(cfg, x, y, generator, source, execution, mesh, owns_mesh,
+                    dev, plans=plans, algorithm=algorithm,
+                    n_epochs=n_epochs, tol=tol, x_val=x_val, y_val=y_val,
+                    eval_every=eval_every, verbose=verbose,
+                    truncate_every=truncate_every,
+                    truncate_frac=truncate_frac, eval_cache=eval_cache,
+                    prefetch=prefetch, checkpoint_dir=checkpoint_dir,
+                    checkpoint_every=checkpoint_every,
+                    checkpoint_keep=checkpoint_keep, resume=resume,
+                    callback=callback, precondition=precondition,
+                    on_epoch=on_epoch)
+    finally:
+        if owns_mesh:
+            mesh.close()        # no-op once the plan has closed it
+
+
+def _fit(cfg, x, y, generator, source, execution, mesh, owns_mesh, dev, *,
+         plans, algorithm, n_epochs, tol, x_val, y_val, eval_every, verbose,
+         truncate_every, truncate_frac, eval_cache, prefetch, checkpoint_dir,
+         checkpoint_every, checkpoint_keep, resume, callback, precondition,
+         on_epoch) -> FitResult:
+    """``fit`` after the execution (and, on a mesh, the mesh) is
+    resolved."""
+    if mesh is not None and execution in ("mesh", "bcd"):
+        dev = mesh.device                   # the rank's device
+        verbose = verbose and mesh.rank == 0
+    else:
+        mesh = None
     if execution in ("serial", "parallel"):
         algorithm = execution               # the backend IS the algorithm
         if isinstance(source, InMemorySource):
@@ -284,13 +327,18 @@ def fit(cfg: DSEKLConfig, x, y=None,
                   f"{pre.scale:.3f}, estimate {estimate_s:.3f}s")
         if cfg.precondition_auto_lr and cfg.schedule == "const":
             # The rule wants the expansion coordinates one step scatters.
-            j_union = (cfg.n_workers * cfg.n_expand
-                       if algorithm == "parallel" else cfg.n_expand)
+            if execution == "mesh":
+                j_union = mesh.size("model") * cfg.n_expand
+            elif algorithm == "parallel":
+                j_union = cfg.n_workers * cfg.n_expand
+            else:
+                j_union = cfg.n_expand
             cfg = cfg.replace(lr0=pre.step_size(j_union))
     with trainer.make_plan(execution, cfg, x=x, y=y, source=source,
                            algorithm=algorithm, prefetch=prefetch,
                            eval_cache=eval_cache, device=dev,
-                           precond=pre) as plan:
+                           precond=pre, mesh=mesh,
+                           owns_mesh=owns_mesh) as plan:
         res = trainer.fit_loop(
             plan, generator, plans=plans, n_epochs=n_epochs, tol=tol,
             x_val=x_val, y_val=y_val, eval_every=eval_every,

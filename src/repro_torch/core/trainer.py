@@ -1,5 +1,4 @@
-"""The execution-backend trainer (port of ``repro/core/trainer.py``: the
-in-memory serial and parallel backends and the hosted one).
+"""The execution-backend trainer (port of ``repro/core/trainer.py``).
 
 One ``fit_loop`` drives an ``ExecutionPlan``:
 
@@ -10,7 +9,7 @@ One ``fit_loop`` drives an ``ExecutionPlan``:
   * ``run_epoch(state, plan) -> state`` — execute one epoch on it;
   * ``eval_error(state, x_val, y_val)`` — the backend's validation eval.
 
-Four backends:
+Five backends:
 
   * ``SerialPlan`` — Algorithm 1 on device-resident tensors: one
     ``dsekl.step_serial`` per row of the plan, ``max(N // n_grad, 1)``
@@ -29,20 +28,27 @@ Four backends:
     a ``DataSource``: one "epoch" is one round on a without-replacement
     block J, its two streamed passes over ``K_{.,J}`` queued one round
     ahead on ONE loader, the exact block solve in between, the residual
-    ``f = K alpha`` kept on the device (and in every checkpoint).
+    ``f = K alpha`` kept on the device (and in every checkpoint); on a
+    mesh, one Gram partial a data shard;
+  * ``MeshPlan`` — the 2-D (data x model) mesh of ``torch.distributed``
+    ranks (``launch.mesh``), one process per coordinate: per-shard source
+    views (``source.split``), whole-mesh epoch plans
+    (``sampler.mesh_epoch_plan``, the same on every rank, each taking its
+    own rows) streamed through ONE ``MeshPrefetcher`` a rank, the step of
+    ``core/distributed.py`` (an ``all_reduce`` over model of f, one over
+    data of g), and a model-reduced eval.
 
 Every backend takes an EigenPro ``precond`` (``make_plan`` stages an
 ``EigenProPreconditioner`` to a ``dsekl.PrecondBlock`` on the plan's
 device) and hands it to each step; without one the steps run exactly what
 they ran before (``BCDPlan`` refuses one).  The in-memory epochs never
-synchronise the host.  The JAX package's ``mesh`` backend is not ported
-yet: ``make_plan`` raises ``NotImplementedError`` naming its ROADMAP
-item.
+synchronise the host.
 
 The equivalence contract (``tests/test_torch_hosted.py``): on the same
 plans a hosted fit equals the in-memory fit of its algorithm bit for bit
 on the CPU, and on the card for Algorithm 2, whose steps scatter no
-duplicate index.
+duplicate index; a mesh BCD fit equals the serial one with ``bcd_shards =
+n_data`` bit for bit on the CPU.
 
 Checkpoint/resume: ``fit_loop`` snapshots ``(state, generator state,
 epoch, history, converged)`` through ``checkpoint.CheckpointManager``,
@@ -53,7 +59,10 @@ The generator state stored is the one that draws the NEXT epoch's plan,
 taken before the loop draws that plan one epoch ahead (the counterpart of
 the JAX snapshot's pre-epoch carry key), as a uint8 array in the npz so
 the crc covers it: a resumed fit draws the very plans the uninterrupted
-one draws.
+one draws.  A mesh plan checkpoints the full vectors (assembled by the
+slot-stack ``all_reduce`` of ``distributed.gather_slots``), rank 0 alone
+writes, and a restore re-splits them onto the current mesh: the elastic
+rescale.
 """
 from __future__ import annotations
 
@@ -64,19 +73,20 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
-from repro_torch.core import bcd, dsekl, sampler
+from repro_torch.core import bcd, distributed, dsekl, sampler
 from repro_torch.core.dsekl import DSEKLConfig, DSEKLState
-from repro_torch.data.source import BlockPrefetcher, SyncGather
+from repro_torch.data.source import (BlockPrefetcher, MeshPrefetcher,
+                                     SyncGather, SyncMeshGather)
 
 Tensor = torch.Tensor
 
 EXECUTIONS = ("auto", "serial", "parallel", "hosted", "mesh", "bcd")
-# Executions of the JAX package the port has not reached yet, and the
-# ROADMAP.md item (section 1's queue) that ports each.
-NOT_PORTED = {
-    "mesh": "item 6 (the mesh)",
-}
+# The seed of the compressed mesh reduction's uniforms at global step t is
+# _COMPRESS_SEED + t: the same on every rank (JAX folds one key on every
+# device), and replayed by a resumed fit.
+_COMPRESS_SEED = 0x5EED
 
 
 @dataclasses.dataclass
@@ -251,6 +261,25 @@ class ExecutionPlan:
         """Backend-owned leaves that ride in every checkpoint's tree
         beside the state (none by default)."""
         return {}
+
+    # -- what a mesh plan does across its ranks (identities here) -------
+    # Whether this process prints and writes checkpoints (rank 0).
+    is_lead = True
+
+    def snapshot_state(self, state: DSEKLState) -> DSEKLState:
+        """The state a checkpoint stores: the full vectors."""
+        return state
+
+    def delta_norm(self, new: Tensor, old: Tensor) -> float:
+        """|new - old| of alpha over the whole model (the stopping rule)."""
+        return float(torch.linalg.vector_norm(new - old))
+
+    def truncate(self, state: DSEKLState, frac: float) -> DSEKLState:
+        """The budget step over the whole model."""
+        return state._replace(alpha=_truncate_smallest(state.alpha, frac))
+
+    def barrier(self) -> None:
+        """Wait for every rank (after the last checkpoint is written)."""
 
     # -- epochs ---------------------------------------------------------
     @property
@@ -488,7 +517,234 @@ class HostedPlan(ExecutionPlan):
         self._queued.clear()
 
 
-class BCDPlan(ExecutionPlan):
+class _MeshRanks:
+    """What the mesh backends share across their ranks: one global
+    stopping rule, checkpoints of the full vectors written by rank 0, the
+    model-reduced eval, and the world of one torn down on ``close()`` when
+    the plan built it.  A plan with no mesh (``self.mesh`` None: a serial
+    ``BCDPlan``) keeps ``ExecutionPlan``'s single-process behaviour."""
+
+    mesh = None
+
+    def _init_mesh(self, mesh, source, owns_mesh: bool) -> None:
+        self.mesh = mesh
+        self._owns_mesh = bool(owns_mesh)
+        self.n_data = mesh.size(distributed.DATA)
+        self.n_model = mesh.size(distributed.MODEL)
+        self.coord = (mesh.index(distributed.DATA),
+                      mesh.index(distributed.MODEL))
+        self.data_sources = source.split(self.n_data)
+        self.model_sources = source.split(self.n_model)
+        self._rows_m = self.n // self.n_model
+        self._eval = None
+
+    @property
+    def is_lead(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _check_n(self, flat: Dict[str, np.ndarray], what: str) -> None:
+        n_ckpt = int(np.asarray(flat["alpha"]).shape[0])
+        if n_ckpt != self.n:
+            # The elastic rescale re-places the SAME N onto another mesh
+            # shape; another N means the data (or its trim) changed.
+            raise ValueError(
+                f"checkpoint carries alpha of {n_ckpt} rows but this {what} "
+                f"fit trains {self.n}; an elastic rescale must keep the "
+                "(trimmed) row count identical across mesh shapes — pick "
+                "N divisible by every data/model axis size you resume on")
+
+    def _place_shards(self, flat: Dict[str, np.ndarray]) -> DSEKLState:
+        full = ExecutionPlan.place_state(self, flat)
+        return full._replace(
+            alpha=distributed.state_shard(self.mesh, full.alpha).clone(),
+            accum=distributed.state_shard(self.mesh, full.accum).clone())
+
+    def snapshot_state(self, state: DSEKLState) -> DSEKLState:
+        if self.mesh is None:
+            return state
+        g = distributed.gather_model_shards
+        return state._replace(alpha=g(self.mesh, state.alpha),
+                              accum=g(self.mesh, state.accum))
+
+    def delta_norm(self, new: Tensor, old: Tensor) -> float:
+        if self.mesh is None:
+            return ExecutionPlan.delta_norm(self, new, old)
+        # The norm of the full vectors, as one process takes it; rank 0's
+        # reading goes to every rank, so all stop at the same epoch.
+        g = distributed.gather_model_shards
+        norm = torch.linalg.vector_norm(g(self.mesh, new)
+                                        - g(self.mesh, old)).reshape(1)
+        tdist.broadcast(norm, src=0)
+        return float(norm[0])
+
+    def truncate(self, state: DSEKLState, frac: float) -> DSEKLState:
+        if self.mesh is None:
+            return ExecutionPlan.truncate(self, state, frac)
+        full = distributed.gather_model_shards(self.mesh, state.alpha)
+        return state._replace(alpha=distributed.state_shard(
+            self.mesh, _truncate_smallest(full, frac)).clone())
+
+    def barrier(self) -> None:
+        if self.mesh is not None:
+            tdist.barrier()
+
+    def eval_error(self, state: DSEKLState, x_val: Tensor,
+                   y_val: Tensor) -> float:
+        if self._eval is None:
+            self._eval = distributed.make_mesh_eval(self.cfg, self.mesh)
+        f = self._eval(state.alpha, self.model_sources, x_val)
+        return float(torch.mean(
+            (dsekl.predict_labels(f) != y_val).to(torch.float32)))
+
+    def _close_mesh(self) -> None:
+        if self.mesh is not None and self._owns_mesh:
+            self.mesh.close()
+            self._owns_mesh = False
+
+
+class MeshPlan(_MeshRanks, ExecutionPlan):
+    """The 2-D (data x model) mesh, one rank a coordinate, driven end to
+    end.
+
+    Each rank gathers its data shard's rows from its ``data_sources[d]``
+    view and its model shard's from ``model_sources[m]``
+    (``source.split``).  ``draw_plan`` draws the whole mesh's epoch plan
+    (``sampler.mesh_epoch_plan``: LOCAL indices, I per data shard and J
+    per model shard); every rank draws it from the same generator state,
+    so no plan is broadcast, and ``plan_epoch`` queues it onto the rank's
+    ONE ``MeshPrefetcher`` (``SyncMeshGather`` with ``prefetch=False``),
+    which stages the rank's blocks on its device while it runs the
+    previous step.  A step is ``distributed.make_distributed_block_step``'s
+    (with the replicated EigenPro block when ``precond`` is given).  On the
+    device live only the alpha / accum shard and the sampled blocks; the
+    eval streams the rank's model shard and reduces over model.
+
+    An epoch is ``max(N // (n_grad * n_data), 1)`` steps: every step
+    consumes ``n_data * n_grad`` gradient rows.  The epoch ends with a
+    sync, as JAX's does."""
+
+    name = "mesh"
+
+    def __init__(self, cfg: DSEKLConfig, source, mesh, *,
+                 prefetch: bool = True,
+                 precond: Optional[dsekl.PrecondBlock] = None,
+                 owns_mesh: bool = False):
+        ExecutionPlan.__init__(self, cfg, source.n, mesh.device, precond)
+        self._init_mesh(mesh, source, owns_mesh)
+        self.prefetch = bool(prefetch)
+        self.step_fn = distributed.make_distributed_block_step(
+            cfg, mesh, self.n, precondition=precond is not None)
+        self._gen = (torch.Generator(device=self.device)
+                     if cfg.compress_bits else None)
+        self._t = 0                     # the global step, on the host
+        self._loader = None
+        # Queued epoch plans, FIFO, as given.
+        self._queued: collections.deque = collections.deque()
+        self._consumed_steps = 0
+
+    # -- state ----------------------------------------------------------
+    def init_state(self) -> DSEKLState:
+        sh = distributed.init_sharded_state(self.mesh, self.n)
+        self._t = 0
+        return DSEKLState(alpha=sh.alpha, accum=sh.accum, step=sh.step,
+                          epoch=torch.zeros((), dtype=torch.int32,
+                                            device=self.device))
+
+    def place_state(self, flat: Dict[str, np.ndarray]) -> DSEKLState:
+        self._check_n(flat, "mesh")
+        self._t = int(np.asarray(flat["step"]))
+        return self._place_shards(flat)
+
+    # -- planning -------------------------------------------------------
+    @property
+    def steps(self) -> int:
+        return max(self.n // (self.cfg.n_grad * self.n_data), 1)
+
+    def draw_plan(self, generator: torch.Generator) -> Tuple[Tensor, Tensor]:
+        cfg = self.cfg
+        return sampler.mesh_epoch_plan(
+            generator, cfg.n_grad, cfg.n_expand,
+            tuple(s.n for s in self.data_sources),
+            tuple(s.n for s in self.model_sources), self.steps)
+
+    def check_plan(self, plan) -> None:
+        """A mesh epoch plan is ``(idx_i (steps, n_data, n_grad), idx_j
+        (steps, n_model, n_expand))`` of LOCAL indices."""
+        want = [(self.steps, self.n_data, self.cfg.n_grad),
+                (self.steps, self.n_model, self.cfg.n_expand)]
+        got = [tuple(p.shape) for p in plan]
+        if got != want:
+            raise ValueError(f"a mesh epoch plan is two index arrays of "
+                             f"shapes {want}; got {got}")
+
+    def plan_epoch(self, plan) -> None:
+        self.check_plan(plan)
+        plan_i, plan_j = (_host_indices(p) for p in plan)
+        if self._loader is None:
+            if self.prefetch:
+                self._loader = MeshPrefetcher(
+                    self.data_sources, self.model_sources, plan_i, plan_j,
+                    coord=self.coord, device=self.device)
+            else:
+                self._loader = SyncMeshGather(
+                    self.data_sources, self.model_sources, plan_i, plan_j,
+                    coord=self.coord, device=self.device)
+        else:
+            self._loader.extend(plan_i, plan_j)
+        self._queued.append(plan)
+
+    def _pop_plan(self, plan):
+        if not self._queued:
+            self.plan_epoch(plan)
+        elif self._queued[0] is not plan:
+            raise RuntimeError(
+                "mesh epochs must be consumed in the order they were "
+                "planned (the prefetcher streams one plan)")
+        return self._queued.popleft()
+
+    def _generator(self) -> Optional[torch.Generator]:
+        """The compressed reduction's generator, seeded for this step."""
+        if self._gen is None:
+            return None
+        self._gen.manual_seed(_COMPRESS_SEED + self._t)
+        return self._gen
+
+    # -- epochs ---------------------------------------------------------
+    def run_epoch(self, state: DSEKLState, plan) -> DSEKLState:
+        self._pop_plan(plan)
+        sh = distributed.ShardedDSEKLState(state.alpha, state.accum,
+                                          state.step)
+        pc, loader = self.precond, self._loader
+        for _ in range(self.steps):
+            xi, yi, xj, idx_j = loader.get()
+            gen = self._generator()
+            if pc is None:
+                sh = self.step_fn(xi, yi, xj, idx_j, sh, generator=gen)
+            else:
+                sh = self.step_fn(xi, yi, xj, idx_j, sh, pc, generator=gen)
+            self._t += 1
+        _sync(sh.alpha)                         # epoch-boundary sync
+        self._consumed_steps += self.steps
+        return DSEKLState(alpha=sh.alpha, accum=sh.accum, step=sh.step,
+                          epoch=state.epoch + 1)
+
+    def loader_stats(self) -> Optional[Dict[str, float]]:
+        if self._loader is None:
+            return None
+        st = dict(self._loader.stats())
+        # Steps CONSUMED, not planned (the driver plans one epoch ahead).
+        st["steps"] = self._consumed_steps
+        return st
+
+    def close(self) -> None:
+        if self._loader is not None:
+            self._loader.close()
+            self._loader = None
+        self._queued.clear()
+        self._close_mesh()
+
+
+class BCDPlan(_MeshRanks, ExecutionPlan):
     """Block coordinate descent rounds (``core/bcd.py``; DESIGN.md §14).
 
     One "epoch" of the fit loop is one round: the plan is the round's
@@ -507,13 +763,27 @@ class BCDPlan(ExecutionPlan):
     the exact block solve.  The residual rides in every checkpoint
     (``snapshot_leaves``), so a resumed fit equals the uninterrupted one
     bit for bit.  The validation eval streams the source
-    (``dsekl.decision_function_source``: the matvec)."""
+    (``dsekl.decision_function_source``: the matvec).
+
+    On a mesh (``mesh=``) each data shard is one row group: rank (d, m)
+    streams its shard's tiles against x_J gathered from the whole source,
+    keeps its shard's residual, and its Gram partial comes home through
+    the slot stack (``bcd.make_mesh_bcd_ops``); the fixed-order sum runs on
+    the host and the solve is replicated on every rank, each of which
+    scatters the entries of J its alpha shard owns.  The contract: a mesh
+    fit equals the serial one with ``bcd_shards = n_data`` bit for bit on
+    the CPU."""
 
     name = "bcd"
 
     def __init__(self, cfg: DSEKLConfig, source, *, prefetch: bool = True,
-                 device: torch.device):
-        super().__init__(cfg, source.n, device)
+                 device: Optional[torch.device] = None, mesh=None,
+                 owns_mesh: bool = False):
+        ExecutionPlan.__init__(self, cfg, source.n,
+                               mesh.device if mesh is not None else device)
+        device = self.device
+        self.mesh = mesh
+        self._owns_mesh = False
         if cfg.loss != "square":
             raise ValueError(
                 "execution='bcd' solves the regularized square-loss "
@@ -524,12 +794,25 @@ class BCDPlan(ExecutionPlan):
         self.j_size = bcd.block_size(cfg, self.n)
         self.rb = bcd.row_block_size(cfg)
         self._lam_n = float(cfg.lam * self.n)
-        self.shards = int(cfg.bcd_shards or 1)
+        if mesh is not None:
+            self._init_mesh(mesh, source, owns_mesh)
+            if cfg.bcd_shards and cfg.bcd_shards != self.n_data:
+                raise ValueError(
+                    f"cfg.bcd_shards={cfg.bcd_shards} conflicts with the "
+                    f"mesh's data axis of {self.n_data} shards (on a mesh "
+                    "the Gram partials are one-per-data-device; leave "
+                    "bcd_shards=0 or match it)")
+            self.shards = self.n_data
+            self._ops = bcd.make_mesh_bcd_ops(mesh)
+        else:
+            self.shards = int(cfg.bcd_shards or 1)
         idx_np, mask_np = bcd.row_plan(self.n, self.shards, self.rb)
         self._idx_np = idx_np
         self.blocks_per_group = idx_np.shape[1]
-        # Round-invariant: each tile's rows and mask, indexed per tile.
-        self._idx_dev = torch.from_numpy(idx_np).to(device)
+        # Round-invariant: each tile's rows and mask, indexed per tile (on
+        # a mesh the data shard's LOCAL rows, the same for every shard).
+        self._idx_dev = torch.from_numpy(
+            idx_np[0] if mesh is not None else idx_np).to(device)
         self._mask_dev = torch.from_numpy(mask_np).to(device)
         self._f: Optional[Tensor] = None
         self._loader = None
@@ -539,9 +822,14 @@ class BCDPlan(ExecutionPlan):
 
     # -- state ----------------------------------------------------------
     def init_state(self) -> DSEKLState:
-        self._f = torch.zeros((self.n,), dtype=torch.float32,
+        rows = self.n if self.mesh is None else self.n // self.n_data
+        self._f = torch.zeros((rows,), dtype=torch.float32,
                               device=self.device)
-        return super().init_state()
+        state = ExecutionPlan.init_state(self)
+        if self.mesh is None:
+            return state
+        sh = distributed.init_sharded_state(self.mesh, self.n)
+        return state._replace(alpha=sh.alpha, accum=sh.accum)
 
     def place_state(self, flat: Dict[str, np.ndarray]) -> DSEKLState:
         if "bcd_f" not in flat:
@@ -549,6 +837,14 @@ class BCDPlan(ExecutionPlan):
                 "checkpoint carries no 'bcd_f' residual leaf — it was "
                 "written by a non-BCD fit; a BCD resume needs the "
                 "incremental f = K alpha to continue bit-identically")
+        if self.mesh is not None:
+            self._check_n(flat, "mesh BCD")
+            rows = self.n // self.n_data
+            d = self.coord[0]
+            self._f = torch.tensor(
+                np.asarray(flat["bcd_f"])[d * rows:(d + 1) * rows],
+                dtype=torch.float32, device=self.device)
+            return self._place_shards(flat)
         n_ckpt = int(np.asarray(flat["alpha"]).shape[0])
         if n_ckpt != self.n:
             raise ValueError(
@@ -557,9 +853,12 @@ class BCDPlan(ExecutionPlan):
                 "identical across resumes")
         self._f = torch.tensor(np.asarray(flat["bcd_f"]),
                                dtype=torch.float32, device=self.device)
-        return super().place_state(flat)
+        return ExecutionPlan.place_state(self, flat)
 
     def snapshot_leaves(self, state: DSEKLState) -> Dict[str, Any]:
+        if self.mesh is not None:           # every data shard's residual
+            return {"bcd_f": distributed.gather_slots(
+                self.mesh, self._f, distributed.DATA).reshape(-1)}
         return {"bcd_f": self._f}
 
     # -- planning -------------------------------------------------------
@@ -576,6 +875,10 @@ class BCDPlan(ExecutionPlan):
     def plan_epoch(self, plan) -> None:
         self.check_plan(plan)
         j_idx = _host_indices(plan)
+        if self.mesh is not None:
+            self._plan_round_mesh(j_idx)
+            self._queued.append((plan, j_idx))
+            return
         pass1 = self._idx_np.reshape(self.shards * self.blocks_per_group,
                                      self.rb)
         plan_i = np.concatenate([pass1, pass1])           # two passes
@@ -598,9 +901,30 @@ class BCDPlan(ExecutionPlan):
                 "planned (the prefetcher streams one plan)")
         return self._queued.popleft()
 
+    def _plan_round_mesh(self, j_idx: np.ndarray) -> None:
+        """Queue a mesh round's two passes: every data shard's local tiles
+        (one mesh plan whose single "model shard" is the whole source, J
+        GLOBAL), this rank taking its own shard's."""
+        blocks = self.blocks_per_group
+        local = self._idx_np[0]                  # (blocks, rb), shard-local
+        plan_i = np.ascontiguousarray(np.broadcast_to(
+            local[:, None, :], (blocks, self.n_data, self.rb)))
+        plan_i = np.concatenate([plan_i, plan_i])        # two passes
+        plan_j = np.ascontiguousarray(np.broadcast_to(
+            j_idx, (2 * blocks, 1, self.j_size)))
+        if self._loader is None:
+            cls = MeshPrefetcher if self.prefetch else SyncMeshGather
+            self._loader = cls(self.data_sources, [self.source], plan_i,
+                               plan_j, coord=(self.coord[0], 0),
+                               device=self.device)
+        else:
+            self._loader.extend(plan_i, plan_j)
+
     # -- rounds ---------------------------------------------------------
     def run_epoch(self, state: DSEKLState, plan) -> DSEKLState:
         _, j_idx = self._pop_plan(plan)
+        if self.mesh is not None:
+            return self._run_round_mesh(state)
         cfg, j, loader = self.cfg, self.j_size, self._loader
         blocks, f = self.blocks_per_group, self._f
         parts = np.empty((self.shards, j, j + 1), np.float32)
@@ -631,9 +955,35 @@ class BCDPlan(ExecutionPlan):
         return state._replace(alpha=alpha, step=state.step + 1,
                               epoch=state.epoch + 1)
 
+    def _run_round_mesh(self, state: DSEKLState) -> DSEKLState:
+        cfg, ops, loader = self.cfg, self._ops, self._loader
+        j, blocks, f = self.j_size, self.blocks_per_group, self._f
+        gb = torch.zeros((j, j + 1), dtype=torch.float32, device=self.device)
+        xj_dev = idxj_dev = None
+        for t in range(blocks):
+            xi, yi, xj, idx_j = loader.get()
+            xj_dev, idxj_dev = xj, idx_j
+            gb = bcd.acc_serial(cfg, xi, yi, xj, f, self._idx_dev[t],
+                                self._mask_dev[t], gb)
+        g_h, b_h = bcd.split_gram(bcd.combine_partials(ops.partials(gb)))
+        rhs = b_h - np.float32(self._lam_n) * ops.f_at(f, idxj_dev)
+        delta, _ = bcd.solve_block(cfg, xj_dev, g_h, rhs, self._lam_n)
+        alpha = ops.scatter(state.alpha, idxj_dev, delta)
+        for t in range(blocks):
+            xi, _, _, _ = loader.get()
+            f = bcd.fupd_serial(cfg, xi, xj_dev, delta, f,
+                                self._idx_dev[t], self._mask_dev[t])
+        _sync(f)
+        self._f = f
+        self._consumed_steps += 2 * blocks
+        return state._replace(alpha=alpha, step=state.step + 1,
+                              epoch=state.epoch + 1)
+
     # -- eval / reporting -----------------------------------------------
     def eval_error(self, state: DSEKLState, x_val: Tensor,
                    y_val: Tensor) -> float:
+        if self.mesh is not None:
+            return _MeshRanks.eval_error(self, state, x_val, y_val)
         return _error_source(self.cfg, state.alpha, self.source, x_val,
                              y_val)
 
@@ -650,6 +1000,7 @@ class BCDPlan(ExecutionPlan):
             self._loader.close()
             self._loader = None
         self._queued.clear()
+        self._close_mesh()
 
 
 # ---------------------------------------------------------------------------
@@ -736,7 +1087,7 @@ def fit_loop(plan: ExecutionPlan, generator: Optional[torch.Generator], *,
                 # The interrupted run had met the stopping rule: an
                 # uninterrupted run would have stopped here too.
                 start = n_epochs
-            if verbose:
+            if verbose and plan.is_lead:
                 print(f"[dsekl] resumed at epoch {start} ({plan.name} "
                       "backend)" + (" — already converged" if converged
                                     else ""))
@@ -757,11 +1108,10 @@ def fit_loop(plan: ExecutionPlan, generator: Optional[torch.Generator], *,
         t0 = time.perf_counter()
         state = plan.run_epoch(state, current)
         if truncate_every and (e + 1) % truncate_every == 0:
-            state = state._replace(
-                alpha=_truncate_smallest(state.alpha, truncate_frac))
+            state = plan.truncate(state, truncate_frac)
         _sync(state.alpha)
         dt = time.perf_counter() - t0
-        delta = float(torch.linalg.vector_norm(state.alpha - prev_alpha))
+        delta = plan.delta_norm(state.alpha, prev_alpha)
         converged = delta < tol
         rec: Dict[str, Any] = {"epoch": e + 1, "delta_alpha": delta,
                                "seconds": dt}
@@ -773,20 +1123,25 @@ def fit_loop(plan: ExecutionPlan, generator: Optional[torch.Generator], *,
             callback(e, state)
         hook_stop = bool(on_epoch(e + 1, state, rec)) \
             if on_epoch is not None else False
-        if verbose:
+        if verbose and plan.is_lead:
             print(f"[dsekl] epoch {e + 1}: |dalpha|={delta:.4f} "
                   + (f"val_err={rec['val_error']:.4f}"
                      if "val_error" in rec else ""))
         if manager is not None and (
                 (e + 1) % checkpoint_every == 0 or converged or hook_stop
                 or e == n_epochs - 1):
-            _snapshot(manager, state, gen_state, e + 1, history, converged,
-                      snapshot_extra, leaves=plan.snapshot_leaves(state))
+            # Every rank of a mesh joins the gathers; rank 0 writes.
+            full, leaves = plan.snapshot_state(state), \
+                plan.snapshot_leaves(state)
+            if plan.is_lead:
+                _snapshot(manager, full, gen_state, e + 1, history,
+                          converged, snapshot_extra, leaves=leaves)
         current = upcoming
         if converged or hook_stop:
             break
     if manager is not None:
         manager.wait()
+        plan.barrier()              # rank 0's last write is on disk
     return FitResult(state=state, history=history, converged=converged,
                      epochs_run=len(history),
                      val_cache=plan.val_cache_info(),
@@ -801,11 +1156,11 @@ def fit_loop(plan: ExecutionPlan, generator: Optional[torch.Generator], *,
 
 
 def resolve_execution(execution: Optional[str], cfg: DSEKLConfig, *,
-                      algorithm: str = "serial",
-                      hosted_data: bool = False) -> str:
+                      algorithm: str = "serial", hosted_data: bool = False,
+                      mesh=None) -> str:
     """``execution=None`` defers to ``cfg.execution``; ``"auto"`` picks
-    ``hosted`` for a host-resident source, else the in-memory backend of
-    ``algorithm``."""
+    ``mesh`` when a mesh is given, ``hosted`` for a host-resident source,
+    else the in-memory backend of ``algorithm``."""
     execution = execution if execution is not None else cfg.execution
     if execution not in EXECUTIONS:
         raise ValueError(f"unknown execution {execution!r}; "
@@ -813,17 +1168,25 @@ def resolve_execution(execution: Optional[str], cfg: DSEKLConfig, *,
     if algorithm not in ("serial", "parallel"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
     if execution == "auto":
+        if mesh is not None:
+            return "mesh"
         return "hosted" if hosted_data else algorithm
     return execution
 
 
-def check_ported(execution: str) -> None:
-    """``NotImplementedError`` naming the ROADMAP item of an execution the
-    port has not reached."""
-    if execution in NOT_PORTED:
-        raise NotImplementedError(
-            f"execution={execution!r} is not ported to repro_torch yet: "
-            f"ROADMAP.md section 1, {NOT_PORTED[execution]}")
+def default_mesh(device: torch.device):
+    """``make_plan``'s mesh when none is given (JAX's is a mesh of the
+    local devices): (world, 1) over an initialised world, else a world of
+    one that the plan tears down on ``close()``; nccl on the card, gloo on
+    the CPU, as the launcher defaults.  Returns ``(mesh, owned)``."""
+    from repro_torch.launch.mesh import make_local_mesh
+    if tdist.is_initialized():
+        return make_local_mesh(tdist.get_world_size(), 1,
+                               backend=tdist.get_backend(),
+                               device=device), False
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    mesh = make_local_mesh(1, 1, backend=backend, device=device)
+    return mesh, True
 
 
 def make_plan(execution: str, cfg: DSEKLConfig, *,
@@ -831,15 +1194,17 @@ def make_plan(execution: str, cfg: DSEKLConfig, *,
               source=None, algorithm: str = "serial", prefetch: bool = True,
               eval_cache: bool = False,
               device: Optional[torch.device] = None,
-              precond=None) -> ExecutionPlan:
+              precond=None, mesh=None,
+              owns_mesh: bool = False) -> ExecutionPlan:
     """The backend for a resolved ``execution``: ``SerialPlan`` /
     ``ParallelPlan`` over device tensors, ``HostedPlan`` or ``BCDPlan``
-    over a ``DataSource`` (its state on ``device``), or
-    ``NotImplementedError`` for a backend the port has not reached.
-    ``precond`` is an ``EigenProPreconditioner``, staged here to a
-    ``dsekl.PrecondBlock`` on the plan's device, or None (no
+    over a ``DataSource`` (its state on ``device``), ``MeshPlan`` (and
+    ``BCDPlan`` given ``mesh``) on the rank's mesh device.  ``mesh``
+    defaults for ``"mesh"`` to ``default_mesh``; ``owns_mesh`` hands a
+    given mesh's teardown to the plan.  ``precond`` is an
+    ``EigenProPreconditioner``, staged here to a ``dsekl.PrecondBlock`` on
+    the plan's device (on a mesh, broadcast from rank 0), or None (no
     preconditioning; ``bcd`` takes none)."""
-    check_ported(execution)
     if execution in ("serial", "parallel"):
         if x is None:
             raise ValueError(
@@ -856,15 +1221,32 @@ def make_plan(execution: str, cfg: DSEKLConfig, *,
         pc = precond.block(device) if precond is not None else None
         return HostedPlan(cfg, source, algorithm=algorithm,
                           prefetch=prefetch, device=device, precond=pc)
+    if execution == "mesh":
+        if source is None:
+            raise ValueError("execution='mesh' needs a DataSource "
+                             "(wrap arrays in InMemorySource)")
+        if mesh is None:
+            mesh, owns_mesh = default_mesh(device or torch.device("cuda"))
+        try:
+            pc = distributed.broadcast_block(
+                mesh, precond.block(mesh.device)
+                if precond is not None else None)
+            return MeshPlan(cfg, source, mesh, prefetch=prefetch,
+                            precond=pc, owns_mesh=owns_mesh)
+        except BaseException:
+            if owns_mesh:
+                mesh.close()
+            raise
     if execution == "bcd":
         if source is None:
             raise ValueError("execution='bcd' needs a DataSource "
                              "(wrap arrays in InMemorySource)")
-        if device is None:
+        if device is None and mesh is None:
             raise ValueError("execution='bcd' needs the state's device")
         if precond is not None:
             raise ValueError(
                 "execution='bcd' solves each block exactly — EigenPro "
                 "preconditioning applies to the stochastic step only")
-        return BCDPlan(cfg, source, prefetch=prefetch, device=device)
+        return BCDPlan(cfg, source, prefetch=prefetch, device=device,
+                       mesh=mesh, owns_mesh=owns_mesh)
     raise ValueError(f"unknown execution {execution!r}")

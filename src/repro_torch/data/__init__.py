@@ -6,6 +6,7 @@ from repro_torch.data.pipeline import (  # noqa: F401
 )
 from repro_torch.data.source import (  # noqa: F401
     BlockPrefetcher, DataSource, HostSource, InMemorySource, ManifestSource,
-    RingSnapshot, RingSource, SyncGather, make_memmap_dataset,
+    MeshPrefetcher, RingSnapshot, RingSource, SyncGather, SyncMeshGather,
+    make_memmap_dataset,
     open_memmap_dataset, read_manifest, split_holdout,
 )

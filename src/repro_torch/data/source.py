@@ -26,9 +26,11 @@ vector lives on the card:
   * ``RingSource`` / ``RingSnapshot`` — an appendable ring of labeled
     events and the frozen, owned copies of its window that online
     training replays (``serving/online.py``).
-
-The JAX module's ``MeshPrefetcher`` / ``SyncMeshGather`` (ROADMAP item 6)
-are not ported yet.
+  * ``MeshPrefetcher`` / ``SyncMeshGather`` — the mesh fit's data plane:
+    whole-mesh epoch plans in, and each rank gathers only its OWN blocks
+    (its data shard's gradient rows, its model shard's expansion rows and
+    their local indices).  The JAX loaders gather every shard's rows and
+    place them by sharding from one controller.
 """
 from __future__ import annotations
 
@@ -443,16 +445,15 @@ class _Buffers:
     """One staging slot: the page-locked tensors of one step's blocks and
     the numpy views the gather writes into."""
 
-    __slots__ = ("pinned", "xi", "yi", "xj")
+    __slots__ = ("pinned", "views")
 
-    def __init__(self, n_grad: int, n_flat_expand: int, d: int):
-        shapes = ((n_grad, d), (n_grad,), (n_flat_expand, d))
+    def __init__(self, specs):
         # pin_memory=True allocates page-locked memory or raises.
-        self.pinned = tuple(torch.empty(s, dtype=torch.float32,
-                                        pin_memory=True) for s in shapes)
+        self.pinned = tuple(torch.empty(shape, dtype=dtype, pin_memory=True)
+                            for shape, dtype in specs)
         if not all(t.is_pinned() for t in self.pinned):
             raise RuntimeError("staging buffer is not page-locked")
-        self.xi, self.yi, self.xj = (t.numpy() for t in self.pinned)
+        self.views = tuple(t.numpy() for t in self.pinned)
 
 
 class _DeviceBlocks:
@@ -538,7 +539,7 @@ class BlockPrefetcher:
         if self._widths is None:
             self._widths = widths
             if self._cuda:
-                self._bufs = _Buffers(*widths, self._source.d)
+                self._bufs = _Buffers(self._buffer_specs(widths))
         elif widths != self._widths and plan_i.shape[0]:
             raise ValueError(
                 f"segment step widths {widths} != first segment's "
@@ -570,14 +571,33 @@ class BlockPrefetcher:
                 continue
         return False
 
+    # -- what a step is: overridden by MeshPrefetcher ---------------------
+    def _buffer_specs(self, widths: Tuple[int, int]):
+        """(shape, dtype) of each block of a step: xi, yi, xj_flat."""
+        n_grad, n_flat = widths
+        d = self._source.d
+        return (((n_grad, d), torch.float32), ((n_grad,), torch.float32),
+                ((n_flat, d), torch.float32))
+
+    def _gather_into(self, idx_i: np.ndarray, idx_j: np.ndarray,
+                     views) -> None:
+        """One step's rows into the staging slot's numpy views."""
+        xi, yi, xj = views
+        self._source.gather(idx_i, out_x=xi, out_y=yi)
+        self._source.gather_x(idx_j, out=xj)
+
+    def _gather_host(self, idx_i: np.ndarray, idx_j: np.ndarray) -> Tuple:
+        """One step's rows as fresh owned arrays (the CPU path)."""
+        xi, yi = self._source.gather(idx_i)
+        return xi, yi, self._source.gather_x(idx_j)
+
     def _stage(self, idx_i: np.ndarray, idx_j: np.ndarray,
                stream: torch.cuda.Stream) -> _DeviceBlocks:
         """Gather one step into the staging slot and copy it to the card
         on ``stream``; returns once the copies have landed, the slot free
         for the next step."""
         bufs = self._bufs
-        self._source.gather(idx_i, out_x=bufs.xi, out_y=bufs.yi)
-        self._source.gather_x(idx_j, out=bufs.xj)
+        self._gather_into(idx_i, idx_j, bufs.views)
         with torch.cuda.stream(stream):
             blocks = tuple(torch.empty(p.shape, dtype=p.dtype,
                                        device=self._device)
@@ -600,9 +620,8 @@ class BlockPrefetcher:
                 if self._cuda:
                     item = self._stage(idx_i, idx_j, stream)
                 else:
-                    xi, yi = self._source.gather(idx_i)
-                    xj = self._source.gather_x(idx_j)
-                    item = tuple(torch.from_numpy(a) for a in (xi, yi, xj))
+                    item = tuple(torch.from_numpy(a)
+                                 for a in self._gather_host(idx_i, idx_j))
                 self.gather_s += time.perf_counter() - t0
                 if not self._put_ready(item):
                     return
@@ -709,6 +728,142 @@ class SyncGather:
         pass
 
     def __enter__(self) -> "SyncGather":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
+
+    def stats(self) -> dict:
+        return {"steps": self.steps, "gather_s": self.gather_s,
+                "wait_s": self.gather_s}
+
+
+# ---------------------------------------------------------------------------
+# The mesh's data plane: each rank gathers its own blocks.
+# ---------------------------------------------------------------------------
+
+def _check_mesh_segment(plan_i: np.ndarray, plan_j: np.ndarray,
+                        first: Optional[Tuple[int, int]]
+                        ) -> Tuple[int, int]:
+    """The (data, model) shard counts of a mesh plan segment, refused in
+    the JAX loaders' words when it is not (steps, shards, width) or its
+    shard counts differ from the first segment's."""
+    if plan_j.shape[0] != plan_i.shape[0]:
+        raise ValueError("plan_i / plan_j step counts differ")
+    if plan_i.ndim != 3 or plan_j.ndim != 3:
+        raise ValueError(
+            f"mesh plan segments are (steps, shards, width); got "
+            f"{plan_i.shape} / {plan_j.shape}")
+    shards = (int(plan_i.shape[1]), int(plan_j.shape[1]))
+    if first is not None and shards != first and plan_i.shape[0]:
+        raise ValueError(
+            f"segment shard counts (data={shards[0]}, "
+            f"model={shards[1]}) != first segment's "
+            f"(data={first[0]}, model={first[1]}); "
+            "per-shard plans do not survive a mesh reshape — re-split "
+            "the sources and build a fresh prefetcher (elastic "
+            "rescale resumes do this)")
+    return shards if first is None else first
+
+
+class MeshPrefetcher(BlockPrefetcher):
+    """``BlockPrefetcher`` over whole-mesh plan segments, for the rank at
+    ``coord = (d, m)``: the mesh fit's data plane.
+
+    Segments are whole-epoch mesh plans (``sampler.mesh_epoch_plan``):
+    ``plan_i (steps, n_data, n_grad)`` / ``plan_j (steps, n_model,
+    n_expand)``, LOCAL indices into the per-shard views
+    (``source.split``).  The worker gathers only this rank's blocks, its
+    data shard's rows from ``data_sources[d]`` and its model shard's from
+    ``model_sources[m]``, and ``get()`` returns ``(xi, yi, xj, idx_j)`` on
+    the rank's device, idx_j int64 LOCAL indices into its alpha shard.  On
+    the card the rows go through the page-locked staging slot and the
+    loader's own stream, exactly as ``BlockPrefetcher``'s do.  A segment
+    whose shard counts differ from the first segment's is refused: an
+    elastic rescale re-splits the sources and builds a fresh loader."""
+
+    def __init__(self, data_sources: List[DataSource],
+                 model_sources: List[DataSource],
+                 plan_i: Optional[np.ndarray] = None,
+                 plan_j: Optional[np.ndarray] = None, *,
+                 coord: Tuple[int, int], device: DeviceLike = None,
+                 timeout: float = 300.0):
+        self._coord = (int(coord[0]), int(coord[1]))
+        self._data_source = data_sources[self._coord[0]]
+        self._model_source = model_sources[self._coord[1]]
+        self._shards: Optional[Tuple[int, int]] = None
+        super().__init__(self._data_source, plan_i, plan_j, device=device,
+                         timeout=timeout)
+
+    def extend(self, plan_i: np.ndarray, plan_j: np.ndarray) -> None:
+        plan_i, plan_j = np.asarray(plan_i), np.asarray(plan_j)
+        self._shards = _check_mesh_segment(plan_i, plan_j, self._shards)
+        d, m = self._coord
+        super().extend(plan_i[:, d], plan_j[:, m])
+
+    def _buffer_specs(self, widths: Tuple[int, int]):
+        n_grad, n_expand = widths
+        return super()._buffer_specs(widths) + (
+            ((n_expand,), torch.int64),)
+
+    def _gather_into(self, idx_i: np.ndarray, idx_j: np.ndarray,
+                     views) -> None:
+        xi, yi, xj, ij = views
+        self._data_source.gather(idx_i, out_x=xi, out_y=yi)
+        self._model_source.gather_x(idx_j, out=xj)
+        ij[:] = idx_j
+
+    def _gather_host(self, idx_i: np.ndarray, idx_j: np.ndarray) -> Tuple:
+        xi, yi = self._data_source.gather(idx_i)
+        return (xi, yi, self._model_source.gather_x(idx_j),
+                np.array(idx_j, np.int64))
+
+
+class SyncMeshGather:
+    """The inline mesh baseline with ``MeshPrefetcher``'s ``get()`` /
+    ``extend()`` contract: the rank's gathers and its copies to ``device``
+    run on the consumer's thread (so ``wait_s`` is ``gather_s``)."""
+
+    def __init__(self, data_sources: List[DataSource],
+                 model_sources: List[DataSource],
+                 plan_i: Optional[np.ndarray] = None,
+                 plan_j: Optional[np.ndarray] = None, *,
+                 coord: Tuple[int, int], device: DeviceLike = None):
+        d, m = int(coord[0]), int(coord[1])
+        self._coord = (d, m)
+        self._data_source = data_sources[d]
+        self._model_source = model_sources[m]
+        self._device = resolve_device(device)
+        self._steps: "collections.deque[Tuple[np.ndarray, np.ndarray]]" = \
+            collections.deque()
+        self._shards: Optional[Tuple[int, int]] = None
+        self.steps = 0
+        self.gather_s = 0.0
+        if plan_i is not None:
+            self.extend(plan_i, plan_j)
+
+    def extend(self, plan_i: np.ndarray, plan_j: np.ndarray) -> None:
+        plan_i, plan_j = np.asarray(plan_i), np.asarray(plan_j)
+        self._shards = _check_mesh_segment(plan_i, plan_j, self._shards)
+        d, m = self._coord
+        for t in range(plan_i.shape[0]):
+            self._steps.append((plan_i[t, d], plan_j[t, m]))
+        self.steps += int(plan_i.shape[0])
+
+    def get(self) -> Tuple:
+        t0 = time.perf_counter()
+        idx_i, idx_j = self._steps.popleft()
+        xi, yi = self._data_source.gather(idx_i)
+        xj = self._model_source.gather_x(idx_j)
+        out = tuple(torch.from_numpy(a).to(self._device)
+                    for a in (xi, yi, xj, np.array(idx_j, np.int64)))
+        self.gather_s += time.perf_counter() - t0
+        return out
+
+    def close(self) -> None:
+        pass
+
+    def __enter__(self) -> "SyncMeshGather":
         return self
 
     def __exit__(self, *exc) -> None:

@@ -15,7 +15,8 @@ parameters, gradients and float32 moments fit the device:
         [--ckpt-dir DIR --ckpt-every 25 [--resume]] [--device cpu]
 
 A larger model, ``--data-par`` / ``--model-par`` > 1 and ``--multi-pod``
-need the mesh (ROADMAP.md section 1, item 6) and are refused.  So are the
+need the LM half of the mesh (ROADMAP.md section 1, item 6) and are
+refused.  So are the
 configs with a frontend (llama-3.2-vision, whisper): the launcher, like
 JAX's, builds no frontend for them to attend over (``train_step`` takes
 one in ``batch["frontend"]`` from a caller that has one).
@@ -44,14 +45,28 @@ tiles), in memory or from the memmap:
         [--execution bcd [--bcd-block J] [--bcd-row-block R]] \
         [--checkpoint-dir DIR [--resume]]
 
-Modes the port does not have yet exit with an error that names them:
-``--execution mesh`` and the mesh flags.  ``--precondition-k`` with
-``--execution bcd`` is refused: EigenPro preconditions the stochastic
-step only.
+``--execution mesh`` trains on a ``--data-par`` x ``--model-par`` mesh of
+``torch.distributed`` ranks, one process a coordinate (``core/
+distributed.py``), and ``--execution bcd`` with ``--data-par`` x
+``--model-par`` > 1 runs the BCD rounds on it.  The world, the rank and the
+local rank come from ``torch.distributed.run``'s environment; the train
+rows are trimmed to a multiple of lcm(data-par, model-par); rank 0 alone
+writes the memmap, prints and checkpoints, and a checkpoint resumes on
+another mesh shape that keeps the trimmed row count.  ``--dist-backend``
+is nccl (one rank a card) or gloo (the CPU, or ranks sharing one card):
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.train --dsekl \
+        --execution mesh --data-par 2 --model-par 2 \
+        [--dist-backend gloo] [--data mmap] [--device cpu]
+
+``--precondition-k`` with ``--execution bcd`` is refused: EigenPro
+preconditions the stochastic step only.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import tempfile
 import time
@@ -62,8 +77,8 @@ import torch
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.core import DSEKLConfig, fit
-from repro_torch.data import BigramPipeline, make_memmap_dataset, \
-    split_holdout
+from repro_torch.data import BigramPipeline, HostSource, \
+    make_memmap_dataset, open_memmap_dataset, split_holdout
 from repro_torch.data.synthetic import make_covertype_like
 from repro_torch.device import resolve_device
 from repro_torch.models.model import LanguageModel
@@ -71,7 +86,7 @@ from repro_torch.optim import make_optimizer, make_schedule
 from repro_torch.train import (TrainLoopConfig, make_train_step, trainable,
                                train_loop)
 
-MESH_ITEM = "the mesh: ROADMAP.md section 1, item 6"
+MESH_ITEM = "the LM half of the mesh: ROADMAP.md section 1, item 6"
 
 
 def _device_bytes(device: torch.device) -> int:
@@ -126,12 +141,41 @@ def train_lm(args) -> Dict[str, Any]:
                            if device.type == "cuda" else None)}
 
 
+def _mesh_of(args):
+    """The run's mesh (None off the mesh): ``--execution mesh``, or
+    ``--execution bcd`` over more than one rank."""
+    if args.execution == "mesh" or (
+            args.execution == "bcd" and args.data_par * args.model_par > 1):
+        from repro_torch.launch.mesh import make_local_mesh
+        backend = args.dist_backend or (
+            "nccl" if resolve_device(args.device).type == "cuda" else "gloo")
+        return make_local_mesh(args.data_par, args.model_par,
+                               backend=backend, device=args.device)
+    return None
+
+
 def train_dsekl(args) -> Dict[str, Any]:
     """Train in memory (``--data memory``) or out of core (``--data
-    mmap``); returns the fit result, the config, the training data (``x``
-    and ``y`` on the device, or the memmap ``source``), the held-out rows
-    on the device and the wall time."""
-    device = resolve_device(args.device)
+    mmap``), on one device or a mesh; returns the fit result, the config,
+    the training data (``x`` and ``y`` on the device, or the memmap
+    ``source``; on a mesh the trimmed ``source``), the held-out rows on
+    the device, the mesh (None off it) and the wall time."""
+    mesh = _mesh_of(args)
+    try:
+        return _train_dsekl(args, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _say(mesh, *parts) -> None:
+    """Print on rank 0 alone (everywhere off the mesh)."""
+    if mesh is None or mesh.rank == 0:
+        print(*parts)
+
+
+def _train_dsekl(args, mesh) -> Dict[str, Any]:
+    device = resolve_device(args.device) if mesh is None else mesh.device
     cfg = DSEKLConfig(n_grad=args.n_grad, n_expand=args.n_expand,
                       kernel=args.kernel,
                       kernel_params=(("gamma", args.gamma),),
@@ -143,29 +187,42 @@ def train_dsekl(args) -> Dict[str, Any]:
         # BCD solves the regularized least-squares system exactly: it has
         # no hinge variant (core/bcd.py; DESIGN.md §14).
         cfg = cfg.replace(loss="square")
-        print(f"[train-dsekl] block coordinate descent: |J|="
-              f"{args.bcd_block or args.n_expand} per round")
-    # A hosted or BCD fit gathers its plans on the host: draw them there,
-    # so no epoch plan takes room on the card.
-    hosted = args.data == "mmap" or args.execution in ("hosted", "bcd")
+        _say(mesh, f"[train-dsekl] block coordinate descent: |J|="
+             f"{args.bcd_block or args.n_expand} per round")
+    # A hosted, BCD or mesh fit gathers its plans on the host: draw them
+    # there, so no epoch plan takes room on the card (every rank of a mesh
+    # draws the same plan from the same seed).
+    hosted = (args.data == "mmap" or args.execution in ("hosted", "bcd")
+              or mesh is not None)
     gen = torch.Generator(device="cpu" if hosted else device)
     gen.manual_seed(args.seed)
     if args.precondition_k:
-        print(f"[train-dsekl] EigenPro preconditioning: "
-              f"top-{args.precondition_k} Nystrom eigensystem")
+        _say(mesh, f"[train-dsekl] EigenPro preconditioning: "
+             f"top-{args.precondition_k} Nystrom eigensystem")
     ckpt_kw = dict(checkpoint_dir=args.checkpoint_dir, resume=args.resume,
                    checkpoint_every=args.ckpt_every_epochs)
     if args.checkpoint_dir:
-        print(f"[train-dsekl] checkpoints -> {args.checkpoint_dir} "
-              f"(every {args.ckpt_every_epochs} epoch(s)"
-              + (", resuming from newest valid" if args.resume else "")
-              + ")")
-    out: Dict[str, Any] = {"cfg": cfg}
+        _say(mesh, f"[train-dsekl] checkpoints -> {args.checkpoint_dir} "
+             f"(every {args.ckpt_every_epochs} epoch(s)"
+             + (", resuming from newest valid" if args.resume else "")
+             + ")")
+    out: Dict[str, Any] = {"cfg": cfg, "mesh": mesh}
+    # The mesh split needs the train rows divisible by both axes.
+    shards = (math.lcm(args.data_par, args.model_par) if mesh is not None
+              else 1)
     if args.data == "mmap":
         mmap_dir = args.mmap_dir or os.path.join(tempfile.gettempdir(),
                                                  "repro_torch_dsekl_mmap")
-        src = make_memmap_dataset(mmap_dir, args.n, args.dim, seed=args.seed)
+        if mesh is None or mesh.rank == 0:
+            src = make_memmap_dataset(mmap_dir, args.n, args.dim,
+                                      seed=args.seed)
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.barrier()                  # rank 0's dataset is written
+            src = open_memmap_dataset(mmap_dir, args.n, args.dim)
         train_src, x_val, y_val = split_holdout(src)
+        # Trim the train VIEW's tail (the hold-out came off the end).
+        train_src = train_src.local(0, train_src.n - train_src.n % shards)
         # split_holdout copies the held-out rows out of the mapping.
         x_val = torch.from_numpy(x_val).to(device)
         y_val = torch.from_numpy(y_val).to(device)
@@ -174,10 +231,10 @@ def train_dsekl(args) -> Dict[str, Any]:
                     + (cfg.bcd_block or cfg.n_expand))
         else:
             rows = cfg.n_grad + cfg.n_workers * cfg.n_expand
-        print(f"[train-dsekl] mmap dataset: {args.n} x {args.dim} = "
-              f"{src.nbytes / 2**20:.1f} MiB on disk at {mmap_dir}; the "
-              f"device sees {4 * rows * args.dim / 2**10:.0f} KiB of rows a "
-              f"step + {8 * train_src.n / 2**20:.1f} MiB of state")
+        _say(mesh, f"[train-dsekl] mmap dataset: {args.n} x {args.dim} = "
+             f"{src.nbytes / 2**20:.1f} MiB on disk at {mmap_dir}; the "
+             f"device sees {4 * rows * args.dim / 2**10:.0f} KiB of rows a "
+             f"step + {8 * train_src.n / 2**20:.1f} MiB of state")
         data = (train_src, None)
         out.update(source=train_src, dataset=src)
     else:
@@ -185,34 +242,51 @@ def train_dsekl(args) -> Dict[str, Any]:
                                    device=device)
         n_val = max(min(2048, args.n // 8), 1)  # never 0: x[:-0] is empty
         x_val, y_val = x[-n_val:], y[-n_val:]
-        x, y = x[:-n_val].contiguous(), y[:-n_val].contiguous()
-        data = (x, y)
-        out.update(x=x, y=y)
+        n_tr = (args.n - n_val) - (args.n - n_val) % shards
+        x, y = x[:n_tr].contiguous(), y[:n_tr].contiguous()
+        if mesh is not None:
+            # Each rank gathers its blocks on the host from its shards.
+            src = HostSource(x.cpu().numpy(), y.cpu().numpy())
+            data = (src, None)
+            out.update(source=src)
+        else:
+            data = (x, y)
+            out.update(x=x, y=y)
     t0 = time.perf_counter()
     res = fit(cfg, *data, gen,
               execution=None if args.execution == "auto" else args.execution,
               algorithm=args.algorithm, n_epochs=args.epochs, tol=0.0,
               x_val=x_val, y_val=y_val, prefetch=not args.no_prefetch,
-              verbose=True, device=device, **ckpt_kw)
+              verbose=True, device=device, mesh=mesh, **ckpt_kw)
     dt = time.perf_counter() - t0
+    if mesh is not None:
+        where = (f"mesh data {mesh.size('data')} x model "
+                 f"{mesh.size('model')}, {mesh.backend}, rank device "
+                 f"{mesh.device}")
     if res.loader is not None:
         ld = res.loader
         hidden = 1.0 - ld["wait_s"] / ld["gather_s"] if ld["gather_s"] else 0.0
         kind = ("bcd rounds" if args.execution == "bcd"
+                else "mesh" if args.execution == "mesh"
                 else f"hosted, {args.algorithm}")
-        print(f"[train-dsekl] {res.epochs_run} epochs in {dt:.2f}s "
-              f"({kind}, "
-              f"{'sync' if args.no_prefetch else 'prefetch'}; host gather "
-              f"{ld['gather_s']:.3f}s, consumer wait {ld['wait_s']:.3f}s, "
-              f"hidden {hidden:.1%})")
+        if mesh is not None:
+            kind += f"; {where}"
+        _say(mesh, f"[train-dsekl] {res.epochs_run} epochs in {dt:.2f}s "
+             f"({kind}, "
+             f"{'sync' if args.no_prefetch else 'prefetch'}; host gather "
+             f"{ld['gather_s']:.3f}s, consumer wait {ld['wait_s']:.3f}s, "
+             f"hidden {hidden:.1%})")
     else:
-        print(f"[train-dsekl] {res.epochs_run} epochs in {dt:.2f}s "
-              f"(device-resident on {device}, {args.algorithm})")
+        _say(mesh, f"[train-dsekl] {res.epochs_run} epochs in {dt:.2f}s "
+             f"(device-resident on {device}, {args.algorithm})")
     errs = [h["val_error"] for h in res.history if "val_error" in h]
     nsv = int((res.state.alpha != 0).sum())
+    if mesh is not None:                    # over the whole model
+        from repro_torch.core.distributed import gather_model_shards
+        nsv = int((gather_model_shards(mesh, res.state.alpha) != 0).sum())
     if errs:
-        print(f"[train-dsekl] val error {errs[0]:.4f} -> {errs[-1]:.4f}; "
-              f"{nsv} support vectors")
+        _say(mesh, f"[train-dsekl] val error {errs[0]:.4f} -> "
+             f"{errs[-1]:.4f}; {nsv} support vectors")
     out.update(result=res, x_val=x_val, y_val=y_val, seconds=dt)
     return out
 
@@ -235,11 +309,17 @@ def parser() -> argparse.ArgumentParser:
                          "temporary directory)")
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--data-par", type=int, default=1,
-                    help="data-parallel mesh axis: not ported (item 6)")
+                    help="the mesh's data axis (--dsekl with --execution "
+                         "mesh or bcd; the LM mesh is not ported: item 6)")
     ap.add_argument("--model-par", type=int, default=1,
-                    help="model-parallel mesh axis: not ported (item 6)")
+                    help="the mesh's model axis (as --data-par)")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="multi-pod mesh: not ported (item 6)")
+                    help="multi-pod LM mesh: not ported (item 6)")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                    help="the mesh's torch.distributed backend: nccl (the "
+                         "default on cuda; one rank a card) or gloo (the "
+                         "default on cpu); gloo is needed only because "
+                         "NCCL cannot put two ranks on one card")
     # DSEKL kernel training
     ap.add_argument("--dsekl", action="store_true",
                     help="train the DSEKL kernel machine instead of an LM")
@@ -268,9 +348,11 @@ def parser() -> argparse.ArgumentParser:
                     choices=("auto", "serial", "parallel", "hosted", "mesh",
                              "bcd"),
                     default="auto",
-                    help="training execution backend; bcd runs exact block "
-                         "coordinate descent rounds (square loss); mesh is "
-                         "not ported")
+                    help="training execution backend; mesh trains on a "
+                         "--data-par x --model-par mesh of ranks; bcd runs "
+                         "exact block coordinate descent rounds (square "
+                         "loss; on the mesh when --data-par x --model-par "
+                         "> 1)")
     ap.add_argument("--bcd-block", type=int, default=0,
                     help="BCD coordinate-block size |J| per round "
                          "(0 = n_expand)")
@@ -293,11 +375,11 @@ def parser() -> argparse.ArgumentParser:
 
 
 def unported_modes(args) -> list:
-    """The requested modes the port does not have yet (each needs the
-    mesh, item 6)."""
+    """The requested modes the port does not have yet: the LM path's mesh
+    flags (each needs the LM half of the mesh, item 6)."""
     out = []
-    if args.execution == "mesh":
-        out.append("--execution mesh")
+    if args.dsekl:
+        return out
     for flag in ("data_par", "model_par"):
         if getattr(args, flag) > 1:
             out.append(f"--{flag.replace('_', '-')} {getattr(args, flag)}")
@@ -339,6 +421,21 @@ def main(argv=None):
         ap.error("--precondition-k with --execution bcd: BCD solves each "
                  "block exactly — EigenPro preconditioning applies to the "
                  "stochastic step only")
+    if args.dsekl and args.multi_pod:
+        ap.error("--multi-pod: the DSEKL mesh is --data-par x --model-par")
+    if args.dsekl and args.data_par * args.model_par > 1 and \
+            args.execution not in ("mesh", "bcd"):
+        ap.error("--data-par / --model-par > 1 train on the mesh: pass "
+                 "--execution mesh or --execution bcd")
+    if args.dsekl and args.dist_backend == "nccl":
+        from repro_torch.launch import mesh as mesh_lib
+        try:                    # before NCCL itself fails, in our words
+            mesh_lib.check_backend(
+                "nccl", resolve_device(args.device),
+                int(os.environ.get("WORLD_SIZE", "1")),
+                int(os.environ.get("LOCAL_WORLD_SIZE", "0")))
+        except (ValueError, RuntimeError) as e:
+            ap.error(str(e))
     if not args.dsekl:
         refusal = lm_refusal(args)
         if refusal:

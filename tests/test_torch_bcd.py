@@ -460,16 +460,33 @@ def test_plans_are_checked_and_consumed_in_order(data):
 
 
 def test_mesh_is_still_refused_naming_item_6(data):
+    """Item 6's DSEKL half is ported: BCD and the stochastic step run on a
+    mesh (tests/test_torch_mesh_fit.py drives the 4-rank worlds).  On a
+    world of one the mesh BCD fit equals the serial fit bit for bit, a
+    ``MeshPlan`` from ``make_plan`` tears its world down on close, and the
+    launcher refuses only the LM path's mesh flags, naming item 6."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh
     x, y, _, _ = data
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        fit(cfg, x, y, torch.Generator(), execution="mesh", n_epochs=1,
-            device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ttrainer.make_plan("mesh", cfg, source=HostSource(x, y),
-                           device=torch.device("cpu"))
+    mesh = make_local_mesh(1, 1, backend="gloo", device="cpu")
+    try:
+        on_mesh = fit(cfg, x, y, torch.Generator().manual_seed(2),
+                      execution="bcd", mesh=mesh, n_epochs=2, tol=0.0,
+                      device="cpu")
+    finally:
+        mesh.close()
+    serial = fit(cfg, x, y, torch.Generator().manual_seed(2),
+                 execution="bcd", n_epochs=2, tol=0.0, device="cpu")
+    assert torch.equal(on_mesh.state.alpha, serial.state.alpha)
+    with ttrainer.make_plan("mesh", cfg, source=HostSource(x, y),
+                            device=torch.device("cpu")) as plan:
+        assert plan.name == "mesh" and dist.is_initialized()
+    assert not dist.is_initialized()
     assert train.unported_modes(train.parser().parse_args(
-        ["--dsekl", "--execution", "mesh"])) == ["--execution mesh"]
+        ["--dsekl", "--execution", "mesh"])) == []
+    assert train.unported_modes(train.parser().parse_args(
+        ["--data-par", "2"])) == ["--data-par 2"]
 
 
 # ---------------------------------------------------------------------------

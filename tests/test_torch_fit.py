@@ -156,20 +156,31 @@ def test_fit_argument_errors():
 
 @pytest.mark.parametrize("execution", ["parallel", "hosted", "mesh", "bcd"])
 def test_unported_executions_raise(execution):
-    """mesh raises naming its ROADMAP item, with EigenPro or without;
-    parallel and hosted are ported (tests/test_torch_parallel.py,
-    test_torch_hosted.py) and, since EigenPro is ported too
-    (tests/test_torch_precond.py), train with cfg.precondition_k > 0.
-    bcd is ported (tests/test_torch_bcd.py): it trains the square loss and
-    refuses EigenPro in the JAX package's words."""
+    """Every execution is ported now.  mesh (tests/test_torch_mesh*.py)
+    trains on a world of one, with EigenPro or without, and leaves no
+    world behind; ``make_plan("mesh")`` with arrays and no source raises
+    JAX's "needs a DataSource".  parallel and hosted
+    (tests/test_torch_parallel.py, test_torch_hosted.py) train with
+    cfg.precondition_k > 0 (tests/test_torch_precond.py).  bcd
+    (tests/test_torch_bcd.py) trains the square loss and refuses EigenPro
+    in the JAX package's words."""
     _, tcfg = _cfgs()
     x, y, _, _ = _problem(16 * NG)
     pcfg = tcfg.replace(precondition_k=4, precondition_m=32)
     if execution == "mesh":
+        import torch.distributed as dist
+        from repro_torch.core import trainer
         for cfg in (tcfg, pcfg):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                fit(cfg, x, y, torch.Generator(), execution=execution,
-                    n_epochs=1, device="cpu")
+            res = fit(cfg, x, y, torch.Generator(), execution=execution,
+                      n_epochs=1, device="cpu")
+            assert not dist.is_initialized()
+            assert int(res.state.step) == len(x) // NG
+            assert bool(torch.isfinite(res.state.alpha).all())
+            assert (res.precond is None) == (cfg is tcfg)
+        with pytest.raises(ValueError, match="needs a DataSource"):
+            trainer.make_plan(execution, tcfg, x=torch.from_numpy(x),
+                              y=torch.from_numpy(y),
+                              device=torch.device("cpu"))
         return
     if execution == "bcd":
         with pytest.raises(ValueError, match="stochastic step only"):

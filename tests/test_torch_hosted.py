@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed
 
 from repro.core import dsekl as jd
 from repro.core import trainer as jtrainer
@@ -267,6 +268,12 @@ def test_resolution_and_refusals_match_jax(data):
                                           hosted_data=hosted) == \
             jtrainer.resolve_execution(ex, jcfg, algorithm=alg,
                                        hosted_data=hosted)
+        # A mesh makes "auto" resolve to mesh in both packages.
+        assert ttrainer.resolve_execution(ex, cfg, algorithm=alg,
+                                          hosted_data=hosted,
+                                          mesh=object()) == \
+            jtrainer.resolve_execution(ex, jcfg, algorithm=alg,
+                                       hosted_data=hosted, mesh=object())
     with pytest.raises(ValueError, match="unknown execution"):
         ttrainer.resolve_execution("banana", cfg)
     gen = torch.Generator()
@@ -279,10 +286,16 @@ def test_resolution_and_refusals_match_jax(data):
         ttrainer.make_plan("hosted", cfg, device=torch.device("cpu"))
     with pytest.raises(ValueError, match="device-resident"):
         ttrainer.make_plan("parallel", cfg, source=HostSource(x, y))
+    with pytest.raises(ValueError, match="needs a DataSource"):
+        ttrainer.make_plan("mesh", cfg, device=torch.device("cpu"))
     for args in ((x, y), (HostSource(x, y), None)):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            fit(cfg, *args, gen, execution="mesh", n_epochs=1,
-                device="cpu")
+        # The mesh (item 6's DSEKL half) is ported: a world of one trains
+        # the same steps as Algorithm 1 and is torn down.
+        res = fit(cfg, *args, gen, execution="mesh", n_epochs=1,
+                  device="cpu")
+        assert int(res.state.step) == N // NG and res.loader["steps"] == \
+            N // NG
+        assert not torch.distributed.is_initialized()
         # BCD (item 5) is ported: square loss only, in JAX's words.
         with pytest.raises(ValueError, match="set loss='square'"):
             fit(cfg.replace(loss="hinge"), *args, gen, execution="bcd",

@@ -32,6 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed
 from torch.overrides import TorchFunctionMode
 
 from repro.core import dsekl as jd
@@ -499,9 +500,12 @@ def test_fit_refusals_with_precondition():
     with pytest.raises(ValueError, match="EigenProPreconditioner"):
         fit(tcfg, x, y, plans=_plans("serial", 1), n_epochs=1,
             precondition=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        fit(tcfg.replace(precondition_k=4), x, y, torch.Generator(),
-            execution="mesh", n_epochs=1, device="cpu")
+    # The mesh (item 6's DSEKL half) is ported: EigenPro rides on its
+    # step, here on a world of one, torn down after the fit.
+    res = fit(tcfg.replace(precondition_k=4), x, y, torch.Generator(),
+              execution="mesh", n_epochs=1, device="cpu")
+    assert res.precond.k == 4 and bool(torch.isfinite(res.state.alpha).all())
+    assert not torch.distributed.is_initialized()
     # BCD (item 5) is ported and refuses EigenPro in JAX's words.
     with pytest.raises(ValueError, match="EigenPro preconditioning applies "
                                          "to the stochastic step only"):

@@ -1,12 +1,14 @@
 """The port's training launcher end to end on the CPU at a small size:
 ``python -m repro_torch.launch.train --dsekl --device cpu`` trains, prints
 its per-epoch validation errors and the JAX launcher's summary lines, and
-refuses the modes the port does not have yet, naming them.  The LM path
-(``--arch granite-20b --steps 4 --device cpu``) trains, checkpoints and
-``--resume``s, deepseek-v3 (MLA) trains at its reduced widths; the mesh
-flags and a ``--full`` model larger than the device are refused, naming
-ROADMAP item 6, and so are the configs with a frontend, which the
-launcher (as JAX's) does not build."""
+refuses the modes the port does not have yet, naming them.  ``--execution
+mesh`` runs (a world of one here; tests/test_torch_mesh_fit.py drives 4
+ranks under torch.distributed.run).  The LM path (``--arch granite-20b
+--steps 4 --device cpu``) trains, checkpoints and ``--resume``s,
+deepseek-v3 (MLA) trains at its reduced widths; the LM mesh flags and a
+``--full`` model larger than the device are refused, naming ROADMAP item
+6, and so are the configs with a frontend, which the launcher (as JAX's)
+does not build."""
 import os
 import pathlib
 import subprocess
@@ -50,19 +52,21 @@ def test_train_dsekl_result_and_hold_out(capsys):
     assert "val error" in capsys.readouterr().out
 
 
-# --data mmap, --algorithm parallel, --precondition-k and --execution bcd
-# are ported (tests/test_torch_hosted.py, test_torch_precond.py and
-# test_torch_bcd.py drive them); with any of them, the modes still missing
-# are refused by name, and --precondition-k is not among them.  BCD over
-# the memmap runs; --precondition-k with --execution bcd is refused at
-# parse time, naming the refusal (``named`` None: the command runs).
+# --data mmap, --algorithm parallel, --precondition-k, --execution bcd and
+# --execution mesh are ported (tests/test_torch_hosted.py,
+# test_torch_precond.py, test_torch_bcd.py and test_torch_mesh_fit.py drive
+# them).  BCD over the memmap runs, and so does the mesh, with EigenPro or
+# without (a world of one: the launcher's default mesh is 1 x 1);
+# --precondition-k with --execution bcd is refused at parse time, naming
+# the refusal (``named`` None: the command runs).
 @pytest.mark.parametrize("extra,named", [
     pytest.param(["--data", "mmap", "--execution", "bcd"], None,
                  id="extra0---data mmap"),
     pytest.param(["--algorithm", "parallel", "--precondition-k", "8",
                   "--execution", "mesh"],
-                 "--execution mesh", id="extra1---algorithm parallel"),
-    (["--execution", "mesh"], "--execution mesh"),
+                 None, id="extra1---algorithm parallel"),
+    pytest.param(["--execution", "mesh"], None,
+                 id="extra2---execution mesh"),
     pytest.param(["--precondition-k", "8", "--execution", "bcd"],
                  "--precondition-k with --execution bcd",
                  id="extra3---precondition-k"),
@@ -70,10 +74,18 @@ def test_train_dsekl_result_and_hold_out(capsys):
 def test_unported_modes_exit_naming_them(extra, named, capsys, tmp_path):
     argv = SMALL + extra + ["--mmap-dir", str(tmp_path)]
     if named is None:
+        import torch.distributed as dist
         train.main(argv)
         lines = capsys.readouterr().out.splitlines()
         assert sum(ln.startswith("[dsekl] epoch") and "val_err=" in ln
                    for ln in lines) == 2
+        if "mesh" in extra:
+            assert any("(mesh; mesh data 1 x model 1, gloo" in ln
+                       for ln in lines)
+            assert ("--precondition-k" in extra) == any(
+                "EigenPro: k=8" in ln for ln in lines)
+            assert not dist.is_initialized()
+            return
         assert any("(bcd rounds, prefetch;" in ln for ln in lines)
         assert (tmp_path / "manifest.json").is_file()
         return
