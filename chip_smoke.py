@@ -14,10 +14,11 @@ PCA, the online train-to-serve loop and the multi-tenant front door
 language model at full width through
 ``repro_torch.launch.serve.serve_lm``, training mamba2-780m at full
 width and depth through ``repro_torch.launch.train.train_lm``, the
-DSEKL readout over its frozen features and the DSEKL mesh (four
-``torch.distributed`` ranks sharing the card) — with every
-kernel built from this checkout's sources and held against its plain
-PyTorch version.  Phases (any failure exits non-zero and prints no
+DSEKL readout over its frozen features, the DSEKL mesh and serving on
+the mesh (four ``torch.distributed`` ranks sharing the card: the engine's
+support set sharded, jamba-v0.1-52b tensor- and expert-parallel) — with
+every kernel built from this checkout's sources and held against its
+plain PyTorch version.  Phases (any failure exits non-zero and prints no
 result):
 
   1. device  — name, compute capability, ``nvidia-smi`` name and power
@@ -354,6 +355,41 @@ result):
                epoch-1 checkpoint resumed twice on (4, 1), the two at the
                trajectory tolerance.  (c) a world of one, 1 x 1, nccl
                against gloo, one epoch on the same plan.
+ 30. mesh-serve — serving on the mesh (``distributed/sharding.py``,
+               ``distributed/collectives.py``, the sharded models and
+               engine), run after serve-jamba, as phase 29 runs its ranks
+               (four gloo ranks sharing the card; no figure is a
+               multi-card one).  (a) covertype-serve's engine through the
+               launcher, ``serve_dsekl`` with ``--data-par 4`` and with
+               ``--data-par 2 --model-par 2``: every query's f against
+               the single-card engine's at rtol 2e-4, atol 1e-5 x max(1,
+               |f|_inf), again from the same sharded engine's
+               ``predict``; ``n_shards`` 4 and 2; one sm90 matvec a
+               serve call on every rank; queries/s through
+               ``flush_async`` and the f ``all_reduce``'s host time a
+               serve call.  (b) jamba-v0.1-52b at serve-jamba's full
+               width, depth and run on (1, 4) through ``serve_lm(ctx=)``:
+               each rank 1 flash and 7 SSD launches a prefill, all sm90,
+               at its local shapes (8 / 2 heads, 32 SSM heads), each held
+               against its plain version; every layer run on the single
+               card's input to it (serve-jamba's prompts, recorded layer
+               by layer) and held to the single card's output at 2e-2 x
+               |ref|_inf, on the tokens each MoE layer dispatched alike
+               (the same expert set, kept or dropped alike; at most 5%
+               otherwise: the random router's near-ties flip on a
+               rounding difference, moving the capacity's cut, and the
+               free-running prefill's logits, reported beside the
+               reroutes, then drift far past the gate, as cuda and ref do
+               on one card); prefill and decode ms, the all_reduces' host
+               time, peak memory per rank.  (c) the
+               launcher's reduced jamba on (2, 2) (the ZeRO weights
+               gathered over data by the slot stack, the MoE's expert
+               batches gathered and psum-scattered, the batch over data),
+               held at the same gate to the single-device run on each
+               data shard's half of the batch (the MoE's capacity is per
+               data shard).  Then flash and the SSD scan timed alone at
+               (b)'s local shapes (the kernels line's
+               ``ms_bound_by_shape``).
 
 The DSEKL kernel tolerance is the JAX suite's float32 one
 (tests/test_dual_pass.py ``_tols``): rtol 2e-4, atol 1e-5 * max(1,
@@ -3498,10 +3534,10 @@ def phase_serve_jamba():
     routes = []
     moe_forward = moe.moe_forward
 
-    def recording(p, c, x):
+    def recording(p, c, x, **kw):
         logits = x.reshape(-1, x.shape[-1]).float() @ p.router.float()
         routes.append(torch.topk(logits, c.top_k, dim=-1)[1].sort(-1)[0])
-        return moe_forward(p, c, x)
+        return moe_forward(p, c, x, **kw)
 
     moe.moe_forward = recording
     try:
@@ -4637,13 +4673,14 @@ MESH_BCD_ROUNDS = 8
 MESH_TIMEOUT_S = 300
 
 
-def _torchrun(part: str, spec: dict) -> dict:
+def _torchrun(part: str, spec: dict, where: str = MESH_DIR,
+              timeout_s: float = MESH_TIMEOUT_S) -> dict:
     """Run this script's ``--mesh-rank`` program on ``MESH_RANKS`` ranks
     under ``torch.distributed.run --standalone`` (a new session, killed
     whole at the time limit); fails on any rank's non-zero exit.  Returns
     each rank's JSON result by rank."""
-    spec = dict(spec, part=part, dir=MESH_DIR)
-    path = os.path.join(MESH_DIR, f"spec_{part}.json")
+    spec = dict(spec, part=part, dir=where)
+    path = os.path.join(where, f"spec_{part}.json")
     with open(path, "w") as f:
         json.dump(spec, f)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
@@ -4654,13 +4691,13 @@ def _torchrun(part: str, spec: dict) -> dict:
                             stderr=subprocess.PIPE, text=True,
                             start_new_session=True)
     try:
-        out, err = proc.communicate(timeout=MESH_TIMEOUT_S)
+        out, err = proc.communicate(timeout=timeout_s)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, 9)
         out, err = proc.communicate()
         print(out[-4000:], err[-4000:], sep="\n")
         raise SmokeFailure(f"mesh {part}: the ranks did not finish within "
-                           f"{MESH_TIMEOUT_S} s")
+                           f"{timeout_s} s")
     for line in out.splitlines():
         if line.startswith("[mesh"):
             print(line)
@@ -4672,7 +4709,7 @@ def _torchrun(part: str, spec: dict) -> dict:
           f"torch.distributed.run in {time.perf_counter() - t0:.1f}s")
     results = {}
     for r in range(spec.get("ranks", MESH_RANKS)):
-        with open(os.path.join(MESH_DIR, f"{part}_rank{r}.json")) as f:
+        with open(os.path.join(where, f"{part}_rank{r}.json")) as f:
             results[r] = json.load(f)
     return results
 
@@ -4942,6 +4979,10 @@ def mesh_rank(spec_path: str) -> int:
             out["parity"] = _mesh_parity()
             out["bcd"] = _mesh_bcd(spec)
             out["protocol"] = _mesh_protocol(spec)
+        elif spec["part"] == "serve":
+            out["a"] = _mesh_serve_engine(spec)
+            out["b"] = _mesh_serve_jamba(spec)
+            out["c"] = _mesh_serve_reduced()
         else:
             out.update(_mesh_resume(spec))
         built = sorted(r.name for r in _build._records.values()
@@ -5128,6 +5169,718 @@ def _sum_counts(a: dict, b: dict) -> dict:
     return {w: {r: a[w][r] + b[w][r] for r in a[w]} for w in a}
 
 
+# ---------------------------------------------------------------------------
+# Serving on the mesh: four gloo ranks sharing the card.
+# ---------------------------------------------------------------------------
+
+MESH_SERVE_DIR = os.path.join(ROOT, "build", "chip_smoke_mesh_serve")
+# (a) covertype-serve's engine with its support set over the data axis.
+MESH_SERVE_SHAPES = ((4, 1), (2, 2))
+# (b) jamba-v0.1-52b at full width (serve-jamba's JAMBA, JAMBA_LAYERS) on
+# a (1, 4) mesh: 8 / 2 q / kv heads, 32 SSM heads and 4 experts a rank.
+MESH_SERVE_JAMBA = (1, 4)
+# (c) the reduced config through the launcher on (2, 2).
+MESH_SERVE_REDUCED = ["--arch", "jamba-v0.1-52b", "--data-par", "2",
+                      "--model-par", "2", "--dist-backend", "gloo"]
+MESH_SERVE_TIMEOUT_S = 480
+# (b)'s teacher-forced layers: the largest share of a prefill's tokens an
+# MoE layer may dispatch otherwise than the single card (another expert
+# set, or kept / dropped otherwise by the capacity).
+TEACHER_REROUTED = 0.005
+# (b)'s decode steps held to the single card's with the routing fixed.
+FORCED_DECODE = 4
+# (b)'s float32 run with the routing fixed: x |ref|_inf, the port's
+# float32 LM tests' tolerance (tests/test_torch_lm.py).
+F32_TOL = 1e-4
+# The local shapes of rows 6 and 7 on (1, 4): flash (B, S, T, H, Kv, D,
+# causal, window) and the SSD scan (B, S, nh, hd, g, n, chunk).
+FLASH_MESH = (4, 2048, 2048, 8, 2, 128, True, 1 << 30)
+SSD_MESH = (4, 2048, 32, 64, 1, 16, 256)
+
+
+class _AllReduceTimer:
+    """``torch.distributed.all_reduce`` timed on the host clock while
+    active: (numel, seconds, phase) a call, the wait for the device's
+    prior work included; the phase is "prefill" or "decode" inside
+    ``LanguageModel.prefill`` / ``decode_step``, else "other"."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+        from repro_torch.models.model import LanguageModel
+        self.calls, self.phase = [], "other"
+        self._orig = dist.all_reduce
+        self._lm = (LanguageModel.prefill, LanguageModel.decode_step)
+
+        def timed(t, *a, **k):
+            t0 = time.perf_counter()
+            r = self._orig(t, *a, **k)
+            self.calls.append((t.numel(), time.perf_counter() - t0,
+                               self.phase))
+            return r
+
+        def in_phase(fn, phase):
+            def run(*a, **k):
+                self.phase = phase
+                try:
+                    return fn(*a, **k)
+                finally:
+                    self.phase = "other"
+            return run
+
+        dist.all_reduce = timed
+        LanguageModel.prefill = in_phase(self._lm[0], "prefill")
+        LanguageModel.decode_step = in_phase(self._lm[1], "decode")
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        from repro_torch.models.model import LanguageModel
+        dist.all_reduce = self._orig
+        LanguageModel.prefill, LanguageModel.decode_step = self._lm
+
+    def seconds(self, phase: str):
+        """(calls, seconds) of ``phase``."""
+        got = [c[1] for c in self.calls if c[2] == phase]
+        return len(got), sum(got)
+
+
+class _MoeRoutes:
+    """While active, every MoE call's expert sets: the (tokens, top_k) ids
+    its router picks, sorted, call by call in ``sets`` (S > 1 for a
+    prefill's, ``prefill_sets`` the last ``n`` of those).  With ``forced``
+    (such sets, consumed in order) each call dispatches to the next forced
+    set instead, weighted by its own router's probabilities there,
+    renormalised: the routing held fixed while rounding differs.  Unforced,
+    the call is the port's ``moe_forward``; forced, the same dispatch
+    (``_moe_mesh`` / ``_moe_inner``) on those ids.  A token's choices go
+    to distinct experts, so their order moves no slot and no sum."""
+
+    def __init__(self, forced=None):
+        self.sets, self.seqs = [], []
+        self.forced = None if forced is None else list(forced)
+
+    def prefill_sets(self, n: int) -> list:
+        return [r for r, s in zip(self.sets, self.seqs) if s > 1][-n:]
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import layers, moe
+        self._orig = orig = moe.moe_forward
+
+        def routed(p, c, x, with_aux=False, batch_split=False):
+            b, s, d = x.shape
+            xt = x.reshape(b * s, d)
+            probs = torch.softmax(
+                xt.float() @ moe.whole_router(p).float(), dim=-1)
+            ids = torch.topk(probs, c.top_k, dim=-1)[1].sort(-1)[0]
+            self.sets.append(ids.cpu())
+            self.seqs.append(s)
+            if self.forced is None:
+                return orig(p, c, x, with_aux=with_aux,
+                            batch_split=batch_split)
+            check(not with_aux, "forced routes serve only")
+            ids = self.forced.pop(0).to(x.device)
+            top = torch.gather(probs, 1, ids)
+            top = (top / top.sum(-1, keepdim=True)).to(x.dtype)
+            if p.ctx is not None and p.ctx.sharded:
+                y = moe._moe_mesh(p, c, xt, ids, top, batch_split)
+            else:
+                cap = max(1, math.ceil(b * s * c.top_k * c.capacity_factor
+                                       / c.n_experts))
+                y = moe._moe_inner(xt, ids, top, p.w_gate, p.w_up, p.w_down,
+                                   c.n_experts, cap)
+            y = y.reshape(b, s, d)
+            if c.n_shared_experts:
+                y = y + layers.mlp(p.shared, c, x)
+            return y
+
+        moe.moe_forward = routed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.moe_forward = self._orig
+
+
+def _tensor_save(path: str, t) -> None:
+    """``t`` to ``path`` (.npz), bfloat16 kept as its bits."""
+    import numpy as np
+    import torch
+    bf16 = t.dtype == torch.bfloat16
+    np.savez(path, x=(t.detach().view(torch.int16) if bf16 else t.detach())
+             .cpu().numpy(), bf16=bf16)
+
+
+def _tensor_load(path: str, device):
+    import numpy as np
+    import torch
+    z = np.load(path)
+    t = torch.from_numpy(z["x"])
+    return (t.view(torch.bfloat16) if bool(z["bf16"]) else t).to(device)
+
+
+def _forced_run(model, tokens, feed, sets, steps: int):
+    """``model``'s prefill of ``tokens`` and ``steps`` decode steps fed
+    ``feed[:, i]``, every MoE call dispatched to the next of ``sets``
+    (None: its own routes): the (B, V) logits of each, float32 on the
+    host, and the routes."""
+    got = []
+    with _MoeRoutes(forced=sets) as routes:
+        logits, cache = model.prefill(tokens, JAMBA["cache_len"])
+        got.append(logits.float().cpu())
+        for i in range(steps):
+            logits, cache = model.decode_step(feed[:, i], cache,
+                                              JAMBA["prompt_len"] + i)
+            got.append(logits.float().cpu())
+    return got, routes
+
+
+def _rel(got, ref) -> float:
+    """max |got - ref| / |ref|_inf."""
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def _jamba_layer_refs(res: dict) -> dict:
+    """serve-jamba's single-card run kept for mesh-serve (b): the timed
+    prefill's logits, prompts and greedy tokens, and one more prefill of
+    the same prompts recorded layer by layer (each layer's input, the
+    last one's output; its logits equal the timed one's), then
+    FORCED_DECODE decode steps fed the timed run's greedy tokens (their
+    logits; each step's argmax the timed run's next token), every MoE
+    call's expert sets in order; then the same prefill and steps on
+    those expert sets through the plain flash and SSD (``card_noise``: how
+    far the card's own logits move by its kernels' rounding alone).
+    Saved under MESH_SERVE_DIR."""
+    import numpy as np
+    import torch
+    from repro_torch.models import blocks
+    shutil.rmtree(MESH_SERVE_DIR, ignore_errors=True)
+    os.makedirs(MESH_SERVE_DIR)
+    model, tokens = res["model"], res["tokens"]
+    n_moe = sum(blk.is_moe for blk in model.layers)
+    xs = []
+    orig = blocks.Block.prefill
+
+    def prefill(blk, x, *a, **k):
+        xs.append(x)
+        out, cache = orig(blk, x, *a, **k)
+        if len(xs) == len(model.layers):
+            xs.append(out)
+        return out, cache
+
+    blocks.Block.prefill = prefill
+    steps = []
+    try:
+        with _MoeRoutes() as routes:
+            logits, cache = model.prefill(tokens, JAMBA["cache_len"])
+            blocks.Block.prefill = orig
+            for i in range(FORCED_DECODE):
+                step, cache = model.decode_step(
+                    res["out"][:, i], cache, JAMBA["prompt_len"] + i)
+                check(torch.equal(torch.argmax(step, dim=-1),
+                                  res["out"][:, i + 1]),
+                      f"serve-jamba: recorded decode step {i} differs from "
+                      "the timed one")
+                steps.append(step.float())
+    finally:
+        blocks.Block.prefill = orig
+    del cache
+    check(torch.equal(logits, res["logits"]),
+          "serve-jamba: a recorded prefill differs from the timed one")
+    check(len(routes.sets) == n_moe * (1 + FORCED_DECODE),
+          f"serve-jamba: {len(routes.sets)} MoE calls recorded")
+    model.impl = "ref"
+    try:
+        plain, _ = _forced_run(model, tokens, res["out"], routes.sets,
+                               FORCED_DECODE)
+    finally:
+        model.impl = "auto"
+    card_noise = [_rel(a, b.cpu()) for a, b in zip(
+        plain, [logits.float()] + steps)]
+    spec = {"jamba_layers": len(model.layers), "jamba_moe": n_moe,
+            "card_noise": card_noise}
+    for name, t in (("jamba_logits", res["logits"].float()),
+                    ("jamba_steps", torch.stack(steps)),
+                    ("jamba_plain", torch.stack(plain)),
+                    ("jamba_tokens", tokens), ("jamba_out", res["out"])):
+        spec[name] = os.path.join(MESH_SERVE_DIR, f"{name}.npy")
+        np.save(spec[name], t.cpu().numpy())
+    for i, x in enumerate(xs):
+        _tensor_save(os.path.join(MESH_SERVE_DIR, f"jamba_x{i}.npz"), x)
+    for i, r in enumerate(routes.sets):
+        np.save(os.path.join(MESH_SERVE_DIR, f"jamba_r{i}.npy"), r.numpy())
+    return spec
+
+
+def _dispatch(sets, n_experts: int, capacity: int):
+    """(T, k) bool: whether each of a token's experts (its sorted top-k
+    set, tokens in order) keeps it, as the MoE's dispatch does: a token
+    takes the next slot of each of its experts, and slots past the
+    capacity drop."""
+    import torch
+    onehot = torch.nn.functional.one_hot(sets, n_experts).sum(1)   # (T, E)
+    pos = torch.cumsum(onehot, dim=0) - onehot                     # earlier
+    return torch.gather(pos, 1, sets) < capacity
+
+
+def _teacher_forced(model, cfg, spec: dict) -> dict:
+    """Each layer of the sharded ``model`` run on the single-card run's
+    input to it (the timed prefill's prompts): its output against the
+    single card's at LOGITS_TOL x its |ref|_inf, on the tokens that each
+    MoE layer dispatched alike (the same expert set, kept or dropped by
+    each expert alike: a near-tie in the random router flips on a
+    rounding difference, the token's FFN output changes wholesale, and
+    the slots it takes or frees move later tokens across the capacity);
+    at most TEACHER_REROUTED of the tokens may be dispatched otherwise."""
+    import numpy as np
+    import torch
+    b, s = JAMBA["batch"], JAMBA["prompt_len"]
+    positions = torch.arange(s, dtype=torch.int32, device=model.device)
+    errs, rerouted, flips, moe_i = [], [], [], 0
+    for i, blk in enumerate(model.layers):
+        x = _tensor_load(os.path.join(spec["dir"], f"jamba_x{i}.npz"),
+                         model.device)
+        want = _tensor_load(os.path.join(spec["dir"], f"jamba_x{i + 1}.npz"),
+                            model.device).float()
+        with _MoeRoutes() as routes, torch.no_grad():
+            out, _ = blk.prefill(x, positions, JAMBA["cache_len"], None,
+                                 impl=model.impl)
+        same = torch.ones(b * s, dtype=torch.bool)
+        if blk.is_moe:
+            ref = torch.from_numpy(np.load(os.path.join(
+                spec["dir"], f"jamba_r{moe_i}.npy")))
+            got = routes.sets[0]
+            cap = max(1, math.ceil(b * s * cfg.top_k * cfg.capacity_factor
+                                   / cfg.n_experts))
+            same = ((got == ref).all(-1)
+                    & (_dispatch(got, cfg.n_experts, cap)
+                       == _dispatch(ref, cfg.n_experts, cap)).all(-1))
+            moe_i += 1
+            rerouted.append(int((~same).sum()))
+        diff = (out.float() - want).abs().reshape(b * s, -1)
+        flips.append(float((diff > 0).float().mean()))
+        err = float(diff[same.to(diff.device)].max())
+        scale = float(want.abs().max())
+        check(err <= LOGITS_TOL * scale, f"(b) layer {i} ({blk.kind}, "
+              f"{'MoE' if blk.is_moe else 'dense'}): {err:.4e} from the "
+              f"single card's, limit {LOGITS_TOL * scale:.4e}")
+        errs.append(err / scale)
+        del x, want, out, diff
+    check(all(r <= TEACHER_REROUTED * b * s for r in rerouted),
+          f"(b) tokens dispatched otherwise by MoE layer: {rerouted}")
+    return {"layer_err": errs, "rerouted": rerouted, "layer_flips": flips}
+
+
+def _jamba_f32(spec: dict, ctx=None):
+    """serve-jamba's configuration in float32 from JAMBA's seed: the whole
+    model on the card (``ctx`` None) or this rank's slices of the same
+    draws."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import LanguageModel
+    cfg = get_config("jamba-v0.1-52b").replace(
+        n_layers=JAMBA_LAYERS, param_dtype="float32",
+        compute_dtype="float32")
+    gen = torch.Generator(device=DEVICE).manual_seed(JAMBA["seed"])
+    return LanguageModel(cfg, device=DEVICE, ctx=ctx).init(gen)
+
+
+def _jamba_f32_ref(spec: dict) -> dict:
+    """mesh-serve (b)'s float32 reference on the one card: ``_jamba_f32``'s
+    prefill of serve-jamba's prompts and FORCED_DECODE decode steps fed
+    its greedy tokens, the logits of each and every MoE call's expert
+    sets saved under MESH_SERVE_DIR (the model freed after)."""
+    import numpy as np
+    import torch
+    model = _jamba_f32(spec)
+    tokens = torch.from_numpy(np.load(spec["jamba_tokens"])).to(DEVICE)
+    feed = torch.from_numpy(np.load(spec["jamba_out"])).to(DEVICE)
+    got, routes = _forced_run(model, tokens, feed, None, FORCED_DECODE)
+    del model
+    torch.cuda.empty_cache()
+    out = {"jamba_f32_logits": os.path.join(MESH_SERVE_DIR,
+                                            "jamba_f32_logits.npy")}
+    np.save(out["jamba_f32_logits"], torch.stack(got).numpy())
+    for i, r in enumerate(routes.sets):
+        np.save(os.path.join(MESH_SERVE_DIR, f"jamba_f32_r{i}.npy"),
+                r.numpy())
+    return out
+
+
+def _forced_routes(model, tokens, spec: dict, sets: str, refs) -> dict:
+    """The sharded ``model``'s prefill of the single card's prompts and
+    FORCED_DECODE decode steps fed the single card's greedy tokens, every
+    MoE call dispatched to the single card's recorded expert sets (files
+    ``{sets}{i}.npy``; the capacity is the single card's: one data
+    shard): each step's max |err| / |ref|_inf against ``refs`` (1 +
+    FORCED_DECODE logits), and the prefill tokens the rank's own router
+    would have sent elsewhere, by MoE layer."""
+    import numpy as np
+    import torch
+    n = spec["jamba_moe"] * (1 + FORCED_DECODE)
+    recorded = [torch.from_numpy(np.load(os.path.join(
+        spec["dir"], f"{sets}{i}.npy"))) for i in range(n)]
+    feed = torch.from_numpy(np.load(spec["jamba_out"])).to(model.device)
+    got, routes = _forced_run(model, tokens, feed, recorded, FORCED_DECODE)
+    check(len(routes.forced) == 0, f"(b) forced: {len(routes.forced)} of "
+          f"{n} expert sets left unused")
+    check(all(bool(torch.isfinite(g).all()) for g in got),
+          "(b) forced: logits not finite")
+    own = [int((a.cpu() != b).any(-1).sum())
+           for a, b in zip(routes.sets[:spec["jamba_moe"]], recorded)]
+    return {"err": [_rel(g, r) for g, r in zip(got, refs)], "own": own}
+
+
+def _mesh_serve_forced(res: dict, spec: dict, ctx) -> dict:
+    """(b) with the routing held fixed (``_forced_routes``).  In bf16,
+    reported: against serve-jamba's card, and the prefill again with
+    every contraction-split product's partials rounded to bf16 before
+    their psum (``psum_product``'s alternative).  Then in float32
+    (``_jamba_f32`` on the rank, ``res`` emptied and the bf16 model freed
+    first), gated:
+    every step's logits within F32_TOL x |ref|_inf of the card's float32
+    run (``_jamba_f32_ref``)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.distributed import collectives
+    model, tokens = res.pop("model"), res["tokens"]
+    res.clear()
+    refs = [torch.from_numpy(np.load(spec["jamba_logits"]))] + list(
+        torch.from_numpy(np.load(spec["jamba_steps"])))
+    bf16 = _forced_routes(model, tokens, spec, "jamba_r", refs)
+    product = collectives.psum_product
+    collectives.psum_product = (
+        lambda op, x, w, ctx, axes: collectives.psum(op(x, w), ctx, axes))
+    try:
+        sets = [torch.from_numpy(np.load(os.path.join(
+            spec["dir"], f"jamba_r{i}.npy")))
+            for i in range(spec["jamba_moe"])]
+        partials = _rel(_forced_run(model, tokens, None, sets, 0)[0][0],
+                        refs[0])
+    finally:
+        collectives.psum_product = product
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = _forced_routes(_jamba_f32(spec, ctx), tokens, spec, "jamba_f32_r",
+                         list(torch.from_numpy(np.load(
+                             spec["jamba_f32_logits"]))))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for i, e in enumerate(f32["err"]):
+        check(e <= F32_TOL, f"(b) float32, routing fixed, "
+              f"{'prefill' if i == 0 else f'decode {i}'}: logits {e:.4e} x "
+              f"|ref|_inf from the single card's, limit {F32_TOL}")
+    return {"forced_err": bf16["err"], "forced_own": bf16["own"],
+            "forced_bf16_err": partials, "f32_err": f32["err"],
+            "f32_own": f32["own"]}
+
+
+def _mesh_serve_engine(spec: dict) -> dict:
+    """(a) covertype-serve's engine through the launcher on each of
+    MESH_SERVE_SHAPES (``serve_dsekl`` with ``--data-par`` /
+    ``--model-par``, ``flush_async``), its answers against the single-card
+    engine's; then the same sharded engine built here, ``predict`` on the
+    queries.  Every matvec launch of the launcher's run on the sm90 route,
+    one a serve call."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.serving import DSEKLPredictionEngine
+    f_ref = torch.from_numpy(np.load(spec["f_ref"]))
+    out = {}
+    for d, m in MESH_SERVE_SHAPES:
+        argv = SERVE_ARGS + ["--data-par", str(d), "--model-par", str(m),
+                             "--dist-backend", "gloo", "--device", DEVICE]
+        _reset_dsekl_counters()                 # the launcher's path starts
+        with _AllReduceTimer() as art:
+            run = serve.serve_dsekl(serve.parser().parse_args(argv))
+            torch.cuda.synchronize()
+        counts = _dsekl_counts()                # ... and ends here
+        eng = run["engine"]
+        check(eng.n_shards == d, f"(a) {d} x {m}: {eng.n_shards} shards")
+        mv = counts["kernel_matvec_cuda"]
+        check(mv == {"sm90": eng.serve_calls, "fp32": 0} and all(
+            sum(counts[w].values()) == 0 for w in counts
+            if w != "kernel_matvec_cuda"),
+            f"(a) {d} x {m}: launches {counts}, serve calls "
+            f"{eng.serve_calls}")
+        err = compare(torch.cat(run["outs"]).cpu(), f_ref)
+        direct = DSEKLPredictionEngine(
+            eng.cfg, run["alpha"], run["x_train"],
+            engine_cfg=eng.engine_cfg, mesh=run["mesh"]).predict(
+                run["queries"]).cpu()
+        err_direct = compare(direct, f_ref)
+        ar = [c[1] for c in art.calls if c[0] == eng.engine_cfg.query_block]
+        st = eng.stats()
+        out[f"{d}x{m}"] = {
+            "n_shards": st["n_shards"], "rows": st["sv_rows_per_shard"],
+            "padded": st["n_sv_padded"], "serve_calls": eng.serve_calls,
+            "launches": mv, "qps": run["queries_per_s"],
+            "ar_ms": 1e3 * sum(ar) / max(len(ar), 1), "ar_n": len(ar),
+            "err": err, "err_direct": err_direct,
+            "top": float(f_ref.abs().max())}
+        del run, eng, direct
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_serve_jamba(spec: dict) -> dict:
+    """(b) serve-jamba's run at full width on a (1, 4) mesh through
+    ``serve_lm(ctx=...)``: each rank draws the same weights' slices and
+    prompts; its flash and SSD launches counted and each held against its
+    plain version; the prefill's logits against serve-jamba's."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import MeshCtx
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import attention, ssm
+    cfg = get_config("jamba-v0.1-52b").replace(n_layers=JAMBA_LAYERS)
+    n_attn = cfg.layer_pattern.count("attn")
+    n_mamba = cfg.layer_pattern.count("mamba")
+    ctx = MeshCtx.for_mesh(make_local_mesh(*MESH_SERVE_JAMBA,
+                                           backend="gloo", device=DEVICE),
+                           "decode")
+    rank = ctx.mesh.rank
+    flash_calls, ssd_calls = [], []
+    undo = [_recorder(attention, "flash_attention", flash_calls, n_attn),
+            _recorder(ssm, "ssd_chunked", ssd_calls, n_mamba)]
+    n_moe = sum(cfg.moe_pattern)
+    _reset_lm_counters()                        # the mesh's path starts
+    try:
+        with _AllReduceTimer() as art, _MoeRoutes() as routes:
+            res = serve.serve_lm(cfg, device=DEVICE, ctx=ctx, **JAMBA)
+    finally:
+        for fn in undo:
+            fn()
+    flash = dict(fk.flash_attention_cuda.launches_by_route)  # ... ends
+    ssd = dict(sk.ssd_cuda.launches_by_route)
+    prefills = res["prefills"]
+    check(flash == {"sm90": n_attn * prefills, "fp32": 0} and ssd == {
+        "sm90": n_mamba * prefills, "fp32": 0},
+        f"(b) rank {rank}: flash {flash}, ssd {ssd}; expected {n_attn} and "
+        f"{n_mamba} sm90 launches a prefill")
+    q, k, _ = flash_calls[0][0]
+    x = ssd_calls[0][0][0]
+    shapes = {"flash q": tuple(q.shape), "flash k": tuple(k.shape),
+              "ssd x": tuple(x.shape)}
+    check(shapes["flash q"][2] == cfg.n_heads // 4
+          and shapes["flash k"][2] == cfg.n_kv_heads // 4
+          and shapes["ssd x"][2] == cfg.ssm_heads // 4,
+          f"(b) rank {rank}: local shapes {shapes}")
+    _hold_main_path(flash_calls, ssd_calls, tag=f"mesh-serve-b rank {rank}")
+    del flash_calls, ssd_calls, q, k, x
+    ref = torch.from_numpy(np.load(spec["jamba_logits"]))
+    tokens = torch.from_numpy(np.load(spec["jamba_tokens"]))
+    check(torch.equal(res["tokens"].cpu(), tokens),
+          f"(b) rank {rank}: the prompts differ from serve-jamba's")
+    logits = res["logits"].float().cpu()
+    check(tuple(logits.shape) == (JAMBA["batch"], cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"(b): logits {tuple(logits.shape)}, finite "
+          f"{bool(torch.isfinite(logits).all())}")
+    # The free-running prefill against the single card's: reported, with
+    # the tokens each MoE layer routed to another expert set.
+    scale = float(ref.abs().max())
+    err = float((logits - ref).abs().max())
+    free_rerouted = [int((r != torch.from_numpy(np.load(os.path.join(
+        spec["dir"], f"jamba_r{i}.npy")))).any(-1).sum())
+        for i, r in enumerate(routes.prefill_sets(n_moe))]
+    agree = float((res["out"].cpu() == torch.from_numpy(
+        np.load(spec["jamba_out"]))).float().mean())
+    teacher = _teacher_forced(res["model"], cfg, spec)
+    weights = sum(p.numel() * p.element_size()
+                  for p in res["model"].parameters())
+    n_pre, s_pre = art.seconds("prefill")
+    n_dec, s_dec = art.seconds("decode")
+    out = {"flash": flash["sm90"], "ssd": ssd["sm90"], "shapes": shapes,
+           "err": err, "scale": scale, "agree": agree,
+           "free_rerouted": free_rerouted, **teacher,
+           "prefill_ms": res["prefill_s"] * 1e3,
+           "decode_ms": res["decode_ms_per_step"],
+           "init_s": res["init_s"], "peak_gib": res["peak_bytes"] / 2**30,
+           "weights_gib": weights / 2**30,
+           "ar_prefill_ms": 1e3 * s_pre / prefills,
+           "ar_prefill_n": n_pre / prefills,
+           "ar_decode_ms": 1e3 * s_dec / JAMBA["new_tokens"],
+           "ar_decode_n": n_dec / JAMBA["new_tokens"]}
+    out.update(_mesh_serve_forced(res, spec, ctx))
+    return out
+
+
+def _mesh_serve_reduced() -> dict:
+    """(c) the reduced jamba through the launcher on (2, 2): the ZeRO
+    weights' gathers over data, the MoE's expert-batch gather and
+    psum-scatter, the batch over data.  Held to the single-device port's
+    reduced run on the same seed, on each data shard's half of the batch
+    (the MoE's capacity is per data shard, as JAX's)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
+    from repro_torch.launch import serve
+    from repro_torch.models.model import LanguageModel
+    ap = serve.parser()
+    args = ap.parse_args(MESH_SERVE_REDUCED + ["--device", DEVICE])
+    _reset_lm_counters()                        # the launcher's path starts
+    before = dict(collectives.COUNTS)
+    res = serve.lm_main(ap, args)
+    flash = dict(fk.flash_attention_cuda.launches_by_route)  # ... ends
+    ssd = dict(sk.ssd_cuda.launches_by_route)
+    used = {k: v - before.get(k, 0) for k, v in collectives.COUNTS.items()
+            if v - before.get(k, 0)}
+    cfg = get_config(args.arch, reduced=True)
+    check(sum(flash.values()) == 2 * cfg.layer_pattern.count("attn")
+          and sum(ssd.values()) == 2 * cfg.layer_pattern.count("mamba"),
+          f"(c): flash {flash}, ssd {ssd}")
+    # gloo gathers a CUDA tensor by the slot stack alone.
+    gather = "slots" if torch.device(DEVICE).type == "cuda" else "native"
+    check(all(used.get(k, 0) > 0 for k in (
+        f"all_gather:{gather}", "psum_scatter:all_reduce",
+        "psum:all_reduce")), f"(c): collectives {used}")
+    gen = torch.Generator(device=DEVICE).manual_seed(args.seed)
+    model = LanguageModel(cfg, device=DEVICE).init(gen)
+    tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           generator=gen, device=DEVICE)
+    check(torch.equal(tokens, res["tokens"]), "(c): prompts differ")
+    halves = tokens.chunk(2)
+    ref = torch.cat([model.prefill(t, args.cache_len)[0] for t in halves])
+    whole = model.prefill(tokens, args.cache_len)[0]
+    scale = float(ref.abs().max())
+    err = float((res["logits"] - ref).abs().max())
+    check(err <= LOGITS_TOL * scale, f"(c): logits {err:.4e} from the "
+          f"single-device run's, limit {LOGITS_TOL * scale:.4e}")
+    return {"flash": flash, "ssd": ssd, "collectives": used, "err": err,
+            "limit": LOGITS_TOL * scale,
+            "whole_err": float((res["logits"] - whole).abs().max()),
+            "prefill_ms": res["prefill_s"] * 1e3,
+            "decode_ms": res["decode_ms_per_step"]}
+
+
+def phase_mesh_serve(serve_f, jamba_ref: dict, smi: str,
+                     device_name: str) -> dict:
+    """Serving on a mesh of four gloo ranks sharing the card (``jamba_ref``:
+    ``_jamba_layer_refs``'s files of serve-jamba's run), under
+    ``torch.distributed.run`` (the parent built every kernel; a rank that
+    runs nvcc fails): (a) covertype-serve's sharded engine on (4, 1) and
+    (2, 2); (b) jamba-v0.1-52b at full width on (1, 4); (c) the reduced
+    jamba on (2, 2) through the launcher.  Then the flash and SSD kernels
+    timed alone at (b)'s local shapes.  Four ranks share one card: no
+    figure here is a multi-card one."""
+    import gc
+
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    spec = dict(jamba_ref, f_ref=os.path.join(MESH_SERVE_DIR, "f_ref.npy"))
+    np.save(spec["f_ref"], serve_f.numpy())
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec.update(_jamba_f32_ref(spec))
+    print(f"[mesh-serve] the parent holds {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB of device memory while the ranks run")
+    res = _torchrun("serve", spec, where=MESH_SERVE_DIR,
+                    timeout_s=MESH_SERVE_TIMEOUT_S)
+    label = f"({smi}; four gloo ranks share the one card)"
+    paths = {"matvec": {}, "flash": {}, "ssd": {}}
+    for shape in (f"{d}x{m}" for d, m in MESH_SERVE_SHAPES):
+        a = [res[r]["a"][shape] for r in range(MESH_RANKS)]
+        launches = sum(x["launches"]["sm90"] for x in a)
+        paths["matvec"][f"mesh-serve (a) {shape}, 4 ranks"] = launches
+        print(f"[mesh-serve-a] {label} covertype-serve's engine on "
+              f"{shape.replace('x', ' x ')}: {a[0]['n_shards']} shards of "
+              f"{a[0]['rows']} support rows (padded {a[0]['padded']}), "
+              f"{a[0]['qps']:.1f} queries/s through flush_async (rank 0; "
+              f"{[round(x['qps'], 1) for x in a]} by rank), the f "
+              f"all_reduce {a[0]['ar_ms']:.4f} ms a serve call on the host "
+              f"({a[0]['ar_n']} calls; its wait for the kernel included); "
+              f"{launches} sm90 matvec launches = the ranks' serve calls "
+              f"{sum(x['serve_calls'] for x in a)}; max abs err against the "
+              f"single-card engine {max(x['err'] for x in a):.3e} (launcher)"
+              f", {max(x['err_direct'] for x in a):.3e} (predict) of |f| "
+              f"{a[0]['top']:.3e} (rtol {RTOL}, atol {ATOL} x max(1, |f|))")
+    b = [res[r]["b"] for r in range(MESH_RANKS)]
+    paths["flash"]["mesh-serve (b) (1, 4), 4 ranks"] = sum(
+        x["flash"] for x in b)
+    paths["ssd"]["mesh-serve (b) (1, 4), 4 ranks"] = sum(x["ssd"] for x in b)
+    b0 = b[0]
+    print(f"[mesh-serve-b] {label} jamba-v0.1-52b, {JAMBA_LAYERS} layers at "
+          f"full width on (1, 4), {JAMBA['batch']} x {JAMBA['prompt_len']} "
+          f"tokens, {JAMBA['new_tokens']} greedy: prefill "
+          f"{b0['prefill_ms']:.3f} ms, decode {b0['decode_ms']:.4f} ms a "
+          f"step (rank 0; host clock, each ending in a sync); the step's "
+          f"all_reduces on the host: {b0['ar_prefill_ms']:.3f} ms a prefill "
+          f"({b0['ar_prefill_n']:.0f} calls), {b0['ar_decode_ms']:.4f} ms a "
+          f"decode step ({b0['ar_decode_n']:.1f} calls); init "
+          f"{b0['init_s']:.2f}s; peak "
+          f"device memory per rank {[round(x['peak_gib'], 2) for x in b]} "
+          f"GiB, of it {b0['weights_gib']:.2f} GiB of weight shards; local "
+          f"shapes {b0['shapes']}; per rank {b0['flash']} flash and "
+          f"{b0['ssd']} ssd launches (2 prefills), all sm90")
+    print(f"[mesh-serve-b] {label} the routing held fixed (every MoE call "
+          f"dispatched to the single card's expert sets), max abs err / "
+          f"|ref|_inf of the prefill's logits and {FORCED_DECODE} decode "
+          f"steps fed the single card's tokens: float32 (the same draws) "
+          f"{[float(f'{e:.4g}') for e in b0['f32_err']]} (limit "
+          f"{F32_TOL}; max over ranks "
+          f"{max(max(x['f32_err']) for x in b):.4g}; own routers would have "
+          f"sent elsewhere {b0['f32_own']} prefill tokens by MoE layer); "
+          f"bf16, not gated, {[round(e, 6) for e in b0['forced_err']]} "
+          f"(own routers {b0['forced_own']} of "
+          f"{JAMBA['batch'] * JAMBA['prompt_len']}), against the card's own "
+          f"cuda vs plain kernels {[round(e, 6) for e in spec['card_noise']]}"
+          f"; bf16 with the split products' partials rounded to bf16 before "
+          f"their psum (not the port's) the prefill's "
+          f"{b0['forced_bf16_err']:.6f}")
+    print(f"[mesh-serve-b] {label} each layer on the single card's input "
+          f"to it (teacher-forced): max abs err / |ref|_inf by layer "
+          f"{[round(e, 6) for e in b0['layer_err']]} (limit {LOGITS_TOL}; "
+          f"share of outputs that differ at all "
+          f"{[round(f, 6) for f in b0['layer_flips']]}; "
+          f"MoE layers on the tokens dispatched alike), tokens dispatched "
+          f"otherwise (expert set, or kept / dropped) {b0['rerouted']} of "
+          f"{JAMBA['batch'] * JAMBA['prompt_len']} (limit "
+          f"{TEACHER_REROUTED:.1%}); free-running, the prefill's logits "
+          f"{b0['err']:.4e} from serve-jamba's (|ref|_inf {b0['scale']:.4e}"
+          f"), tokens rerouted by MoE layer {b0['free_rerouted']}, greedy "
+          f"tokens agree {b0['agree']:.1%}")
+    c = [res[r]["c"] for r in range(MESH_RANKS)]
+    c0 = c[0]
+    print(f"[mesh-serve-c] {label} the launcher, {' '.join(MESH_SERVE_REDUCED)}"
+          f" (reduced, float32): logits against the single-device run on "
+          f"each data shard's half of the batch {max(x['err'] for x in c):.3e}"
+          f" (limit {c0['limit']:.3e}); against the whole batch on one "
+          f"device {c0['whole_err']:.3e} (the MoE's capacity is per data "
+          f"shard); flash {c0['flash']}, ssd {c0['ssd']} launches by route "
+          f"(rank 0); collectives {c0['collectives']}; prefill "
+          f"{c0['prefill_ms']:.3f} ms, decode {c0['decode_ms']:.4f} ms")
+    shutil.rmtree(MESH_SERVE_DIR, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    times = {
+        "flash_attention": {
+            "mesh-serve (b) local (B %d, S %d, T %d, H %d, Kv %d, D %d, "
+            "causal)" % FLASH_MESH[:6]: _flash_shape_time(FLASH_MESH,
+                                                          device_name)},
+        "ssd": {}}
+    ms, bound, err = _ssd_shape_time(SSD_MESH, device_name)
+    times["ssd"]["mesh-serve (b) local (B %d, S %d, nh %d, hd %d, g %d, "
+                 "n %d, chunk %d)" % SSD_MESH] = (ms, bound)
+    print(f"[times] ssd sm90 at (b)'s local shape {SSD_MESH}: device "
+          f"{ms:.4f} ms = {bound / ms:.1%} of the bound {bound:.4f} ms; vs "
+          f"plain max abs err {err:.3e}")
+    print(f"[mesh-serve] {label} the phase took {secs:.1f}s (the kernels "
+          "timed alone after it not included)")
+    return {"paths": paths, "times": times, "seconds": secs, "a": res[0]["a"],
+            "b": b0, "c": c0}
+
+
 def main() -> int:
     try:
         import torch
@@ -5156,6 +5909,7 @@ def main() -> int:
     phase_lm_parity()
     elapsed("parity, lm-parity")
     res, launches = phase_serve()
+    serve_f = torch.cat(res["outs"]).cpu()     # mesh-serve (a)'s reference
     trained = phase_train()
     phase_train_cuda_vs_ref(trained["out"])
     vecmat_launches = phase_train_two_pass(trained["out"]["cfg"])
@@ -5229,8 +5983,12 @@ def main() -> int:
         del precond[tag]["out"]
     elapsed("times")
     jamba = phase_serve_jamba()
-    del jamba["res"]
+    jr = jamba.pop("res")
+    jamba_ref = _jamba_layer_refs(jr)
+    del jr
     elapsed("serve-jamba")
+    mesh_serve = phase_mesh_serve(serve_f, jamba_ref, smi, name)
+    elapsed("mesh-serve")
     llama = phase_serve_llama_vision(name)
     whisper = phase_serve_whisper(name)
     deepseek = phase_serve_deepseek()
@@ -5255,6 +6013,9 @@ def main() -> int:
                    "serve-deepseek": deepseek["flash"]}
     ssd_paths = {"serve-jamba": jamba["ssd"],
                  "lm-readout (mamba2-780m, n 128)": readout["ssd"]}
+    flash_paths.update(mesh_serve["paths"]["flash"])
+    ssd_paths.update(mesh_serve["paths"]["ssd"])
+    matvec_paths.update(mesh_serve["paths"]["matvec"])
     by_path = {"kernel_matvec": matvec_paths,
                "train_pass": train_paths,
                "train_pass_sm90_j4096": wide_paths,
@@ -5286,8 +6047,9 @@ def main() -> int:
                 "lm-readout decision (I %d, J %d, D %d)"
                 % readout["matvec_shape"]: readout["matvec_time"]}
         if row["name"] == "flash_attention":
-            row["ms_bound_by_shape"] = dict(llama["times"],
-                                            **whisper["times"])
+            row["ms_bound_by_shape"] = dict(
+                llama["times"], **whisper["times"],
+                **mesh_serve["times"]["flash_attention"])
         if row["name"] == "train_pass_sm90_j4096":
             row["ms_bound_by_shape"] = {
                 "lm-readout fit (I %d, J union %d, D %d)"
@@ -5295,7 +6057,8 @@ def main() -> int:
         if row["name"] == "ssd":
             row["ms_bound_by_shape"] = {
                 "lm-readout (B %d, S %d, nh %d, hd %d, g %d, n %d, chunk %d)"
-                % readout["ssd_case"]: readout["ssd_time"]}
+                % readout["ssd_case"]: readout["ssd_time"],
+                **mesh_serve["times"]["ssd"]}
         check(row["name"] in launches or row["kernel_route"] == "fp32",
               f"no main-path launch count for {row['name']}")
     train = next(r for r in rows if r["name"] == "train_pass")

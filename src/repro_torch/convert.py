@@ -40,7 +40,9 @@
   following as ``layers.{n_periods * period + i}``; whisper's encoder
   stack ``encoder/scan`` (leading axis = encoder layer) likewise into
   ``encoder.layers.{i}``, beside ``encoder.ln_f``.  bfloat16 arrays
-  (``ml_dtypes``) become bfloat16 tensors.
+  (``ml_dtypes``) become bfloat16 tensors.  With ``ctx`` (a
+  ``MeshCtx``) each tensor is this rank's slice, cut by the same layout
+  as ``LanguageModel(cfg, ctx=ctx)`` allocates (``nn.module.take_local``).
 * ``lm_train_state_from_jax(cfg, params, opt_state, extra)`` — the flat
   arrays and ``extra`` of a port LM training checkpoint (``train_loop``
   resumes from it) from a JAX one: the parameters and the optimizer's
@@ -192,10 +194,11 @@ def _flat(tree: Mapping[str, Any], prefix: str = ""
             yield name, val
 
 
-def lm_params_from_jax(cfg: ModelConfig, params: Mapping[str, Any]
-                       ) -> Dict[str, torch.Tensor]:
+def lm_params_from_jax(cfg: ModelConfig, params: Mapping[str, Any],
+                       ctx=None) -> Dict[str, torch.Tensor]:
     """The port's ``LanguageModel`` state_dict (CPU tensors, the arrays'
-    own dtypes) from the JAX ``LanguageModel`` param tree."""
+    own dtypes) from the JAX ``LanguageModel`` param tree; with ``ctx``,
+    this rank's slices."""
     out: Dict[str, torch.Tensor] = {}
 
     def put(name, arr):
@@ -231,6 +234,12 @@ def lm_params_from_jax(cfg: ModelConfig, params: Mapping[str, Any]
         i = int(pos[len("pos"):])
         for name, arr in _flat(sub):
             put(f"layers.{base + i}.{name}", arr)
+    if ctx is not None and ctx.mesh is not None:
+        from repro_torch.models.model import param_specs
+        from repro_torch.nn.module import take_local
+        specs = dict(_flat(param_specs(cfg)))
+        out = {k: take_local(v, specs[k], ctx).contiguous()
+               for k, v in out.items()}
     return out
 
 

@@ -1,3 +1,5 @@
-"""Cross-rank reductions of the port (counterpart of ``repro/distributed``;
-the JAX package's ``compat.py`` shims JAX versions and has no
-counterpart here)."""
+"""The port's mesh layer (counterpart of ``repro/distributed``): the
+logical-axis sharding rules and ``MeshCtx`` (``sharding.py``), the
+collectives (``collectives.py``) and the compressed reduction
+(``compression.py``); the JAX package's ``compat.py`` shims JAX versions
+and has no counterpart here."""

@@ -81,6 +81,27 @@ class LocalMesh:
         on ``axis``."""
         return self.device_mesh.get_group(axis)
 
+    def group_over(self, axes: Sequence[str]):
+        """The process group of the ranks that differ from this one only
+        on ``axes`` (several axes: one group spanning them all, made here
+        by ``new_group``, which every rank of the world must call in
+        step)."""
+        axes = tuple(axes)
+        if len(axes) == 1:
+            return self.group(axes[0])
+        names = self.axis_names
+        ranks = self.device_mesh.mesh
+        keep = [names.index(a) for a in axes]
+        rest = [i for i in range(len(names)) if i not in keep]
+        rows = ranks.permute(*rest, *keep).reshape(
+            -1, math.prod(self.size(a) for a in axes))
+        mine = None
+        for row in rows.tolist():
+            g = dist.new_group(row)
+            if self.rank in row:
+                mine = g
+        return mine
+
     @property
     def rank(self) -> int:
         return dist.get_rank()

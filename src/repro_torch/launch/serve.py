@@ -13,10 +13,26 @@ and SSD kernels on a card:
 Where the config has a frontend (llama-3.2-vision's image embeddings,
 whisper's audio frames), a random one of shape (B, ``n_frontend_tokens``,
 d_model) is drawn from the same generator, as the JAX launcher draws one.
-``--full`` on a config whose parameters do not fit the device (deepseek-v3
-on one card) exits with an error naming the sharded path it needs
-(ROADMAP.md section 1, item 6); ``serve_lm`` takes any config, as
-``chip_smoke.py`` calls it with depth-cut ones.
+``serve_lm`` takes any config, as ``chip_smoke.py`` calls it with
+depth-cut ones.
+
+On a mesh (one process a mesh coordinate, the world from
+``torch.distributed.run``): ``--data-par`` x ``--model-par`` serves the
+reduced config sharded under JAX's ``decode`` rules
+(``MeshCtx.for_mesh(make_local_mesh(dp, mp), "decode")``); ``--full`` in
+a world of more than one rank builds the production mesh, (16, 16) or
+with ``--multi-pod`` (2, 16, 16), and raises in a smaller world, naming
+the world size it needs.  In a world of one, ``--full`` serves on the one
+device when the parameters fit it and otherwise exits naming the
+production mesh and its world size.  MLA, cross-attention and whisper's
+encoder refuse a mesh (ROADMAP.md section 1, item 6).  Rank 0 alone
+prints; ``--dist-backend`` is nccl (one rank a card; the default on
+cuda) or gloo (the CPU, and ranks sharing a card):
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch jamba-v0.1-52b --data-par 2 --model-par 2 \
+        --dist-backend gloo [--device cpu]
 
 DSEKL kernel-prediction serving builds a trained DSEKL model from
 ``--seed`` (random sparse alpha over synthetic training rows), compacts it
@@ -31,7 +47,10 @@ tile cache with ``--cache-blocks N``:
 
 ``--data covertype`` draws the training rows and the queries from the
 covertype stand-in (the queries are held-out rows); ``--data normal``
-draws both from N(0, 1), as the JAX launcher does.
+draws both from N(0, 1), as the JAX launcher does.  With ``--data-par``
+x ``--model-par`` > 1 (under ``torch.distributed.run``) the engine's
+support set is sharded over the mesh's data axis; ``--tenants`` and
+``--online`` refuse a mesh, as JAX's never pass one.
 
 ``--tenants`` puts the multi-tenant front door (``serving/tenancy.py``;
 DESIGN.md §12) in front of the same engine: per-tenant submit queues
@@ -64,10 +83,11 @@ Each DSEKL mode returns its numbers as a dict (``serve_dsekl``,
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import threading
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -78,6 +98,8 @@ from repro_torch.core.dsekl import DSEKLConfig
 from repro_torch.data.source import RingSource
 from repro_torch.data.synthetic import make_covertype_like
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import MeshCtx
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.model import LanguageModel
 from repro_torch.serving import (DSEKLPredictionEngine, EngineConfig,
                                  OnlineService, QoSConfig, ServingEngine,
@@ -105,12 +127,46 @@ def build_model(args, device: torch.device):
     return x_train.contiguous(), alpha, queries.cpu()
 
 
+def _backend(args) -> str:
+    return args.dist_backend or (
+        "nccl" if resolve_device(args.device).type == "cuda" else "gloo")
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE") or 1)
+
+
+def _say(mesh, *parts) -> None:
+    """Print on rank 0 alone (everywhere off the mesh)."""
+    if mesh is None or mesh.rank == 0:
+        print(*parts)
+
+
 def serve_dsekl(args) -> Dict[str, Any]:
     """Serve kernel predictions for ``args.queries`` queries in requests of
     ``args.request``; returns the engine, the model (``x_train``,
-    ``alpha``), the queries, the per-request results (on the device) and
-    the stream's wall time."""
-    device = resolve_device(args.device)
+    ``alpha``), the queries, the per-request results (on the device), the
+    stream's wall time and the mesh (None off it).  With ``--data-par`` x
+    ``--model-par`` > 1 every rank builds the same model and the engine
+    holds its data shard of the support set; a world the mesh started is
+    torn down on return."""
+    mesh = None
+    if args.data_par * args.model_par > 1:
+        mesh = mesh_lib.make_local_mesh(args.data_par, args.model_par,
+                                        backend=_backend(args),
+                                        device=args.device)
+    try:
+        return _serve_dsekl(args, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _serve_dsekl(args, mesh) -> Dict[str, Any]:
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     x_train, alpha, queries = build_model(args, device)
     cfg = DSEKLConfig(kernel=args.kernel, impl="auto")
     engine = DSEKLPredictionEngine(
@@ -119,13 +175,16 @@ def serve_dsekl(args) -> Dict[str, Any]:
                                 sv_block=args.sv_block,
                                 max_queue=args.max_queue,
                                 cache_blocks=args.cache_blocks),
-        device=device)
+        device=device, mesh=mesh)
     st = engine.stats()
     mode = "sync" if args.sync else "async"
-    print(f"[serve-dsekl] device={device} n_train={st['n_train']} "
-          f"n_sv={st['n_sv']} (padded {st['n_sv_padded']}) "
-          f"kernel={st['kernel']} query_block={st['query_block']} "
-          f"mode={mode} cache_blocks={args.cache_blocks}")
+    where = (f"mesh data {args.data_par} x model {args.model_par}, "
+             f"{mesh.backend}, " if mesh is not None else "")
+    _say(mesh, f"[serve-dsekl] device={device} {where}n_train={st['n_train']} "
+         f"n_sv={st['n_sv']} (padded {st['n_sv_padded']}, {st['n_shards']} "
+         f"shard(s) x {st['sv_rows_per_shard']} rows) "
+         f"kernel={st['kernel']} query_block={st['query_block']} "
+         f"mode={mode} cache_blocks={args.cache_blocks}")
 
     def sync():
         if device.type == "cuda":
@@ -147,17 +206,17 @@ def serve_dsekl(args) -> Dict[str, Any]:
     sync()
     dt = time.perf_counter() - t0
     done = sum(int(o.shape[0]) for o in outs)
-    print(f"[serve-dsekl] {done} queries in {len(outs)} requests: "
-          f"{dt:.3f}s = {done / dt:,.0f} queries/s "
-          f"({engine.serve_calls} serve calls)")
+    _say(mesh, f"[serve-dsekl] {done} queries in {len(outs)} requests: "
+         f"{dt:.3f}s = {done / dt:,.0f} queries/s "
+         f"({engine.serve_calls} serve calls)")
     if args.cache_blocks:
         ci = engine.cache_info()
-        print(f"[serve-dsekl] cache: {ci['hits']} hits / "
-              f"{ci['misses']} misses / {ci['evictions']} evictions "
-              f"({ci['size']}/{ci['capacity']} tiles resident)")
+        _say(mesh, f"[serve-dsekl] cache: {ci['hits']} hits / "
+             f"{ci['misses']} misses / {ci['evictions']} evictions "
+             f"({ci['size']}/{ci['capacity']} tiles resident)")
     return {"engine": engine, "x_train": x_train, "alpha": alpha,
             "queries": queries, "outs": outs, "seconds": dt,
-            "queries_per_s": done / dt}
+            "queries_per_s": done / dt, "mesh": mesh}
 
 
 def _sync(device: torch.device) -> None:
@@ -412,8 +471,8 @@ def serve_online(args, *, clients: int = 1,
 
 
 def serve_lm(cfg: ModelConfig, batch: int, prompt_len: int, new_tokens: int,
-             cache_len: int, device: DeviceLike = None, seed: int = 0
-             ) -> Dict[str, Any]:
+             cache_len: int, device: DeviceLike = None, seed: int = 0,
+             ctx: Optional[MeshCtx] = None) -> Dict[str, Any]:
     """Greedy generation of ``new_tokens`` for ``batch`` random prompts of
     ``prompt_len`` tokens (and, where the config has one, a random
     frontend (batch, ``n_frontend_tokens``, d_model)) through a model
@@ -425,11 +484,14 @@ def serve_lm(cfg: ModelConfig, batch: int, prompt_len: int, new_tokens: int,
     Returns the model, the engine, the prompts, the frontend (or None),
     the generated tokens (B, new_tokens), the timed prefill's logits, the
     number of prefills run (2), the timings and, on a card, the peak
-    device memory."""
-    device = resolve_device(device)
+    device memory.  With ``ctx`` a mesh, every rank draws the same prompts
+    and its slices of the same weights and returns the whole logits and
+    tokens; rank 0 alone prints."""
+    mesh = ctx.mesh if ctx is not None else None
+    device = mesh.device if mesh is not None else resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     t0 = time.perf_counter()
-    model = LanguageModel(cfg, device=device).init(gen)
+    model = LanguageModel(cfg, device=device, ctx=ctx).init(gen)
     tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=gen, device=device)
     frontend = None
@@ -471,14 +533,16 @@ def serve_lm(cfg: ModelConfig, batch: int, prompt_len: int, new_tokens: int,
         "peak_bytes": (torch.cuda.max_memory_allocated(device)
                        if device.type == "cuda" else None),
     }
-    print(f"[serve] arch={cfg.name} layers={cfg.n_layers} device={device} "
-          f"batch={batch} prompt={prompt_len} generated {new_tokens} "
-          f"tokens/seq; init {init_s:.2f}s")
-    print(f"[serve] prefill {prefill_s * 1e3:.3f} ms = "
-          f"{res['prefill_tokens_per_s']:,.0f} tokens/s; decode "
-          f"{res['decode_ms_per_step']:.3f} ms/step = "
-          f"{res['decode_tokens_per_s']:,.1f} tokens/s")
-    print(f"[serve] seq0: {res['out'][0].tolist()}")
+    where = (f" mesh {ctx.n_data} x {ctx.n_model} ({mesh.backend})"
+             if mesh is not None else "")
+    _say(mesh, f"[serve] arch={cfg.name} layers={cfg.n_layers} "
+         f"device={device}{where} batch={batch} prompt={prompt_len} "
+         f"generated {new_tokens} tokens/seq; init {init_s:.2f}s")
+    _say(mesh, f"[serve] prefill {prefill_s * 1e3:.3f} ms = "
+         f"{res['prefill_tokens_per_s']:,.0f} tokens/s; decode "
+         f"{res['decode_ms_per_step']:.3f} ms/step = "
+         f"{res['decode_tokens_per_s']:,.1f} tokens/s")
+    _say(mesh, f"[serve] seq0: {res['out'][0].tolist()}")
     return res
 
 
@@ -491,19 +555,39 @@ def _device_bytes(device: torch.device) -> int:
 def lm_main(ap: argparse.ArgumentParser, args) -> Dict[str, Any]:
     if args.arch not in ARCHS:
         ap.error(f"unknown arch {args.arch!r}; available: {sorted(ARCHS)}")
+    if args.multi_pod and not args.full:
+        ap.error("--multi-pod names the production mesh: give it with "
+                 "--full")
     cfg = get_config(args.arch, reduced=not args.full)
+    ctx = None
+    if args.full and _world_size() > 1:
+        # The production mesh, as JAX's launcher; raises in a smaller
+        # world, naming the world size it needs.
+        ctx = MeshCtx.for_mesh(mesh_lib.make_production_mesh(
+            args.multi_pod, backend=_backend(args), device=args.device),
+            "decode")
+    elif args.data_par * args.model_par > 1:
+        ctx = MeshCtx.for_mesh(mesh_lib.make_local_mesh(
+            args.data_par, args.model_par, backend=_backend(args),
+            device=args.device), "decode")
     device = resolve_device(args.device)
-    if args.full:
+    if args.full and ctx is None:
         need = cfg.param_count_estimate() * torch.finfo(cfg.pdtype).bits // 8
         have = _device_bytes(device)
         if need > have:
+            shape = (2, 16, 16) if args.multi_pod else (16, 16)
             ap.error(f"--full {cfg.name}: {need / 1e9:.1f} GB of "
                      f"{cfg.param_dtype} parameters do not fit the "
-                     f"{have / 1e9:.1f} GB of {device}; the full model needs "
-                     "the sharded mesh path, which is not ported yet "
-                     "(ROADMAP.md section 1, item 6)")
-    return serve_lm(cfg, args.batch, args.prompt_len, args.new_tokens,
-                    args.cache_len, device, args.seed)
+                     f"{have / 1e9:.1f} GB of {device}; serve it on the "
+                     f"production mesh {shape}: a world of "
+                     f"{math.prod(shape)} ranks under "
+                     "torch.distributed.run")
+    try:
+        return serve_lm(cfg, args.batch, args.prompt_len, args.new_tokens,
+                        args.cache_len, device, args.seed, ctx=ctx)
+    finally:
+        if ctx is not None:
+            ctx.mesh.close()
 
 
 def parser() -> argparse.ArgumentParser:
@@ -516,7 +600,20 @@ def parser() -> argparse.ArgumentParser:
     # LM serving
     ap.add_argument("--arch", default="gemma3-27b")
     ap.add_argument("--full", action="store_true",
-                    help="the config's full widths (default: reduced)")
+                    help="the config's full widths (default: reduced); on "
+                         "the production mesh in a world of more than one "
+                         "rank")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --full: the (2, 16, 16) production mesh")
+    ap.add_argument("--data-par", type=int, default=1,
+                    help="the mesh's data axis (under "
+                         "torch.distributed.run)")
+    ap.add_argument("--model-par", type=int, default=1,
+                    help="the mesh's model axis (as --data-par)")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                    help="the mesh's torch.distributed backend: nccl (the "
+                         "default on cuda; one rank a card) or gloo (the "
+                         "default on cpu, and ranks sharing a card)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -580,6 +677,11 @@ def main(argv=None):
                  "front door over a live OnlineService build a "
                  "TenantFrontDoor(service, ...) directly "
                  "(docs/OPERATIONS.md)")
+    if (args.tenants or args.online) and (
+            args.data_par * args.model_par > 1 or args.multi_pod):
+        ap.error("--tenants and --online serve one device: they take no "
+                 "mesh (--data-par / --model-par / --multi-pod), as the "
+                 "JAX package's never pass one")
     if args.dsekl and args.tenants:
         serve_tenants(args)
     elif args.dsekl and args.online:

@@ -15,7 +15,8 @@ parameters, gradients and float32 moments fit the device:
         [--ckpt-dir DIR --ckpt-every 25 [--resume]] [--device cpu]
 
 A larger model, ``--data-par`` / ``--model-par`` > 1 and ``--multi-pod``
-need the LM half of the mesh (ROADMAP.md section 1, item 6) and are
+need LM training on the mesh, the next slice (ROADMAP.md section 1, item
+6; the LM serves on the mesh already, ``launch/serve.py``), and are
 refused.  So are the
 configs with a frontend (llama-3.2-vision, whisper): the launcher, like
 JAX's, builds no frontend for them to attend over (``train_step`` takes
@@ -86,7 +87,8 @@ from repro_torch.optim import make_optimizer, make_schedule
 from repro_torch.train import (TrainLoopConfig, make_train_step, trainable,
                                train_loop)
 
-MESH_ITEM = "the LM half of the mesh: ROADMAP.md section 1, item 6"
+MESH_ITEM = ("LM training on the mesh, the next slice: ROADMAP.md "
+             "section 1, item 6")
 
 
 def _device_bytes(device: torch.device) -> int:
@@ -310,11 +312,13 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--data-par", type=int, default=1,
                     help="the mesh's data axis (--dsekl with --execution "
-                         "mesh or bcd; the LM mesh is not ported: item 6)")
+                         "mesh or bcd; LM training on the mesh is not "
+                         "ported: item 6)")
     ap.add_argument("--model-par", type=int, default=1,
                     help="the mesh's model axis (as --data-par)")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="multi-pod LM mesh: not ported (item 6)")
+                    help="multi-pod LM training mesh: not ported "
+                         "(item 6)")
     ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
                     help="the mesh's torch.distributed backend: nccl (the "
                          "default on cuda; one rank a card) or gloo (the "
@@ -376,7 +380,7 @@ def parser() -> argparse.ArgumentParser:
 
 def unported_modes(args) -> list:
     """The requested modes the port does not have yet: the LM path's mesh
-    flags (each needs the LM half of the mesh, item 6)."""
+    flags (each needs LM training on the mesh, item 6)."""
     out = []
     if args.dsekl:
         return out
@@ -406,7 +410,7 @@ def lm_refusal(args) -> str:
                     f"{cfg.param_dtype} parameters and gradients and float32 "
                     f"AdamW moments do not fit the {have / 1e9:.1f} GB of "
                     f"{device}; the full model needs the sharded mesh path, "
-                    f"which is not ported yet ({MESH_ITEM})")
+                    f"which LM training has not yet ({MESH_ITEM})")
     return ""
 
 

@@ -23,6 +23,15 @@ of ``repro/models/attention.py``).
     space.
 
 All softmax statistics are f32 regardless of compute dtype.
+
+On a mesh (``ParamTree`` under a ``MeshCtx``) GQA runs on this rank's q
+heads (the rules split "heads" over the model axis): its kv heads are
+split with them where they divide, else held whole and each rank takes
+the kv heads of its own q-head groups (granite's one kv head).  The flash
+op sees (B, S, H_loc, Kv_loc, D), the KV cache holds the local kv heads,
+and ``w_o``'s partial products are summed over the model axis in float32
+(``collectives.psum_product``).  MLA and cross-attention refuse a mesh
+(``models/blocks.py``).
 """
 from __future__ import annotations
 
@@ -33,9 +42,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives
 from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.models.rotary import apply_rope
-from repro_torch.nn.module import Param, ParamTree
+from repro_torch.nn.module import Param, ParamTree, axes, held
 
 Tensor = torch.Tensor
 
@@ -46,10 +56,14 @@ NEG_INF = -1e30
 def gqa_specs(cfg: ModelConfig) -> Dict[str, Param]:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     return {
-        "w_q": Param((d, h, hd), init="fan_in"),
-        "w_k": Param((d, kv, hd), init="fan_in"),
-        "w_v": Param((d, kv, hd), init="fan_in"),
-        "w_o": Param((h, hd, d), init="fan_in"),
+        "w_q": Param((d, h, hd), init="fan_in",
+                     logical=("embed", "heads", "head_dim")),
+        "w_k": Param((d, kv, hd), init="fan_in",
+                     logical=("embed", "kv_heads", "head_dim")),
+        "w_v": Param((d, kv, hd), init="fan_in",
+                     logical=("embed", "kv_heads", "head_dim")),
+        "w_o": Param((h, hd, d), init="fan_in",
+                     logical=("heads", "head_dim", "embed")),
     }
 
 
@@ -58,14 +72,19 @@ def mla_specs(cfg: ModelConfig) -> Dict[str, Param]:
     rq, rkv = cfg.q_lora_rank, cfg.kv_lora_rank
     qk_n, qk_r, vh = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     return {
-        "w_dq": Param((d, rq), init="fan_in"),
-        "q_norm": Param((rq,), init="ones"),
-        "w_uq": Param((rq, h, qk_n + qk_r), init="fan_in"),
-        "w_dkv": Param((d, rkv + qk_r), init="fan_in"),
-        "kv_norm": Param((rkv,), init="ones"),
-        "w_uk": Param((rkv, h, qk_n), init="fan_in"),
-        "w_uv": Param((rkv, h, vh), init="fan_in"),
-        "w_o": Param((h, vh, d), init="fan_in"),
+        "w_dq": Param((d, rq), init="fan_in", logical=("embed", "q_lora")),
+        "q_norm": Param((rq,), init="ones", logical=("q_lora",)),
+        "w_uq": Param((rq, h, qk_n + qk_r), init="fan_in",
+                      logical=("q_lora", "heads", None)),
+        "w_dkv": Param((d, rkv + qk_r), init="fan_in",
+                       logical=("embed", "kv_lora")),
+        "kv_norm": Param((rkv,), init="ones", logical=("kv_lora",)),
+        "w_uk": Param((rkv, h, qk_n), init="fan_in",
+                      logical=("kv_lora", "heads", None)),
+        "w_uv": Param((rkv, h, vh), init="fan_in",
+                      logical=("kv_lora", "heads", None)),
+        "w_o": Param((h, vh, d), init="fan_in",
+                     logical=("heads", "head_dim", "embed")),
     }
 
 
@@ -74,7 +93,7 @@ def cross_specs(cfg: ModelConfig) -> Dict[str, Param]:
     kept where it is unused, as in whisper, so that JAX's tree loads
     whole)."""
     specs = gqa_specs(cfg)
-    specs["gate"] = Param((1,), init="zeros")
+    specs["gate"] = Param((1,), init="zeros", logical=(None,))
     return specs
 
 
@@ -92,8 +111,10 @@ class KVCache(NamedTuple):
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, cache_len: int,
-                  device: torch.device, dtype=None) -> KVCache:
-    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+                  device: torch.device, dtype=None,
+                  n_kv: Optional[int] = None) -> KVCache:
+    """An empty cache of ``n_kv`` kv heads (default: all of them)."""
+    kv, hd = n_kv or cfg.n_kv_heads, cfg.resolved_head_dim
     dtype = dtype or cfg.cdtype
     return KVCache(
         k=torch.zeros((batch, cache_len, kv, hd), dtype=dtype, device=device),
@@ -162,10 +183,45 @@ def _build_kv_cache(k: Tensor, v: Tensor, positions: Tensor, cache_len: int,
     return KVCache(k=kc, v=vc, pos=pc)
 
 
+def local_kv_heads(p: ParamTree, cfg: ModelConfig) -> Tuple[int, int]:
+    """The ``[start, stop)`` of the kv heads this rank attends with: the
+    ones it holds where the rules split them with the q heads; where kv
+    heads are whole (they do not divide) but q heads are split, the kv
+    heads of this rank's q-head groups."""
+    if axes(p, "w_q", 1) is None or axes(p, "w_k", 1) is not None:
+        return held(p, "w_k", 1)
+    lo, hi = held(p, "w_q", 1)
+    g = cfg.n_heads // cfg.n_kv_heads
+    klo, khi = lo // g, -(-hi // g)
+    if khi - klo > 1 and (lo % g or (hi - lo) % g):
+        raise ValueError(
+            f"{cfg.name}: q heads [{lo}, {hi}) straddle the groups of its "
+            f"{cfg.n_kv_heads} kv heads; the model axis must split the "
+            f"{cfg.n_heads} q heads into whole groups of {g} or into parts "
+            "of one group")
+    return klo, khi
+
+
+def _kv_weights(p: ParamTree, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
+    """``w_k``, ``w_v`` over this rank's kv heads (``local_kv_heads``)."""
+    if axes(p, "w_q", 1) is None or axes(p, "w_k", 1) is not None:
+        return p.w_k, p.w_v
+    klo, khi = local_kv_heads(p, cfg)
+    return p.w_k[:, klo:khi], p.w_v[:, klo:khi]
+
+
+def _out_proj(p: ParamTree, o: Tensor) -> Tensor:
+    """o (B,S,H_loc,Dh) through ``w_o``, summed over the heads' axes."""
+    return collectives.psum_product(
+        lambda a, b: torch.einsum("bshk,hkd->bsd", a, b), o, p.w_o, p.ctx,
+        axes(p, "w_o", 0))
+
+
 def _qkv(p: ParamTree, cfg: ModelConfig, x: Tensor, positions: Tensor):
+    w_k, w_v = _kv_weights(p, cfg)
     q = torch.einsum("bsd,dhk->bshk", x, p.w_q)
-    k = torch.einsum("bsd,dhk->bshk", x, p.w_k)
-    v = torch.einsum("bsd,dhk->bshk", x, p.w_v)
+    k = torch.einsum("bsd,dhk->bshk", x, w_k)
+    v = torch.einsum("bsd,dhk->bshk", x, w_v)
     q = apply_rope(q, positions[None], cfg.rope_theta)
     k = apply_rope(k, positions[None], cfg.rope_theta)
     return q, k, v
@@ -185,7 +241,7 @@ def gqa_forward(p: ParamTree, cfg: ModelConfig, x: Tensor,
     else:
         out = flash_attention(q, k, v, causal=causal, window=window,
                               impl=impl)
-    return torch.einsum("bshk,hkd->bsd", out, p.w_o)
+    return _out_proj(p, out)
 
 
 def gqa_prefill(p: ParamTree, cfg: ModelConfig, x: Tensor,
@@ -195,8 +251,8 @@ def gqa_prefill(p: ParamTree, cfg: ModelConfig, x: Tensor,
     the KV cache it leaves.  x (B,S,D); positions (S,) = arange(S)."""
     q, k, v = _qkv(p, cfg, x, positions)
     out = flash_attention(q, k, v, causal=True, window=window, impl=impl)
-    out = torch.einsum("bshk,hkd->bsd", out, p.w_o)
-    return out, _build_kv_cache(k, v, positions, cache_len, cfg.cdtype)
+    return _out_proj(p, out), _build_kv_cache(k, v, positions, cache_len,
+                                              cfg.cdtype)
 
 
 def gqa_decode(p: ParamTree, cfg: ModelConfig, x: Tensor, cache: KVCache,
@@ -204,10 +260,10 @@ def gqa_decode(p: ParamTree, cfg: ModelConfig, x: Tensor, cache: KVCache,
     """One-token decode.  x (B,1,D); cur_pos a Python int.  Writes the new
     K/V into ``cache`` in place and returns it."""
     b = x.shape[0]
-    kv, hd, h = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_heads
-    g = h // kv
     pos1 = torch.tensor([cur_pos], dtype=torch.int32, device=x.device)
     q, k_new, v_new = _qkv(p, cfg, x, pos1)
+    h, kv, hd = q.shape[2], k_new.shape[2], cfg.resolved_head_dim
+    g = h // kv
 
     slot = cur_pos % cache.k.shape[1]
     cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
@@ -223,8 +279,7 @@ def gqa_decode(p: ParamTree, cfg: ModelConfig, x: Tensor, cache: KVCache,
                          torch.tensor(NEG_INF, device=x.device))
     probs = torch.softmax(scores, dim=-1)
     o = torch.einsum("bkgt,btkd->bkgd", probs.to(cache.v.dtype), cache.v)
-    o = o.reshape(b, 1, h, hd)
-    return torch.einsum("bshk,hkd->bsd", o, p.w_o), cache
+    return _out_proj(p, o.reshape(b, 1, h, hd)), cache
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,15 @@ scans over them; the port keeps one ``Block`` per layer in layer order
 unstacking).  ``apply_stack_train`` runs them, each period under
 ``torch.utils.checkpoint`` when ``remat`` is on (JAX's ``jax.checkpoint``
 of the period body).
+
+On a mesh (``ctx``, a ``MeshCtx``) each layer holds its parameters' local
+slices; ``prefill`` and ``decode`` read them through ``ParamTree.view()``,
+which gathers the dims sharded over the data axes for storage (ZeRO:
+"embed" under the ``decode`` rules) just before the layer runs and drops
+them after.  ``batch_split`` tells the MoE whether x is the rank's data
+shard of the batch.  GQA, mamba-2, the MLP and the MoE run sharded; MLA,
+cross-attention and whisper's encoder refuse a mesh of more than one rank
+(ROADMAP.md section 1, item 6).
 """
 from __future__ import annotations
 
@@ -37,6 +46,24 @@ from repro_torch.models import layers, moe as moe_lib, ssm
 from repro_torch.nn.module import ParamTree
 
 Tensor = torch.Tensor
+
+
+MESH_ITEM = ("MLA, cross-attention and whisper's encoder on the mesh: "
+             "ROADMAP.md section 1, item 6")
+
+
+def refuse_mesh(cfg: ModelConfig, kind: str, ctx) -> None:
+    """Raise where a layer kind has no sharded port yet and ``ctx`` is a
+    mesh of more than one rank."""
+    if ctx is None or not ctx.sharded:
+        return
+    what = ("MLA" if cfg.use_mla and kind in ("attn", "attn_local")
+            else "cross-attention" if kind in ("cross_attn", "attn_cross")
+            else None)
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name}: {what} does not run on a mesh of "
+            f"{ctx.n_data} x {ctx.n_model} ranks yet ({MESH_ITEM})")
 
 
 def _attn_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -84,29 +111,35 @@ class Block(ParamTree):
     serving modes."""
 
     def __init__(self, cfg: ModelConfig, kind: str, is_moe: bool, *,
-                 dtype: torch.dtype, device: torch.device):
+                 dtype: torch.dtype, device: torch.device, ctx=None):
+        refuse_mesh(cfg, kind, ctx)
         super().__init__(block_specs(cfg, kind, is_moe), dtype=dtype,
-                         device=device)
+                         device=device, ctx=ctx)
         self.cfg, self.kind, self.is_moe = cfg, kind, is_moe
 
-    def _ffn(self, x: Tensor, with_aux: bool = False):
+    def _ffn(self, x: Tensor, with_aux: bool = False, p=None,
+             batch_split: bool = False):
         """x after the FFN / MoE (and the MoE load-balance aux loss when
-        ``with_aux``: 0 for a dense or absent FFN)."""
+        ``with_aux``: 0 for a dense or absent FFN); ``p`` the layer's
+        parameters as read (default: the layer itself)."""
+        p = self if p is None else p
         aux = x.new_zeros((), dtype=torch.float32) if with_aux else None
         if hasattr(self, "ffn"):
-            h = layers.rmsnorm(self.ln_ffn, x, self.cfg.norm_eps)
+            h = layers.rmsnorm(p.ln_ffn, x, self.cfg.norm_eps)
             if self.is_moe and with_aux:
-                out, aux = moe_lib.moe_forward(self.ffn, self.cfg, h,
+                out, aux = moe_lib.moe_forward(p.ffn, self.cfg, h,
                                                with_aux=True)
             elif self.is_moe:
-                out = moe_lib.moe_forward(self.ffn, self.cfg, h)
+                out = moe_lib.moe_forward(p.ffn, self.cfg, h,
+                                          batch_split=batch_split)
             else:
-                out = layers.mlp(self.ffn, self.cfg, h)
+                out = layers.mlp(p.ffn, self.cfg, h)
             x = x + out
         return (x, aux) if with_aux else x
 
-    def _norm(self, name: str, x: Tensor) -> Tensor:
-        return layers.rmsnorm(getattr(self, name), x, self.cfg.norm_eps)
+    def _norm(self, name: str, x: Tensor, p=None) -> Tensor:
+        return layers.rmsnorm(getattr(self if p is None else p, name), x,
+                              self.cfg.norm_eps)
 
     def forward_train(self, x: Tensor, positions: Tensor,
                       frontend: Optional[Tensor] = None, causal: bool = True,
@@ -139,62 +172,68 @@ class Block(ParamTree):
         return self._ffn(x, with_aux=True)
 
     def prefill(self, x: Tensor, positions: Tensor, cache_len: int,
-                frontend: Optional[Tensor] = None, impl: str = "auto"):
+                frontend: Optional[Tensor] = None, impl: str = "auto",
+                batch_split: bool = False):
         """(x, cache) after the full sequence x (B,S,D); ``frontend``
         (B,Tf,D) feeds the cross-attention kinds."""
         cfg, kind = self.cfg, self.kind
+        p = self.view()
         if kind == "mamba":
-            out, cache = ssm.mamba_forward(self.mixer, cfg,
-                                           self._norm("ln_mix", x), impl=impl)
-            return self._ffn(x + out), cache
-        h = self._norm("ln_attn", x)
+            out, cache = ssm.mamba_forward(p.mixer, cfg,
+                                           self._norm("ln_mix", x, p), impl=impl)
+            return self._ffn(x + out, p=p, batch_split=batch_split), cache
+        h = self._norm("ln_attn", x, p)
         if kind == "cross_attn":
-            cache = attn.cross_kv(self.xattn, cfg, frontend)
-            out = attn.cross_forward(self.xattn, cfg, h, cache, impl=impl)
+            cache = attn.cross_kv(p.xattn, cfg, frontend)
+            out = attn.cross_forward(p.xattn, cfg, h, cache, impl=impl)
         elif cfg.use_mla and kind != "attn_cross":
-            out, cache = attn.mla_prefill(self.attn, cfg, h, positions,
+            out, cache = attn.mla_prefill(p.attn, cfg, h, positions,
                                           cache_len=cache_len)
         else:
             out, cache = attn.gqa_prefill(
-                self.attn, cfg, h, positions, window=_window(cfg, kind),
+                p.attn, cfg, h, positions, window=_window(cfg, kind),
                 cache_len=_cache_len(cfg, kind, cache_len), impl=impl)
         x = x + out
         if kind == "attn_cross":
-            kv = attn.cross_kv(self.xattn, cfg, frontend)
-            x = x + attn.cross_forward(self.xattn, cfg, self._norm("ln_x", x),
+            kv = attn.cross_kv(p.xattn, cfg, frontend)
+            x = x + attn.cross_forward(p.xattn, cfg, self._norm("ln_x", x, p),
                                        kv, gated=False, impl=impl)
             cache = {"self": cache, "cross": kv}
-        return self._ffn(x), cache
+        return self._ffn(x, p=p, batch_split=batch_split), cache
 
-    def decode(self, x: Tensor, cache, cur_pos: int):
+    def decode(self, x: Tensor, cache, cur_pos: int,
+               batch_split: bool = False):
         """(x, cache) after one token x (B,1,D) at position ``cur_pos``."""
         cfg, kind = self.cfg, self.kind
+        p = self.view()
         if kind == "mamba":
-            out, cache = ssm.mamba_decode(self.mixer, cfg,
-                                          self._norm("ln_mix", x), cache)
-            return self._ffn(x + out), cache
-        h = self._norm("ln_attn", x)
+            out, cache = ssm.mamba_decode(p.mixer, cfg,
+                                          self._norm("ln_mix", x, p), cache)
+            return self._ffn(x + out, p=p, batch_split=batch_split), cache
+        h = self._norm("ln_attn", x, p)
         if kind == "cross_attn":
-            out = attn.cross_forward(self.xattn, cfg, h, cache)
+            out = attn.cross_forward(p.xattn, cfg, h, cache)
         elif cfg.use_mla and kind != "attn_cross":
-            out, cache = attn.mla_decode(self.attn, cfg, h, cache, cur_pos)
+            out, cache = attn.mla_decode(p.attn, cfg, h, cache, cur_pos)
         elif kind == "attn_cross":
-            out, _ = attn.gqa_decode(self.attn, cfg, h, cache["self"],
+            out, _ = attn.gqa_decode(p.attn, cfg, h, cache["self"],
                                      cur_pos, window=attn.GLOBAL_WINDOW)
         else:
-            out, cache = attn.gqa_decode(self.attn, cfg, h, cache, cur_pos,
+            out, cache = attn.gqa_decode(p.attn, cfg, h, cache, cur_pos,
                                          window=_window(cfg, kind))
         x = x + out
         if kind == "attn_cross":
-            x = x + attn.cross_forward(self.xattn, cfg, self._norm("ln_x", x),
+            x = x + attn.cross_forward(p.xattn, cfg, self._norm("ln_x", x, p),
                                        cache["cross"], gated=False)
-        return self._ffn(x), cache
+        return self._ffn(x, p=p, batch_split=batch_split), cache
 
     def cache_init(self, batch: int, cache_len: int, frontend_len: int,
                    device: torch.device):
+        """An empty decode cache of this rank's heads (all off a mesh)."""
         cfg, kind = self.cfg, self.kind
         if kind == "mamba":
-            return ssm.init_mamba_cache(cfg, batch, device)
+            lo, hi = ssm.local_heads(self.mixer, cfg)
+            return ssm.init_mamba_cache(cfg, batch, device, n_heads=hi - lo)
         if kind == "cross_attn":
             return attn.init_cross_cache(cfg, batch, frontend_len, device)
         if kind == "attn_cross":
@@ -204,7 +243,8 @@ class Block(ParamTree):
         c_len = _cache_len(cfg, kind, cache_len)
         if cfg.use_mla:
             return attn.init_mla_cache(cfg, batch, c_len, device)
-        return attn.init_kv_cache(cfg, batch, c_len, device)
+        lo, hi = attn.local_kv_heads(self.attn, cfg)
+        return attn.init_kv_cache(cfg, batch, c_len, device, n_kv=hi - lo)
 
 
 def apply_stack_train(blocks: Sequence[Block], cfg: ModelConfig, x: Tensor,

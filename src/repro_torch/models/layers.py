@@ -1,5 +1,14 @@
 """Shared layers: norms, gated MLP, embeddings, logits head (port of
-``repro/models/layers.py``)."""
+``repro/models/layers.py``).
+
+On a mesh each function reads its parameters' local slices (``p`` a
+``ParamTree`` or its ``view()``, which carries the ``MeshCtx``): the MLP's
+``w_gate`` / ``w_up`` split by columns and ``w_down`` by rows, its partial
+products summed over the model axis in float32
+(``collectives.psum_product``); the embedding looks up the rows of its
+vocab slice (others give 0) and sums over the model axis; the logits head
+gives this rank's vocab slice.  A dim the rules do not split (a vocab that
+does not divide, as mamba2's 50,280 on 16) is whole and needs no sum."""
 from __future__ import annotations
 
 from typing import Dict
@@ -8,7 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.nn.module import Param, ParamTree
+from repro_torch.distributed import collectives
+from repro_torch.nn.module import Param, ParamTree, axes, held
 
 Tensor = torch.Tensor
 
@@ -16,7 +26,7 @@ Tensor = torch.Tensor
 # --- RMSNorm ---------------------------------------------------------------
 
 def rmsnorm_specs(d: int) -> Dict[str, Param]:
-    return {"scale": Param((d,), init="ones")}
+    return {"scale": Param((d,), init="ones", logical=("embed",))}
 
 
 def rmsnorm(p: ParamTree, x: Tensor, eps: float) -> Tensor:
@@ -33,13 +43,15 @@ def mlp_specs(cfg: ModelConfig, d_ff: int) -> Dict[str, Param]:
     d = cfg.d_model
     if cfg.mlp_act == "silu":
         return {
-            "w_gate": Param((d, d_ff), init="fan_in"),
-            "w_up": Param((d, d_ff), init="fan_in"),
-            "w_down": Param((d_ff, d), init="fan_in"),
+            "w_gate": Param((d, d_ff), init="fan_in",
+                            logical=("embed", "mlp")),
+            "w_up": Param((d, d_ff), init="fan_in", logical=("embed", "mlp")),
+            "w_down": Param((d_ff, d), init="fan_in",
+                            logical=("mlp", "embed")),
         }
     return {
-        "w_up": Param((d, d_ff), init="fan_in"),
-        "w_down": Param((d_ff, d), init="fan_in"),
+        "w_up": Param((d, d_ff), init="fan_in", logical=("embed", "mlp")),
+        "w_down": Param((d_ff, d), init="fan_in", logical=("mlp", "embed")),
     }
 
 
@@ -49,23 +61,36 @@ def mlp(p: ParamTree, cfg: ModelConfig, x: Tensor) -> Tensor:
     else:
         # jax.nn.gelu defaults to the tanh approximation; torch to erf.
         h = F.gelu(x @ p.w_up, approximate="tanh")
-    return h @ p.w_down
+    return collectives.psum_product(torch.matmul, h, p.w_down, p.ctx,
+                                    axes(p, "w_down", 0))
 
 
 # --- Embedding / logits ------------------------------------------------------
 
 def embed_specs(cfg: ModelConfig) -> Dict[str, Param]:
     return {"table": Param((cfg.vocab_size, cfg.d_model), init="embed",
-                           scale=0.02)}
+                           scale=0.02, logical=("vocab", "embed"))}
 
 
 def embed(p: ParamTree, cfg: ModelConfig, tokens: Tensor) -> Tensor:
-    return p.table[tokens].to(cfg.cdtype)
+    vocab_axes = axes(p, "table", 0)
+    if vocab_axes is None:
+        return p.table[tokens].to(cfg.cdtype)
+    # Vocab-parallel: the rows of this rank's slice, 0 elsewhere, summed
+    # over the slice's axes (one nonzero term: exact).
+    lo, hi = held(p, "table", 0)
+    ids = tokens - lo
+    mine = (ids >= 0) & (ids < hi - lo)
+    rows = p.table[torch.where(mine, ids, 0)]
+    rows = torch.where(mine[..., None], rows, rows.new_zeros(()))
+    return collectives.psum(rows, p.ctx, vocab_axes).to(cfg.cdtype)
 
 
 def head_specs(cfg: ModelConfig) -> Dict[str, Param]:
-    return {"w_out": Param((cfg.d_model, cfg.vocab_size), init="fan_in")}
+    return {"w_out": Param((cfg.d_model, cfg.vocab_size), init="fan_in",
+                           logical=("embed", "vocab"))}
 
 
 def logits_head(p: ParamTree, x: Tensor) -> Tensor:
+    """The logits of this rank's vocab slice (all of them off a mesh)."""
     return x @ p.w_out

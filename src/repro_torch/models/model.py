@@ -24,10 +24,20 @@ the given embeddings (B, Tf, D) as they are; whisper runs its frames
 through ``encode`` first (``encoder_layers`` non-causal ``attn`` blocks and
 a final norm; in serving their attention runs the flash op, in training
 ``mha_full``).  Both are cast to the compute dtype first.
+
+On a mesh (``ctx=MeshCtx.for_mesh(mesh, "decode")``) every rank holds its
+slices of the parameters (``nn/module.py``) and serves SPMD: each rank is
+given the whole batch of tokens, runs its data shard of it when the batch
+divides over the data axes (else all of it: JAX's rule), and
+``prefill`` / ``decode_step`` return the whole (B, V) logits on every
+rank, gathered over the vocab's model axis and then over data, so greedy
+tokens agree on every rank.  Training, MLA, cross-attention and the
+frontends refuse a mesh of more than one rank (ROADMAP.md section 1,
+item 6).
 """
 from __future__ import annotations
 
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -35,8 +45,29 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import collectives
 from repro_torch.models import blocks, layers
-from repro_torch.nn.module import ParamTree, init_params
+from repro_torch.nn.module import ParamTree, axes, init_params
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The model's spec tree keyed as its ``state_dict`` (layers
+    unstacked: ``layers.{l}``, ``encoder.layers.{i}``)."""
+    moe_flags = cfg.moe_pattern or (False,) * cfg.period
+    specs: Dict[str, Any] = {
+        "embed": layers.embed_specs(cfg),
+        "layers": {str(i): blocks.block_specs(
+            cfg, cfg.layer_pattern[i % cfg.period], moe_flags[i % cfg.period])
+            for i in range(cfg.n_layers)},
+        "ln_f": layers.rmsnorm_specs(cfg.d_model),
+        "head": layers.head_specs(cfg),
+    }
+    if cfg.encoder_layers:
+        specs["encoder"] = {
+            "layers": {str(i): blocks.block_specs(cfg, "attn", False)
+                       for i in range(cfg.encoder_layers)},
+            "ln_f": layers.rmsnorm_specs(cfg.d_model)}
+    return specs
 
 Tensor = torch.Tensor
 
@@ -44,13 +75,18 @@ Tensor = torch.Tensor
 class LanguageModel(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
                  param_dtype: Optional[torch.dtype] = None,
-                 impl: str = "auto"):
+                 impl: str = "auto", ctx=None):
         super().__init__()
         self.cfg = cfg
         self.impl = impl
+        self.ctx = ctx
         self.device = resolve_device(device)
+        if self.sharded and cfg.encoder_layers:
+            raise NotImplementedError(
+                f"{cfg.name}: whisper's encoder does not run on a mesh yet "
+                f"({blocks.MESH_ITEM})")
         dtype = param_dtype or cfg.pdtype
-        kw = dict(dtype=dtype, device=self.device)
+        kw = dict(dtype=dtype, device=self.device, ctx=ctx)
         self.embed = ParamTree(layers.embed_specs(cfg), **kw)
         moe_flags = cfg.moe_pattern or (False,) * cfg.period
         self.layers = nn.ModuleList(
@@ -68,9 +104,44 @@ class LanguageModel(nn.Module):
                                           **kw)
 
     def init(self, generator: torch.Generator) -> "LanguageModel":
-        """Random weights from ``generator`` (on the model's device)."""
+        """Random weights from ``generator`` (on the model's device); on a
+        mesh, this rank's slices of the unsharded model's draws."""
         init_params(self, generator)
         return self
+
+    # --- the mesh -----------------------------------------------------------
+
+    @property
+    def sharded(self) -> bool:
+        return self.ctx is not None and self.ctx.sharded
+
+    def batch_split(self, batch: int) -> bool:
+        """Whether a batch of ``batch`` rows runs split over the data axes
+        (it divides; JAX's rule), else whole on every rank."""
+        n = self.ctx.n_data if self.sharded else 1
+        return n > 1 and batch % n == 0
+
+    def _local(self, t: Tensor) -> Tensor:
+        """This rank's data shard of a whole batch ``t`` (dim 0)."""
+        if not self.batch_split(t.shape[0]):
+            return t
+        n = self.ctx.n_data
+        step = t.shape[0] // n
+        lo = self.ctx.index(self.ctx.data_axes) * step
+        return t[lo:lo + step]
+
+    def _whole_logits(self, h: Tensor, batch: int) -> Tensor:
+        """The (B, ..., V) logits of the local hidden states ``h``: the
+        local vocab slice gathered over its axes, the batch over data."""
+        head = self.head.view()
+        out = layers.logits_head(head, h)
+        vocab_axes = axes(head, "w_out", 1)
+        if vocab_axes is not None:
+            out = collectives.all_gather(out, self.ctx, vocab_axes, dim=-1)
+        if self.batch_split(batch):
+            out = collectives.all_gather(out, self.ctx, self.ctx.data_axes,
+                                         dim=0)
+        return out
 
     # --- encoder (whisper) and frontends ----------------------------------
 
@@ -103,6 +174,10 @@ class LanguageModel(nn.Module):
         aux loss], through the plain differentiable functions, each period
         under ``torch.utils.checkpoint`` when ``remat``."""
         cfg = self.cfg
+        if self.sharded:
+            raise NotImplementedError(
+                "LM training on the mesh is not ported yet (ROADMAP.md "
+                "section 1, item 6)")
         fe = self._frontend(frontend, None)
         x = layers.embed(self.embed, cfg, tokens)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
@@ -150,6 +225,10 @@ class LanguageModel(nn.Module):
     # --- serving ------------------------------------------------------------
 
     def init_cache(self, batch: int, cache_len: int) -> List[Any]:
+        """Empty decode caches for a batch of ``batch`` (this rank's data
+        shard of it and its heads, on a mesh)."""
+        if self.batch_split(batch):
+            batch //= self.ctx.n_data
         return [blk.cache_init(batch, cache_len, self.cfg.n_frontend_tokens,
                                self.device)
                 for blk in self.layers]
@@ -158,14 +237,17 @@ class LanguageModel(nn.Module):
                         frontend: Optional[Tensor]
                         ) -> Tuple[Tensor, List[Any]]:
         """tokens (B, S) [and the frontend] through every layer's prefill:
-        (x, decode cache)."""
+        (x, decode cache), x of this rank's data shard of the batch."""
+        split = self.batch_split(tokens.shape[0])
         fe = self._frontend(frontend, impl)
-        x = layers.embed(self.embed, self.cfg, tokens)
+        tokens = self._local(tokens)
+        x = layers.embed(self.embed.view(), self.cfg, tokens)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
         cache = []
         for blk in self.layers:
-            x, c = blk.prefill(x, positions, cache_len, fe, impl=impl)
+            x, c = blk.prefill(x, positions, cache_len, fe, impl=impl,
+                               batch_split=split)
             cache.append(c)
         return x, cache
 
@@ -177,8 +259,9 @@ class LanguageModel(nn.Module):
         (B, V), decode cache)."""
         x, cache = self._prefill_layers(tokens, cache_len, self.impl,
                                         frontend)
-        h_last = layers.rmsnorm(self.ln_f, x[:, -1:, :], self.cfg.norm_eps)
-        return layers.logits_head(self.head, h_last)[:, 0], cache
+        h_last = layers.rmsnorm(self.ln_f.view(), x[:, -1:, :],
+                                self.cfg.norm_eps)
+        return self._whole_logits(h_last, tokens.shape[0])[:, 0], cache
 
     @torch.no_grad()
     def last_hidden(self, tokens: Tensor, frontend: Optional[Tensor] = None,
@@ -189,7 +272,10 @@ class LanguageModel(nn.Module):
         cfg = self.cfg
         x, _ = self._prefill_layers(tokens, tokens.shape[1],
                                     impl or self.impl, frontend)
-        return layers.rmsnorm(self.ln_f, x[:, -1, :], cfg.norm_eps)
+        h = layers.rmsnorm(self.ln_f.view(), x[:, -1, :], cfg.norm_eps)
+        if self.batch_split(tokens.shape[0]):
+            h = collectives.all_gather(h, self.ctx, self.ctx.data_axes)
+        return h
 
     @torch.no_grad()
     def decode_step(self, token: Tensor, cache: List[Any], cur_pos: int
@@ -197,10 +283,11 @@ class LanguageModel(nn.Module):
         """token (B,) at position ``cur_pos`` -> ((B, V) logits, cache).
         KV caches are updated in place."""
         cfg = self.cfg
-        x = layers.embed(self.embed, cfg, token[:, None])
+        split = self.batch_split(token.shape[0])
+        x = layers.embed(self.embed.view(), cfg, self._local(token)[:, None])
         new = []
         for blk, c in zip(self.layers, cache):
-            x, c = blk.decode(x, c, cur_pos)
+            x, c = blk.decode(x, c, cur_pos, batch_split=split)
             new.append(c)
-        h = layers.rmsnorm(self.ln_f, x, cfg.norm_eps)
-        return layers.logits_head(self.head, h)[:, 0], new
+        h = layers.rmsnorm(self.ln_f.view(), x, cfg.norm_eps)
+        return self._whole_logits(h, token.shape[0])[:, 0], new

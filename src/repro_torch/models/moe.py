@@ -1,5 +1,5 @@
-"""Mixture-of-experts FFN on one device (port of the unsharded branch of
-``repro/models/moe.py``, ``ctx.mesh is None``).
+"""Mixture-of-experts FFN (port of ``repro/models/moe.py``: the unsharded
+branch, ``ctx.mesh is None``, and the expert-parallel one).
 
 Dispatch is sort-free: a cumsum over a (slots, E) one-hot builds the
 (E, capacity) token table, and tokens past an expert's capacity are dropped
@@ -9,8 +9,20 @@ its router weight.  Autograd flows through the dispatch (the gather, the
 router weights in the prob table, the scatter-add) with drops: a dropped
 choice lands in the trash slot and gets no gradient.  ``moe_forward(...,
 with_aux=True)`` also returns the Switch-style load-balance loss
-(``load_balance_loss``) for training.  The expert-parallel collectives of
-the JAX module come with the mesh (ROADMAP.md section 1, item 6).
+(``load_balance_loss``) for training.
+
+On a mesh (``_moe_mesh``, JAX's ``shard_map`` body) the experts are split
+over the model axis (E_loc = E / |model|, this rank's from ``e_start = m *
+E_loc``) and each expert's FFN dim over the data axes (``expert_mlp``).
+The tokens are the rank's data shard (``moe_tokens``; when the batch did
+not divide, the whole batch is on every rank and each takes its 1/n of
+the tokens, the outputs gathered back), with the capacity computed from
+the shard's token count, as JAX's.  Per layer: the expert batches are
+gathered over the data axes, the F-partial outputs (float32, as
+``collectives.psum_product``'s) summed back by a psum-scatter, and the
+token outputs summed over the model axis in the activations' dtype (as
+JAX's; a token's top-2 outputs round once either way).  The router is
+gathered whole.  The mesh path serves; it returns no aux loss.
 """
 from __future__ import annotations
 
@@ -21,8 +33,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives
 from repro_torch.models import layers
-from repro_torch.nn.module import Param, ParamTree
+from repro_torch.nn.module import Param, ParamTree, axes, held
 
 Tensor = torch.Tensor
 
@@ -30,10 +43,15 @@ Tensor = torch.Tensor
 def moe_specs(cfg: ModelConfig) -> Dict[str, Param]:
     e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
     specs = {
-        "router": Param((d, e), init="fan_in"),
-        "w_gate": Param((e, d, f), init="fan_in"),
-        "w_up": Param((e, d, f), init="fan_in"),
-        "w_down": Param((e, f, d), init="fan_in"),
+        "router": Param((d, e), init="fan_in", logical=("embed", "experts")),
+        # The expert D dims are unnamed (whole); the FFN dim carries
+        # "expert_mlp" -> the data axes.
+        "w_gate": Param((e, d, f), init="fan_in",
+                        logical=("experts", None, "expert_mlp")),
+        "w_up": Param((e, d, f), init="fan_in",
+                      logical=("experts", None, "expert_mlp")),
+        "w_down": Param((e, f, d), init="fan_in",
+                        logical=("experts", "expert_mlp", None)),
     }
     if cfg.n_shared_experts:
         specs["shared"] = layers.mlp_specs(
@@ -103,23 +121,92 @@ def load_balance_loss(probs: Tensor, top_ids: Tensor, n_experts: int
     return n_experts * torch.sum(f * p)
 
 
+def _moe_mesh(p: ParamTree, cfg: ModelConfig, xt: Tensor, top_ids: Tensor,
+              top_probs: Tensor, batch_split: bool) -> Tensor:
+    """The expert-parallel branch: xt (T, D) the rank's tokens (its data
+    shard when ``batch_split``, else the whole batch) -> (T, D)."""
+    ctx = p.ctx
+    dp, model = tuple(ctx.data_axes), ctx.model_axis
+    if ctx.n_model > 1 and axes(p, "w_gate", 0) is None:
+        raise ValueError(f"{cfg.name}: {cfg.n_experts} experts do not split "
+                         f"over a model axis of {ctx.n_model}")
+    if ctx.n_data > 1 and axes(p, "w_gate", 2) is None:
+        raise ValueError(f"{cfg.name}: the expert FFN dim {cfg.moe_d_ff} "
+                         f"does not split over {ctx.n_data} data ranks")
+    tokens_sharded = ctx.axis_rule("moe_tokens") is not None
+    gather = tokens_sharded and ctx.n_data > 1
+    t_all, d = xt.shape
+    cut = gather and not batch_split
+    if cut:
+        # Tokens replicated over the data axes: this rank's 1/n of them.
+        if t_all % ctx.n_data:
+            raise ValueError(f"{t_all} tokens do not split over "
+                             f"{ctx.n_data} data ranks")
+        t_loc = t_all // ctx.n_data
+        lo = ctx.index(dp) * t_loc
+        xt, top_ids, top_probs = (t[lo:lo + t_loc]
+                                  for t in (xt, top_ids, top_probs))
+    t_loc = xt.shape[0]
+    cap = max(1, math.ceil(t_loc * cfg.top_k * cfg.capacity_factor
+                           / cfg.n_experts))
+    e_start, e_stop = held(p, "w_gate", 0)
+    e_loc = e_stop - e_start
+    table, ptable = _dispatch_tables(top_ids, top_probs, e_start, e_loc, cap,
+                                     t_loc)
+    x_pad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
+    xg = x_pad[table]                                        # (E_loc, C, D)
+    if gather:
+        # Each expert batch meets every F shard: gathered over data.
+        xg = collectives.all_gather(xg, ctx, dp, dim=1)
+    h = F.silu(torch.bmm(xg, p.w_gate)) * torch.bmm(xg, p.w_up)
+    if ctx.n_data > 1:
+        # F-partials in float32, summed, rounded once.
+        yf = torch.bmm(h.to(torch.float32), p.w_down.to(torch.float32))
+        yf = (collectives.psum_scatter(yf, ctx, dp, dim=1) if tokens_sharded
+              else collectives.psum(yf, ctx, dp))
+        yg = yf.to(h.dtype)
+    else:
+        yg = torch.bmm(h, p.w_down)
+    y = xt.new_zeros((t_loc + 1, d), dtype=yg.dtype)
+    y.index_add_(0, table.reshape(-1),
+                 (yg * ptable[..., None].to(yg.dtype)).reshape(-1, d))
+    y = collectives.psum(y[:t_loc], ctx, model)
+    if cut:
+        y = collectives.all_gather(y, ctx, dp, dim=0)
+    return y
+
+
+def whole_router(p: ParamTree) -> Tensor:
+    """The (D, E) router, gathered over the axes that split its experts
+    (every rank routes every token to all E experts)."""
+    over = axes(p, "router", 1)
+    if over is None:
+        return p.router
+    return collectives.all_gather(p.router, p.ctx, over, dim=1)
+
+
 def moe_forward(p: ParamTree, cfg: ModelConfig, x: Tensor,
-                with_aux: bool = False):
+                with_aux: bool = False, batch_split: bool = False):
     """x (B, S, D) -> (B, S, D) [, aux load-balance loss].  Router in f32;
-    top-k renormalized."""
+    top-k renormalized.  On a mesh (``p.ctx``) the expert-parallel branch;
+    ``batch_split`` says x is the rank's data shard of the batch."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
-    logits = xt.to(torch.float32) @ p.router.to(torch.float32)
+    logits = xt.to(torch.float32) @ whole_router(p).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     top_probs, top_ids = torch.topk(probs, cfg.top_k, dim=-1)
     top_probs = top_probs / torch.sum(top_probs, dim=-1, keepdim=True)
     top_probs = top_probs.to(x.dtype)
     aux = (load_balance_loss(probs, top_ids, cfg.n_experts)
            if with_aux else None)
-    cap = max(1, math.ceil(b * s * cfg.top_k * cfg.capacity_factor
-                           / cfg.n_experts))
-    y = _moe_inner(xt, top_ids, top_probs, p.w_gate, p.w_up, p.w_down,
-                   cfg.n_experts, cap).reshape(b, s, d)
+    if p.ctx is not None and p.ctx.sharded:
+        y = _moe_mesh(p, cfg, xt, top_ids, top_probs,
+                      batch_split).reshape(b, s, d)
+    else:
+        cap = max(1, math.ceil(b * s * cfg.top_k * cfg.capacity_factor
+                               / cfg.n_experts))
+        y = _moe_inner(xt, top_ids, top_probs, p.w_gate, p.w_up, p.w_down,
+                       cfg.n_experts, cap).reshape(b, s, d)
     if cfg.n_shared_experts:
         y = y + layers.mlp(p.shared, cfg, x)
     return (y, aux) if with_aux else y

@@ -10,17 +10,29 @@ Layout: x (B, S, D); inner width di = expand * D; heads nh = di / hd;
 state n = ssm_state; groups g (B/C shared across nh/g heads).  The conv
 frontend is a causal depthwise conv of width w over the (x, B, C)
 channels.
+
+On a mesh (``ParamTree`` under a ``MeshCtx``) the block runs on this
+rank's SSM heads (the rules split "mlp" and "ssm_heads" over the model
+axis): ``w_z``, ``w_x``, ``w_dt``, ``a_log``, ``dt_bias``, ``d_skip`` and
+``norm`` hold the local heads, ``w_bc`` is whole, and ``conv_w`` /
+``conv_b`` hold the x channels of the local heads followed by the whole
+B / C channels (``Param.tail``).  The gated norm's mean of squares runs
+over the whole inner width (the local sums summed over the model axis),
+``w_out``'s partial products are summed over it in float32
+(``collectives.psum_product``), and the decode state is (B, nh_loc, hd,
+n).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives
 from repro_torch.kernels.ssd import ssd_chunked
-from repro_torch.nn.module import Param, ParamTree
+from repro_torch.nn.module import Param, ParamTree, axes, held, split
 
 Tensor = torch.Tensor
 
@@ -39,19 +51,41 @@ def mamba_specs(cfg: ModelConfig) -> Dict[str, Param]:
     d = cfg.d_model
     di, nh, n, g, conv_ch = _dims(cfg)
     return {
-        "w_z": Param((d, di), init="fan_in"),
-        "w_x": Param((d, di), init="fan_in"),
-        "w_bc": Param((d, 2 * g * n), init="fan_in"),
-        "w_dt": Param((d, nh), init="fan_in"),
+        "w_z": Param((d, di), init="fan_in", logical=("embed", "mlp")),
+        "w_x": Param((d, di), init="fan_in", logical=("embed", "mlp")),
+        "w_bc": Param((d, 2 * g * n), init="fan_in", logical=("embed", None)),
+        "w_dt": Param((d, nh), init="fan_in", logical=("embed", "ssm_heads")),
         "conv_w": Param((cfg.ssm_conv_width, conv_ch), init="fan_in",
-                        scale=1.0),
-        "conv_b": Param((conv_ch,), init="zeros"),
-        "a_log": Param((nh,), init="zeros"),
-        "dt_bias": Param((nh,), init="zeros"),
-        "d_skip": Param((nh,), init="ones"),
-        "norm": Param((di,), init="ones"),
-        "w_out": Param((di, d), init="fan_in"),
+                        scale=1.0, logical=("conv", "mlp"), tail=2 * g * n),
+        "conv_b": Param((conv_ch,), init="zeros", logical=("mlp",),
+                        tail=2 * g * n),
+        "a_log": Param((nh,), init="zeros", logical=("ssm_heads",)),
+        "dt_bias": Param((nh,), init="zeros", logical=("ssm_heads",)),
+        "d_skip": Param((nh,), init="ones", logical=("ssm_heads",)),
+        "norm": Param((di,), init="ones", logical=("mlp",)),
+        "w_out": Param((di, d), init="fan_in", logical=("mlp", "embed")),
     }
+
+
+def local_heads(p: ParamTree, cfg: ModelConfig) -> Tuple[int, int]:
+    """The ``[start, stop)`` of the SSM heads this rank runs; raises when
+    the rules split the inner width and the heads unalike."""
+    if split(p, "w_x", 1) != split(p, "w_dt", 1):
+        raise ValueError(
+            f"{cfg.name}: the model axis splits the inner width "
+            f"{cfg.d_inner} and the {cfg.ssm_heads} SSM heads unalike")
+    return held(p, "w_dt", 1)
+
+
+def _local_groups(p: ParamTree, cfg: ModelConfig) -> Tuple[int, int]:
+    """The ``[start, stop)`` of the B / C groups of this rank's heads."""
+    lo, hi = local_heads(p, cfg)
+    hpg = cfg.ssm_heads // cfg.ssm_ngroups
+    glo, ghi = lo // hpg, -(-hi // hpg)
+    if ghi - glo > 1 and (lo % hpg or (hi - lo) % hpg):
+        raise ValueError(f"{cfg.name}: SSM heads [{lo}, {hi}) straddle "
+                         f"groups of {hpg}")
+    return glo, ghi
 
 
 class MambaCache(NamedTuple):
@@ -60,8 +94,13 @@ class MambaCache(NamedTuple):
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, device: torch.device,
-                     dtype=None) -> MambaCache:
+                     dtype=None, n_heads: Optional[int] = None
+                     ) -> MambaCache:
+    """An empty cache for ``n_heads`` SSM heads (default: all of them)."""
     di, nh, n, g, conv_ch = _dims(cfg)
+    if n_heads is not None:
+        nh = n_heads
+        conv_ch = nh * cfg.ssm_head_dim + 2 * g * n
     dtype = dtype or cfg.cdtype
     return MambaCache(
         conv=torch.zeros((batch, cfg.ssm_conv_width - 1, conv_ch),
@@ -143,10 +182,18 @@ def ssd(x: Tensor, dt: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor,
     return y, state.transpose(2, 3)                            # (B,nh,hd,n)
 
 
-def _gated_norm(y: Tensor, z: Tensor, scale: Tensor, eps: float) -> Tensor:
+def _gated_norm(y: Tensor, z: Tensor, scale: Tensor, eps: float,
+                ctx=None, over=None) -> Tensor:
+    """The gated RMSNorm over the inner width; with ``over`` (the model
+    axes splitting it) the local sums of squares are summed over them
+    first."""
     h = y * F.silu(z)
     hf = h.to(torch.float32)
-    var = torch.mean(hf * hf, dim=-1, keepdim=True)
+    if over is None:
+        var = torch.mean(hf * hf, dim=-1, keepdim=True)
+    else:
+        var = collectives.psum(torch.sum(hf * hf, dim=-1, keepdim=True),
+                               ctx, over) / (hf.shape[-1] * ctx.size(over))
     return (hf * torch.rsqrt(var + eps) * scale.to(torch.float32)
             ).to(y.dtype)
 
@@ -160,8 +207,10 @@ def _mixer_in(p: ParamTree, cfg: ModelConfig, x: Tensor):
     """The in-projections and the causal conv of x (B,S,D): (z, x_raw,
     bc_raw, the scan's inputs (x_ssm, dt, a, bmat, cmat))."""
     b, s, d = x.shape
-    di, nh, n, g, conv_ch = _dims(cfg)
-    hd = cfg.ssm_head_dim
+    n, g, hd = cfg.ssm_state, cfg.ssm_ngroups, cfg.ssm_head_dim
+    lo, hi = local_heads(p, cfg)
+    glo, ghi = _local_groups(p, cfg)
+    di = (hi - lo) * hd                                  # local inner width
 
     z = x @ p.w_z                                        # (B,S,di)
     x_raw = x @ p.w_x                                    # (B,S,di)
@@ -169,9 +218,9 @@ def _mixer_in(p: ParamTree, cfg: ModelConfig, x: Tensor):
     dt_raw = x @ p.w_dt                                  # (B,S,nh)
     x_conv = _causal_conv(x_raw, p.conv_w[:, :di], p.conv_b[:di])
     bc_conv = _causal_conv(bc_raw, p.conv_w[:, di:], p.conv_b[di:])
-    x_ssm = x_conv.reshape(b, s, nh, hd)
-    bmat = bc_conv[..., :g * n].reshape(b, s, g, n)
-    cmat = bc_conv[..., g * n:].reshape(b, s, g, n)
+    x_ssm = x_conv.reshape(b, s, hi - lo, hd)
+    bmat = bc_conv[..., :g * n].reshape(b, s, g, n)[:, :, glo:ghi]
+    cmat = bc_conv[..., g * n:].reshape(b, s, g, n)[:, :, glo:ghi]
     dt, a = _dt_a(p, dt_raw)
     # dt goes into the scan in x's dtype, as JAX's mamba_forward casts it:
     # in bf16 that rounding is part of the function.
@@ -183,8 +232,10 @@ def _mixer_out(p: ParamTree, cfg: ModelConfig, y: Tensor, x_ssm: Tensor,
     """The skip, the gated norm and the out-projection of the scan's y."""
     b, s = y.shape[:2]
     y = y + p.d_skip.to(y.dtype)[None, None, :, None] * x_ssm
-    y = _gated_norm(y.reshape(b, s, cfg.d_inner), z, p.norm, cfg.norm_eps)
-    return y @ p.w_out
+    y = _gated_norm(y.reshape(b, s, z.shape[-1]), z, p.norm, cfg.norm_eps,
+                    p.ctx, axes(p, "norm", 0))
+    return collectives.psum_product(torch.matmul, y, p.w_out, p.ctx,
+                                    axes(p, "w_out", 0))
 
 
 def mamba_train(p: ParamTree, cfg: ModelConfig, x: Tensor) -> Tensor:
@@ -202,8 +253,8 @@ def mamba_forward(p: ParamTree, cfg: ModelConfig, x: Tensor,
     """Full-sequence mamba-2 block.  x (B,S,D) -> (y (B,S,D), cache), the
     scan through the SSD op on backend ``impl``."""
     b, s, d = x.shape
-    conv_ch = _dims(cfg)[4]
     z, x_raw, bc_raw, scan_in = _mixer_in(p, cfg, x)
+    conv_ch = x_raw.shape[-1] + bc_raw.shape[-1]
     y, final_state = ssd_chunked(*scan_in, chunk=cfg.ssm_chunk, impl=impl)
     out = _mixer_out(p, cfg, y.to(x.dtype), scan_in[0], z)
 
@@ -219,8 +270,10 @@ def mamba_decode(p: ParamTree, cfg: ModelConfig, x: Tensor,
                  cache: MambaCache) -> Tuple[Tensor, MambaCache]:
     """One-token recurrence.  x (B,1,D)."""
     b = x.shape[0]
-    di, nh, n, g, conv_ch = _dims(cfg)
-    hd = cfg.ssm_head_dim
+    n, g, hd = cfg.ssm_state, cfg.ssm_ngroups, cfg.ssm_head_dim
+    lo, hi = local_heads(p, cfg)
+    glo, ghi = _local_groups(p, cfg)
+    nh, di = hi - lo, (hi - lo) * hd                     # local heads, width
 
     x0 = x[:, 0]
     z = x0 @ p.w_z                                       # (B, di)
@@ -231,11 +284,12 @@ def mamba_decode(p: ParamTree, cfg: ModelConfig, x: Tensor,
     conv_out = torch.einsum("bwc,wc->bc", window, p.conv_w)
     xbc = F.silu(conv_out + p.conv_b[None])
     x_ssm = xbc[:, :di].reshape(b, nh, hd)
-    hpg = nh // g
-    bh = torch.repeat_interleave(xbc[:, di:di + g * n].reshape(b, g, n),
-                                 hpg, dim=1)             # (B,nh,n)
-    chh = torch.repeat_interleave(xbc[:, di + g * n:].reshape(b, g, n),
-                                  hpg, dim=1)
+    hpg = nh // (ghi - glo)
+    bh = torch.repeat_interleave(
+        xbc[:, di:di + g * n].reshape(b, g, n)[:, glo:ghi], hpg,
+        dim=1)                                           # (B,nh,n)
+    chh = torch.repeat_interleave(
+        xbc[:, di + g * n:].reshape(b, g, n)[:, glo:ghi], hpg, dim=1)
 
     dt, a = _dt_a(p, dt_raw)
     da = torch.exp(dt * a[None])                         # (B,nh)
@@ -245,8 +299,10 @@ def mamba_decode(p: ParamTree, cfg: ModelConfig, x: Tensor,
     y = torch.einsum("bhpn,bhn->bhp", state, chh.to(torch.float32))
     y = y.to(x.dtype)
     y = y + p.d_skip.to(y.dtype)[None, :, None] * x_ssm
-    y = _gated_norm(y.reshape(b, di), z, p.norm, cfg.norm_eps)
-    out = (y @ p.w_out)[:, None, :]
+    y = _gated_norm(y.reshape(b, di), z, p.norm, cfg.norm_eps, p.ctx,
+                    axes(p, "norm", 0))
+    out = collectives.psum_product(torch.matmul, y, p.w_out, p.ctx,
+                                   axes(p, "w_out", 0))[:, None, :]
 
     new_conv = torch.cat([cache.conv[:, 1:, :],
                           xbc_raw[:, None, :].to(cache.conv.dtype)], dim=1)

@@ -1,5 +1,5 @@
-"""Streaming DSEKL prediction engine, single device (port of
-``repro/serving/dsekl_engine.py``).
+"""Streaming DSEKL prediction engine, on one device or with its support set
+sharded over a mesh (port of ``repro/serving/dsekl_engine.py``).
 
 Serving is ``f(x) = K(x, X_sv) @ alpha_sv``:
 
@@ -33,8 +33,20 @@ wait on it and ``record_stream``s the captured tensors onto that stream,
 so neither a torn alpha nor a reused allocation can reach a sweep.  The
 pipelined flush's handoff synchronises the serving stream alone: work
 another thread queued on its own stream does not delay it.
-Support-set sharding across cards waits for the mesh slice: this engine
-has no ``mesh`` parameter.
+
+**Support-set sharding.**  With ``mesh`` (a ``launch.mesh.LocalMesh``) the
+padded geometry is JAX's (``per_shard`` rows a data shard, ``sv_block``
+shrunk to it, ``n_sv_padded`` a multiple of ``n_shards * sv_block``), and
+the rank at data coordinate d holds rows ``[d, d + 1) * n_sv_padded /
+n_shards`` of the support set and of alpha; ranks that differ only on the
+model axis hold the same shard, as JAX's replicas do.  Each serve call
+runs the matvec on the local shard, then one ``all_reduce`` of
+``query_block`` floats over the data axis; the kernel-map cache keeps the
+local K tile and its hits sum the local product the same way.  The
+engine is SPMD: every rank makes the same calls with the same queries.
+The reduction is queued on the sweep's own stream, after its wait on
+the publish's event (gloo stages a CUDA tensor through the host, after
+the stream's prior work).
 """
 from __future__ import annotations
 
@@ -46,6 +58,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+
+import torch.distributed as dist
 
 from repro_torch.core import dsekl
 from repro_torch.core.dsekl import DSEKLConfig
@@ -98,10 +112,13 @@ class DSEKLPredictionEngine:
 
     def __init__(self, cfg: DSEKLConfig, alpha, x_train, *,
                  engine_cfg: EngineConfig = EngineConfig(),
-                 device: DeviceLike = None, alpha_version: int = 0):
+                 device: DeviceLike = None, alpha_version: int = 0,
+                 mesh=None):
         self.cfg = cfg
         self.engine_cfg = engine_cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else \
+            resolve_device(device)
         ec = engine_cfg
         alpha = _f32_copy(alpha, self.device)
         x_train = _f32_copy(x_train, self.device)
@@ -114,11 +131,15 @@ class DSEKLPredictionEngine:
 
         # --- 2. pad to the fixed tile geometry ----------------------------
         # Shrink the SV tile for small support sets so padding stays bounded.
-        self.n_shards = 1
-        self.sv_block = min(ec.sv_block, _round_up(max(self.n_sv, 1), 128))
-        self.n_sv_padded = _round_up(max(self.n_sv, 1), self.sv_block)
-        self._x_sv = _pad_to(x_sv, self.n_sv_padded)
-        self._a_sv = _pad_to(a_sv, self.n_sv_padded)
+        shards = mesh.size("data") if mesh is not None else 1
+        self.n_shards = shards
+        per_shard = max(1, -(-max(self.n_sv, 1) // shards))
+        self.sv_block = min(ec.sv_block, _round_up(per_shard, 128))
+        self.n_sv_padded = _round_up(max(self.n_sv, 1),
+                                     shards * self.sv_block)
+        # --- 3. this rank's shard of the support set ----------------------
+        self._x_sv = self._shard(_pad_to(x_sv, self.n_sv_padded))
+        self._a_sv = self._shard(_pad_to(a_sv, self.n_sv_padded))
 
         self._queue: List[Tensor] = []
         # Results carried by auto-flush, tagged with their sweep's version.
@@ -146,15 +167,32 @@ class DSEKLPredictionEngine:
     # The serve function: (query_block, D) -> (query_block,).
     # ------------------------------------------------------------------
 
+    def _shard(self, t: Tensor) -> Tensor:
+        """This rank's rows of a padded (n_sv_padded, ...) array."""
+        if self.n_shards == 1:
+            return t
+        rows = self.n_sv_padded // self.n_shards
+        lo = self.mesh.index("data") * rows
+        return t[lo:lo + rows].contiguous()
+
+    def _reduce(self, f: Tensor) -> Tensor:
+        """The partial f over this rank's shard summed over the data axis
+        (one ``all_reduce`` of ``query_block`` floats)."""
+        if self.n_shards > 1:
+            dist.all_reduce(f, op=dist.ReduceOp.SUM,
+                            group=self.mesh.group("data"))
+        return f
+
     def _serve(self, xq: Tensor, a_sv: Tensor) -> Tensor:
-        return kops.kernel_matvec_tiled(
+        return self._reduce(kops.kernel_matvec_tiled(
             xq, self._x_sv, a_sv, kernel_name=self.cfg.kernel,
             kernel_params=self.cfg.kernel_params, z_block=self.sv_block,
-            impl=self.cfg.impl)
+            impl=self.cfg.impl))
 
     def _kmap(self, xq: Tensor) -> Tensor:
-        """K(tile, X_sv) materialized, (query_block, n_sv_padded): the
-        cache-miss path (the point of the cache is to keep K)."""
+        """K(tile, X_sv) materialized, (query_block, this rank's support
+        rows): the cache-miss path (the point of the cache is to keep
+        K)."""
         return kops.kernel_block(xq, self._x_sv, kernel_name=self.cfg.kernel,
                                  kernel_params=self.cfg.kernel_params)
 
@@ -220,7 +258,7 @@ class DSEKLPredictionEngine:
             self._cache.move_to_end(key)
             self._cache_hits += 1
             oc["hits"] += 1
-            return k_tile @ a_sv
+            return self._reduce(k_tile @ a_sv)
         self._cache_misses += 1
         oc["misses"] += 1
         quota = self._cache_quota.get(owner)
@@ -240,7 +278,7 @@ class DSEKLPredictionEngine:
             victim = self._owner_lru_key(owner, exclude=key)
             self._evict_tile(victim if victim is not None
                              else next(iter(self._cache)))
-        return k_tile @ a_sv
+        return self._reduce(k_tile @ a_sv)
 
     def cache_info(self) -> dict:
         """Hit/miss/eviction counters plus per-owner accounting under
@@ -314,7 +352,7 @@ class DSEKLPredictionEngine:
         if tuple(alpha.shape) != (self.n_train,):
             raise ValueError(
                 f"alpha must be ({self.n_train},); got {tuple(alpha.shape)}")
-        a_p = _pad_to(alpha, self.n_sv_padded)
+        a_p = self._shard(_pad_to(alpha, self.n_sv_padded))
         ready = self._record_ready()
         with self._alpha_lock:
             self._a_sv = a_p

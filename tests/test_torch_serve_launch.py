@@ -5,7 +5,12 @@ The LM path at the reduced configs: ``python -m repro_torch.launch.serve
 ``serve_lm``'s greedy tokens are the engine's ``generate`` (for
 llama-3.2-vision and whisper over the frontend it draws, for deepseek-v3
 through MLA); a ``--full`` model larger than the device exits with an
-error naming the mesh it needs, and one that fits is served.
+error naming the production mesh it needs, and one that fits is served.
+On the mesh: ``--dsekl --data-par 2`` and the LM's ``--model-par 2`` run
+under ``torch.distributed.run`` on two gloo ranks (rank 0 alone prints;
+the LM's greedy tokens are the single-device launcher's); ``--full`` in a
+world smaller than the production mesh raises, naming the world size it
+needs; ``--tenants`` and ``--online`` refuse a mesh.
 
 The DSEKL ``--online`` and ``--tenants`` modes at small sizes: the event
 stream and the tenant spec equal the JAX launcher's; each mode runs and
@@ -102,7 +107,7 @@ def test_full_deepseek_exits_naming_the_mesh(monkeypatch, capsys):
                     "cpu"])
     assert exc.value.code != 0
     err = capsys.readouterr().err
-    assert "sharded mesh path" in err and "item 6" in err
+    assert "production mesh (16, 16)" in err and "256 ranks" in err
 
 
 def test_full_model_larger_than_the_device_exits(monkeypatch, capsys):
@@ -111,7 +116,7 @@ def test_full_model_larger_than_the_device_exits(monkeypatch, capsys):
         serve.main(["--arch", "jamba-v0.1-52b", "--full", "--device", "cpu"])
     assert exc.value.code != 0
     err = capsys.readouterr().err
-    assert "102.9 GB" in err and "sharded mesh path" in err
+    assert "102.9 GB" in err and "production mesh" in err
 
 
 def test_serve_lm_needs_a_card_by_default(monkeypatch):
@@ -261,3 +266,67 @@ def test_online_and_tenants_need_a_card_by_default(monkeypatch, mode):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--dsekl", "--dim", "6", "--n-train", "256",
                     "--capacity", "64", "--n-prefill", "32"] + mode)
+
+
+# ---------------------------------------------------------------------------
+# Serving on the mesh: the launcher under torch.distributed.run.
+# ---------------------------------------------------------------------------
+
+def _torchrun(args, timeout=240):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("WORLD_SIZE", None)
+    return subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.serve",
+         "--device", "cpu", "--dist-backend", "gloo", *args],
+        env=env, capture_output=True, text=True, timeout=timeout)
+
+
+@pytest.mark.distributed
+def test_dsekl_serves_sharded_under_torchrun():
+    """``--dsekl --data-par 2``: the support set over two ranks; rank 0
+    alone prints."""
+    out = _torchrun(["--dsekl", "--data-par", "2", "--n-train", "2048",
+                     "--dim", "8", "--queries", "512", "--request", "64",
+                     "--query-block", "128"])
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("[serve-dsekl]")]
+    assert len(lines) == 2, lines
+    assert "mesh data 2 x model 1, gloo" in lines[0]
+    assert "2 shard(s) x 512 rows" in lines[0]
+    assert lines[1].startswith("[serve-dsekl] 512 queries in 8 requests")
+
+
+@pytest.mark.distributed
+def test_lm_serves_sharded_under_torchrun():
+    """The LM with ``--model-par 2``: rank 0 alone prints, and its greedy
+    tokens are the single-device launcher's on the same seed."""
+    out = _torchrun(["--arch", "jamba-v0.1-52b", "--model-par", "2",
+                     "--batch", "2", "--prompt-len", "16", "--new-tokens",
+                     "4", "--cache-len", "32"])
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.splitlines()
+    head = [ln for ln in lines if ln.startswith("[serve] arch=")]
+    assert len(head) == 1 and "mesh 1 x 2 (gloo)" in head[0]
+    seq0 = [ln for ln in lines if ln.startswith("[serve] seq0:")]
+    one = serve.serve_lm(get_config("jamba-v0.1-52b", reduced=True), 2, 16,
+                         4, 32, "cpu", 0)
+    assert seq0 == [f"[serve] seq0: {one['out'][0].tolist()}"]
+
+
+@pytest.mark.parametrize("extra,need", [([], 256), (["--multi-pod"], 512)])
+def test_full_in_a_small_world_raises_naming_its_size(monkeypatch, extra,
+                                                      need):
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match=f"needs a world of {need} ranks"):
+        serve.main(["--arch", "jamba-v0.1-52b", "--full", "--device",
+                    "cpu"] + extra)
+
+
+@pytest.mark.parametrize("mode", [["--tenants", "2"], ["--online"]])
+def test_tenants_and_online_refuse_a_mesh(mode, capsys):
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--dsekl", "--device", "cpu", "--data-par", "2"] + mode)
+    assert exc.value.code != 0
+    assert "take no mesh" in capsys.readouterr().err

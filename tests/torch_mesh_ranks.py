@@ -234,3 +234,196 @@ def elastic_resume(rank, shape, x_np, y_np, ckpt_dirs, cfg_kw):
         outs.append((D.gather_model_shards(mesh, res.state.alpha).numpy(),
                      int(res.state.step), res.epochs_run))
     return outs
+
+
+# ---------------------------------------------------------------------------
+# Serving on the mesh (tests/test_torch_collectives.py,
+# test_torch_lm_mesh.py, test_torch_engine_mesh.py).
+# ---------------------------------------------------------------------------
+
+def _ctx(shape, kind="decode"):
+    from repro_torch.distributed.sharding import MeshCtx
+    return MeshCtx.for_mesh(_mesh(shape), kind)
+
+
+def collective_cases(rank, x_np, w_np, ints_np):
+    """Per mesh shape and axis: the ring matmuls on this rank's shards,
+    the gathers by both methods (float32, bfloat16; dims 0 and 1), the
+    psum-scatter of integer-valued floats, the ring shift by both methods,
+    and a bfloat16 product split over the axis by ``psum_product`` and, for
+    contrast, as bfloat16 partials psummed; then a (2, 2, 1) mesh named (pod, data, model), gathered over
+    its (pod, data) group."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.mesh import _build
+    from repro_torch.distributed.sharding import MeshCtx
+    out = {}
+    for shape, axis in (((2, 2), "model"), ((2, 2), "data"),
+                        ((1, 4), "model"), ((4, 1), "data")):
+        ctx = _ctx(shape)
+        n, i = ctx.size(axis), ctx.index(axis)
+        x, w = torch.from_numpy(x_np), torch.from_numpy(w_np)
+        k_loc, m_loc = x.shape[1] // n, x.shape[0] // n
+        ring = C.ring_psum_matmul(x[:, i * k_loc:(i + 1) * k_loc],
+                                  w[i * k_loc:(i + 1) * k_loc], ctx, axis)
+        agm = C.allgather_matmul_overlapped(x[i * m_loc:(i + 1) * m_loc], w,
+                                            ctx, axis)
+        mine = torch.from_numpy(ints_np[ctx.mesh.rank])
+        gathers = {}
+        for dt in (torch.float32, torch.bfloat16):
+            for dim in (0, 1):
+                got = [C.all_gather(mine.to(dt), ctx, axis, dim=dim,
+                                    method=m).float().numpy()
+                       for m in ("native", "slots")]
+                gathers[f"{dt}-{dim}"] = got
+        scat = C.psum_scatter(mine, ctx, axis, dim=1)
+        whole = C.psum(mine.clone(), ctx, axis)
+        shifts = [C.ring_shift(mine, ctx, axis, method=m).numpy()
+                  for m in ("native", "slots")]
+        xs = x[:, i * k_loc:(i + 1) * k_loc].bfloat16()
+        ws = w[i * k_loc:(i + 1) * k_loc].bfloat16()
+        product = C.psum_product(torch.matmul, xs, ws, ctx, axis)
+        bf16_sum = C.psum(xs @ ws, ctx, axis)
+        out[f"{shape}-{axis}"] = {
+            "product": product.float().numpy(),
+            "bf16_sum": bf16_sum.float().numpy(),
+            "ring": ring.numpy(), "agm": agm.numpy(), "gathers": gathers,
+            "scatter": scat.numpy(), "psum": whole.numpy(),
+            "shifts": shifts, "index": i, "n": n,
+            "coord": ctx.mesh.coordinate}
+    pod = _build((2, 2, 1), ("pod", "data", "model"), "gloo", "cpu", 60.0)
+    ctx = MeshCtx.for_mesh(pod, "decode")
+    mine = torch.from_numpy(ints_np[pod.rank])
+    out["pod"] = {"gather": C.all_gather(mine, ctx, ctx.data_axes,
+                                         dim=0).numpy(),
+                  "index": ctx.index(ctx.data_axes), "n": ctx.n_data,
+                  "dp": ctx.data_axes,
+                  "rules": dict(ctx.rules)}
+    return out
+
+
+def _lm(name, ctx, params=None, cf=None, vocab=None, seed=0):
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_jax
+    from repro_torch.models.model import LanguageModel
+    cfg = get_config(name, reduced=True)
+    if cf is not None:
+        cfg = cfg.replace(capacity_factor=cf)
+    if vocab is not None:
+        cfg = cfg.replace(vocab_size=vocab)
+    model = LanguageModel(cfg, device="cpu", ctx=ctx)
+    if params is None:
+        return cfg, model.init(torch.Generator().manual_seed(seed))
+    model.load_state_dict(lm_params_from_jax(cfg, params, ctx=ctx),
+                          strict=True)
+    return cfg, model
+
+
+def lm_mesh_cases(rank, cases, moe_case):
+    """Each case on each mesh shape: ``{"name", "params" (JAX's tree as
+    numpy), "cf", "vocab", "tokens" (B, S + steps), "cache"}``: prefill
+    logits over the first S tokens, then one decode step per remaining
+    token (teacher-forced).  Then the MoE layer against JAX's shard_map
+    branch, a sharded init against the unsharded one's slices, and the
+    refusals."""
+    from repro_torch.models import moe
+    from repro_torch.nn.module import ParamTree, take_local
+    out = {"lm": {}}
+    for shape in ((2, 2), (1, 4), (4, 1)):
+        ctx = _ctx(shape)
+        for c in cases:
+            if shape not in c["shapes"]:
+                continue
+            cfg, model = _lm(c["name"], ctx, c["params"], c.get("cf"),
+                             c.get("vocab"))
+            tok = torch.from_numpy(c["tokens"]).long()
+            s = c["prompt"]
+            lg, cache = model.prefill(tok[:, :s], c["cache"])
+            steps = [lg.numpy()]
+            for t in range(s, tok.shape[1]):
+                lg, cache = model.decode_step(tok[:, t], cache, t)
+                steps.append(lg.numpy())
+            out["lm"][(c["key"], shape)] = steps
+    # The MoE layer on (2, 2): the batch whole on every rank (JAX's input,
+    # replicated) and split over data.
+    ctx = _ctx((2, 2))
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_jax
+    cfg = get_config("jamba-v0.1-52b", reduced=True).replace(
+        capacity_factor=moe_case["cf"])
+    tree = ParamTree(moe.moe_specs(cfg), dtype=torch.float32,
+                     device=torch.device("cpu"), ctx=ctx)
+    full = lm_params_from_jax(cfg, moe_case["params"])
+    specs = moe.moe_specs(cfg)
+    with torch.no_grad():
+        for k, spec in specs.items():
+            getattr(tree, k).copy_(take_local(full[k], spec, ctx))
+        x = torch.from_numpy(moe_case["x"])
+        whole = moe.moe_forward(tree.view(), cfg, x)
+        b_loc = x.shape[0] // ctx.n_data
+        d = ctx.index(ctx.data_axes)
+        split = moe.moe_forward(tree.view(), cfg,
+                                x[d * b_loc:(d + 1) * b_loc],
+                                batch_split=True)
+    out["moe"] = {"whole": whole.numpy(), "split": split.numpy(), "d": d,
+                  "b_loc": b_loc}
+    # A sharded init from a seed: the slices of the unsharded one's.
+    _, sharded = _lm("jamba-v0.1-52b", ctx, seed=3)
+    _, ref = _lm("jamba-v0.1-52b", None, seed=3)
+    from repro_torch.models.model import param_specs
+    from repro_torch.convert import _flat
+    flat = dict(_flat(param_specs(sharded.cfg)))
+    want = ref.state_dict()
+    out["init"] = {k: (bool(torch.equal(v, take_local(want[k], flat[k],
+                                                      ctx))),
+                       tuple(v.shape), tuple(want[k].shape))
+                   for k, v in sharded.state_dict().items()}
+    refusals = {}
+    for name in ("deepseek-v3-671b", "llama-3.2-vision-11b",
+                 "whisper-tiny"):
+        try:
+            _lm(name, ctx)
+            refusals[name] = ""
+        except NotImplementedError as e:
+            refusals[name] = str(e)
+    out["refusals"] = refusals
+    return out
+
+
+def engine_mesh_cases(rank, x_np, a_np, xq_np, a2_np, gamma, qb, svb):
+    """The sharded engine on (4, 1) and (2, 2): predict, flush,
+    flush_async, the cache's miss and hit paths, update_alpha on a
+    keep-all engine; its stats."""
+    from repro_torch.core.dsekl import DSEKLConfig
+    from repro_torch.serving import DSEKLPredictionEngine, EngineConfig
+    cfg = DSEKLConfig(kernel="rbf", kernel_params=(("gamma", gamma),),
+                      impl="ref")
+    out = {}
+    for shape in ((4, 1), (2, 2)):
+        mesh = _mesh(shape)
+        xq = torch.from_numpy(xq_np)
+        ec = EngineConfig(query_block=qb, sv_block=svb)
+        eng = DSEKLPredictionEngine(cfg, a_np, x_np, engine_cfg=ec,
+                                    mesh=mesh)
+        res = {"stats": eng.stats(), "predict": eng.predict(xq).numpy()}
+        eng.submit(xq[:9])
+        eng.submit(xq[9:40])
+        eng.submit(xq[40:])
+        res["flush"] = [f.numpy() for f in eng.flush()]
+        eng.submit(xq[:30])
+        eng.submit(xq[30:])
+        res["flush_async"] = [f.numpy() for f in eng.flush_async()]
+        cached = DSEKLPredictionEngine(
+            cfg, a_np, x_np, engine_cfg=EngineConfig(
+                query_block=qb, sv_block=svb, cache_blocks=4,
+                truncate_tol=-1.0), mesh=mesh)
+        res["miss"] = cached.predict(xq).numpy()
+        res["hit"] = cached.predict(xq).numpy()
+        cached.update_alpha(a2_np)
+        res["updated"] = cached.predict(xq).numpy()
+        res["cache"] = {k: cached.cache_info()[k]
+                        for k in ("hits", "misses", "size")}
+        res["keep_all_stats"] = cached.stats()
+        res["local_rows"] = int(eng._x_sv.shape[0])
+        res["coord"] = mesh.coordinate
+        out[shape] = res
+    return out
