@@ -292,8 +292,9 @@ result):
                route.  Prints the victims' p99 on and off (the headline),
                each tenant's p50 / p99, sheds and cache counters.
  27. lm-train — LM training through ``repro_torch.launch.train.train_lm``
-               on mamba2-780m at full width and depth (48 layers, d_model
-               1,536, vocab 50,280, bf16 parameters, f32 AdamW moments,
+               on mamba2-780m at full width (d_model 1,536, vocab 50,280;
+               cut to 12 of its 48 layers since mesh-lm trains the full
+               depth: the whole run's time), bf16 parameters, f32 AdamW moments,
                cosine at lr 1e-3, loss_chunks 4, remat per layer): batch
                8 x 1,024 tokens, 12 steps, a checkpoint at step 6 (under
                build/); then step 6 restored into freshly built state
@@ -311,7 +312,7 @@ result):
                and the largest kernels over two profiled steps.
  28. lm-readout — the trained model frozen: ``extract_features`` of
                4,096 sequences of 512 tokens from a 24-token alphabet, in
-               batches of 32 (48 SSD launches a batch, all sm90, at n 128;
+               batches of 32 (an SSD launch a layer a batch, all sm90, at n 128;
                the last batch's held against the plain version on their
                activations), then ``KernelReadout.fit`` by Algorithm 2 (4
                workers, |I| = |J| = 512: every step one launch of the
@@ -389,6 +390,38 @@ result):
                data shard's half of the batch (the MoE's capacity is per
                data shard).  Then flash and the SSD scan timed alone at
                (b)'s local shapes (the kernels line's
+               ``ms_bound_by_shape``).
+ 31. mesh-lm — LM training and the three layer kinds that serve on the
+               mesh since PR 27, run after mesh-serve as phase 29 runs its
+               ranks (four gloo ranks sharing the card; no figure is a
+               multi-card one).  The parent first takes one card's
+               references and frees them.  (a) mamba2-780m at full width
+               and depth through the launcher, ``--full --data-par 2
+               --model-par 2 --dist-backend gloo``, lm-train's batch and
+               rate, 4 steps, no checkpoint: no kernel launch (no kernel
+               has a backward); every bf16 loss within 5e-3 and step 0's
+               loss and grad norm within LM_DTYPE_RTOL of one card's run
+               of the launcher; step 0 in float32 (the same seed's
+               float32 draws) within 1e-4 of one card's, relative.
+               Prints ms a step, the host-staged all_reduces' host time
+               a step and peak memory per rank.  (b) llama-3.2-vision cut
+               to one period (4 self- and 1 cross-attention layers, gates
+               1.0) over its (4, 1,601, 4,096) frontend on (1, 4),
+               whisper-tiny on (2, 2) (8 x 1,500 frames), deepseek-v3 cut
+               to 1 layer on (1, 4) (the ranks draw its weights in turns)
+               through ``serve_lm(ctx=)``, 4 greedy tokens each: flash
+               launches counted by rank and path, all sm90, each distinct
+               shape of a prefill held once against the plain version, 0
+               in MLA; the prompts one card's; every layer on one card's
+               recorded input at 2e-2 x |ref|_inf (deepseek's MoE
+               dispatched to one card's expert sets, its own reroutes
+               printed); llama and whisper in float32 from the same seed
+               through the plain attention, the prefill and 2 decode steps
+               fed one card's greedy tokens within 1e-4 x |ref|_inf;
+               deepseek's float32 MLA sublayer within 1e-4 of one card's
+               and its absorbed decode against the expanded prefill on
+               the mesh at PR 24's limits; bf16 end to end printed.  Then
+               the new local flash shapes timed alone (the kernels line's
                ``ms_bound_by_shape``).
 
 The DSEKL kernel tolerance is the JAX suite's float32 one
@@ -3929,6 +3962,52 @@ def _flash_shape_time(case, device_name: str) -> dict:
             "plain_ms": plain_ms, "max_abs_err": err}
 
 
+class _Prepared:
+    """While active, every ``LanguageModel`` ``serve_lm`` builds gets
+    ``prepare(model)`` right after its weights are drawn; with ``turns``
+    the ranks of the world draw their weights one after another (a
+    sharded parameter is drawn whole before its slice is kept: four
+    ranks drawing deepseek-v3's (256, 7,168, 2,048) experts at once would
+    hold ~30 GB more)."""
+
+    def __init__(self, prepare=None, turns: bool = False):
+        self.prepare, self.turns = prepare, turns
+
+    def __enter__(self):
+        from repro_torch.launch import serve
+        base = self._base = serve.LanguageModel
+        prepare, turns = self.prepare, self.turns
+
+        class Prepared(base):
+            def init(self, generator):
+                if turns:
+                    import torch.distributed as dist
+                    for turn in range(dist.get_world_size()):
+                        if turn == dist.get_rank():
+                            super().init(generator)
+                        dist.barrier()
+                else:
+                    super().init(generator)
+                if prepare is not None:
+                    prepare(self)
+                return self
+
+        serve.LanguageModel = Prepared
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import serve
+        serve.LanguageModel = self._base
+
+
+def _open_gates(model) -> None:
+    import torch
+    with torch.no_grad():
+        for blk in model.layers:
+            if blk.kind == "cross_attn":
+                blk.xattn.gate.fill_(1.0)
+
+
 def _serve_main_path(tag: str, cfg, run: dict, n_flash: int,
                      prepare=None) -> dict:
     """``serve_lm`` on ``cfg`` at ``run``'s sizes, the flash counters set
@@ -3947,22 +4026,12 @@ def _serve_main_path(tag: str, cfg, run: dict, n_flash: int,
     flash_calls = []
     undo = [_recorder(attention, "flash_attention", flash_calls,
                       max(n_flash, 1))]
-    if prepare is not None:
-        base = serve.LanguageModel
-
-        class Prepared(base):
-            def init(self, generator):
-                super().init(generator)
-                prepare(self)
-                return self
-
-        serve.LanguageModel = Prepared
-        undo.append(lambda: setattr(serve, "LanguageModel", base))
     fk.flash_attention_cuda.launches = 0          # the main path starts here
     fk.flash_attention_cuda.launches_by_route = dict.fromkeys(fk.ROUTES, 0)
     ssd_before = sk.ssd_cuda.launches
     try:
-        res = serve.serve_lm(cfg, device=DEVICE, **run)
+        with _Prepared(prepare):
+            res = serve.serve_lm(cfg, device=DEVICE, **run)
     finally:
         for fn in undo:
             fn()
@@ -4063,17 +4132,11 @@ def phase_serve_llama_vision(device_name: str):
     from repro_torch.configs import get_config
     cfg = get_config("llama-3.2-vision-11b")
     n_cross = cfg.layer_pattern.count("cross_attn") * cfg.n_periods
-
-    def open_gates(model):
-        for blk in model.layers:
-            if blk.kind == "cross_attn":
-                blk.xattn.gate.fill_(1.0)
-
     print(f"[serve-llama-vision] the {n_cross} cross layers' gates set to "
           "1.0 after the seeded init (0 there: tanh(0) = 0 would switch "
           "them off)")
     out = _serve_main_path("serve-llama-vision", cfg, LLAMA_V, cfg.n_layers,
-                           prepare=open_gates)
+                           prepare=_open_gates)
     non_causal = sum(n for (_, _, m), n in out["shapes"].items()
                      if m == "non-causal")
     check(non_causal == n_cross, f"[serve-llama-vision] {non_causal} "
@@ -4123,7 +4186,8 @@ def _mla_decode_gate(model, tokens) -> dict:
     """Layer 0's attention at full width: ``mla_decode`` of token S after
     ``mla_prefill`` of tokens 0..S-1 against ``mla_prefill`` of tokens
     0..S at token S, on the model's input to that attention (its embedded,
-    normed prompts), in bf16 and on float32 copies of the weights."""
+    normed prompts), in bf16 and on float32 copies of the weights (on a
+    mesh, this rank's slices and heads; the batch whole)."""
     import torch
     from repro_torch.models import attention, layers
     from repro_torch.nn.module import ParamTree
@@ -4131,15 +4195,16 @@ def _mla_decode_gate(model, tokens) -> dict:
     s = tokens.shape[1] - 1
     pos = torch.arange(s + 1, dtype=torch.int32, device=tokens.device)
     p32 = ParamTree(attention.mla_specs(cfg), dtype=torch.float32,
-                    device=tokens.device)
+                    device=tokens.device, ctx=blk.ctx)
     p32.load_state_dict({k: v.float() for k, v in
                          blk.attn.state_dict().items()})
+    p32, p16 = p32.view(), blk.attn.view()
     cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
     out = {}
     with torch.no_grad():
-        h = layers.rmsnorm(blk.ln_attn, layers.embed(model.embed, cfg,
-                                                     tokens), cfg.norm_eps)
-        for name, c, p, x, tol in (("bf16", cfg, blk.attn, h, MLA_BF16_TOL),
+        h = layers.rmsnorm(blk.ln_attn.view(), layers.embed(
+            model.embed.view(), cfg, tokens), cfg.norm_eps)
+        for name, c, p, x, tol in (("bf16", cfg, p16, h, MLA_BF16_TOL),
                                    ("f32", cfg32, p32, h.float(),
                                     MLA_F32_TOL)):
             _, cache = attention.mla_prefill(p, c, x[:, :s], pos[:s],
@@ -4201,14 +4266,17 @@ def phase_serve_deepseek():
     return dict(out, gate=gate, batch=run["batch"])
 
 
-# LM training at mamba2-780m's full width and depth (48 layers, d_model
-# 1,536, vocab 50,280, bf16, f32 AdamW moments) through the launcher's
-# train_lm: batch 8 x 1,024 tokens, 12 steps, a checkpoint at step 6; then
-# step 6 restored into freshly built state and run to step 12.  lr 1e-3:
-# at the launcher's default 3e-3 (one warmup step) Adam's first steps
-# raise the loss for all 12 steps (the launcher at each rate; PERF.md §6).
+# LM training at mamba2-780m's full width (d_model 1,536, vocab 50,280,
+# bf16, f32 AdamW moments), cut to 12 of its 48 layers (PR 27: the whole
+# run came within ~60 s of its time limit once mesh-lm trained the full
+# depth on the mesh; its two ~10-GB checkpoints and 20 steps took ~220
+# s), through the launcher's train_lm: batch 8 x 1,024 tokens, 12 steps,
+# a checkpoint at step 6; then step 6 restored into freshly built state
+# and run to step 12.  lr 1e-3: at the launcher's default 3e-3 (one warmup
+# step) Adam's first steps raise the loss for all 12 steps (the launcher
+# at each rate; PERF.md §6).
 LM_TRAIN = dict(arch="mamba2-780m", batch=8, seq=1024, steps=12,
-                ckpt_every=6, lr=1e-3)
+                ckpt_every=6, lr=1e-3, layers=12)
 LM_CKPT_DIR = os.path.join(ROOT, "build", "chip_smoke_lm_ckpt")
 # Step 0 in bf16 against the same weights and batch in float32 (full
 # float32 products): the loss to rtol 1e-2, the grad norm to rtol 5e-2.
@@ -4227,15 +4295,34 @@ READOUT = dict(n=4096, seq=512, alphabet=24, batch=32, n_train=2048,
 
 def _loss_and_grad_norm(model, batch) -> tuple:
     """The training step's loss and grad norm (loss_chunks 4, remat on)
-    of ``model`` on ``batch``, the parameters left as they are."""
+    of ``model`` on ``batch``, on one device or a mesh (the step's
+    gradients: summed over the data axes, divided by the shards; the
+    global norm), the parameters left as they are."""
     import torch
+    from repro_torch.distributed import collectives
     from repro_torch.optim import global_norm
-    from repro_torch.train import trainable
+    from repro_torch.train import param_shards, trainable
+    from repro_torch.train.step import finish_grads
     params = trainable(model)
+    shards = param_shards(model)
     loss = model.loss(batch["tokens"], batch["labels"], loss_chunks=4)
-    grads = torch.autograd.grad(loss, list(params.values()))
-    return (float(loss.detach()),
-            float(global_norm(dict(zip(params, grads)))))
+    grads = dict(zip(params, torch.autograd.grad(loss,
+                                                 list(params.values()))))
+    loss = loss.detach()
+    if shards.ctx is not None:
+        ctx = shards.ctx
+        grads = finish_grads(grads, shards)
+        loss = collectives.psum(loss.clone(), ctx, ctx.data_axes) / ctx.n_data
+    return float(loss), float(global_norm(grads, shards))
+
+
+def _lm_batch0(cfg):
+    """lm-train's first batch (the pipeline's seed 1, step 0)."""
+    import torch
+    from repro_torch.data.pipeline import BigramPipeline, to_device
+    return to_device(BigramPipeline(cfg.vocab_size, LM_TRAIN["batch"],
+                                    LM_TRAIN["seq"], seed=1).peek_batch(0),
+                     torch.device(DEVICE))
 
 
 def _lm_step0_dtypes(cfg) -> dict:
@@ -4243,12 +4330,9 @@ def _lm_step0_dtypes(cfg) -> dict:
     bf16, and on float32 copies of the same weights with float32
     compute."""
     import torch
-    from repro_torch.data.pipeline import BigramPipeline, to_device
     from repro_torch.kernels import full_fp32_matmul
     from repro_torch.models.model import LanguageModel
-    batch = to_device(BigramPipeline(cfg.vocab_size, LM_TRAIN["batch"],
-                                     LM_TRAIN["seq"], seed=1).peek_batch(0),
-                      torch.device(DEVICE))
+    batch = _lm_batch0(cfg)
     bf16 = LanguageModel(cfg, device=DEVICE).init(
         torch.Generator(device=DEVICE).manual_seed(0))
     out = {"bf16": _loss_and_grad_norm(bf16, batch)}
@@ -4297,8 +4381,33 @@ def _lm_train_args(resume: bool, seed: int):
     return train.parser().parse_args(argv + ["--resume"] * resume)
 
 
+class _Depth:
+    """While active, the train launcher's config of ``arch`` at its
+    published widths has ``layers`` layers (``--full`` gives all)."""
+
+    def __init__(self, arch: str, layers: int):
+        self.arch, self.layers = arch, layers
+
+    def __enter__(self):
+        from repro_torch.launch import train
+        orig = self._orig = train.get_config
+
+        def get_config(name, reduced=False):
+            cfg = orig(name, reduced=reduced)
+            if name == self.arch and not reduced:
+                cfg = cfg.replace(n_layers=self.layers)
+            return cfg
+
+        train.get_config = get_config
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import train
+        train.get_config = self._orig
+
+
 def phase_lm_train():
-    """mamba2-780m at full width and depth trained through ``train_lm``
+    """mamba2-780m at full width, cut to LM_TRAIN's layers, trained through ``train_lm``
     (AdamW, cosine, bf16 parameters, f32 moments); a checkpoint at step 6
     restored into freshly built state runs to step 12 bit for bit; no
     kernel launches (training runs the plain differentiable functions:
@@ -4309,9 +4418,13 @@ def phase_lm_train():
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import to_device
     from repro_torch.launch import train
-    cfg = get_config(LM_TRAIN["arch"])
+    full = get_config(LM_TRAIN["arch"])
+    cfg = full.replace(n_layers=LM_TRAIN["layers"])
+    print(f"[lm-train] cut to {cfg.n_layers} of {full.n_layers} layers "
+          "(the full depth trains on the mesh in mesh-lm)")
     args = _lm_train_args(resume=False, seed=0)
-    refusal = train.lm_refusal(args)
+    with _Depth(LM_TRAIN["arch"], LM_TRAIN["layers"]):
+        refusal = train.lm_refusal(args)
     check(not refusal, f"lm-train: {refusal}")
     # A checkpoint holds the parameters in float32 and the two moments.
     ckpt_bytes = 12 * cfg.param_count_estimate()
@@ -4341,7 +4454,8 @@ def phase_lm_train():
               f"{LM_DTYPE_RTOL[key]} of float32's {want}")
     _reset_lm_counters()                      # the training path starts
     t0 = time.perf_counter()
-    clean = train.train_lm(args)
+    with _Depth(LM_TRAIN["arch"], LM_TRAIN["layers"]):
+        clean = train.train_lm(args)
     torch.cuda.synchronize()
     clean_s = time.perf_counter() - t0
     launches = _lm_kernel_launches()          # ... and ends here
@@ -4357,7 +4471,8 @@ def phase_lm_train():
           f"lm-train: checkpoints at steps {steps}")
     shutil.rmtree(os.path.join(LM_CKPT_DIR, f"step_{LM_TRAIN['steps']:010d}"))
     t0 = time.perf_counter()
-    resumed = train.train_lm(_lm_train_args(resume=True, seed=1))
+    with _Depth(LM_TRAIN["arch"], LM_TRAIN["layers"]):
+        resumed = train.train_lm(_lm_train_args(resume=True, seed=1))
     torch.cuda.synchronize()
     resume_s = time.perf_counter() - t0
     # Two more steps under the profiler (they change the state).
@@ -4474,7 +4589,7 @@ def _ssd_shape_time(case, device_name: str):
 
 def phase_lm_readout(model, device_name: str):
     """The DSEKL readout over the trained model, frozen: features of 4,096
-    sequences through the SSD kernel (48 launches a batch, sm90; the last
+    sequences through the SSD kernel (one launch a layer a batch, sm90; the last
     batch's held against the plain version on its activations), then
     ``KernelReadout.fit`` by Algorithm 2 (every step one launch of the
     sm90 train kernel's wide variant) and its decision through the fp32
@@ -4983,6 +5098,9 @@ def mesh_rank(spec_path: str) -> int:
             out["a"] = _mesh_serve_engine(spec)
             out["b"] = _mesh_serve_jamba(spec)
             out["c"] = _mesh_serve_reduced()
+        elif spec["part"] == "lm":
+            out["a"] = _mesh_lm_a(spec)
+            out["b"] = _mesh_lm_b(spec)
         else:
             out.update(_mesh_resume(spec))
         built = sorted(r.name for r in _build._records.values()
@@ -5423,54 +5541,6 @@ def _dispatch(sets, n_experts: int, capacity: int):
     return torch.gather(pos, 1, sets) < capacity
 
 
-def _teacher_forced(model, cfg, spec: dict) -> dict:
-    """Each layer of the sharded ``model`` run on the single-card run's
-    input to it (the timed prefill's prompts): its output against the
-    single card's at LOGITS_TOL x its |ref|_inf, on the tokens that each
-    MoE layer dispatched alike (the same expert set, kept or dropped by
-    each expert alike: a near-tie in the random router flips on a
-    rounding difference, the token's FFN output changes wholesale, and
-    the slots it takes or frees move later tokens across the capacity);
-    at most TEACHER_REROUTED of the tokens may be dispatched otherwise."""
-    import numpy as np
-    import torch
-    b, s = JAMBA["batch"], JAMBA["prompt_len"]
-    positions = torch.arange(s, dtype=torch.int32, device=model.device)
-    errs, rerouted, flips, moe_i = [], [], [], 0
-    for i, blk in enumerate(model.layers):
-        x = _tensor_load(os.path.join(spec["dir"], f"jamba_x{i}.npz"),
-                         model.device)
-        want = _tensor_load(os.path.join(spec["dir"], f"jamba_x{i + 1}.npz"),
-                            model.device).float()
-        with _MoeRoutes() as routes, torch.no_grad():
-            out, _ = blk.prefill(x, positions, JAMBA["cache_len"], None,
-                                 impl=model.impl)
-        same = torch.ones(b * s, dtype=torch.bool)
-        if blk.is_moe:
-            ref = torch.from_numpy(np.load(os.path.join(
-                spec["dir"], f"jamba_r{moe_i}.npy")))
-            got = routes.sets[0]
-            cap = max(1, math.ceil(b * s * cfg.top_k * cfg.capacity_factor
-                                   / cfg.n_experts))
-            same = ((got == ref).all(-1)
-                    & (_dispatch(got, cfg.n_experts, cap)
-                       == _dispatch(ref, cfg.n_experts, cap)).all(-1))
-            moe_i += 1
-            rerouted.append(int((~same).sum()))
-        diff = (out.float() - want).abs().reshape(b * s, -1)
-        flips.append(float((diff > 0).float().mean()))
-        err = float(diff[same.to(diff.device)].max())
-        scale = float(want.abs().max())
-        check(err <= LOGITS_TOL * scale, f"(b) layer {i} ({blk.kind}, "
-              f"{'MoE' if blk.is_moe else 'dense'}): {err:.4e} from the "
-              f"single card's, limit {LOGITS_TOL * scale:.4e}")
-        errs.append(err / scale)
-        del x, want, out, diff
-    check(all(r <= TEACHER_REROUTED * b * s for r in rerouted),
-          f"(b) tokens dispatched otherwise by MoE layer: {rerouted}")
-    return {"layer_err": errs, "rerouted": rerouted, "layer_flips": flips}
-
-
 def _jamba_f32(spec: dict, ctx=None):
     """serve-jamba's configuration in float32 from JAMBA's seed: the whole
     model on the card (``ctx`` None) or this rank's slices of the same
@@ -5694,7 +5764,8 @@ def _mesh_serve_jamba(spec: dict) -> dict:
         for i, r in enumerate(routes.prefill_sets(n_moe))]
     agree = float((res["out"].cpu() == torch.from_numpy(
         np.load(spec["jamba_out"]))).float().mean())
-    teacher = _teacher_forced(res["model"], cfg, spec)
+    teacher = _teacher_forced(res["model"], cfg, JAMBA, spec["dir"],
+                              "jamba")
     weights = sum(p.numel() * p.element_size()
                   for p in res["model"].parameters())
     n_pre, s_pre = art.seconds("prefill")
@@ -5881,6 +5952,658 @@ def phase_mesh_serve(serve_f, jamba_ref: dict, smi: str,
             "b": b0, "c": c0}
 
 
+MESH_LM_DIR = os.path.join(ROOT, "build", "chip_smoke_mesh_lm")
+MESH_LM_TIMEOUT_S = 600
+# (a) lm-train's configuration (mamba2-780m at full width and depth, bf16,
+# f32 AdamW moments, batch 8 x 1,024, lr 1e-3) through the launcher on a
+# (2, 2) mesh of the four gloo ranks, 4 steps; no checkpoint is written
+# (lm-train drives that path on one card: a ~10-GB one would be gathered
+# whole through gloo here).
+MESH_LM_STEPS = 4
+MESH_LM_ARGS = ["--arch", LM_TRAIN["arch"], "--full", "--steps",
+                str(MESH_LM_STEPS), "--batch", str(LM_TRAIN["batch"]),
+                "--seq", str(LM_TRAIN["seq"]), "--lr", str(LM_TRAIN["lr"]),
+                "--seed", "0"]
+MESH_LM_MESH = ["--data-par", "2", "--model-par", "2", "--dist-backend",
+                "gloo"]
+# Step 0 in float32 (the same seed's float32 draws on both sides): the
+# loss and grad norm within 1e-4 of one card's, relative.  The bf16 run's
+# 4 losses within 5e-3 of one card's (tests/test_torch_lm_train.py's
+# bfloat16 tolerance for a loss); step 0's loss and grad norm within
+# LM_DTYPE_RTOL.
+MESH_LM_F32_RTOL = 1e-4
+MESH_LM_BF16_LOSS_RTOL = 5e-3
+# (b) the three layer kinds that serve on the mesh since this slice, at
+# full width: llama-3.2-vision-11b cut to its first period (4 self- and 1
+# cross-attention layers, gates 1.0) over a (4, 1,601, 4,096) frontend on
+# (1, 4); whisper-tiny whole on (2, 2) (8 x 1,500 frames: 4 a data shard,
+# 3 heads a rank); deepseek-v3-671b cut to 1 layer on (1, 4) (32 MLA heads
+# and 64 experts a rank).  4 greedy tokens each (cut from 32).
+MESH_LLAMA_SHAPE, MESH_LLAMA_LAYERS = (1, 4), 5
+MESH_LLAMA_RUN = dict(LLAMA_V, new_tokens=4)
+MESH_WHISPER_SHAPE = (2, 2)
+MESH_WHISPER_RUN = dict(WHISPER, new_tokens=4)
+MESH_DEEPSEEK_SHAPE, MESH_DEEPSEEK_LAYERS = (1, 4), 1
+MESH_DEEPSEEK_RUN = dict(DEEPSEEK, new_tokens=4)
+# Decode steps after the prefill in the float32 end-to-end gates.
+MESH_F32_STEPS = 2
+# The float32 MLA sublayer's weights and input (its own draws).
+MLA_F32_SEED = 11
+# The new local flash shapes of (b) (llama's self-attention local shape,
+# (4, 2,048², 8 / 2, 128, causal), is mesh-serve's FLASH_MESH):
+# (B, S, T, H, Kv, D, causal, window).
+FLASH_MESH_LM = {
+    "llama-3.2-vision cross on (1, 4)": (4, 2048, 1601, 8, 2, 128, False,
+                                         1 << 30),
+    "whisper encoder on (2, 2)": (4, 1500, 1500, 3, 3, 64, False, 1 << 30),
+    "whisper decoder self on (2, 2)": (4, 448, 448, 3, 3, 64, True,
+                                       1 << 30),
+    "whisper cross on (2, 2)": (4, 448, 1500, 3, 3, 64, False, 1 << 30),
+}
+
+
+class _NoCheckpoints:
+    """While active, ``train_lm`` writes no checkpoint: the launcher's
+    ``CheckpointManager`` is None (``train_loop`` takes None)."""
+
+    def __enter__(self):
+        from repro_torch.launch import train
+        self._orig = train.CheckpointManager
+        train.CheckpointManager = lambda *a, **k: None
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import train
+        train.CheckpointManager = self._orig
+
+
+def _mesh_cfg(name: str, layers: int = 0, dtype: str = ""):
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    if dtype:
+        cfg = cfg.replace(param_dtype=dtype, compute_dtype=dtype)
+    return cfg
+
+
+def _free(*objs) -> None:
+    import gc
+    import torch
+    for o in objs:
+        if isinstance(o, dict):
+            o.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _mesh_lm_refs_train(spec: dict) -> None:
+    """(a)'s references on the one card: the launcher's bf16 run of
+    MESH_LM_STEPS steps (losses, grad norms), and step 0 in float32."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models.model import LanguageModel
+    args = train.parser().parse_args(MESH_LM_ARGS + ["--device", DEVICE])
+    with _NoCheckpoints():
+        res = train.train_lm(args)
+    spec["a_card_bf16"] = [(h["loss"], h["grad_norm"])
+                           for h in res["history"]]
+    spec["a_card_bf16_ms"] = statistics.mean(
+        h["seconds"] for h in res["history"][1:]) * 1e3
+    _free(res)
+    cfg32 = _mesh_cfg(LM_TRAIN["arch"], dtype="float32")
+    model = LanguageModel(cfg32, device=DEVICE).init(
+        torch.Generator(device=DEVICE).manual_seed(0))
+    spec["a_card_f32"] = _loss_and_grad_norm(model, _lm_batch0(cfg32))
+    del model
+    _free()
+
+
+def _record_layers(model, tokens, cache_len: int, frontend, prefix: str):
+    """One prefill of ``tokens`` on ``model`` with every layer's input (and
+    the last layer's output) saved under MESH_LM_DIR as ``{prefix}_x{i}``,
+    every MoE call's expert sets as ``{prefix}_r{i}``; returns the
+    logits."""
+    import numpy as np
+    from repro_torch.models import blocks
+    xs = []
+    orig = blocks.Block.prefill
+
+    def prefill(blk, x, *a, **k):
+        xs.append(x)
+        out, cache = orig(blk, x, *a, **k)
+        if len(xs) == len(model.layers):
+            xs.append(out)
+        return out, cache
+
+    blocks.Block.prefill = prefill
+    try:
+        with _MoeRoutes() as routes:
+            logits, cache = model.prefill(tokens, cache_len, frontend)
+    finally:
+        blocks.Block.prefill = orig
+    del cache
+    for i, x in enumerate(xs):
+        _tensor_save(os.path.join(MESH_LM_DIR, f"{prefix}_x{i}.npz"), x)
+    for i, r in enumerate(routes.sets):
+        np.save(os.path.join(MESH_LM_DIR, f"{prefix}_r{i}.npy"), r.numpy())
+    return logits
+
+
+def _f32_run(model, tokens, frontend, feed, cache_len: int):
+    """The prefill of ``tokens`` and MESH_F32_STEPS decode steps fed
+    ``feed[:, i]`` on ``model`` through the plain attention (no kernel
+    launches: the gate runs beside the counted bf16 path): each step's
+    (B, V) logits, float32 on the host."""
+    import torch
+    model.impl = "ref"
+    got = []
+    with torch.no_grad():
+        logits, cache = model.prefill(tokens, cache_len, frontend)
+        got.append(logits.float().cpu())
+        for i in range(MESH_F32_STEPS):
+            logits, cache = model.decode_step(feed[:, i], cache,
+                                              tokens.shape[1] + i)
+            got.append(logits.float().cpu())
+    return got
+
+
+def _mesh_lm_refs_serve(spec: dict, tag: str, cfg, run: dict,
+                        prepare=None) -> None:
+    """(b)'s references for one config on the one card: ``serve_lm`` in
+    bf16 (its prompts, frontend, greedy tokens and prefill logits), a
+    prefill recorded layer by layer, and the float32 model from the same
+    seed through the plain attention (``_f32_run``); saved under
+    MESH_LM_DIR."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models.model import LanguageModel
+    with _Prepared(prepare):
+        res = serve.serve_lm(cfg, device=DEVICE, **run)
+    files = {}
+    for name, t in (("tokens", res["tokens"]), ("out", res["out"]),
+                    ("logits", res["logits"].float())):
+        files[name] = os.path.join(MESH_LM_DIR, f"{tag}_{name}.npy")
+        np.save(files[name], t.cpu().numpy())
+    if res["frontend"] is not None:
+        files["frontend"] = os.path.join(MESH_LM_DIR, f"{tag}_fe.npz")
+        _tensor_save(files["frontend"], res["frontend"])
+    model = res["model"]
+    logits = _record_layers(model, res["tokens"], run["cache_len"],
+                            res["frontend"], tag)
+    check(torch.equal(logits, res["logits"]), f"mesh-lm {tag}: a recorded "
+          "prefill differs from the timed one")
+    tokens, frontend, out = res["tokens"], res["frontend"], res["out"]
+    _free(res)
+    del model
+    _free()
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    model = LanguageModel(cfg32, device=DEVICE).init(
+        torch.Generator(device=DEVICE).manual_seed(run["seed"]))
+    if prepare is not None:
+        prepare(model)
+    got = _f32_run(model, tokens, frontend, out, run["cache_len"])
+    files["f32"] = os.path.join(MESH_LM_DIR, f"{tag}_f32.npy")
+    np.save(files["f32"], torch.stack(got).numpy())
+    del model, tokens, frontend, out
+    _free()
+    spec[tag] = files
+
+
+def _mla_f32_inputs(cfg, ctx=None):
+    """The float32 MLA sublayer's weights (this rank's slices on ``ctx``)
+    and input x (B, S, D), drawn from MLA_F32_SEED on the card."""
+    import torch
+    from repro_torch.models import attention
+    from repro_torch.nn.module import ParamTree, init_params
+    gen = torch.Generator(device=DEVICE).manual_seed(MLA_F32_SEED)
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    p = ParamTree(attention.mla_specs(cfg32), dtype=torch.float32,
+                  device=torch.device(DEVICE), ctx=ctx)
+    init_params(p, gen)
+    b, s = MESH_DEEPSEEK_RUN["batch"], MESH_DEEPSEEK_RUN["prompt_len"]
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=DEVICE)
+    return cfg32, p, x
+
+
+def _mesh_lm_refs_deepseek(spec: dict) -> None:
+    """deepseek's references: ``_mesh_lm_refs_serve``'s bf16 part (no
+    float32 model: one layer is ~53 GB in float32), and the float32 MLA
+    sublayer's output on its own draws."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import attention
+    cfg = _mesh_cfg("deepseek-v3-671b", MESH_DEEPSEEK_LAYERS)
+    run = MESH_DEEPSEEK_RUN
+    res = serve.serve_lm(cfg, device=DEVICE, **run)
+    # The recorded prefill's logits are the reference: the top-8 bf16 MoE
+    # scatter adds in a run-dependent order on the card (ROADMAP.md §3),
+    # so two prefills differ in their last bits.
+    logits = _record_layers(res["model"], res["tokens"], run["cache_len"],
+                            None, "deepseek")
+    files = {}
+    for name, t in (("tokens", res["tokens"]), ("out", res["out"]),
+                    ("logits", logits.float())):
+        files[name] = os.path.join(MESH_LM_DIR, f"deepseek_{name}.npy")
+        np.save(files[name], t.cpu().numpy())
+    _free(res)
+    del logits
+    _free()
+    cfg32, p, x = _mla_f32_inputs(cfg)
+    pos = torch.arange(x.shape[1], dtype=torch.int32, device=DEVICE)
+    with torch.no_grad():
+        want = attention.mla_forward(p, cfg32, x, pos)
+    files["mla_f32"] = os.path.join(MESH_LM_DIR, "deepseek_mla_f32.npy")
+    np.save(files["mla_f32"], want.cpu().numpy())
+    del p, x, want
+    _free()
+    spec["deepseek"] = files
+
+
+def _mesh_lm_a(spec: dict) -> dict:
+    """(a) on the rank: the launcher's bf16 run on (2, 2), no kernel
+    launch; then step 0 in float32 from the same seed."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models.model import LanguageModel
+    t_start = time.perf_counter()
+    args = train.parser().parse_args(MESH_LM_ARGS + MESH_LM_MESH
+                                     + ["--device", DEVICE])
+    check(train.lm_refusal(args) == "", "mesh-lm (a): refused")
+    ctx = train.lm_ctx(args)
+    rank = ctx.mesh.rank
+    _reset_lm_counters()                     # the training path starts
+    t0 = time.perf_counter()
+    with _NoCheckpoints(), _AllReduceTimer() as art:
+        res = train.train_lm(args, ctx)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _lm_kernel_launches()         # ... and ends here
+    check(not any(launches.values()), f"mesh-lm (a) rank {rank}: kernels "
+          f"launched while training: {launches}")
+    hist = res["history"]
+    n_ar, s_ar = art.seconds("other")
+    local = sum(p.numel() for p in res["model"].parameters())
+    out = {"hist": [(h["loss"], h["grad_norm"], h["seconds"]) for h in hist],
+           "peak_gib": res["peak_bytes"] / 2**30, "wall": wall,
+           "ar_s_step": s_ar / len(hist), "ar_n_step": n_ar / len(hist),
+           "local_params": local, "n_params": res["n_params"]}
+    _free(res)
+    cfg32 = _mesh_cfg(LM_TRAIN["arch"], dtype="float32")
+    t0 = time.perf_counter()
+    model = LanguageModel(cfg32, device=DEVICE, ctx=ctx).init(
+        torch.Generator(device=DEVICE).manual_seed(0))
+    out["f32"] = _loss_and_grad_norm(model, _lm_batch0(cfg32))
+    out["f32_s"] = time.perf_counter() - t0
+    del model
+    _free()
+    out["seconds"] = time.perf_counter() - t_start
+    want = spec["a_card_f32"]
+    for i, key in enumerate(("loss", "grad_norm")):
+        rel = abs(out["f32"][i] - want[i]) / abs(want[i])
+        check(rel <= MESH_LM_F32_RTOL, f"mesh-lm (a) rank {rank}: float32 "
+              f"step 0's {key} {out['f32'][i]} is {rel:.3e} from one card's "
+              f"{want[i]}, limit {MESH_LM_F32_RTOL}")
+    card = spec["a_card_bf16"]
+    check(len(hist) == len(card) == MESH_LM_STEPS,
+          f"mesh-lm (a): {len(hist)} steps")
+    for i, key in enumerate(("loss", "grad_norm")):
+        got, ref = hist[0][key], card[0][i]
+        check(abs(got - ref) <= LM_DTYPE_RTOL[key] * abs(ref),
+              f"mesh-lm (a) rank {rank}: bf16 step 0's {key} {got} is not "
+              f"within {LM_DTYPE_RTOL[key]} of one card's {ref}")
+    for i, (h, (ref, _)) in enumerate(zip(hist, card)):
+        check(abs(h["loss"] - ref) <= MESH_LM_BF16_LOSS_RTOL * abs(ref),
+              f"mesh-lm (a) rank {rank}: bf16 step {i}'s loss {h['loss']} "
+              f"is not within {MESH_LM_BF16_LOSS_RTOL} of one card's {ref}")
+    return out
+
+
+def _flash_counted(tag: str, rank: int, per_prefill: int, prefills: int,
+                   calls: list) -> dict:
+    """The path's flash launches (the counters set to 0 just before it):
+    every one on the sm90 route, ``per_prefill`` a prefill and none in
+    decode; each distinct recorded shape of a prefill held once against
+    the plain version.  Returns the launches and the shapes."""
+    from repro_torch.kernels.flash_attn import kernel as fk
+    routes = dict(fk.flash_attention_cuda.launches_by_route)
+    check(routes == {"sm90": per_prefill * prefills, "fp32": 0},
+          f"mesh-lm {tag} rank {rank}: flash launches by route {routes}, "
+          f"expected {per_prefill} sm90 a prefill")
+    shapes, once = {}, []
+    for args, kw, out in calls:
+        key = (tuple(args[0].shape), tuple(args[1].shape),
+               "causal" if kw["causal"] else "non-causal")
+        if key not in shapes:
+            once.append((args, kw, out))
+        shapes[key] = shapes.get(key, 0) + 1
+    if once:
+        _hold_main_path(once, [], tag=f"mesh-lm {tag} rank {rank}",
+                        what="each distinct shape of a prefill:")
+    return {"flash": routes["sm90"],
+            "shapes": {f"{q} x {k} {m}": n for (q, k, m), n in
+                       shapes.items()}}
+
+
+def _teacher_forced(model, cfg, run: dict, directory: str, tag: str,
+                    frontend=None, forced: bool = False) -> dict:
+    """Each layer of the sharded ``model`` run on one card's input to it
+    (``{directory}/{tag}_x{i}.npz``, the run's prompts): its output
+    against the card's at LOGITS_TOL x its |ref|_inf, on the tokens that
+    each MoE layer dispatched alike (the same expert set, kept or dropped
+    by each expert alike: a near-tie in the random router flips on a
+    rounding difference, the token's FFN output changes wholesale, and
+    the slots it takes or frees move later tokens across the capacity);
+    at most TEACHER_REROUTED of the tokens may be dispatched otherwise.
+    With ``forced`` every MoE layer dispatches to one card's recorded
+    expert sets (``_MoeRoutes(forced=)``) and every token is held; the
+    tokens the layer's own router would have sent elsewhere are counted,
+    not gated (deepseek-v3's top-8 of 256 experts has far more near-ties
+    than jamba's top-2 of 16, on which TEACHER_REROUTED was set).  On a
+    batch split over data each rank holds its shard's rows."""
+    import numpy as np
+    import torch
+    b, s = run["batch"], run["prompt_len"]
+    split = model.batch_split(b)
+    if split:
+        b //= model.ctx.n_data
+    lo = model.ctx.index(model.ctx.data_axes) * b if split else 0
+    positions = torch.arange(s, dtype=torch.int32, device=model.device)
+    fe = model._frontend(model._local(frontend), model.impl)
+    errs, rerouted, flips, moe_i = [], [], [], 0
+    for i, blk in enumerate(model.layers):
+        x = _tensor_load(os.path.join(directory, f"{tag}_x{i}.npz"),
+                         model.device)[lo:lo + b]
+        want = _tensor_load(os.path.join(directory, f"{tag}_x{i + 1}.npz"),
+                            model.device)[lo:lo + b].float()
+        ref = None
+        if blk.is_moe:
+            ref = torch.from_numpy(np.load(os.path.join(
+                directory, f"{tag}_r{moe_i}.npy")))[lo * s:(lo + b) * s]
+        with _MoeRoutes(forced=[ref] if forced and ref is not None
+                        else None) as routes, torch.no_grad():
+            out, _ = blk.prefill(x, positions, run["cache_len"], fe,
+                                 impl=model.impl, batch_split=split)
+        same = torch.ones(b * s, dtype=torch.bool)
+        if blk.is_moe:
+            got = routes.sets[0]
+            cap = max(1, math.ceil(run["batch"] * s * cfg.top_k
+                                   * cfg.capacity_factor / cfg.n_experts))
+            alike = ((got == ref).all(-1)
+                     & (_dispatch(got, cfg.n_experts, cap)
+                        == _dispatch(ref, cfg.n_experts, cap)).all(-1))
+            if not forced:
+                same = alike
+            moe_i += 1
+            rerouted.append(int((~alike).sum()))
+        diff = (out.float() - want).abs().reshape(b * s, -1)
+        flips.append(float((diff > 0).float().mean()))
+        err = float(diff[same.to(diff.device)].max())
+        scale = float(want.abs().max())
+        check(err <= LOGITS_TOL * scale, f"{tag} layer {i} ({blk.kind}, "
+              f"{'MoE' if blk.is_moe else 'dense'}): {err:.4e} from one "
+              f"card's, limit {LOGITS_TOL * scale:.4e}")
+        errs.append(err / scale)
+        del x, want, out, diff
+    check(forced or all(r <= TEACHER_REROUTED * b * s for r in rerouted),
+          f"{tag}: tokens dispatched otherwise by MoE layer {rerouted} of "
+          f"{b * s}")
+    return {"layer_err": errs, "rerouted": rerouted, "layer_flips": flips,
+            "forced": forced}
+
+
+def _mesh_lm_serve(spec: dict, tag: str, cfg, run: dict, shape, n_flash: int,
+                   prepare=None, turns: bool = False,
+                   forced: bool = False) -> dict:
+    """(b) for one config on the rank: ``serve_lm(ctx=)`` at full width
+    (the flash launches counted and held, ``_flash_counted``), the prompts
+    against one card's, the bf16 prefill logits against one card's
+    (printed), each layer on one card's recorded inputs
+    (``_teacher_forced``); the model returned for more gates."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed.sharding import MeshCtx
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import attention
+    files = spec[tag]
+    ctx = MeshCtx.for_mesh(make_local_mesh(*shape, backend="gloo",
+                                           device=DEVICE), "decode")
+    rank = ctx.mesh.rank
+    calls = []
+    undo = _recorder(attention, "flash_attention", calls, max(n_flash, 1))
+    _reset_lm_counters()                     # the path starts
+    try:
+        with _AllReduceTimer() as art, _Prepared(prepare, turns):
+            res = serve.serve_lm(cfg, device=DEVICE, ctx=ctx, **run)
+    finally:
+        undo()
+    out = _flash_counted(tag, rank, n_flash, res["prefills"], calls)
+    del calls                                # ... and ends here
+    tokens = torch.from_numpy(np.load(files["tokens"]))
+    check(torch.equal(res["tokens"].cpu(), tokens),
+          f"mesh-lm {tag} rank {rank}: the prompts differ from one card's")
+    ref = torch.from_numpy(np.load(files["logits"]))
+    logits = res["logits"].float().cpu()
+    check(tuple(logits.shape) == (run["batch"], cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"mesh-lm {tag}: logits {tuple(logits.shape)}")
+    model = res["model"]
+    n_pre, s_pre = art.seconds("prefill")
+    out.update(
+        bf16_err=_rel(logits, ref), agree=float(
+            (res["out"].cpu() == torch.from_numpy(np.load(files["out"])))
+            .float().mean()),
+        prefill_ms=res["prefill_s"] * 1e3,
+        decode_ms=res["decode_ms_per_step"], init_s=res["init_s"],
+        peak_gib=res["peak_bytes"] / 2**30,
+        ar_prefill_ms=1e3 * s_pre / res["prefills"],
+        ar_prefill_n=n_pre / res["prefills"],
+        weights_gib=sum(p.numel() * p.element_size()
+                        for p in model.parameters()) / 2**30)
+    frontend = None
+    if "frontend" in files:
+        frontend = _tensor_load(files["frontend"], model.device)
+    out.update(_teacher_forced(model, cfg, run, MESH_LM_DIR, tag, frontend,
+                               forced))
+    res.clear()
+    return out, model, ctx, frontend
+
+
+def _mesh_lm_f32(spec: dict, tag: str, cfg, run: dict, ctx, frontend,
+                 prepare=None) -> list:
+    """The float32 model from the same seed on ``ctx`` (this rank's
+    slices), through the plain attention: the prefill and MESH_F32_STEPS
+    decode steps fed one card's greedy tokens, each step's logits within
+    F32_TOL x |ref|_inf of one card's float32 run."""
+    import numpy as np
+    import torch
+    from repro_torch.models.model import LanguageModel
+    files = spec[tag]
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    model = LanguageModel(cfg32, device=DEVICE, ctx=ctx).init(
+        torch.Generator(device=DEVICE).manual_seed(run["seed"]))
+    if prepare is not None:
+        prepare(model)
+    tokens = torch.from_numpy(np.load(files["tokens"])).to(DEVICE)
+    feed = torch.from_numpy(np.load(files["out"])).to(DEVICE)
+    got = _f32_run(model, tokens, frontend, feed, run["cache_len"])
+    refs = torch.from_numpy(np.load(files["f32"]))
+    errs = [_rel(g, r) for g, r in zip(got, refs)]
+    del model
+    _free()
+    for i, e in enumerate(errs):
+        check(e <= F32_TOL, f"mesh-lm {tag} float32 "
+              f"{'prefill' if i == 0 else f'decode {i}'}: logits {e:.4e} x "
+              f"|ref|_inf from one card's, limit {F32_TOL}")
+    return errs
+
+
+def _mesh_lm_b(spec: dict) -> dict:
+    """(b) on the rank: llama-3.2-vision on (1, 4), whisper on (2, 2),
+    deepseek-v3 on (1, 4)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import attention
+    out = {}
+    t0 = time.perf_counter()
+    cfg = _mesh_cfg("llama-3.2-vision-11b", MESH_LLAMA_LAYERS)
+    n_flash = cfg.n_layers
+    res, model, ctx, fe = _mesh_lm_serve(
+        spec, "llama", cfg, MESH_LLAMA_RUN, MESH_LLAMA_SHAPE, n_flash,
+        prepare=_open_gates)
+    del model
+    _free()
+    res["f32_err"] = _mesh_lm_f32(spec, "llama", cfg, MESH_LLAMA_RUN, ctx,
+                                  fe, prepare=_open_gates)
+    out["llama"] = res
+    del fe
+    _free()
+    res["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = _mesh_cfg("whisper-tiny")
+    res, model, ctx, fe = _mesh_lm_serve(
+        spec, "whisper", cfg, MESH_WHISPER_RUN, MESH_WHISPER_SHAPE,
+        cfg.encoder_layers + 2 * cfg.n_layers)
+    del model
+    res["f32_err"] = _mesh_lm_f32(spec, "whisper", cfg, MESH_WHISPER_RUN,
+                                  ctx, fe)
+    out["whisper"] = res
+    del fe
+    _free()
+    res["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = _mesh_cfg("deepseek-v3-671b", MESH_DEEPSEEK_LAYERS)
+    res, model, ctx, _ = _mesh_lm_serve(
+        spec, "deepseek", cfg, MESH_DEEPSEEK_RUN, MESH_DEEPSEEK_SHAPE, 0,
+        turns=True, forced=True)
+    tokens = torch.from_numpy(np.load(spec["deepseek"]["tokens"])).to(DEVICE)
+    res["decode_gate"] = _mla_decode_gate(model, tokens)
+    del model
+    _free()
+    cfg32, p, x = _mla_f32_inputs(cfg, ctx)
+    pos = torch.arange(x.shape[1], dtype=torch.int32, device=DEVICE)
+    with torch.no_grad():
+        got = attention.mla_forward(p.view(), cfg32, x, pos).cpu()
+    want = torch.from_numpy(np.load(spec["deepseek"]["mla_f32"]))
+    res["mla_f32_err"] = _rel(got, want)
+    check(res["mla_f32_err"] <= F32_TOL, f"mesh-lm deepseek rank "
+          f"{ctx.mesh.rank}: the float32 MLA sublayer {res['mla_f32_err']:.4e}"
+          f" x |ref|_inf from one card's, limit {F32_TOL}")
+    del p, x, got, want
+    _free()
+    res["seconds"] = time.perf_counter() - t0
+    out["deepseek"] = res
+    return out
+
+
+def phase_mesh_lm(smi: str, device_name: str) -> dict:
+    """LM training and the three remaining layer kinds' serving on a mesh
+    of four gloo ranks sharing the card (no figure here is a multi-card
+    one), under ``torch.distributed.run`` (the parent built every kernel;
+    a rank that runs nvcc fails).  The parent first takes one card's
+    references, then frees them: (a) mamba2-780m trained through the
+    launcher on (2, 2) against one card (float32 step 0, bf16 steps); (b)
+    llama-3.2-vision, whisper and deepseek-v3 served at full width
+    (``MESH_*``) against one card (float32 end to end, bf16 layer by
+    layer, MLA's sublayer in float32 and its absorbed decode).  Then the
+    new local flash shapes timed alone."""
+    t0 = time.perf_counter()
+    shutil.rmtree(MESH_LM_DIR, ignore_errors=True)
+    os.makedirs(MESH_LM_DIR)
+    spec = {}
+    _mesh_lm_refs_train(spec)
+    _mesh_lm_refs_serve(spec, "llama", _mesh_cfg("llama-3.2-vision-11b",
+                                                 MESH_LLAMA_LAYERS),
+                        MESH_LLAMA_RUN, prepare=_open_gates)
+    _mesh_lm_refs_serve(spec, "whisper", _mesh_cfg("whisper-tiny"),
+                        MESH_WHISPER_RUN)
+    _mesh_lm_refs_deepseek(spec)
+    refs_s = time.perf_counter() - t0
+    print(f"[mesh-lm] one card's references in {refs_s:.1f}s")
+    res = _torchrun("lm", spec, where=MESH_LM_DIR,
+                    timeout_s=MESH_LM_TIMEOUT_S)
+    label = f"({smi}; four gloo ranks share the one card)"
+    a = [res[r]["a"] for r in range(MESH_RANKS)]
+    a0, card = a[0], spec["a_card_bf16"]
+    ms = statistics.mean(h[2] for h in a0["hist"][1:]) * 1e3
+    print(f"[mesh-lm-a] {label} {LM_TRAIN['arch']} at full width and depth "
+          f"({a0['n_params']:,} parameters, {a0['local_params']:,} on rank "
+          f"0) through the launcher on (2, 2), bf16, batch "
+          f"{LM_TRAIN['batch']} x {LM_TRAIN['seq']}, {MESH_LM_STEPS} steps: "
+          f"{ms:.3f} ms a step over steps 2-{MESH_LM_STEPS} (rank 0, host "
+          f"clock ending in a sync; one card {spec['a_card_bf16_ms']:.3f}), "
+          f"of it {a0['ar_s_step'] * 1e3:.3f} ms in "
+          f"{a0['ar_n_step']:.0f} host-staged all_reduces a step; step 0 "
+          f"{a0['hist'][0][2] * 1e3:.3f} ms; peak device memory per rank "
+          f"{[round(x['peak_gib'], 2) for x in a]} GiB; 0 kernel launches "
+          f"(training runs the plain functions); (a) {a0['seconds']:.1f}s "
+          f"on the ranks, the float32 step 0 {a0['f32_s']:.1f}s of it")
+    print(f"[mesh-lm-a] {label} losses "
+          f"{[round(h[0], 6) for h in a0['hist']]} against one card's "
+          f"{[round(c[0], 6) for c in card]} (limit "
+          f"{MESH_LM_BF16_LOSS_RTOL} relative); grad norms "
+          f"{[round(h[1], 5) for h in a0['hist']]} against "
+          f"{[round(c[1], 5) for c in card]}; float32 step 0: loss "
+          f"{a0['f32'][0]:.7f} vs {spec['a_card_f32'][0]:.7f}, grad norm "
+          f"{a0['f32'][1]:.7f} vs {spec['a_card_f32'][1]:.7f} (limit "
+          f"{MESH_LM_F32_RTOL} relative)")
+    paths = {}
+    for tag in ("llama", "whisper", "deepseek"):
+        b = [res[r]["b"][tag] for r in range(MESH_RANKS)]
+        b0 = b[0]
+        paths[f"mesh-lm (b) {tag}, 4 ranks"] = sum(x["flash"] for x in b)
+        print(f"[mesh-lm-b] {label} {tag}: prefill {b0['prefill_ms']:.3f} "
+              f"ms ({b0['ar_prefill_ms']:.3f} of it in "
+              f"{b0['ar_prefill_n']:.0f} host-staged all_reduces), decode "
+              f"{b0['decode_ms']:.4f} ms a step (rank 0); peak per rank "
+              f"{[round(x['peak_gib'], 2) for x in b]} GiB "
+              f"({b0['weights_gib']:.2f} of weight shards); flash launches "
+              f"by rank {[x['flash'] for x in b]}, all sm90, by shape a "
+              f"prefill {b0['shapes']}; bf16 logits end to end "
+              f"{max(x['bf16_err'] for x in b):.4e} x |ref|_inf from one "
+              f"card's (printed, not gated; greedy tokens agree "
+              f"{b0['agree']:.1%}); each layer on one card's inputs "
+              f"{[round(e, 6) for e in b0['layer_err']]} (limit "
+              f"{LOGITS_TOL}; "
+              + ("every MoE call dispatched to one card's expert sets, "
+                 f"its own router would have sent {b0['rerouted']} tokens "
+                 "elsewhere" if b0["forced"] else
+                 f"tokens dispatched otherwise {b0['rerouted']}")
+              + f"; {b0['seconds']:.1f}s on the ranks)"
+              + ("" if "f32_err" not in b0 else
+                 f"; float32 end to end {[float(f'{e:.4g}') for e in b0['f32_err']]}"
+                 f" (max over ranks "
+                 f"{max(max(x['f32_err']) for x in b):.4g}; limit {F32_TOL})"))
+    d0 = res[0]["b"]["deepseek"]
+    check(all(res[r]["b"]["deepseek"]["flash"] == 0
+              for r in range(MESH_RANKS)), "mesh-lm deepseek: MLA made "
+          "flash launches")
+    print(f"[mesh-lm-b] {label} deepseek's MLA on (1, 4): the float32 "
+          f"sublayer {max(res[r]['b']['deepseek']['mla_f32_err'] for r in range(MESH_RANKS)):.4e}"
+          f" x |ref|_inf from one card's (limit {F32_TOL}); the absorbed "
+          f"decode against the expanded prefill on the mesh: "
+          + "; ".join(f"{k} {e:.3e} (limit {lim:.3e}, token S - 1 "
+                      f"{away:.3e} away)"
+                      for k, (e, lim, away) in d0["decode_gate"].items()))
+    shutil.rmtree(MESH_LM_DIR, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    times = {}
+    for what, case in FLASH_MESH_LM.items():
+        key = ("mesh-lm (b) %s (B %d, S %d, T %d, H %d, Kv %d, D %d, %s)"
+               % ((what,) + case[:6] + ("causal" if case[6]
+                                        else "non-causal",)))
+        times[key] = _flash_shape_time(case, device_name)
+    print(f"[mesh-lm] {label} the phase took {secs:.1f}s (one card's "
+          f"references {refs_s:.1f}; the kernels timed alone after it not "
+          "included)")
+    return {"paths": paths, "times": times, "seconds": secs, "a": a0,
+            "b": {t: res[0]["b"][t] for t in ("llama", "whisper",
+                                              "deepseek")}}
+
+
 def main() -> int:
     try:
         import torch
@@ -5989,6 +6712,8 @@ def main() -> int:
     elapsed("serve-jamba")
     mesh_serve = phase_mesh_serve(serve_f, jamba_ref, smi, name)
     elapsed("mesh-serve")
+    mesh_lm = phase_mesh_lm(smi, name)
+    elapsed("mesh-lm")
     llama = phase_serve_llama_vision(name)
     whisper = phase_serve_whisper(name)
     deepseek = phase_serve_deepseek()
@@ -6014,6 +6739,7 @@ def main() -> int:
     ssd_paths = {"serve-jamba": jamba["ssd"],
                  "lm-readout (mamba2-780m, n 128)": readout["ssd"]}
     flash_paths.update(mesh_serve["paths"]["flash"])
+    flash_paths.update(mesh_lm["paths"])
     ssd_paths.update(mesh_serve["paths"]["ssd"])
     matvec_paths.update(mesh_serve["paths"]["matvec"])
     by_path = {"kernel_matvec": matvec_paths,
@@ -6049,7 +6775,8 @@ def main() -> int:
         if row["name"] == "flash_attention":
             row["ms_bound_by_shape"] = dict(
                 llama["times"], **whisper["times"],
-                **mesh_serve["times"]["flash_attention"])
+                **mesh_serve["times"]["flash_attention"],
+                **mesh_lm["times"])
         if row["name"] == "train_pass_sm90_j4096":
             row["ms_bound_by_shape"] = {
                 "lm-readout fit (I %d, J union %d, D %d)"
@@ -6133,7 +6860,8 @@ def main() -> int:
                   f"{n} p50 {arm[n][0]:.4f} p99 {arm[n][1]:.4f} ms"
                   for n in ("gold", "standard", "batch"))
               + f"; {arm['sheds']} sheds")
-    print(f"[lm-train] {LM_TRAIN['arch']} at full width and depth: "
+    print(f"[lm-train] {LM_TRAIN['arch']} at full width, "
+          f"{LM_TRAIN['layers']} layers: "
           f"{lm_train['ms_per_step']:.3f} ms a step, "
           f"{lm_train['tokens_per_s']:,.0f} tokens/s, {lm_train['mfu']:.2%} "
           f"of the bf16 dense peak (6 x parameters x tokens), peak "

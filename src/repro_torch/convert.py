@@ -43,6 +43,13 @@
   (``ml_dtypes``) become bfloat16 tensors.  With ``ctx`` (a
   ``MeshCtx``) each tensor is this rank's slice, cut by the same layout
   as ``LanguageModel(cfg, ctx=ctx)`` allocates (``nn.module.take_local``).
+  That covers every leaf of every config (MLA's, cross-attention's and
+  whisper's encoder stack included): each is cut by its ``Param`` spec.
+* ``lm_opt_state_from_jax(cfg, opt_state, ctx=None)`` — the port's
+  optimizer state (``{"count", "m", "v"}`` / ``"g2"``, the moments keyed
+  as the ``state_dict``) from JAX's, unstacked as the parameters are and,
+  with ``ctx``, this rank's slices of the moments: a JAX AdamW trajectory
+  continues in the port, on one device or a mesh.
 * ``lm_train_state_from_jax(cfg, params, opt_state, extra)`` — the flat
   arrays and ``extra`` of a port LM training checkpoint (``train_loop``
   resumes from it) from a JAX one: the parameters and the optimizer's
@@ -240,6 +247,21 @@ def lm_params_from_jax(cfg: ModelConfig, params: Mapping[str, Any],
         specs = dict(_flat(param_specs(cfg)))
         out = {k: take_local(v, specs[k], ctx).contiguous()
                for k, v in out.items()}
+    return out
+
+
+def lm_opt_state_from_jax(cfg: ModelConfig, opt_state: Mapping[str, Any],
+                          ctx=None) -> Dict[str, Any]:
+    """The port's optimizer state from JAX's (``count`` and the moment
+    trees, CPU tensors in the moments' own dtypes); with ``ctx`` this
+    rank's slices of the moments."""
+    out: Dict[str, Any] = {}
+    for key, val in opt_state.items():
+        if key == "count":
+            out["count"] = torch.tensor(int(np.asarray(val)),
+                                        dtype=torch.int32)
+        else:
+            out[key] = lm_params_from_jax(cfg, val, ctx=ctx)
     return out
 
 

@@ -27,6 +27,31 @@ never a fallback after a failure, and each call is counted in ``COUNTS``
 under ``"<op>:<method>"``.  A slot-stack gather moves n times the bytes
 of a native one.
 
+Autograd (training on the mesh).  Where a tensor that needs a gradient
+meets a collective, the collective runs as a ``torch.autograd.Function``
+whose backward is another collective (counted likewise); elsewhere
+(serving, ``no_grad``) it runs as before.  The conventions, per axis:
+
+  * over the MODEL axis a replicated tensor carries the whole gradient on
+    every rank (tensor parallelism's): ``psum`` of partial products
+    (``psum_product``) is an all-reduce forward and the identity
+    backward; ``to_split`` marks a replicated tensor entering this rank's
+    split part of a layer (a column-split product's input, or a
+    replicated weight used beside split ones), the identity forward and
+    an all-reduce backward; ``all_gather(..., grad="slice")`` (the MoE's
+    router) gives each rank its slice of the gradient back;
+    ``psum(..., grad="psum")``, a sum that the split parts use again (a
+    norm's sum of squares over a split width), reduces both ways;
+  * over the DATA axes each rank's gradient is its own batch shard's
+    share, the step's gradient their sum (then divided by the shards,
+    ``train/step.py``): ``all_gather`` (ZeRO's gathers of "embed" dims,
+    the MoE's expert batches) is reduced and scattered backward,
+    ``psum_scatter`` gathered backward, ``psum(..., grad="psum")`` (the
+    MoE's load-balance statistics) summed backward.
+
+The backward sums of bfloat16 or float16 gradients run in float32 and
+are rounded once.
+
 ``allgather_matmul_overlapped`` and ``ring_psum_matmul`` are the JAX
 module's ring schedules of a row-sharded and a contraction-sharded
 matmul: n ring steps, each a matmul and a shift.  Here the shift waits
@@ -59,14 +84,89 @@ def gather_method(t: Tensor, ctx) -> str:
     return "slots"
 
 
-def psum(x: Tensor, ctx, axes) -> Tensor:
-    """``x`` summed over ``axes`` (in place when ``x`` is contiguous)."""
+def _differentiable(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _all_reduce(x: Tensor, ctx, axes, op=dist.ReduceOp.SUM) -> Tensor:
+    """``x`` (contiguous) reduced over ``axes`` in place."""
+    dist.all_reduce(x, op=op, group=ctx.group(axes))
+    COUNTS["psum:all_reduce" if op == dist.ReduceOp.SUM
+           else "pmax:all_reduce"] += 1
+    return x
+
+
+def _wide(g: Tensor) -> Tensor:
+    """``g`` as the dtype its sum over ranks is taken in (float32 for the
+    16-bit floats)."""
+    return g.float() if g.dtype in (torch.bfloat16, torch.float16) else g
+
+
+def _summed(g: Tensor, ctx, axes) -> Tensor:
+    """A gradient summed over ``axes`` (a new tensor, in g's dtype)."""
+    return _all_reduce(_wide(g).contiguous().clone(), ctx, axes).to(g.dtype)
+
+
+class _Psum(torch.autograd.Function):
+    """All-reduce forward; the identity, or with ``grad="psum"`` another
+    all-reduce, backward."""
+
+    @staticmethod
+    def forward(fn, x, ctx, axes, grad):
+        fn.mesh_ctx, fn.axes, fn.grad = ctx, axes, grad
+        return _all_reduce(x.contiguous().clone(), ctx, axes)
+
+    @staticmethod
+    def backward(fn, g):
+        if fn.grad == "psum":
+            g = _summed(g, fn.mesh_ctx, fn.axes)
+        return g, None, None, None
+
+
+class _ToSplit(torch.autograd.Function):
+    """The identity forward; an all-reduce backward."""
+
+    @staticmethod
+    def forward(fn, x, ctx, axes):
+        fn.mesh_ctx, fn.axes = ctx, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fn, g):
+        return _summed(g, fn.mesh_ctx, fn.axes), None, None
+
+
+def psum(x: Tensor, ctx, axes, grad: str = "identity") -> Tensor:
+    """``x`` summed over ``axes`` (in place when ``x`` is contiguous and
+    needs no gradient).  Backward (module docstring): ``grad="identity"``
+    where the sum is replicated from here on (partial products over the
+    model axis), ``"psum"`` where each rank's share of it is summed again
+    (a sum the split parts reuse; the data axes)."""
     if _size(ctx, axes) == 1:
         return x
-    x = x.contiguous()
-    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=ctx.group(axes))
-    COUNTS["psum:all_reduce"] += 1
-    return x
+    if grad not in ("identity", "psum"):
+        raise ValueError(f"psum: grad {grad!r}")
+    if _differentiable(x):
+        return _Psum.apply(x, ctx, axes, grad)
+    return _all_reduce(x.contiguous(), ctx, axes)
+
+
+def to_split(x: Tensor, ctx, axes) -> Tensor:
+    """``x``, replicated over ``axes``, entering this rank's split part of
+    a layer: the identity forward, its gradient summed over ``axes``
+    backward (each rank's part adds its share).  ``axes`` None, one rank,
+    or no gradient: ``x``."""
+    if axes is None or _size(ctx, axes) == 1 or not _differentiable(x):
+        return x
+    return _ToSplit.apply(x, ctx, axes)
+
+
+def pmax(x: Tensor, ctx, axes) -> Tensor:
+    """The elementwise max over ``axes`` (no gradient: a shift)."""
+    if _size(ctx, axes) == 1:
+        return x
+    return _all_reduce(x.detach().contiguous().clone(), ctx, axes,
+                       op=dist.ReduceOp.MAX)
 
 
 def psum_product(op, x: Tensor, w: Tensor, ctx, axes) -> Tensor:
@@ -94,12 +194,25 @@ def _slots(x: Tensor, ctx, axes) -> Tensor:
 
 
 def all_gather(x: Tensor, ctx, axes, dim: int = 0,
-               method: str = "") -> Tensor:
+               method: str = "", grad: str = "scatter") -> Tensor:
     """Tiled all-gather: the ranks' ``x`` concatenated along ``dim`` in
-    coordinate order.  ``method`` forces "native" or "slots" (tests)."""
+    coordinate order.  ``method`` forces "native" or "slots" (tests).
+    Backward: ``grad="scatter"`` sums the ranks' gradients and gives each
+    its slice (``psum_scatter``: each rank's use of the gathered tensor is
+    its own share), ``"slice"`` takes this rank's slice of its own
+    gradient (the gathered tensor's use is replicated)."""
     n = _size(ctx, axes)
     if n == 1:
         return x
+    if grad not in ("scatter", "slice"):
+        raise ValueError(f"all_gather: grad {grad!r}")
+    if _differentiable(x):
+        return _AllGather.apply(x, ctx, axes, dim, method, grad)
+    return _gather(x, ctx, axes, dim, method)
+
+
+def _gather(x: Tensor, ctx, axes, dim: int, method: str) -> Tensor:
+    n = _size(ctx, axes)
     method = method or gather_method(x, ctx)
     COUNTS[f"all_gather:{method}"] += 1
     if method == "slots":
@@ -115,12 +228,46 @@ def all_gather(x: Tensor, ctx, axes, dim: int = 0,
     return torch.cat(parts, dim=dim)
 
 
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(fn, x, ctx, axes, dim, method, grad):
+        fn.args = (ctx, axes, dim, grad, x.shape[dim])
+        return _gather(x, ctx, axes, dim, method)
+
+    @staticmethod
+    def backward(fn, g):
+        ctx, axes, dim, grad, n_loc = fn.args
+        if grad == "slice":
+            out = g.narrow(dim, ctx.index(axes) * n_loc, n_loc)
+        else:
+            out = _scatter(_wide(g), ctx, axes, dim).to(g.dtype)
+        return out, None, None, None, None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(fn, x, ctx, axes, dim):
+        fn.args = (ctx, axes, dim)
+        return _scatter(x, ctx, axes, dim)
+
+    @staticmethod
+    def backward(fn, g):
+        ctx, axes, dim = fn.args
+        return _gather(g, ctx, axes, dim, ""), None, None, None
+
+
 def psum_scatter(x: Tensor, ctx, axes, dim: int = 0) -> Tensor:
     """Tiled ``psum_scatter``: ``x`` summed over ``axes``, then this rank's
-    1/n of ``dim``."""
-    n = _size(ctx, axes)
-    if n == 1:
+    1/n of ``dim``.  Backward: the slices' gradients gathered."""
+    if _size(ctx, axes) == 1:
         return x
+    if _differentiable(x):
+        return _PsumScatter.apply(x, ctx, axes, dim)
+    return _scatter(x, ctx, axes, dim)
+
+
+def _scatter(x: Tensor, ctx, axes, dim: int) -> Tensor:
+    n = _size(ctx, axes)
     if x.shape[dim] % n:
         raise ValueError(f"psum_scatter: dim {dim} of {tuple(x.shape)} does "
                          f"not divide over {n} ranks")
@@ -130,7 +277,7 @@ def psum_scatter(x: Tensor, ctx, axes, dim: int = 0) -> Tensor:
         dist.reduce_scatter_tensor(out, src, group=ctx.group(axes))
         COUNTS["psum_scatter:reduce_scatter"] += 1
         return out.movedim(0, dim)
-    total = psum(x.clone(), ctx, axes)
+    total = _all_reduce(x.contiguous().clone(), ctx, axes)
     COUNTS["psum_scatter:all_reduce"] += 1
     step = x.shape[dim] // n
     return total.narrow(dim, ctx.index(axes) * step, step).contiguous()

@@ -118,6 +118,21 @@ def _env_int(name: str, default: int) -> int:
     return int(value) if value not in (None, "") else default
 
 
+def world_size() -> int:
+    """The world's size: the initialised group's, else
+    ``torch.distributed.run``'s ``WORLD_SIZE``, else 1."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return _env_int("WORLD_SIZE", 1)
+
+
+def pick_backend(backend: Optional[str], device) -> str:
+    """``backend`` when given, else nccl for a CUDA device and gloo for
+    the CPU (the launchers' ``--dist-backend`` default)."""
+    return backend or ("nccl" if torch.device(device).type == "cuda"
+                       else "gloo")
+
+
 def check_backend(backend: str, device, world_size: int,
                   local_world_size: Optional[int] = None) -> None:
     """Refuse a backend that cannot serve this world: ``nccl`` on the CPU,
@@ -232,8 +247,7 @@ def make_production_mesh(multi_pod: bool = False, *, backend: str = "nccl",
     shape = (2, 16, 16) if multi_pod else (16, 16)
     names = ("pod", "data", "model") if multi_pod else MESH_AXES
     need = math.prod(shape)
-    have = (dist.get_world_size() if dist.is_initialized()
-            else _env_int("WORLD_SIZE", 1))
+    have = world_size()
     if have < need:
         raise ValueError(f"the production mesh {shape} ({', '.join(names)}) "
                          f"needs a world of {need} ranks; this one has "

@@ -24,10 +24,12 @@ a world of more than one rank builds the production mesh, (16, 16) or
 with ``--multi-pod`` (2, 16, 16), and raises in a smaller world, naming
 the world size it needs.  In a world of one, ``--full`` serves on the one
 device when the parameters fit it and otherwise exits naming the
-production mesh and its world size.  MLA, cross-attention and whisper's
-encoder refuse a mesh (ROADMAP.md section 1, item 6).  Rank 0 alone
-prints; ``--dist-backend`` is nccl (one rank a card; the default on
-cuda) or gloo (the CPU, and ranks sharing a card):
+production mesh and its world size.  Every config serves on a mesh: GQA,
+mamba-2, the MLP and the MoE, MLA (deepseek-v3, kimi-k2), gated
+cross-attention over the frontend (llama-3.2-vision) and whisper's
+encoder and decoder, each rank on its data shard of the batch and the
+frontend.  Rank 0 alone prints; ``--dist-backend`` is nccl (one rank a
+card; the default on cuda) or gloo (the CPU, and ranks sharing a card):
 
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 4 -m repro_torch.launch.serve \
@@ -128,15 +130,8 @@ def build_model(args, device: torch.device):
 
 
 def _backend(args) -> str:
-    return args.dist_backend or (
-        "nccl" if resolve_device(args.device).type == "cuda" else "gloo")
-
-
-def _world_size() -> int:
-    import torch.distributed as dist
-    if dist.is_initialized():
-        return dist.get_world_size()
-    return int(os.environ.get("WORLD_SIZE") or 1)
+    return mesh_lib.pick_backend(args.dist_backend,
+                                 resolve_device(args.device))
 
 
 def _say(mesh, *parts) -> None:
@@ -560,7 +555,7 @@ def lm_main(ap: argparse.ArgumentParser, args) -> Dict[str, Any]:
                  "--full")
     cfg = get_config(args.arch, reduced=not args.full)
     ctx = None
-    if args.full and _world_size() > 1:
+    if args.full and mesh_lib.world_size() > 1:
         # The production mesh, as JAX's launcher; raises in a smaller
         # world, naming the world size it needs.
         ctx = MeshCtx.for_mesh(mesh_lib.make_production_mesh(

@@ -14,13 +14,29 @@ parameters, gradients and float32 moments fit the device:
         --steps 100 [--batch 8 --seq 128 --lr 3e-3] [--full] \
         [--ckpt-dir DIR --ckpt-every 25 [--resume]] [--device cpu]
 
-A larger model, ``--data-par`` / ``--model-par`` > 1 and ``--multi-pod``
-need LM training on the mesh, the next slice (ROADMAP.md section 1, item
-6; the LM serves on the mesh already, ``launch/serve.py``), and are
-refused.  So are the
-configs with a frontend (llama-3.2-vision, whisper): the launcher, like
-JAX's, builds no frontend for them to attend over (``train_step`` takes
-one in ``batch["frontend"]`` from a caller that has one).
+On a mesh (one process a mesh coordinate, the world from
+``torch.distributed.run``): ``--data-par`` x ``--model-par`` trains the
+config sharded under JAX's ``train`` rules (ZeRO over data, tensor and
+expert parallel over model; ``train/step.py``), each rank on its data
+shard of the batch (``--full`` with them: the published widths on that
+mesh); ``--full`` alone in a world of more than one rank builds the
+production mesh, (16, 16) or with ``--multi-pod`` (2, 16, 16), and
+raises in a smaller world, naming the world size it needs.  In a world of
+one, ``--full`` trains on the one device when parameters, gradients and
+float32 moments fit it, and otherwise exits naming the production mesh.
+Rank 0 alone prints and writes the checkpoint, in the single-device
+format (``train/loop.py``); ``--dist-backend`` is nccl (one rank a card;
+the default on cuda) or gloo (the CPU, and ranks sharing a card):
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch granite-20b --data-par 2 --model-par 2 \
+        [--dist-backend gloo] [--device cpu]
+
+The configs with a frontend (llama-3.2-vision, whisper) are refused: the
+launcher, like JAX's, builds no frontend for them to attend over
+(``train_step`` takes one in ``batch["frontend"]`` from a caller that has
+one, on one device or a mesh).
 
 DSEKL:
 
@@ -82,13 +98,11 @@ from repro_torch.data import BigramPipeline, HostSource, \
     make_memmap_dataset, open_memmap_dataset, split_holdout
 from repro_torch.data.synthetic import make_covertype_like
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.model import LanguageModel
 from repro_torch.optim import make_optimizer, make_schedule
-from repro_torch.train import (TrainLoopConfig, make_train_step, trainable,
-                               train_loop)
-
-MESH_ITEM = ("LM training on the mesh, the next slice: ROADMAP.md "
-             "section 1, item 6")
+from repro_torch.train import (TrainLoopConfig, make_train_step,
+                               param_shards, trainable, train_loop)
 
 
 def _device_bytes(device: torch.device) -> int:
@@ -103,23 +117,48 @@ def lm_state_bytes(cfg, moment_bytes: int = 4) -> int:
     return cfg.param_count_estimate() * (2 * p_bytes + 2 * moment_bytes)
 
 
-def train_lm(args) -> Dict[str, Any]:
-    """Train an LM with the JAX launcher's recipe (module docstring).
+def lm_ctx(args):
+    """The LM run's mesh context under the ``train`` rules, or None (one
+    device): ``--data-par`` x ``--model-par`` when more than one (at the
+    reduced or, with ``--full``, the published widths), else the
+    production mesh for ``--full`` in a world of more than one rank
+    (raising in a smaller world)."""
+    from repro_torch.distributed.sharding import MeshCtx
+    backend = mesh_lib.pick_backend(args.dist_backend,
+                                    resolve_device(args.device))
+    if args.data_par * args.model_par > 1:
+        return MeshCtx.for_mesh(mesh_lib.make_local_mesh(
+            args.data_par, args.model_par, backend=backend,
+            device=args.device), "train")
+    if args.full and mesh_lib.world_size() > 1:
+        return MeshCtx.for_mesh(mesh_lib.make_production_mesh(
+            args.multi_pod, backend=backend, device=args.device), "train")
+    return None
+
+
+def train_lm(args, ctx=None) -> Dict[str, Any]:
+    """Train an LM with the JAX launcher's recipe (module docstring), on
+    one device or, with ``ctx`` (``lm_ctx(args)``), SPMD on its mesh.
     Returns the loop's ``history`` (a record a step), the model, its
     config, the optimizer state, the step function, the pipeline (at the
-    loop's end), the parameter count, the checkpoint directory and, on a
-    card, the peak device memory."""
-    device = resolve_device(args.device)
+    loop's end), the parameter count (every rank's slices: the model's),
+    the checkpoint directory and, on a card, the peak device memory."""
+    mesh = ctx.mesh if ctx is not None else None
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     cfg = get_config(args.arch, reduced=not args.full)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    model = LanguageModel(cfg, device=device).init(gen)
+    model = LanguageModel(cfg, device=device, ctx=ctx).init(gen)
     params = trainable(model)
-    n_params = sum(p.numel() for p in params.values())
-    print(f"[launch] arch={cfg.name} device={device} params="
-          f"{n_params / 1e6:.1f}M ({cfg.param_dtype})")
+    shards = param_shards(model)
+    n_params = sum(math.prod(shards.specs[k].shape) for k in params)
+    where = (f" mesh {ctx.n_data} x {ctx.n_model} ({mesh.backend}), "
+             f"batch {args.batch} over the data axes" if mesh is not None
+             else "")
+    _say(mesh, f"[launch] arch={cfg.name} device={device}{where} params="
+         f"{n_params / 1e6:.1f}M ({cfg.param_dtype})")
     opt = make_optimizer("adamw", make_schedule(
         "cosine", args.lr, warmup_steps=max(args.steps // 10, 1),
-        total_steps=args.steps))
+        total_steps=args.steps), shards=shards)
     opt_state = opt.init(params)
     step_fn = make_train_step(model, opt, loss_chunks=4)
     pipe = BigramPipeline(cfg.vocab_size, args.batch, args.seq, seed=1)
@@ -132,13 +171,15 @@ def train_lm(args) -> Dict[str, Any]:
                      TrainLoopConfig(n_steps=args.steps,
                                      ckpt_every=args.ckpt_every,
                                      log_every=10),
-                     resume=args.resume, device=device, verbose=True)
+                     resume=args.resume, device=device, verbose=True,
+                     shards=shards)
     losses = [h["loss"] for h in out["history"]]
     if losses:
-        print(f"[launch] done: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+        _say(mesh, f"[launch] done: loss {losses[0]:.4f} -> "
+             f"{losses[-1]:.4f}")
     return {"history": out["history"], "model": model, "cfg": cfg,
             "opt_state": out["opt_state"], "step": step_fn, "pipeline": pipe,
-            "n_params": n_params, "ckpt_dir": ckpt_dir,
+            "n_params": n_params, "ckpt_dir": ckpt_dir, "ctx": ctx,
             "peak_bytes": (torch.cuda.max_memory_allocated(device)
                            if device.type == "cuda" else None)}
 
@@ -148,11 +189,10 @@ def _mesh_of(args):
     ``--execution bcd`` over more than one rank."""
     if args.execution == "mesh" or (
             args.execution == "bcd" and args.data_par * args.model_par > 1):
-        from repro_torch.launch.mesh import make_local_mesh
-        backend = args.dist_backend or (
-            "nccl" if resolve_device(args.device).type == "cuda" else "gloo")
-        return make_local_mesh(args.data_par, args.model_par,
-                               backend=backend, device=args.device)
+        return mesh_lib.make_local_mesh(
+            args.data_par, args.model_par, backend=mesh_lib.pick_backend(
+                args.dist_backend, resolve_device(args.device)),
+            device=args.device)
     return None
 
 
@@ -304,21 +344,22 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--full", action="store_true",
-                    help="the config's published widths on one device "
-                         "(default: the reduced config)")
+                    help="the config's published widths (default: the "
+                         "reduced config); on the production mesh in a "
+                         "world of more than one rank")
     ap.add_argument("--ckpt-dir", default=None,
                     help="LM checkpoints (default: a directory under the "
                          "temporary directory)")
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--data-par", type=int, default=1,
-                    help="the mesh's data axis (--dsekl with --execution "
-                         "mesh or bcd; LM training on the mesh is not "
-                         "ported: item 6)")
+                    help="the mesh's data axis (under "
+                         "torch.distributed.run; --dsekl with --execution "
+                         "mesh or bcd)")
     ap.add_argument("--model-par", type=int, default=1,
                     help="the mesh's model axis (as --data-par)")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="multi-pod LM training mesh: not ported "
-                         "(item 6)")
+                    help="with --full (LM): the (2, 16, 16) production "
+                         "mesh")
     ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
                     help="the mesh's torch.distributed backend: nccl (the "
                          "default on cuda; one rank a card) or gloo (the "
@@ -378,20 +419,6 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def unported_modes(args) -> list:
-    """The requested modes the port does not have yet: the LM path's mesh
-    flags (each needs LM training on the mesh, item 6)."""
-    out = []
-    if args.dsekl:
-        return out
-    for flag in ("data_par", "model_par"):
-        if getattr(args, flag) > 1:
-            out.append(f"--{flag.replace('_', '-')} {getattr(args, flag)}")
-    if args.multi_pod:
-        out.append("--multi-pod")
-    return out
-
-
 def lm_refusal(args) -> str:
     """Why the LM path cannot run ``args`` on one device, or ''."""
     if args.arch not in ARCHS:
@@ -402,25 +429,25 @@ def lm_refusal(args) -> str:
                 f"({cfg.n_frontend_tokens} embeddings a sequence), and the "
                 "LM training launcher builds none, as JAX's does not: pass "
                 "one in batch['frontend'] to train.make_train_step")
-    if args.full:
+    if args.multi_pod and not args.full:
+        return "--multi-pod names the production mesh: give it with --full"
+    if args.full and mesh_lib.world_size() == 1:
         device = resolve_device(args.device)
         need, have = lm_state_bytes(cfg), _device_bytes(device)
         if need > have:
+            shape = (2, 16, 16) if args.multi_pod else (16, 16)
             return (f"--full {cfg.name}: {need / 1e9:.1f} GB of "
                     f"{cfg.param_dtype} parameters and gradients and float32 "
                     f"AdamW moments do not fit the {have / 1e9:.1f} GB of "
-                    f"{device}; the full model needs the sharded mesh path, "
-                    f"which LM training has not yet ({MESH_ITEM})")
+                    f"{device}; train it on the production mesh {shape}: a "
+                    f"world of {math.prod(shape)} ranks under "
+                    "torch.distributed.run")
     return ""
 
 
 def main(argv=None):
     ap = parser()
     args = ap.parse_args(argv)
-    missing = unported_modes(args)
-    if missing:
-        ap.error("not ported to repro_torch yet: " + ", ".join(missing)
-                 + f" ({MESH_ITEM})")
     if args.execution == "bcd" and args.precondition_k > 0:
         ap.error("--precondition-k with --execution bcd: BCD solves each "
                  "block exactly — EigenPro preconditioning applies to the "
@@ -431,8 +458,7 @@ def main(argv=None):
             args.execution not in ("mesh", "bcd"):
         ap.error("--data-par / --model-par > 1 train on the mesh: pass "
                  "--execution mesh or --execution bcd")
-    if args.dsekl and args.dist_backend == "nccl":
-        from repro_torch.launch import mesh as mesh_lib
+    if args.dist_backend == "nccl":
         try:                    # before NCCL itself fails, in our words
             mesh_lib.check_backend(
                 "nccl", resolve_device(args.device),
@@ -444,7 +470,12 @@ def main(argv=None):
         refusal = lm_refusal(args)
         if refusal:
             ap.error(refusal)
-        train_lm(args)
+        ctx = lm_ctx(args)
+        try:
+            train_lm(args, ctx)
+        finally:
+            if ctx is not None:
+                ctx.mesh.close()
         return
     train_dsekl(args)
 

@@ -30,8 +30,27 @@ split with them where they divide, else held whole and each rank takes
 the kv heads of its own q-head groups (granite's one kv head).  The flash
 op sees (B, S, H_loc, Kv_loc, D), the KV cache holds the local kv heads,
 and ``w_o``'s partial products are summed over the model axis in float32
-(``collectives.psum_product``).  MLA and cross-attention refuse a mesh
-(``models/blocks.py``).
+(``collectives.psum_product``).  Cross-attention is GQA's layout over the
+frontend's K / V: the cross cache holds the local kv heads, the flash op
+runs non-causally at the local head counts, and the gate is whole.  A
+head count that does not divide the model axis (whisper-tiny's 6 on 4)
+leaves the heads whole and the layer replicated.
+
+MLA on a mesh follows the ``train`` / ``decode`` rules: ``w_dq`` splits
+q_lora over the model axis (``q_norm`` with it: the RMS's sum of squares
+is summed over the axis), ``w_uq`` holds all heads over this rank's
+q_lora slice (its contraction summed over the axis by ``psum_product``),
+of which the rank keeps the q heads its ``w_uk`` / ``w_uv`` / ``w_o``
+hold; ``w_dkv`` and ``kv_norm`` are whole, so c_kv and k_rope, and the
+MLA cache, are whole over the model axis (split over data with the
+batch); the absorbed decode runs over the local heads and ``w_o``'s
+products are summed as GQA's.
+
+In training each tensor replicated over the model axis that enters a
+rank's split part (the layer's input before a head-split projection, a
+replicated weight used on the local heads, MLA's c_kv, k_rope and whole
+q) goes through ``collectives.to_split``, whose backward sums its
+gradient over the axis.
 """
 from __future__ import annotations
 
@@ -203,11 +222,21 @@ def local_kv_heads(p: ParamTree, cfg: ModelConfig) -> Tuple[int, int]:
 
 
 def _kv_weights(p: ParamTree, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
-    """``w_k``, ``w_v`` over this rank's kv heads (``local_kv_heads``)."""
-    if axes(p, "w_q", 1) is None or axes(p, "w_k", 1) is not None:
+    """``w_k``, ``w_v`` over this rank's kv heads (``local_kv_heads``).
+    Whole kv heads under split q heads are replicated weights used on the
+    local heads: ``to_split`` sums their gradients over the model axis."""
+    over = axes(p, "w_q", 1)
+    if over is None or axes(p, "w_k", 1) is not None:
         return p.w_k, p.w_v
     klo, khi = local_kv_heads(p, cfg)
-    return p.w_k[:, klo:khi], p.w_v[:, klo:khi]
+    return (collectives.to_split(p.w_k, p.ctx, over)[:, klo:khi],
+            collectives.to_split(p.w_v, p.ctx, over)[:, klo:khi])
+
+
+def _split_input(p: ParamTree, x: Tensor) -> Tensor:
+    """x entering the projections of the local q heads (``to_split`` over
+    the heads' axes; x itself when the heads are whole)."""
+    return collectives.to_split(x, p.ctx, axes(p, "w_q", 1))
 
 
 def _out_proj(p: ParamTree, o: Tensor) -> Tensor:
@@ -219,6 +248,7 @@ def _out_proj(p: ParamTree, o: Tensor) -> Tensor:
 
 def _qkv(p: ParamTree, cfg: ModelConfig, x: Tensor, positions: Tensor):
     w_k, w_v = _kv_weights(p, cfg)
+    x = _split_input(p, x)
     q = torch.einsum("bsd,dhk->bshk", x, p.w_q)
     k = torch.einsum("bsd,dhk->bshk", x, w_k)
     v = torch.einsum("bsd,dhk->bshk", x, w_v)
@@ -292,15 +322,21 @@ class CrossCache(NamedTuple):
 
 
 def init_cross_cache(cfg: ModelConfig, batch: int, frontend_len: int,
-                     device: torch.device) -> CrossCache:
-    shape = (batch, frontend_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+                     device: torch.device,
+                     n_kv: Optional[int] = None) -> CrossCache:
+    """An empty cross cache of ``n_kv`` kv heads (default: all)."""
+    shape = (batch, frontend_len, n_kv or cfg.n_kv_heads,
+             cfg.resolved_head_dim)
     return CrossCache(k=torch.zeros(shape, dtype=cfg.cdtype, device=device),
                       v=torch.zeros(shape, dtype=cfg.cdtype, device=device))
 
 
 def cross_kv(p: ParamTree, cfg: ModelConfig, frontend: Tensor) -> CrossCache:
-    k = torch.einsum("btd,dhk->bthk", frontend, p.w_k)
-    v = torch.einsum("btd,dhk->bthk", frontend, p.w_v)
+    """The frontend's K / V over this rank's kv heads."""
+    w_k, w_v = _kv_weights(p, cfg)
+    frontend = _split_input(p, frontend)
+    k = torch.einsum("btd,dhk->bthk", frontend, w_k)
+    v = torch.einsum("btd,dhk->bthk", frontend, w_v)
     return CrossCache(k=k, v=v)
 
 
@@ -312,7 +348,7 @@ def cross_forward(p: ParamTree, cfg: ModelConfig, x: Tensor,
     None runs ``mha_full`` (training, and decode's S = 1); a backend name
     runs the flash op, non-causal (prefill).  ``tanh(gate)`` scales the
     output when ``gated``."""
-    q = torch.einsum("bsd,dhk->bshk", x, p.w_q)
+    q = torch.einsum("bsd,dhk->bshk", _split_input(p, x), p.w_q)
     if impl is None:
         s, t = q.shape[1], kv_cache.k.shape[1]
         out = mha_full(q, kv_cache.k, kv_cache.v,
@@ -322,7 +358,7 @@ def cross_forward(p: ParamTree, cfg: ModelConfig, x: Tensor,
     else:
         out = flash_attention(q, kv_cache.k, kv_cache.v, causal=False,
                               window=GLOBAL_WINDOW, impl=impl)
-    out = torch.einsum("bshk,hkd->bsd", out, p.w_o)
+    out = _out_proj(p, out)
     if gated:
         out = torch.tanh(p.gate.to(out.dtype)) * out
     return out
@@ -352,9 +388,27 @@ def init_mla_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 def _mla_q(p: ParamTree, cfg: ModelConfig, x: Tensor, positions: Tensor
            ) -> Tuple[Tensor, Tensor]:
-    """q_nope (B,S,H,qk_nope), q_rope (B,S,H,qk_rope) (roped)."""
-    cq = _rms(x @ p.w_dq, p.q_norm)
-    q = torch.einsum("bsr,rhk->bshk", cq, p.w_uq)
+    """q_nope (B,S,H,qk_nope), q_rope (B,S,H,qk_rope) (roped) of this
+    rank's heads.  On a mesh x @ w_dq gives the rank's q_lora slice, its
+    RMS taken over the whole q_lora width (the sums of squares summed over
+    the axis), then ``w_uq``'s contraction over the slices is summed into
+    every head's q, of which the rank keeps its own."""
+    ctx = p.ctx
+    lora_axes = axes(p, "w_dq", 1)
+    cq = collectives.to_split(x, ctx, lora_axes) @ p.w_dq
+    if lora_axes is None:
+        cq = _rms(cq, p.q_norm)
+    else:
+        cf = cq.float()
+        var = collectives.psum(torch.sum(cf * cf, dim=-1, keepdim=True),
+                               ctx, lora_axes, grad="psum") / (
+            cf.shape[-1] * ctx.size(lora_axes))
+        cq = (cf * torch.rsqrt(var + 1e-6) * p.q_norm.float()).to(cq.dtype)
+    q = collectives.psum_product(
+        lambda a, b: torch.einsum("bsr,rhk->bshk", a, b), cq, p.w_uq, ctx,
+        axes(p, "w_uq", 0))
+    lo, hi = held(p, "w_uk", 1)      # the heads of w_uk / w_uv / w_o
+    q = collectives.to_split(q, ctx, axes(p, "w_uk", 1))[:, :, lo:hi]
     q_nope, q_rope = q.split([cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
     return q_nope, apply_rope(q_rope, positions[None], cfg.rope_theta)
 
@@ -362,7 +416,7 @@ def _mla_q(p: ParamTree, cfg: ModelConfig, x: Tensor, positions: Tensor
 def _mla_ckv(p: ParamTree, cfg: ModelConfig, x: Tensor, positions: Tensor
              ) -> Tuple[Tensor, Tensor]:
     """c_kv (B,S,r) (normed), k_rope (B,S,qk_rope) (roped, shared by the
-    heads)."""
+    heads): whole on every rank of a mesh."""
     c_kv, k_rope = (x @ p.w_dkv).split([cfg.kv_lora_rank, cfg.qk_rope_dim],
                                        dim=-1)
     c_kv = _rms(c_kv, p.kv_norm)
@@ -373,19 +427,22 @@ def _mla_ckv(p: ParamTree, cfg: ModelConfig, x: Tensor, positions: Tensor
 
 def _mla_attend(p: ParamTree, cfg: ModelConfig, x: Tensor,
                 positions: Tensor, q_chunk: int):
-    """The expanded form: K/V per head from c_kv, then causal
-    ``mha_full`` (qk head dim nope + rope, v head dim v_head_dim).
-    Returns (out (B,S,D), c_kv, k_rope)."""
+    """The expanded form over this rank's heads: K/V per head from c_kv,
+    then causal ``mha_full`` (qk head dim nope + rope, v head dim
+    v_head_dim).  Returns (out (B,S,D), c_kv, k_rope)."""
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     c_kv, k_rope = _mla_ckv(p, cfg, x, positions)
-    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p.w_uk)
-    v = torch.einsum("bsr,rhv->bshv", c_kv, p.w_uv)
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+    over = axes(p, "w_uk", 1)
+    c_in = collectives.to_split(c_kv, p.ctx, over)
+    r_in = collectives.to_split(k_rope, p.ctx, over)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_in, p.w_uk)
+    v = torch.einsum("bsr,rhv->bshv", c_in, p.w_uv)
+    k = torch.cat([k_nope, r_in[:, :, None, :].expand(
         k_nope.shape[:3] + (cfg.qk_rope_dim,))], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     out = mha_full(q, k, v, positions, positions, window=GLOBAL_WINDOW,
                    causal=True, q_chunk=q_chunk)
-    return torch.einsum("bshv,hvd->bsd", out, p.w_o), c_kv, k_rope
+    return _out_proj(p, out), c_kv, k_rope
 
 
 def mla_forward(p: ParamTree, cfg: ModelConfig, x: Tensor,
@@ -446,4 +503,4 @@ def mla_decode(p: ParamTree, cfg: ModelConfig, x: Tensor, cache: MLACache,
     ctx_c = torch.einsum("bht,btr->bhr", probs.to(cache.c_kv.dtype),
                          cache.c_kv)
     o = torch.einsum("bhr,rhv->bhv", ctx_c, p.w_uv)
-    return torch.einsum("bhv,hvd->bd", o, p.w_o)[:, None, :], cache
+    return _out_proj(p, o[:, None]), cache

@@ -25,13 +25,14 @@ unstacking).  ``apply_stack_train`` runs them, each period under
 of the period body).
 
 On a mesh (``ctx``, a ``MeshCtx``) each layer holds its parameters' local
-slices; ``prefill`` and ``decode`` read them through ``ParamTree.view()``,
-which gathers the dims sharded over the data axes for storage (ZeRO:
-"embed" under the ``decode`` rules) just before the layer runs and drops
-them after.  ``batch_split`` tells the MoE whether x is the rank's data
-shard of the batch.  GQA, mamba-2, the MLP and the MoE run sharded; MLA,
-cross-attention and whisper's encoder refuse a mesh of more than one rank
-(ROADMAP.md section 1, item 6).
+slices; every mode reads them through ``ParamTree.view()``, which gathers
+the dims sharded over the data axes for storage (ZeRO: "embed" under the
+``train`` and ``decode`` rules) just before the layer runs and drops them
+after (in training, inside the period's remat, so the backward gathers
+again).  ``batch_split`` tells the MoE whether x is the rank's data shard
+of the batch.  Every kind runs sharded: GQA, MLA, cross-attention,
+mamba-2, the MLP and the MoE (``models/attention.py``, ``ssm.py``,
+``moe.py``, ``layers.py``).
 """
 from __future__ import annotations
 
@@ -46,24 +47,6 @@ from repro_torch.models import layers, moe as moe_lib, ssm
 from repro_torch.nn.module import ParamTree
 
 Tensor = torch.Tensor
-
-
-MESH_ITEM = ("MLA, cross-attention and whisper's encoder on the mesh: "
-             "ROADMAP.md section 1, item 6")
-
-
-def refuse_mesh(cfg: ModelConfig, kind: str, ctx) -> None:
-    """Raise where a layer kind has no sharded port yet and ``ctx`` is a
-    mesh of more than one rank."""
-    if ctx is None or not ctx.sharded:
-        return
-    what = ("MLA" if cfg.use_mla and kind in ("attn", "attn_local")
-            else "cross-attention" if kind in ("cross_attn", "attn_cross")
-            else None)
-    if what:
-        raise NotImplementedError(
-            f"{cfg.name}: {what} does not run on a mesh of "
-            f"{ctx.n_data} x {ctx.n_model} ranks yet ({MESH_ITEM})")
 
 
 def _attn_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -112,7 +95,6 @@ class Block(ParamTree):
 
     def __init__(self, cfg: ModelConfig, kind: str, is_moe: bool, *,
                  dtype: torch.dtype, device: torch.device, ctx=None):
-        refuse_mesh(cfg, kind, ctx)
         super().__init__(block_specs(cfg, kind, is_moe), dtype=dtype,
                          device=device, ctx=ctx)
         self.cfg, self.kind, self.is_moe = cfg, kind, is_moe
@@ -128,7 +110,8 @@ class Block(ParamTree):
             h = layers.rmsnorm(p.ln_ffn, x, self.cfg.norm_eps)
             if self.is_moe and with_aux:
                 out, aux = moe_lib.moe_forward(p.ffn, self.cfg, h,
-                                               with_aux=True)
+                                               with_aux=True,
+                                               batch_split=batch_split)
             elif self.is_moe:
                 out = moe_lib.moe_forward(p.ffn, self.cfg, h,
                                           batch_split=batch_split)
@@ -143,7 +126,8 @@ class Block(ParamTree):
 
     def forward_train(self, x: Tensor, positions: Tensor,
                       frontend: Optional[Tensor] = None, causal: bool = True,
-                      impl: Optional[str] = None) -> Tuple[Tensor, Tensor]:
+                      impl: Optional[str] = None,
+                      batch_split: bool = False) -> Tuple[Tensor, Tensor]:
         """(x, moe aux loss) after the full sequence x (B,S,D), no cache,
         through the plain differentiable functions (``mha_full``,
         ``ssm.ssd``), as JAX trains.  ``frontend`` (B,Tf,D) feeds the
@@ -151,25 +135,26 @@ class Block(ParamTree):
         ``impl`` (a backend name) runs self-attention through the flash op
         instead, as the encoder does in serving."""
         cfg, kind = self.cfg, self.kind
+        p = self.view()
         if kind == "mamba":
-            out = ssm.mamba_train(self.mixer, cfg, self._norm("ln_mix", x))
-            return self._ffn(x + out, with_aux=True)
-        h = self._norm("ln_attn", x)
+            out = ssm.mamba_train(p.mixer, cfg, self._norm("ln_mix", x, p))
+            return self._ffn(x + out, with_aux=True, p=p,
+                             batch_split=batch_split)
+        h = self._norm("ln_attn", x, p)
         if kind == "cross_attn":
-            x = x + attn.cross_forward(self.xattn, cfg, h,
-                                       attn.cross_kv(self.xattn, cfg,
-                                                     frontend))
+            x = x + attn.cross_forward(p.xattn, cfg, h,
+                                       attn.cross_kv(p.xattn, cfg, frontend))
         elif cfg.use_mla and kind != "attn_cross":
-            x = x + attn.mla_forward(self.attn, cfg, h, positions)
+            x = x + attn.mla_forward(p.attn, cfg, h, positions)
         else:
-            x = x + attn.gqa_forward(self.attn, cfg, h, positions,
+            x = x + attn.gqa_forward(p.attn, cfg, h, positions,
                                      window=_window(cfg, kind),
                                      causal=causal, impl=impl)
         if kind == "attn_cross":
             x = x + attn.cross_forward(
-                self.xattn, cfg, self._norm("ln_x", x),
-                attn.cross_kv(self.xattn, cfg, frontend), gated=False)
-        return self._ffn(x, with_aux=True)
+                p.xattn, cfg, self._norm("ln_x", x, p),
+                attn.cross_kv(p.xattn, cfg, frontend), gated=False)
+        return self._ffn(x, with_aux=True, p=p, batch_split=batch_split)
 
     def prefill(self, x: Tensor, positions: Tensor, cache_len: int,
                 frontend: Optional[Tensor] = None, impl: str = "auto",
@@ -235,11 +220,16 @@ class Block(ParamTree):
             lo, hi = ssm.local_heads(self.mixer, cfg)
             return ssm.init_mamba_cache(cfg, batch, device, n_heads=hi - lo)
         if kind == "cross_attn":
-            return attn.init_cross_cache(cfg, batch, frontend_len, device)
+            lo, hi = attn.local_kv_heads(self.xattn, cfg)
+            return attn.init_cross_cache(cfg, batch, frontend_len, device,
+                                         n_kv=hi - lo)
         if kind == "attn_cross":
-            return {"self": attn.init_kv_cache(cfg, batch, cache_len, device),
+            lo, hi = attn.local_kv_heads(self.attn, cfg)
+            xlo, xhi = attn.local_kv_heads(self.xattn, cfg)
+            return {"self": attn.init_kv_cache(cfg, batch, cache_len, device,
+                                               n_kv=hi - lo),
                     "cross": attn.init_cross_cache(cfg, batch, frontend_len,
-                                                   device)}
+                                                   device, n_kv=xhi - xlo)}
         c_len = _cache_len(cfg, kind, cache_len)
         if cfg.use_mla:
             return attn.init_mla_cache(cfg, batch, c_len, device)
@@ -249,16 +239,19 @@ class Block(ParamTree):
 
 def apply_stack_train(blocks: Sequence[Block], cfg: ModelConfig, x: Tensor,
                       positions: Tensor, frontend: Optional[Tensor] = None,
-                      remat: bool = True) -> Tuple[Tensor, Tensor]:
+                      remat: bool = True, batch_split: bool = False
+                      ) -> Tuple[Tensor, Tensor]:
     """x through the layers in order; returns (x, the MoE aux losses
     summed in layer order).  With ``remat`` each period's layers run under
     ``torch.utils.checkpoint`` (their activations are recomputed in the
-    backward, as ``jax.checkpoint`` of JAX's period body); the remainder
-    layers run plain, as in JAX."""
+    backward, as ``jax.checkpoint`` of JAX's period body, the ZeRO gathers
+    and the collectives with them, in the same order on every rank); the
+    remainder layers run plain, as in JAX."""
 
     def run(layer_blocks, h, aux):
         for blk in layer_blocks:
-            h, a = blk.forward_train(h, positions, frontend)
+            h, a = blk.forward_train(h, positions, frontend,
+                                     batch_split=batch_split)
             aux = aux + a
         return h, aux
 

@@ -8,7 +8,9 @@ products summed over the model axis in float32
 (``collectives.psum_product``); the embedding looks up the rows of its
 vocab slice (others give 0) and sums over the model axis; the logits head
 gives this rank's vocab slice.  A dim the rules do not split (a vocab that
-does not divide, as mamba2's 50,280 on 16) is whole and needs no sum."""
+does not divide, as mamba2's 50,280 on 16) is whole and needs no sum.  In
+training the MLP's input enters its split columns through
+``collectives.to_split`` (its gradient summed over the model axis)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -56,6 +58,7 @@ def mlp_specs(cfg: ModelConfig, d_ff: int) -> Dict[str, Param]:
 
 
 def mlp(p: ParamTree, cfg: ModelConfig, x: Tensor) -> Tensor:
+    x = collectives.to_split(x, p.ctx, axes(p, "w_up", 1))
     if cfg.mlp_act == "silu":
         h = F.silu(x @ p.w_gate) * (x @ p.w_up)
     else:

@@ -27,13 +27,20 @@ a final norm; in serving their attention runs the flash op, in training
 
 On a mesh (``ctx=MeshCtx.for_mesh(mesh, "decode")``) every rank holds its
 slices of the parameters (``nn/module.py``) and serves SPMD: each rank is
-given the whole batch of tokens, runs its data shard of it when the batch
-divides over the data axes (else all of it: JAX's rule), and
-``prefill`` / ``decode_step`` return the whole (B, V) logits on every
+given the whole batch of tokens (and frontend), runs its data shard of it
+when the batch divides over the data axes (else all of it: JAX's rule),
+and ``prefill`` / ``decode_step`` return the whole (B, V) logits on every
 rank, gathered over the vocab's model axis and then over data, so greedy
-tokens agree on every rank.  Training, MLA, cross-attention and the
-frontends refuse a mesh of more than one rank (ROADMAP.md section 1,
-item 6).
+tokens agree on every rank.
+
+Training on a mesh (``ctx=MeshCtx.for_mesh(mesh, "train")``) takes the
+batch the same way: ``loss`` is the mean cross-entropy over the rank's
+data shard (+ the weighted aux loss, over the global tokens), and the
+step's loss is the mean of the shards' (``train/step.py``).  The logits
+stay split over the vocab's model axis: the cross-entropy takes the max
+over the axis (a shift, no gradient) and sums the exponentials and the
+gold logit over it (``collectives.psum``), never gathering the (B, S, V)
+logits.
 """
 from __future__ import annotations
 
@@ -47,7 +54,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import collectives
 from repro_torch.models import blocks, layers
-from repro_torch.nn.module import ParamTree, axes, init_params
+from repro_torch.nn.module import ParamTree, axes, held, init_params
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -81,10 +88,6 @@ class LanguageModel(nn.Module):
         self.impl = impl
         self.ctx = ctx
         self.device = resolve_device(device)
-        if self.sharded and cfg.encoder_layers:
-            raise NotImplementedError(
-                f"{cfg.name}: whisper's encoder does not run on a mesh yet "
-                f"({blocks.MESH_ITEM})")
         dtype = param_dtype or cfg.pdtype
         kw = dict(dtype=dtype, device=self.device, ctx=ctx)
         self.embed = ParamTree(layers.embed_specs(cfg), **kw)
@@ -121,9 +124,9 @@ class LanguageModel(nn.Module):
         n = self.ctx.n_data if self.sharded else 1
         return n > 1 and batch % n == 0
 
-    def _local(self, t: Tensor) -> Tensor:
+    def _local(self, t: Optional[Tensor]) -> Optional[Tensor]:
         """This rank's data shard of a whole batch ``t`` (dim 0)."""
-        if not self.batch_split(t.shape[0]):
+        if t is None or not self.batch_split(t.shape[0]):
             return t
         n = self.ctx.n_data
         step = t.shape[0] // n
@@ -155,7 +158,7 @@ class LanguageModel(nn.Module):
         x = frames.to(cfg.cdtype)
         for blk in self.encoder.layers:
             x, _ = blk.forward_train(x, positions, causal=False, impl=impl)
-        return layers.rmsnorm(self.encoder.ln_f, x, cfg.norm_eps)
+        return layers.rmsnorm(self.encoder.ln_f.view(), x, cfg.norm_eps)
 
     def _frontend(self, frontend: Optional[Tensor],
                   impl: Optional[str]) -> Optional[Tensor]:
@@ -172,45 +175,72 @@ class LanguageModel(nn.Module):
                      remat: bool = True, with_aux: bool = False):
         """Final-norm hidden states (B, S, D) of tokens (B, S) [, the MoE
         aux loss], through the plain differentiable functions, each period
-        under ``torch.utils.checkpoint`` when ``remat``."""
+        under ``torch.utils.checkpoint`` when ``remat``.  On a mesh the
+        rank's data shard of the batch (``batch_split``): (B_loc, S, D)."""
         cfg = self.cfg
-        if self.sharded:
-            raise NotImplementedError(
-                "LM training on the mesh is not ported yet (ROADMAP.md "
-                "section 1, item 6)")
-        fe = self._frontend(frontend, None)
-        x = layers.embed(self.embed, cfg, tokens)
+        split = self.batch_split(tokens.shape[0])
+        fe = self._frontend(self._local(frontend), None)
+        tokens = self._local(tokens)
+        x = layers.embed(self.embed.view(), cfg, tokens)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
         x, aux = blocks.apply_stack_train(self.layers, cfg, x, positions,
-                                          fe, remat=remat)
-        h = layers.rmsnorm(self.ln_f, x, cfg.norm_eps)
+                                          fe, remat=remat, batch_split=split)
+        h = layers.rmsnorm(self.ln_f.view(), x, cfg.norm_eps)
         return (h, aux) if with_aux else h
 
     def logits(self, hidden: Tensor) -> Tensor:
-        return layers.logits_head(self.head, hidden)
+        """The logits of this rank's vocab slice (all of them off a
+        mesh)."""
+        return layers.logits_head(self.head.view(), hidden)
 
     def loss(self, tokens: Tensor, labels: Tensor,
              frontend: Optional[Tensor] = None, loss_chunks: int = 8,
              remat: bool = True) -> Tensor:
         """Mean next-token CE (+ ``moe_aux_weight`` x the MoE aux), the
         head applied chunk by chunk over the sequence (``loss_chunks``,
-        lowered to a divisor of S)."""
+        lowered to a divisor of S).  On a mesh: the mean over the rank's
+        data shard of the batch, the logits split over the vocab's model
+        axis (module docstring)."""
         cfg = self.cfg
         h, aux = self.hidden_train(tokens, frontend, remat=remat,
                                    with_aux=True)
+        labels = self._local(labels)
         b, s, _ = h.shape
         nc = loss_chunks
         while s % nc:
             nc -= 1
         qc = s // nc
-        w_out = self.head.w_out
+        head = self.head.view()
+        w_out = head.w_out
+        vocab_axes = axes(head, "w_out", 1) if self.sharded else None
+        if vocab_axes is None:
+            def chunk_ce(hx, yx, w):
+                lg = (hx @ w).to(torch.float32)
+                lse = torch.logsumexp(lg, dim=-1)
+                gold = torch.gather(lg, -1, yx[..., None].long())[..., 0]
+                return torch.sum(lse - gold)
+        else:
+            ctx = self.ctx
+            lo, hi = held(head, "w_out", 1)
+            h = collectives.to_split(h, ctx, vocab_axes)
 
-        def chunk_ce(hx, yx, w):
-            lg = (hx @ w).to(torch.float32)
-            lse = torch.logsumexp(lg, dim=-1)
-            gold = torch.gather(lg, -1, yx[..., None].long())[..., 0]
-            return torch.sum(lse - gold)
+            def chunk_ce(hx, yx, w):
+                lg = (hx @ w).to(torch.float32)           # this vocab slice
+                top = collectives.pmax(lg.detach().amax(dim=-1), ctx,
+                                       vocab_axes)
+                sum_exp = collectives.psum(
+                    torch.sum(torch.exp(lg - top[..., None]), dim=-1), ctx,
+                    vocab_axes)
+                lse = top + torch.log(sum_exp)
+                ids = yx.long() - lo
+                mine = (ids >= 0) & (ids < hi - lo)
+                gold = torch.gather(lg, -1, torch.where(
+                    mine, ids, 0)[..., None])[..., 0]
+                gold = collectives.psum(
+                    torch.where(mine, gold, gold.new_zeros(())), ctx,
+                    vocab_axes)
+                return torch.sum(lse - gold)
 
         total = h.new_zeros((), dtype=torch.float32)
         for c0 in range(0, s, qc):
@@ -239,7 +269,7 @@ class LanguageModel(nn.Module):
         """tokens (B, S) [and the frontend] through every layer's prefill:
         (x, decode cache), x of this rank's data shard of the batch."""
         split = self.batch_split(tokens.shape[0])
-        fe = self._frontend(frontend, impl)
+        fe = self._frontend(self._local(frontend), impl)
         tokens = self._local(tokens)
         x = layers.embed(self.embed.view(), self.cfg, tokens)
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,

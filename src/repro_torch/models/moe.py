@@ -22,7 +22,17 @@ gathered over the data axes, the F-partial outputs (float32, as
 ``collectives.psum_product``'s) summed back by a psum-scatter, and the
 token outputs summed over the model axis in the activations' dtype (as
 JAX's; a token's top-2 outputs round once either way).  The router is
-gathered whole.  The mesh path serves; it returns no aux loss.
+gathered whole.
+
+Training on a mesh: the tokens and their router weights enter the local
+experts through ``collectives.to_split`` (their gradients summed over
+the model axis), the router's gather gives each rank its slice of the
+gradient back, and the data axes' gather and psum-scatter have their
+adjoints (``collectives``).  The load-balance loss is JAX's, over the
+GLOBAL tokens (JAX takes it outside its ``shard_map``): it is not linear
+in the tokens, so the per-expert counts and router-probability sums are
+summed over the data axes before the product, never each shard's loss
+averaged.
 """
 from __future__ import annotations
 
@@ -110,14 +120,23 @@ def _moe_inner(xt: Tensor, top_ids: Tensor, top_probs: Tensor,
     return y[:t]
 
 
-def load_balance_loss(probs: Tensor, top_ids: Tensor, n_experts: int
-                      ) -> Tensor:
+def load_balance_loss(probs: Tensor, top_ids: Tensor, n_experts: int,
+                      ctx=None, over=None) -> Tensor:
     """Switch-style aux loss: E * sum_e f_e * p_e (f_e = routed-token
     fraction over the top-k assignments, p_e = mean router prob).
-    Minimized (= 1) by a uniform router."""
-    f = torch.mean(F.one_hot(top_ids.long(), n_experts).to(torch.float32),
-                   dim=(0, 1))
-    p = torch.mean(probs, dim=0)
+    Minimized (= 1) by a uniform router.  With ``over`` (the data axes
+    the tokens are split over) both means are over the tokens of every
+    rank on those axes: the counts and sums are summed over them first."""
+    onehot = F.one_hot(top_ids.long(), n_experts).to(torch.float32)
+    if over is None:
+        f = torch.mean(onehot, dim=(0, 1))
+        p = torch.mean(probs, dim=0)
+        return n_experts * torch.sum(f * p)
+    t = float(probs.shape[0] * ctx.size(over))
+    f = collectives.psum(torch.sum(onehot, dim=(0, 1)), ctx, over) / (
+        t * top_ids.shape[-1])
+    p = collectives.psum(torch.sum(probs, dim=0), ctx, over,
+                         grad="psum") / t
     return n_experts * torch.sum(f * p)
 
 
@@ -151,6 +170,9 @@ def _moe_mesh(p: ParamTree, cfg: ModelConfig, xt: Tensor, top_ids: Tensor,
                            / cfg.n_experts))
     e_start, e_stop = held(p, "w_gate", 0)
     e_loc = e_stop - e_start
+    over = axes(p, "w_gate", 0)
+    xt = collectives.to_split(xt, ctx, over)
+    top_probs = collectives.to_split(top_probs, ctx, over)
     table, ptable = _dispatch_tables(top_ids, top_probs, e_start, e_loc, cap,
                                      t_loc)
     x_pad = torch.cat([xt, xt.new_zeros((1, d))], dim=0)
@@ -163,7 +185,7 @@ def _moe_mesh(p: ParamTree, cfg: ModelConfig, xt: Tensor, top_ids: Tensor,
         # F-partials in float32, summed, rounded once.
         yf = torch.bmm(h.to(torch.float32), p.w_down.to(torch.float32))
         yf = (collectives.psum_scatter(yf, ctx, dp, dim=1) if tokens_sharded
-              else collectives.psum(yf, ctx, dp))
+              else collectives.psum(yf, ctx, dp, grad="psum"))
         yg = yf.to(h.dtype)
     else:
         yg = torch.bmm(h, p.w_down)
@@ -182,14 +204,16 @@ def whole_router(p: ParamTree) -> Tensor:
     over = axes(p, "router", 1)
     if over is None:
         return p.router
-    return collectives.all_gather(p.router, p.ctx, over, dim=1)
+    return collectives.all_gather(p.router, p.ctx, over, dim=1,
+                                  grad="slice")
 
 
 def moe_forward(p: ParamTree, cfg: ModelConfig, x: Tensor,
                 with_aux: bool = False, batch_split: bool = False):
     """x (B, S, D) -> (B, S, D) [, aux load-balance loss].  Router in f32;
     top-k renormalized.  On a mesh (``p.ctx``) the expert-parallel branch;
-    ``batch_split`` says x is the rank's data shard of the batch."""
+    ``batch_split`` says x is the rank's data shard of the batch; the
+    aux loss is then over the whole batch's tokens."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     logits = xt.to(torch.float32) @ whole_router(p).to(torch.float32)
@@ -197,9 +221,13 @@ def moe_forward(p: ParamTree, cfg: ModelConfig, x: Tensor,
     top_probs, top_ids = torch.topk(probs, cfg.top_k, dim=-1)
     top_probs = top_probs / torch.sum(top_probs, dim=-1, keepdim=True)
     top_probs = top_probs.to(x.dtype)
-    aux = (load_balance_loss(probs, top_ids, cfg.n_experts)
-           if with_aux else None)
-    if p.ctx is not None and p.ctx.sharded:
+    sharded = p.ctx is not None and p.ctx.sharded
+    aux = None
+    if with_aux:
+        over = (tuple(p.ctx.data_axes) if sharded and batch_split
+                else None)
+        aux = load_balance_loss(probs, top_ids, cfg.n_experts, p.ctx, over)
+    if sharded:
         y = _moe_mesh(p, cfg, xt, top_ids, top_probs,
                       batch_split).reshape(b, s, d)
     else:

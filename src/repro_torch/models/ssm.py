@@ -20,7 +20,10 @@ B / C channels (``Param.tail``).  The gated norm's mean of squares runs
 over the whole inner width (the local sums summed over the model axis),
 ``w_out``'s partial products are summed over it in float32
 (``collectives.psum_product``), and the decode state is (B, nh_loc, hd,
-n).
+n).  In training the block's input enters the split projections through
+``collectives.to_split``, as do the whole ``w_bc`` and the conv's B / C
+tail (replicated weights used on the local heads), and the norm's sum
+of squares is summed over the axis in the backward too.
 """
 from __future__ import annotations
 
@@ -193,7 +196,8 @@ def _gated_norm(y: Tensor, z: Tensor, scale: Tensor, eps: float,
         var = torch.mean(hf * hf, dim=-1, keepdim=True)
     else:
         var = collectives.psum(torch.sum(hf * hf, dim=-1, keepdim=True),
-                               ctx, over) / (hf.shape[-1] * ctx.size(over))
+                               ctx, over, grad="psum") / (
+            hf.shape[-1] * ctx.size(over))
     return (hf * torch.rsqrt(var + eps) * scale.to(torch.float32)
             ).to(y.dtype)
 
@@ -211,13 +215,19 @@ def _mixer_in(p: ParamTree, cfg: ModelConfig, x: Tensor):
     lo, hi = local_heads(p, cfg)
     glo, ghi = _local_groups(p, cfg)
     di = (hi - lo) * hd                                  # local inner width
+    over = axes(p, "w_x", 1)
 
+    def whole(t):        # a replicated weight used on the local heads
+        return collectives.to_split(t, p.ctx, over)
+
+    x = whole(x)
     z = x @ p.w_z                                        # (B,S,di)
     x_raw = x @ p.w_x                                    # (B,S,di)
-    bc_raw = x @ p.w_bc                                  # (B,S,2gn)
+    bc_raw = x @ whole(p.w_bc)                           # (B,S,2gn)
     dt_raw = x @ p.w_dt                                  # (B,S,nh)
     x_conv = _causal_conv(x_raw, p.conv_w[:, :di], p.conv_b[:di])
-    bc_conv = _causal_conv(bc_raw, p.conv_w[:, di:], p.conv_b[di:])
+    bc_conv = _causal_conv(bc_raw, whole(p.conv_w[:, di:]),
+                           whole(p.conv_b[di:]))
     x_ssm = x_conv.reshape(b, s, hi - lo, hd)
     bmat = bc_conv[..., :g * n].reshape(b, s, g, n)[:, :, glo:ghi]
     cmat = bc_conv[..., g * n:].reshape(b, s, g, n)[:, :, glo:ghi]

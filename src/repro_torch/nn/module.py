@@ -23,8 +23,11 @@ rank.
 
 Dims named "embed" are sharded for storage alone (ZeRO: the rules put
 weights' embed dim on the data axes): ``ParamTree.view()`` gathers them
-just before use and drops them after.  Every other sharded dim is used
-sharded by the layer that owns it, with an explicit collective.
+just before use and drops them after; in training the gather's backward
+sums the ranks' gradients onto each rank's own slice
+(``collectives.all_gather``).  Every other sharded dim is used sharded by
+the layer that owns it, with an explicit collective.  ``gather_whole``
+puts a slice's parameter back together (checkpoints).
 """
 from __future__ import annotations
 
@@ -183,6 +186,58 @@ def gather_storage(t: Tensor, p: Param, ctx) -> Tensor:
     for dim, axes in _storage_dims(p, ctx):
         t = collectives.all_gather(t, ctx, axes, dim=dim)
     return t
+
+
+def gather_whole(t: Tensor, p: Param, ctx) -> Tensor:
+    """The whole parameter ``p`` from every rank's slice ``t`` (each rank
+    calls it): every split dim gathered over its axes, a whole tail put
+    back after the gathered part.  No gradient."""
+    from repro_torch.distributed import collectives
+    if not _sharded(ctx):
+        return t
+    spec = layout(p, ctx)
+    t = t.detach()
+    last = len(p.shape) - 1
+    for dim, entry in enumerate(spec):
+        if entry is None or ctx.size(entry) == 1:
+            continue
+        if dim == last and p.tail:
+            part = t.narrow(dim, 0, t.shape[dim] - p.tail)
+            tail = t.narrow(dim, t.shape[dim] - p.tail, p.tail)
+            t = torch.cat([collectives.all_gather(part, ctx, entry, dim=dim),
+                           tail], dim=dim)
+        else:
+            t = collectives.all_gather(t, ctx, entry, dim=dim)
+    return t
+
+
+def split_entries(p: Param, ctx) -> Tuple[Any, ...]:
+    """The layout entries (a mesh axis, or a tuple of axes as the data
+    axes of a multi-pod mesh) that split some dim of ``p`` over more than
+    one rank, in dim order."""
+    if not _sharded(ctx):
+        return ()
+    return tuple(e for e in layout(p, ctx)
+                 if e is not None and ctx.size(e) > 1)
+
+
+def norm_parts(t: Tensor, p: Param, ctx):
+    """``t`` (this rank's slice of ``p``) as (entries, part) pairs: each
+    part and the layout entries that split it, so that summing a part's
+    squares over its entries counts each of ``p``'s entries once (a whole
+    tail is split by the entries of the other dims alone)."""
+    entries = split_entries(p, ctx)
+    if not p.tail or not entries:
+        return [(entries, t)]
+    spec = layout(p, ctx)
+    last = len(p.shape) - 1
+    own = spec[last] if last < len(spec) else None
+    if own is None or ctx.size(own) == 1:
+        return [(entries, t)]
+    n = t.shape[last] - p.tail
+    return [(entries, t.narrow(last, 0, n)),
+            (tuple(e for e in entries if e != own),
+             t.narrow(last, n, p.tail))]
 
 
 # ---------------------------------------------------------------------------

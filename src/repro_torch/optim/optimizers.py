@@ -19,36 +19,72 @@ function in three places:
 
 The step count and the learning rate are 0-d CPU tensors (the schedule's
 float32 arithmetic, ``schedules.py``): the device never waits for them.
+
+On a mesh (``shards``: the ``MeshCtx`` and each parameter's spec,
+``train.param_shards``) every update stays elementwise on the rank's
+local slices; only the global norm (clipping, and the step's
+``grad_norm``) reaches across ranks: each parameter's local sum of
+squares is summed over the mesh axes that split it, never over those it
+is replicated on (JAX's GSPMD takes the same norm of the global arrays).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.distributed import collectives
+from repro_torch.nn.module import norm_parts
 
 Tensor = torch.Tensor
 Tree = Dict[str, Tensor]
 NAMES = ("sgd", "momentum", "adagrad", "adamw")
 
 
+class Shards(NamedTuple):
+    """A mesh's layout of a parameter tree: the ``MeshCtx`` and each
+    parameter's ``Param`` spec by name."""
+    ctx: Any
+    specs: Mapping[str, Any]
+
+
 class Optimizer(NamedTuple):
     init: Callable[[Mapping[str, Tensor]], dict]
     update: Callable[[Mapping[str, Tensor], dict, Mapping[str, Tensor]],
                      Tuple[Tree, dict]]
+    shards: Optional[Shards] = None
 
 
-def global_norm(tree: Mapping[str, Tensor]) -> Tensor:
-    """sqrt of the sum over leaves (in order) of sum(x ** 2) in float32."""
+def global_norm(tree: Mapping[str, Tensor],
+                shards: Optional[Shards] = None) -> Tensor:
+    """sqrt of the sum over leaves (in order) of sum(x ** 2) in float32.
+    With ``shards`` the leaves are a rank's slices: the sums are grouped
+    by the mesh axes that split them, each group summed over those axes
+    (module docstring), then added in a fixed order."""
+    if shards is None or shards.ctx is None or not shards.ctx.sharded:
+        total = None
+        for x in tree.values():
+            s = torch.sum(torch.square(x.float()))
+            total = s if total is None else total + s
+        return torch.sqrt(total)
+    groups: Dict[Tuple, Tensor] = {}
+    for k, x in tree.items():
+        for entries, part in norm_parts(x, shards.specs[k], shards.ctx):
+            s = torch.sum(torch.square(part.float()))
+            groups[entries] = s if entries not in groups \
+                else groups[entries] + s
     total = None
-    for x in tree.values():
-        s = torch.sum(torch.square(x.float()))
+    for entries in sorted(groups, key=repr):
+        s = groups[entries].detach().clone()
+        for entry in entries:
+            s = collectives.psum(s, shards.ctx, entry)
         total = s if total is None else total + s
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(tree: Mapping[str, Tensor], max_norm: float
-                        ) -> Tree:
-    norm = global_norm(tree)
+def clip_by_global_norm(tree: Mapping[str, Tensor], max_norm: float,
+                        shards: Optional[Shards] = None) -> Tree:
+    norm = global_norm(tree, shards)
     # torch.div of two tensors: ``float / tensor`` is a reciprocal times
     # the float in torch, which rounds differently.
     scale = torch.clamp(torch.div(torch.full_like(norm, max_norm),
@@ -60,8 +96,11 @@ def make_optimizer(name: str, schedule: Callable, *, b1: float = 0.9,
                    b2: float = 0.95, eps: float = 1e-8,
                    weight_decay: float = 0.0, momentum: float = 0.9,
                    moment_dtype: torch.dtype = torch.float32,
-                   grad_clip: Optional[float] = 1.0) -> Optimizer:
-    """name: sgd | momentum | adagrad | adamw."""
+                   grad_clip: Optional[float] = 1.0,
+                   shards: Optional[Shards] = None) -> Optimizer:
+    """name: sgd | momentum | adagrad | adamw.  ``shards``: the mesh
+    layout of the parameters (``train.param_shards(model)``) when they
+    are a rank's slices."""
     if name not in NAMES:
         raise ValueError(f"unknown optimizer {name!r}")
     f32 = torch.float32
@@ -88,7 +127,7 @@ def make_optimizer(name: str, schedule: Callable, *, b1: float = 0.9,
         count = state["count"] + 1
         neg_lr = -schedule(count)
         if grad_clip is not None:
-            grads = clip_by_global_norm(grads, grad_clip)
+            grads = clip_by_global_norm(grads, grad_clip, shards)
         new_state = {"count": count}
         new_params: Tree = {}
 
@@ -129,4 +168,4 @@ def make_optimizer(name: str, schedule: Callable, *, b1: float = 0.9,
                                  + weight_decay * params[k].float()))
         return new_params, new_state
 
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=init, update=update, shards=shards)

@@ -463,8 +463,10 @@ def test_mesh_is_still_refused_naming_item_6(data):
     """Item 6's DSEKL half is ported: BCD and the stochastic step run on a
     mesh (tests/test_torch_mesh_fit.py drives the 4-rank worlds).  On a
     world of one the mesh BCD fit equals the serial fit bit for bit, a
-    ``MeshPlan`` from ``make_plan`` tears its world down on close, and the
-    launcher refuses only the LM path's mesh flags, naming item 6."""
+    ``MeshPlan`` from ``make_plan`` tears its world down on close, and
+    the launcher refuses no mesh mode any more (item 6 is ported whole):
+    the LM path's ``--data-par 2`` asks for a (2, 1) mesh, which a world
+    of one cannot hold."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_local_mesh
     x, y, _, _ = data
@@ -483,10 +485,12 @@ def test_mesh_is_still_refused_naming_item_6(data):
                             device=torch.device("cpu")) as plan:
         assert plan.name == "mesh" and dist.is_initialized()
     assert not dist.is_initialized()
-    assert train.unported_modes(train.parser().parse_args(
-        ["--dsekl", "--execution", "mesh"])) == []
-    assert train.unported_modes(train.parser().parse_args(
-        ["--data-par", "2"])) == ["--data-par 2"]
+    lm_mesh = train.parser().parse_args(["--data-par", "2", "--device",
+                                         "cpu"])
+    assert train.lm_refusal(lm_mesh) == ""
+    with pytest.raises(ValueError, match="needs a world of 2 ranks"):
+        train.lm_ctx(lm_mesh)
+    assert not dist.is_initialized()
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,17 @@ file, on the (2, 2), (1, 4) and (4, 1) meshes.
   accumulator rounded once (within one bfloat16 ulp), as one device's
   bf16 GEMM; bfloat16 partials psummed are not;
 * on a (2, 2, 1) mesh named (pod, data, model) a gather over the
-  multi-pod data axes runs on one group spanning both.
+  multi-pod data axes runs on one group spanning both;
+* the autograd forms (training on the mesh), each inside a float64
+  objective on a second world (``torch_mesh_ranks.
+  collective_grad_cases``) on (1, 4) and (2, 2) over the model axis and
+  (2, 2) and (4, 1) over the data axis: ``psum`` (identity backward, and
+  ``grad="psum"`` in a norm over a split width and in per-shard
+  statistics), ``to_split``, ``all_gather`` (slice and scatter
+  backward) and ``psum_scatter``.  Each rank's backward gradient equals
+  the central difference (step 1e-6) of the objective every rank holds
+  (replicated ones) or of the ranks' objectives summed (each rank's own),
+  taken by perturbing one entry on one rank, at rtol 1e-6, atol 1e-8.
 """
 import numpy as np
 import pytest
@@ -123,3 +133,29 @@ def test_gather_over_the_multi_pod_data_axes(world):
         assert res["index"] == r
         np.testing.assert_array_equal(res["gather"],
                                       np.concatenate(list(ints), axis=0))
+
+
+GRAD_FNS = ["psum", "to_split", "psum_psum", "gather_slice",
+            "gather_scatter", "psum_scatter", "psum_sum"]
+
+
+@pytest.fixture(scope="module")
+def grad_world(tmp_path_factory):
+    return spawn_world(ranks.collective_grad_cases, 4, (3,),
+                       workdir=str(tmp_path_factory.mktemp("grad_world")))
+
+
+@pytest.mark.distributed
+@pytest.mark.parametrize("key", KEYS)
+@pytest.mark.parametrize("fn", GRAD_FNS)
+def test_autograd_forms_match_central_differences(grad_world, key, fn):
+    checked = 0
+    for r in range(4):
+        numeric, analytic = grad_world[r][key][fn]
+        assert numeric and len(numeric) == len(analytic)
+        np.testing.assert_allclose(analytic, numeric, rtol=1e-6, atol=1e-8,
+                                   err_msg=f"{fn} on {key}, rank {r}")
+        # The gradient is not zero where it is checked.
+        assert max(abs(a) for a in analytic) > 1e-3, (fn, key, r)
+        checked += len(numeric)
+    assert checked >= 16

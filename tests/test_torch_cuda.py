@@ -681,6 +681,14 @@ SM90_CASES = [
     # whisper's encoder (1,500 frames, 6 heads of 64).
     (1, 2048, 1601, 32, 8, 128, False, 1 << 30),
     (1, 1500, 1500, 6, 6, 64, False, 1 << 30),
+    # The same paths' local shapes on a mesh, cut in batch:
+    # llama-3.2-vision's cross layers on (1, 4) (8 / 2 heads a rank) and
+    # whisper on (2, 2) (3 heads a rank: its encoder, decoder
+    # self-attention and cross-attention).
+    (1, 2048, 1601, 8, 2, 128, False, 1 << 30),
+    (1, 1500, 1500, 3, 3, 64, False, 1 << 30),
+    (1, 448, 448, 3, 3, 64, True, 1 << 30),
+    (1, 448, 1500, 3, 3, 64, False, 1 << 30),
 ] + [c for n in (127, 128, 129, 255, 257) for c in (
     (1, n, n, 32, 8, 128, True, 1 << 30),
     (1, n, n + 3, 4, 1, 64, False, 1 << 30))]

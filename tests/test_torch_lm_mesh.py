@@ -10,19 +10,26 @@ replicated, as 50,280 is on 16) and jamba (GQA, mamba-2 and the MoE) run
 in float32 on JAX's weights (``convert.lm_params_from_jax(..., ctx)``, the
 rank's slices): prefill logits, then 4 greedy decode steps, each fed
 JAX's greedy token (the port's argmax must equal it).  The batch is 4 (split over the data axis) and, for the
-dense archs on (4, 1), 2 (whole on every rank).
+dense archs on (4, 1), 2 (whole on every rank).  On (2, 2) and (1, 4)
+also deepseek-v3 (MLA and the MoE: q_lora split, c_kv whole, the
+absorbed decode over the local heads), llama-3.2-vision (gated
+cross-attention over a numpy frontend, its gates drawn nonzero: JAX
+inits them to 0; one kv head, whole under split q heads) and whisper at
+6 heads (as whisper-tiny's 6: whole on (1, 4), where only the MLP splits,
+3 a rank on (2, 2)) with its encoder over numpy frames, each frontend
+split over data with the batch.
 
 JAX's sharding is transparent in value, so the dense paths are held to
 JAX's ``MeshCtx.single_device()`` model.  The MoE's capacity is per data
-shard, so jamba runs the whole model at capacity factor 16 (no token
-dropped on either side), and its MoE layer is held, drops included (capacity
+shard, so jamba and deepseek-v3 run the whole model at capacity factor 16
+(no token dropped on either side), and jamba's MoE layer is held, drops
+included (capacity
 factor 1.25), to JAX's own shard_map branch on a forced 4-device (2, 2)
 mesh in a subprocess, with the batch whole on every rank (JAX's input)
 and split over data.  Tolerance: ``test_torch_lm.py``'s, rtol 1e-4, atol
 1e-4 x max(1, |oracle|_inf).  Also: every rank returns the same whole
 logits bit for bit; a sharded init from a seed equals the slices of the
-unsharded init from that seed bit for bit; MLA, cross-attention and
-whisper refuse a mesh, naming ROADMAP item 6.
+unsharded init from that seed bit for bit.
 """
 import os
 import subprocess
@@ -42,14 +49,19 @@ from repro_torch.launch.mesh import spawn_world
 
 S, STEPS, CACHE = 24, 4, 40
 SHAPES = [(2, 2), (1, 4), (4, 1)]
+MESH_2 = [(2, 2), (1, 4)]
 CASES = [  # key, arch, config changes, batch, mesh shapes
     ("gemma3", "gemma3-27b", {}, 4, SHAPES),
     ("gemma3-b2", "gemma3-27b", {}, 2, [(4, 1)]),
     ("granite", "granite-20b", {}, 4, SHAPES),
     ("granite-b2", "granite-20b", {}, 2, [(4, 1)]),
-    ("mamba2", "mamba2-780m", {"vocab": 511}, 4, SHAPES),
-    ("mamba2-b2", "mamba2-780m", {"vocab": 511}, 2, [(4, 1)]),
-    ("jamba", "jamba-v0.1-52b", {"cf": 16.0}, 4, SHAPES),
+    ("mamba2", "mamba2-780m", {"vocab_size": 511}, 4, SHAPES),
+    ("mamba2-b2", "mamba2-780m", {"vocab_size": 511}, 2, [(4, 1)]),
+    ("jamba", "jamba-v0.1-52b", {"capacity_factor": 16.0}, 4, SHAPES),
+    ("deepseek", "deepseek-v3-671b", {"capacity_factor": 16.0}, 4, MESH_2),
+    ("llama-vision", "llama-3.2-vision-11b", {}, 4, MESH_2),
+    ("whisper", "whisper-tiny", {"n_heads": 6, "n_kv_heads": 6}, 4,
+     MESH_2),
 ]
 MOE_CF = 1.25
 
@@ -85,18 +97,31 @@ def _close(got, want, what):
                                atol=1e-4 * scale, err_msg=what)
 
 
+def _gates_drawn(params, seed):
+    """JAX's tree with every cross-attention gate drawn nonzero (JAX
+    inits them to 0, which switches the cross layers off)."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, x):
+        if path[-1].key == "gate":
+            return jnp.asarray(rng.uniform(0.5, 1.5, x.shape), x.dtype)
+        return x
+
+    return jax.tree_util.tree_map_with_path(leaf, params)
+
+
 def _jax_case(arch, changes, batch, seed):
-    cfg = jax_get_config(arch, reduced=True)
-    if "cf" in changes:
-        cfg = cfg.replace(capacity_factor=changes["cf"])
-    if "vocab" in changes:
-        cfg = cfg.replace(vocab_size=changes["vocab"])
+    cfg = jax_get_config(arch, reduced=True).replace(**changes)
     model = JaxLM(cfg)
-    params = model.init(jax.random.PRNGKey(seed))
-    prompt = np.random.default_rng(seed + 1).integers(
-        0, cfg.vocab_size, (batch, S)).astype(np.int32)
+    params = _gates_drawn(model.init(jax.random.PRNGKey(seed)), seed)
+    rng = np.random.default_rng(seed + 1)
+    prompt = rng.integers(0, cfg.vocab_size, (batch, S)).astype(np.int32)
+    fe = (rng.standard_normal((batch, cfg.n_frontend_tokens, cfg.d_model))
+          .astype(np.float32) if cfg.n_frontend_tokens else None)
     ctx = MeshCtx.single_device()
-    lg, cache = model.prefill(params, ctx, jnp.asarray(prompt), CACHE)
+    lg, cache = model.prefill(params, ctx, jnp.asarray(prompt), CACHE,
+                              frontend=None if fe is None
+                              else jnp.asarray(fe))
     steps, greedy = [np.asarray(lg)], []
     for t in range(S, S + STEPS):
         greedy.append(np.argmax(steps[-1], axis=-1).astype(np.int32))
@@ -104,7 +129,7 @@ def _jax_case(arch, changes, batch, seed):
                                       cache, jnp.asarray(t, jnp.int32))
         steps.append(np.asarray(lg))
     tok = np.concatenate([prompt, np.stack(greedy, axis=1)], axis=1)
-    return jax.tree.map(np.asarray, params), tok, steps
+    return jax.tree.map(np.asarray, params), tok, fe, steps
 
 
 @pytest.fixture(scope="module")
@@ -120,10 +145,11 @@ def world(tmp_path_factory):
                             stderr=subprocess.PIPE, text=True)
     cases, oracles = [], {}
     for i, (key, arch, changes, batch, shapes) in enumerate(CASES):
-        params, tok, steps = _jax_case(arch, changes, batch, seed=i)
+        params, tok, fe, steps = _jax_case(arch, changes, batch, seed=i)
         oracles[key] = (steps, tok)
         cases.append(dict(key=key, name=arch, params=params, tokens=tok,
-                          prompt=S, cache=CACHE, shapes=shapes, **changes))
+                          frontend=fe, prompt=S, cache=CACHE, shapes=shapes,
+                          changes=changes))
     out, err = proc.communicate(timeout=600)
     assert proc.returncode == 0 and "JAX_MOE_OK" in out, err[-3000:]
     z = dict(np.load(npz))
@@ -195,10 +221,3 @@ def test_sharded_init_equals_the_unsharded_slices(world):
         # conv_w holds the local x channels and every B / C channel.
         _, got, full = init["layers.0.mixer.conv_w"]
         assert got[1] == (full[1] - 32) // 2 + 32
-
-
-@pytest.mark.distributed
-def test_mla_cross_and_whisper_refuse_a_mesh(world):
-    _, _, res = world
-    for name, msg in res[0]["refusals"].items():
-        assert "item 6" in msg and "mesh" in msg, (name, msg)

@@ -530,8 +530,9 @@ def test_launcher_trains_with_precondition_k(capsys):
     plain = train.train_dsekl(train.parser().parse_args(args))["result"]
     assert int(plain.state.step) == int(res.state.step)
     assert not torch.equal(plain.state.alpha, res.state.alpha)
-    assert train.unported_modes(train.parser().parse_args(
-        args + ["--precondition-k", "8"])) == []
+    # The launcher's command line takes it end to end.
+    train.main(args + ["--precondition-k", "8"])
+    assert "[dsekl] EigenPro: k=8, m=512" in capsys.readouterr().out
 
 
 # --- the CUDA path, with counting stand-ins ----------------------------------

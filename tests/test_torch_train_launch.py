@@ -5,10 +5,13 @@ refuses the modes the port does not have yet, naming them.  ``--execution
 mesh`` runs (a world of one here; tests/test_torch_mesh_fit.py drives 4
 ranks under torch.distributed.run).  The LM path (``--arch granite-20b
 --steps 4 --device cpu``) trains, checkpoints and ``--resume``s,
-deepseek-v3 (MLA) trains at its reduced widths; the LM mesh flags and a
-``--full`` model larger than the device are refused, naming ROADMAP item
-6, and so are the configs with a frontend, which the launcher (as JAX's)
-does not build."""
+deepseek-v3 (MLA) trains at its reduced widths; a ``--full`` model larger
+than the device in a world of one exits naming the production mesh and
+its world size, ``--full`` in a small world raises naming the size it
+needs, and the configs with a frontend, which the launcher (as JAX's)
+does not build, are refused.  Under ``torch.distributed.run`` the LM
+trains granite on a (2, 2) mesh of four gloo ranks: rank 0 alone prints,
+and its losses are the single-device launcher's on the same seed."""
 import os
 import pathlib
 import subprocess
@@ -17,6 +20,7 @@ import sys
 import numpy as np
 import pytest
 
+from repro_torch.checkpoint import read_checkpoint
 from repro_torch.launch import train
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -107,19 +111,72 @@ LM = ["--arch", "granite-20b", "--device", "cpu", "--batch", "2",
 
 
 @pytest.mark.parametrize("extra,named", [
-    (["--data-par", "2"], "--data-par 2"),
-    (["--model-par", "4"], "--model-par 4"),
-    (["--multi-pod"], "--multi-pod"),
     (["--arch", "kimi-k2-1t-a32b", "--full"], "--full kimi-k2-1t-a32b"),
 ])
 def test_lm_path_is_refused(extra, named, capsys):
-    """The LM path is ported; what needs the mesh is refused by name."""
+    """A ``--full`` model larger than the one device of a world of one
+    exits, naming the production mesh and the world it needs."""
     with pytest.raises(SystemExit) as exc:
         train.main(LM + ["--steps", "1"] + extra)
     assert exc.value.code != 0
     err = capsys.readouterr().err
     assert named in err
-    assert "item 6" in err
+    assert "production mesh (16, 16): a world of 256 ranks" in err
+
+
+def test_multi_pod_names_the_production_mesh(capsys):
+    with pytest.raises(SystemExit) as exc:
+        train.main(LM + ["--steps", "1", "--multi-pod"])
+    assert exc.value.code != 0
+    assert "--multi-pod names the production mesh" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("extra,need", [([], 256), (["--multi-pod"], 512)])
+def test_full_in_a_small_world_raises_naming_its_size(monkeypatch, extra,
+                                                      need):
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match=f"needs a world of {need} ranks"):
+        train.main(LM + ["--steps", "1", "--full"] + extra)
+
+
+@pytest.mark.distributed
+def test_lm_trains_on_a_mesh_under_torchrun(tmp_path):
+    """granite on (2, 2): four gloo ranks, rank 0 alone prints, and the
+    losses equal the single-device launcher's (the same seed, weights
+    and batches) within the float32 tolerance; the checkpoint it writes
+    is the single-device layout."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("WORLD_SIZE", None)
+    argv = LM[2:] + ["--batch", "4", "--steps", "3", "--ckpt-every", "3"]
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
+         "--arch", "granite-20b", "--device", "cpu", "--data-par", "2",
+         "--model-par", "2", "--dist-backend", "gloo", "--ckpt-dir",
+         str(tmp_path / "mesh"), *argv],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.splitlines()
+    head = [ln for ln in lines if ln.startswith("[launch] arch=")]
+    assert len(head) == 1 and "mesh 2 x 2 (gloo)" in head[0], lines
+    steps = [ln for ln in lines if ln.startswith("[train] step")]
+    assert len(steps) == 1, lines                    # step 0, rank 0 alone
+    done = [ln for ln in lines if ln.startswith("[launch] done: loss")]
+    assert len(done) == 1
+    one = train.train_lm(train.parser().parse_args(
+        LM + ["--arch", "granite-20b", "--ckpt-dir", str(tmp_path / "one"),
+              *argv]))
+    want = [h["loss"] for h in one["history"]]
+    assert done[0] == (f"[launch] done: loss {want[0]:.4f} -> "
+                       f"{want[-1]:.4f}")
+    _, mesh, _ = read_checkpoint(tmp_path / "mesh")
+    _, flat, _ = read_checkpoint(tmp_path / "one")
+    assert sorted(mesh) == sorted(flat)
+    for k, v in flat.items():
+        scale = max(1.0, float(np.abs(v).max()))
+        np.testing.assert_allclose(mesh[k], v, rtol=1e-4,
+                                   atol=(1e-3 if k.startswith("opt/")
+                                         else 1e-4) * scale, err_msg=k)
 
 
 @pytest.mark.parametrize("name", ["llama-3.2-vision-11b", "whisper-tiny"])

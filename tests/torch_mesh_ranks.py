@@ -301,15 +301,14 @@ def collective_cases(rank, x_np, w_np, ints_np):
     return out
 
 
-def _lm(name, ctx, params=None, cf=None, vocab=None, seed=0):
+def _lm(name, ctx, params=None, changes=None, seed=0):
+    """The reduced config ``name`` with ``changes`` (ModelConfig fields) on
+    ``ctx``: JAX's ``params`` loaded (this rank's slices), or a seeded
+    init."""
     from repro_torch.configs import get_config
     from repro_torch.convert import lm_params_from_jax
     from repro_torch.models.model import LanguageModel
-    cfg = get_config(name, reduced=True)
-    if cf is not None:
-        cfg = cfg.replace(capacity_factor=cf)
-    if vocab is not None:
-        cfg = cfg.replace(vocab_size=vocab)
+    cfg = get_config(name, reduced=True).replace(**(changes or {}))
     model = LanguageModel(cfg, device="cpu", ctx=ctx)
     if params is None:
         return cfg, model.init(torch.Generator().manual_seed(seed))
@@ -320,11 +319,11 @@ def _lm(name, ctx, params=None, cf=None, vocab=None, seed=0):
 
 def lm_mesh_cases(rank, cases, moe_case):
     """Each case on each mesh shape: ``{"name", "params" (JAX's tree as
-    numpy), "cf", "vocab", "tokens" (B, S + steps), "cache"}``: prefill
-    logits over the first S tokens, then one decode step per remaining
-    token (teacher-forced).  Then the MoE layer against JAX's shard_map
-    branch, a sharded init against the unsharded one's slices, and the
-    refusals."""
+    numpy), "changes" (config fields), "tokens" (B, S + steps), "frontend"
+    (or None), "cache"}``: prefill logits over the first S tokens, then
+    one decode step per remaining token (teacher-forced).  Then the MoE
+    layer against JAX's shard_map branch and a sharded init against the
+    unsharded one's slices."""
     from repro_torch.models import moe
     from repro_torch.nn.module import ParamTree, take_local
     out = {"lm": {}}
@@ -333,11 +332,12 @@ def lm_mesh_cases(rank, cases, moe_case):
         for c in cases:
             if shape not in c["shapes"]:
                 continue
-            cfg, model = _lm(c["name"], ctx, c["params"], c.get("cf"),
-                             c.get("vocab"))
+            cfg, model = _lm(c["name"], ctx, c["params"], c["changes"])
             tok = torch.from_numpy(c["tokens"]).long()
+            fe = (None if c["frontend"] is None
+                  else torch.from_numpy(c["frontend"]))
             s = c["prompt"]
-            lg, cache = model.prefill(tok[:, :s], c["cache"])
+            lg, cache = model.prefill(tok[:, :s], c["cache"], fe)
             steps = [lg.numpy()]
             for t in range(s, tok.shape[1]):
                 lg, cache = model.decode_step(tok[:, t], cache, t)
@@ -377,15 +377,6 @@ def lm_mesh_cases(rank, cases, moe_case):
                                                       ctx))),
                        tuple(v.shape), tuple(want[k].shape))
                    for k, v in sharded.state_dict().items()}
-    refusals = {}
-    for name in ("deepseek-v3-671b", "llama-3.2-vision-11b",
-                 "whisper-tiny"):
-        try:
-            _lm(name, ctx)
-            refusals[name] = ""
-        except NotImplementedError as e:
-            refusals[name] = str(e)
-    out["refusals"] = refusals
     return out
 
 
@@ -426,4 +417,341 @@ def engine_mesh_cases(rank, x_np, a_np, xq_np, a2_np, gamma, qb, svb):
         res["local_rows"] = int(eng._x_sv.shape[0])
         res["coord"] = mesh.coordinate
         out[shape] = res
+    return out
+
+
+# ---------------------------------------------------------------------------
+# LM training on the mesh (tests/test_torch_collectives.py,
+# test_torch_lm_train_mesh.py, test_torch_lm_ckpt_mesh.py).
+# ---------------------------------------------------------------------------
+
+def _crc(t) -> int:
+    import zlib
+    return zlib.crc32(t.detach().contiguous().numpy().tobytes())
+
+
+def _whole_np(t, spec, ctx):
+    """A host copy of the whole tensor of which ``t`` is this rank's
+    slice (``gather_whole`` returns an unsplit slice itself)."""
+    from repro_torch.nn.module import gather_whole
+    return gather_whole(t, spec, ctx).numpy().copy()
+
+
+def collective_grad_cases(rank, seed):
+    """Each collective's autograd form in float64 inside a global scalar
+    objective that every rank holds alike: the rank's gradient of its
+    inputs by backward, and central differences of the objective taken by
+    perturbing one input entry on one rank at a time (every rank runs
+    every perturbed forward, in step).  Over the model axis the objective
+    is replicated on every rank (each rank's gradient is the whole one);
+    over the data axes it is the sum of the ranks' own objectives
+    (``"sum"``: each rank's gradient is its share, summed over the axis
+    for a replicated input)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives as C
+    torch.manual_seed(seed)
+    out = {}
+    for shape, axis in (((1, 4), "model"), ((2, 2), "model"),
+                        ((2, 2), "data"), ((4, 1), "data")):
+        ctx = _ctx(shape, "train")
+        n, i = ctx.size(axis), ctx.index(axis)
+        g = torch.Generator().manual_seed(seed + 7)     # alike on all ranks
+        shared = torch.randn(6, 4, generator=g, dtype=torch.float64)
+        mine = torch.randn(6, 4, generator=torch.Generator().manual_seed(
+            seed + 100 + ctx.mesh.rank), dtype=torch.float64)
+        coef = torch.randn(6 * n, 4, generator=g, dtype=torch.float64)
+
+        def total(v):                   # the objective summed over ranks
+            v = v.detach().clone()
+            dist.all_reduce(v, group=ctx.group(axis))
+            return v
+
+        objectives = {
+            # partial products summed, replicated after: psum / identity
+            "psum": (lambda a: torch.sum(torch.sin(
+                C.psum(a * coef[:6], ctx, axis))), "whole", "mine"),
+            # a replicated input entering split parts: to_split
+            "to_split": (lambda a: torch.sum(torch.sin(C.psum(
+                C.to_split(a, ctx, axis) * coef[6 * i:6 * i + 6], ctx,
+                axis))), "whole", "shared"),
+            # a norm over a split width: psum(grad="psum")
+            "psum_psum": (lambda a: torch.sum(torch.cos(C.psum(
+                a * torch.rsqrt(C.psum(torch.sum(a * a), ctx, axis,
+                                       grad="psum")) * coef[:6], ctx,
+                axis))), "whole", "mine"),
+            # a gathered tensor used alike on every rank: slice backward
+            "gather_slice": (lambda a: torch.sum(torch.tanh(C.all_gather(
+                a, ctx, axis, dim=0, grad="slice") * coef)), "whole",
+                "mine"),
+            # a gathered tensor each rank uses as its own: scatter back
+            "gather_scatter": (lambda a: torch.sum(torch.tanh(C.all_gather(
+                a, ctx, axis, dim=0) * coef * (1 + i))), "sum", "mine"),
+            # psum_scatter of each rank's own: gather back
+            "psum_scatter": (lambda a: torch.sum(torch.sin(C.psum_scatter(
+                torch.cat([a] * n) * coef, ctx, axis, dim=0) * (2 + i))),
+                "sum", "mine"),
+            # data-axis statistics: psum(grad="psum") of each rank's own
+            "psum_sum": (lambda a: torch.sum(torch.sin(C.psum(
+                torch.sum(a, dim=0), ctx, axis, grad="psum"))
+                * (1 + i)), "sum", "mine"),
+        }
+        res = {}
+        for name, (fn, kind, which) in objectives.items():
+            base = shared if which == "shared" else mine
+            x = base.clone().requires_grad_(True)
+            (grad,) = torch.autograd.grad(fn(x), x)
+            # A shared input is perturbed on every rank at once.
+            owners = [None] if which == "shared" else range(n)
+            numeric, analytic = [], []
+            for owner in owners:
+                for e in (0, 5, 17, 23):
+                    vals = []
+                    for sign in (1.0, -1.0):
+                        xp = base.clone()
+                        if owner is None or owner == i:
+                            xp.view(-1)[e] += sign * 1e-6
+                        with torch.no_grad():
+                            v = fn(xp)
+                        vals.append(float(total(v.reshape(1))[0])
+                                    if kind == "sum" else float(v))
+                    if owner is None or owner == i:
+                        numeric.append((vals[0] - vals[1]) / 2e-6)
+                        analytic.append(float(grad.reshape(-1)[e]))
+            res[name] = (numeric, analytic)
+        out[f"{shape}-{axis}"] = res
+    return out
+
+
+def _seeded_lm(case, ctx=None):
+    """test_torch_lm_train's model: the reduced config with ``changes``,
+    seeded init, cross-attention gates drawn from numpy; on ``ctx`` this
+    rank's slices of it."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import _flat
+    from repro_torch.models.model import LanguageModel, param_specs
+    from repro_torch.nn.module import take_local
+    kw = dict(param_dtype=case.get("dtype", "float32"),
+              compute_dtype=case.get("dtype", "float32"))
+    cfg = get_config(case["name"], reduced=True).replace(
+        **case.get("changes", {}), **kw)
+    ref = LanguageModel(cfg, device="cpu").init(
+        torch.Generator().manual_seed(case.get("seed", 0)))
+    rng = np.random.default_rng(case.get("seed", 0) + 100)
+    with torch.no_grad():
+        for key, p in ref.named_parameters():
+            if key.endswith(".gate"):
+                p.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, p.shape)))
+    if ctx is None:
+        return ref
+    specs = dict(_flat(param_specs(cfg)))
+    model = LanguageModel(cfg, device="cpu", ctx=ctx)
+    model.load_state_dict({k: take_local(v, specs[k], ctx).contiguous()
+                           for k, v in ref.state_dict().items()})
+    return model
+
+
+def _batch_t(b):
+    out = {"tokens": torch.from_numpy(b["tokens"]).long(),
+           "labels": torch.from_numpy(b["labels"]).long()}
+    if b.get("frontend") is not None:
+        out["frontend"] = torch.from_numpy(b["frontend"])
+    return out
+
+
+def lm_train_cases(rank, cases, shapes, lr):
+    """Each case (``{"key", "name", "changes", "batches": [{"tokens",
+    "labels", "frontend"}], "mb": bool}``) on each mesh shape under the
+    ``train`` rules: step 0's loss, gradients (whole, gathered, on rank 0;
+    each rank's local ones by crc and layout) and global norm; then as
+    many AdamW steps as batches (cosine, warmup 2 of 5), their losses and
+    grad norms, and the parameters and moments after them (whole, rank
+    0); with ``mb``, one SGD step with microbatches 1 and 2."""
+    from repro_torch.nn.module import local_index
+    from repro_torch.optim import global_norm, make_optimizer, make_schedule
+    from repro_torch.distributed import collectives as C
+    from repro_torch.train import make_train_step, param_shards, trainable
+    from repro_torch.train.step import finish_grads
+    out = {}
+    for shape in shapes:
+        ctx = _ctx(tuple(shape), "train")
+        for c in cases:
+            model = _seeded_lm(c, ctx)
+            init = {k: v.clone() for k, v in model.state_dict().items()}
+            params = trainable(model)
+            shards = param_shards(model)
+            b0 = _batch_t(c["batches"][0])
+            loss = model.loss(b0["tokens"], b0["labels"],
+                              frontend=b0.get("frontend"), loss_chunks=4)
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()), allow_unused=True,
+                materialize_grads=True)))
+            grads = finish_grads(grads, shards)
+            loss = C.psum(loss.detach().clone(), ctx,
+                          ctx.data_axes) / ctx.n_data
+            res = {"loss0": float(loss),
+                   "gn0": float(global_norm(grads, shards)),
+                   "local": {k: (tuple(r[:2] for r in local_index(
+                       shards.specs[k], ctx)), _crc(g))
+                       for k, g in grads.items()}}
+            whole = {k: _whole_np(g, shards.specs[k], ctx)
+                     for k, g in grads.items()}
+            if rank == 0:
+                res["grads"] = whole
+            opt = make_optimizer("adamw", make_schedule(
+                "cosine", lr, warmup_steps=2, total_steps=5), shards=shards)
+            state = opt.init(params)
+            step = make_train_step(model, opt, loss_chunks=4)
+            metrics = []
+            for b in c["batches"]:
+                params, state, m = step(params, state, _batch_t(b))
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            res["metrics"] = metrics
+            res["count"] = int(state["count"])
+            final = {"params": {k: _whole_np(p, shards.specs[k], ctx)
+                                for k, p in params.items()}}
+            for mo in ("m", "v"):
+                final[mo] = {k: _whole_np(t, shards.specs[k], ctx)
+                             for k, t in state[mo].items()}
+            if rank == 0:
+                res["final"] = final
+            if c.get("mb"):
+                mbs = {}
+                for n_mb in (1, 2):
+                    model.load_state_dict(init)
+                    sgd = make_optimizer("sgd", make_schedule("const", 1e-2),
+                                         grad_clip=None, shards=shards)
+                    params = trainable(model)
+                    st = make_train_step(model, sgd, loss_chunks=2,
+                                         microbatches=n_mb)
+                    _, _, m = st(params, sgd.init(params), b0)
+                    mbs[n_mb] = (float(m["loss"]), float(m["grad_norm"]),
+                                 {k: _whole_np(p, shards.specs[k], ctx)
+                                  for k, p in params.items()})
+                if rank == 0:
+                    res["mb"] = mbs
+            out[(c["key"], tuple(shape))] = res
+    return out
+
+
+def lm_jax_state_case(rank, case, shape):
+    """JAX's parameters and AdamW state after some steps carried across
+    to this rank's slices (``convert.lm_params_from_jax`` and
+    ``lm_opt_state_from_jax`` with ``ctx``), then one more step on the
+    mesh: the parameters and moments after it (whole, rank 0), the
+    count, the step's loss and grad norm."""
+    from repro_torch.convert import lm_opt_state_from_jax, lm_params_from_jax
+    from repro_torch.optim import make_optimizer, make_schedule
+    from repro_torch.train import make_train_step, param_shards, trainable
+    ctx = _ctx(tuple(shape), "train")
+    model = _seeded_lm(case, ctx)
+    model.load_state_dict(lm_params_from_jax(model.cfg, case["params"],
+                                             ctx=ctx))
+    params = trainable(model)
+    shards = param_shards(model)
+    opt = make_optimizer("adamw", make_schedule(
+        "cosine", case["lr"], warmup_steps=2, total_steps=5), shards=shards)
+    state = lm_opt_state_from_jax(model.cfg, case["opt"], ctx=ctx)
+    step = make_train_step(model, opt, loss_chunks=4)
+    params, state, m = step(params, state, _batch_t(case["batch"]))
+    out = {"count": int(state["count"]), "loss": float(m["loss"]),
+           "grad_norm": float(m["grad_norm"])}
+    final = {"params": {k: _whole_np(p, shards.specs[k], ctx)
+                        for k, p in params.items()}}
+    for mo in ("m", "v"):
+        final[mo] = {k: _whole_np(t, shards.specs[k], ctx)
+                     for k, t in state[mo].items()}
+    if rank == 0:
+        out["final"] = final
+    return out
+
+
+def moe_train_case(rank, case):
+    """jamba's MoE layer on (2, 2) under the ``train`` rules, the batch
+    split over data, capacity drops: the output, the aux loss, and the
+    gradients of sum(y * w) + 3 aux with respect to x (this rank's shard)
+    and the parameters (whole, gathered; rank 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_jax
+    from repro_torch.models import moe
+    from repro_torch.nn.module import ParamTree, take_local
+    from repro_torch.train.step import finish_grads
+    from repro_torch.optim import Shards
+    ctx = _ctx((2, 2), "train")
+    cfg = get_config("jamba-v0.1-52b", reduced=True).replace(
+        capacity_factor=case["cf"])
+    specs = moe.moe_specs(cfg)
+    tree = ParamTree(specs, dtype=torch.float32, device=torch.device("cpu"),
+                     ctx=ctx)
+    full = lm_params_from_jax(cfg, case["params"])
+    with torch.no_grad():
+        for k, spec in specs.items():
+            getattr(tree, k).copy_(take_local(full[k], spec, ctx))
+    tree.requires_grad_(True)
+    b_loc = case["x"].shape[0] // ctx.n_data
+    d = ctx.index(ctx.data_axes)
+    x = torch.from_numpy(case["x"][d * b_loc:(d + 1) * b_loc]).clone()
+    w = torch.from_numpy(case["w"][d * b_loc:(d + 1) * b_loc])
+    x.requires_grad_(True)
+    y, aux = moe.moe_forward(tree.view(), cfg, x, with_aux=True,
+                             batch_split=True)
+    # The shards' objectives sum to JAX's: the aux loss (global, alike on
+    # every data shard) counts once over them.
+    obj = torch.sum(y * w) + 3.0 * aux / ctx.n_data
+    names = [n for n, _ in tree.named_parameters()]
+    got = torch.autograd.grad(obj, [x] + [p for _, p in
+                                          tree.named_parameters()])
+    # finish_grads gives the shards' mean: times n_data, their sum.
+    shards = Shards(ctx=ctx, specs=dict(specs))
+    grads = dict(zip(names, got[1:]))
+    grads = {k: g * ctx.n_data for k, g in
+             finish_grads(grads, shards).items()}
+    out = {"d": d, "b_loc": b_loc, "y": y.detach().numpy(),
+           "aux": float(aux), "gx": got[0].numpy()}
+    whole = {k: _whole_np(g, specs[k], ctx) for k, g in grads.items()}
+    if rank == 0:
+        out["grads"] = whole
+    return out
+
+
+def lm_ckpt_cases(rank, root, case, steps, half):
+    """mamba2 training checkpoints across mesh shapes, through
+    ``train_loop``: on (2, 2) an uninterrupted run of ``steps`` (dir
+    ``u22``) and a run of ``half`` steps (``s22``); copies of ``s22``
+    resumed to ``steps`` on (2, 2) (``r22``) and on (4, 1) (``r41``); the
+    one-device checkpoint ``o1`` (written by the test) resumed on (2, 2)
+    (``o22``).  The test reads the checkpoints."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import BigramPipeline
+    from repro_torch.optim import make_optimizer, make_schedule
+    from repro_torch.train import (TrainLoopConfig, make_train_step,
+                                   param_shards, train_loop, trainable)
+
+    def run(shape, directory, n_steps, resume):
+        ctx = _ctx(shape, "train")
+        model = _seeded_lm(case, ctx)
+        params = trainable(model)
+        shards = param_shards(model)
+        opt = make_optimizer("adamw", make_schedule(
+            "cosine", 3e-3, warmup_steps=1, total_steps=steps),
+            shards=shards)
+        step = make_train_step(model, opt, loss_chunks=4)
+        pipe = BigramPipeline(model.cfg.vocab_size, 4, 16, seed=1)
+        res = train_loop(step, params, opt.init(params), pipe,
+                         CheckpointManager(os.path.join(root, directory),
+                                           keep=5),
+                         TrainLoopConfig(n_steps=n_steps, ckpt_every=2),
+                         resume=resume, device="cpu", shards=shards)
+        return [h["loss"] for h in res["history"]]
+
+    out = {"u22": run((2, 2), "u22", steps, False),
+           "s22": run((2, 2), "s22", half, False)}
+    if rank == 0:
+        for name in ("r22", "r41"):
+            shutil.copytree(os.path.join(root, "s22"),
+                            os.path.join(root, name))
+    dist.barrier()
+    out["r22"] = run((2, 2), "r22", steps, True)
+    out["r41"] = run((4, 1), "r41", steps, True)
+    out["o22"] = run((2, 2), "o1", steps, True)
     return out
