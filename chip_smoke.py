@@ -396,7 +396,8 @@ result):
                ranks (four gloo ranks sharing the card; no figure is a
                multi-card one).  The parent first takes one card's
                references and frees them.  (a) mamba2-780m at full width
-               and depth through the launcher, ``--full --data-par 2
+               (cut to 12 of its 48 layers, MESH_LM_LAYERS)
+               through the launcher, ``--full --data-par 2
                --model-par 2 --dist-backend gloo``, lm-train's batch and
                rate, 4 steps, no checkpoint: no kernel launch (no kernel
                has a backward); every bf16 loss within 5e-3 and step 0's
@@ -423,6 +424,30 @@ result):
                the mesh at PR 24's limits; bf16 end to end printed.  Then
                the new local flash shapes timed alone (the kernels line's
                ``ms_bound_by_shape``).
+ 32. dryrun — the production dry-run (``launch/dryrun.py``) against
+               the card, run after serve-jamba (before mesh-serve).  (a)
+               serve-jamba's prefill (8 layers at full width, 4 x 2,048
+               tokens), the DSEKL mesh step on a world of one at the
+               covertype shape (N 559,888, D 54, I = J = 1,024) and
+               lm-train's step (mamba2-780m, 12 layers, 8 x 1,024), each
+               built by the dry-run's builders, traced on the meta device
+               (a fake world of one for the DSEKL step) and then run on
+               the card: the traced kernel launches by op and route equal
+               the card's ``launches_by_route`` deltas, and the card's
+               peak (``max_memory_allocated`` after a reset, less what
+               was allocated before other than the step's arguments) is
+               within DRYRUN_PEAK_TOL of the traced arguments + temp.
+               Each kernel op's added dispatch cost a call (its CUDA
+               wrapper through the ``torch.library`` op against its body
+               called directly; the kernels line's ``dispatch_added_us``
+               of rows 1, 2, 6, 7).  (c) DRYRUN_CELLS through the
+               dry-run's command line on this host, every record ok, each
+               cell's per-rank GiB beside the card's memory.  (b) runs in
+               mesh-serve's ranks: the float32 jamba on (1, 4) again under
+               the decode override (``kv_seq`` over the model axis: each
+               rank holds a quarter of every KV cache's slots), the
+               prefill and 4 decode steps within 1e-4 x |ref|_inf of one
+               card's float32 run, the routing held fixed.
 
 The DSEKL kernel tolerance is the JAX suite's float32 one
 (tests/test_dual_pass.py ``_tols``): rtol 2e-4, atol 1e-5 * max(1,
@@ -5634,18 +5659,51 @@ def _mesh_serve_forced(res: dict, spec: dict, ctx) -> dict:
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    f32 = _forced_routes(_jamba_f32(spec, ctx), tokens, spec, "jamba_f32_r",
-                         list(torch.from_numpy(np.load(
-                             spec["jamba_f32_logits"]))))
-    gc.collect()
-    torch.cuda.empty_cache()
+    f32_refs = list(torch.from_numpy(np.load(spec["jamba_f32_logits"])))
+    f32_model = _jamba_f32(spec, ctx)
+    f32 = _forced_routes(f32_model, tokens, spec, "jamba_f32_r", f32_refs)
     for i, e in enumerate(f32["err"]):
         check(e <= F32_TOL, f"(b) float32, routing fixed, "
               f"{'prefill' if i == 0 else f'decode {i}'}: logits {e:.4e} x "
               f"|ref|_inf from the single card's, limit {F32_TOL}")
+    # dryrun (b): the same weights under the dry-run's decode override,
+    # the KV caches' slots over the model axis (kv_seq), q gathered over it.
+    kv = _forced_routes(_with_ctx(f32_model, _kv_seq_ctx(ctx)), tokens,
+                        spec, "jamba_f32_r", f32_refs)
+    layouts = [blk.layout for blk in f32_model.layers
+               if blk.layout is not None]
+    check(layouts and all(lay.seq_axes == "model" for lay in layouts),
+          f"dryrun (b): cache layouts {layouts}")
+    for i, e in enumerate(kv["err"]):
+        check(e <= F32_TOL, f"dryrun (b) kv_seq over model, float32, "
+              f"{'prefill' if i == 0 else f'decode {i}'}: logits {e:.4e} x "
+              f"|ref|_inf from the single card's, limit {F32_TOL}")
+    del f32_model
+    gc.collect()
+    torch.cuda.empty_cache()
     return {"forced_err": bf16["err"], "forced_own": bf16["own"],
             "forced_bf16_err": partials, "f32_err": f32["err"],
-            "f32_own": f32["own"]}
+            "f32_own": f32["own"], "kvseq_err": kv["err"],
+            "kvseq_slots": [lay.hi - lay.lo for lay in layouts]}
+
+
+def _kv_seq_ctx(ctx):
+    """``ctx``'s mesh under the decode rules with the dry-run's override:
+    ``kv_seq`` over the model axis."""
+    from repro_torch.distributed.sharding import MeshCtx
+    return MeshCtx.for_mesh(ctx.mesh, "decode", {"kv_seq": "model"})
+
+
+def _with_ctx(model, ctx):
+    """``model`` (its parameters untouched) under ``ctx``, a context of the
+    same mesh whose rules lay the parameters out alike (they differ in
+    the caches' rules alone)."""
+    from repro_torch.nn.module import ParamTree
+    model.ctx = ctx
+    for m in model.modules():
+        if isinstance(m, ParamTree):
+            m.ctx = ctx
+    return model
 
 
 def _mesh_serve_engine(spec: dict) -> dict:
@@ -5835,6 +5893,335 @@ def _mesh_serve_reduced() -> dict:
             "decode_ms": res["decode_ms_per_step"]}
 
 
+# ---------------------------------------------------------------------------
+# dryrun: the production dry-run (launch/dryrun.py) held against the card.
+# ---------------------------------------------------------------------------
+
+# (a) Three steps the card already runs, traced on the meta device with the
+# dry-run's builders and then run for real: serve-jamba's prefill, the
+# DSEKL mesh step on a world of one at the covertype protocol's shape, and
+# lm-train's step.  The traced peak (arguments + temp) is held to the
+# card's within DRYRUN_PEAK_TOL (the limit written in PERF.md before the
+# first card run).
+DRYRUN_PEAK_TOL = 0.20
+DRYRUN_DSEKL = dict(n=559_888, d=54, per_rank=1024)
+# (c) Production cells traced on this host.
+DRYRUN_CELLS = [("mamba2-780m", s, False) for s in
+                ("train_4k", "prefill_32k", "decode_32k", "long_500k")] + [
+    ("dsekl", "dsekl_covtype", False), ("dsekl", "dsekl_covtype", True),
+    ("deepseek-v3-671b", "decode_32k", False)]
+DRYRUN_DIR = os.path.join(ROOT, "build", "chip_smoke_dryrun")
+# Calls a reading of the kernel ops' dispatch cost, and its shapes: the
+# serve flush's matvec (a query block against covertype's support set) and
+# covertype-train's step's vecmat (I = J = 1,024), (I, J, D); flash and the
+# SSD at FLASH_SERVED / SSD_SERVED.
+DISPATCH_CALLS = 64
+DISPATCH_MATVEC = (4096, 65_536, 54)
+DISPATCH_VECMAT = (1024, 1024, 54)
+
+
+def _launch_counts() -> dict:
+    """Every traceable kernel op's launches by route, keyed as the trace
+    keys them."""
+    from repro_torch.kernels.dsekl import block
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
+    out = {}
+    for op, fn in (("kernel_matvec", block.kernel_matvec_cuda),
+                   ("kernel_vecmat", block.kernel_vecmat_cuda),
+                   ("flash_attention", fk.flash_attention_cuda),
+                   ("ssd", sk.ssd_cuda)):
+        routes = {k: v for k, v in fn.launches_by_route.items() if v}
+        if routes:
+            out[op] = routes
+    return out
+
+
+def _card_run(cell, grad: bool) -> dict:
+    """``cell``'s step on the card once: its launches by op and route, and
+    its peak (the card's ``max_memory_allocated`` after a reset, less what
+    was allocated before the step other than the step's arguments)."""
+    import torch
+    from repro_torch.launch import dryrun
+    args = dryrun.tree_bytes(cell.args)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    _reset_lm_counters()                         # the step starts here
+    with contextlib.nullcontext() if grad else torch.no_grad():
+        out = cell.fn(*cell.args)
+    torch.cuda.synchronize()
+    launches = _launch_counts()                  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    return {"launches": launches, "peak": peak - (before - args),
+            "raw_peak": peak, "before": before, "args": args}
+
+
+def _dryrun_step(tag: str, build, grad: bool, init=None) -> dict:
+    """``build(device, impl)`` -> a Cell: traced on meta, then run on the
+    card; the launches by op and route equal, the peaks within
+    DRYRUN_PEAK_TOL."""
+    import gc
+
+    import torch
+    from repro_torch.launch import dryrun
+    meta = build("meta")
+    with contextlib.nullcontext() if grad else torch.no_grad():
+        rec = dryrun.trace_cell(meta)
+    del meta
+    mem = rec["memory_analysis"]
+    traced = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    cell = build(DEVICE)
+    if init is not None:
+        init(cell)
+    card = _card_run(cell, grad)
+    del cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    ratio = card["peak"] / traced
+    print(f"[dryrun] (a) {tag}: traced launches {rec['kernels']}, the "
+          f"card's {card['launches']}; traced peak {traced / 2**30:.4f} GiB "
+          f"(arguments {mem['argument_size_in_bytes'] / 2**30:.4f} + temp "
+          f"{mem['temp_size_in_bytes'] / 2**30:.4f}), the card's "
+          f"{card['peak'] / 2**30:.4f} GiB = {ratio:.4f} x traced (raw "
+          f"max_memory_allocated {card['raw_peak'] / 2**30:.4f} GiB, "
+          f"{card['before'] / 2**30:.4f} allocated before, of which "
+          f"{card['args'] / 2**30:.4f} the arguments); trace "
+          f"{rec['seconds_trace']:.2f} s, {rec['cost_analysis']['flops']:.4e}"
+          " flops")
+    check(rec["kernels"] == card["launches"],
+          f"dryrun (a) {tag}: traced launches {rec['kernels']} != the "
+          f"card's {card['launches']}")
+    check(abs(ratio - 1.0) <= DRYRUN_PEAK_TOL,
+          f"dryrun (a) {tag}: the card's peak is {ratio:.4f} x the traced "
+          f"one, limit 1 +- {DRYRUN_PEAK_TOL}")
+    return {"traced_launches": rec["kernels"], "launches": card["launches"],
+            "traced_peak": traced, "peak": card["peak"], "ratio": ratio,
+            "raw_peak": card["raw_peak"], "flops": rec["cost_analysis"][
+                "flops"], "seconds_trace": rec["seconds_trace"]}
+
+
+def _dispatch_costs() -> dict:
+    """Each kernel op's added host cost a call: its CUDA wrapper (through
+    the ``torch.library`` op) against its CUDA body called directly, on
+    the same inputs at a main-path shape, DISPATCH_CALLS calls a reading,
+    readings in the order op, body, body, op (twice), medians; the
+    launch counters are restored after.  Microseconds a call."""
+    import torch
+    from repro_torch.kernels.dsekl import block
+    from repro_torch.kernels.flash_attn import kernel as fk
+    from repro_torch.kernels.ssd import kernel as sk
+    saved = [(f, f.launches, dict(f.launches_by_route)) for f in (
+        block.kernel_matvec_cuda, block.kernel_vecmat_cuda,
+        fk.flash_attention_cuda, sk.ssd_cuda)]
+    gen = torch.Generator().manual_seed(11)
+
+    def rnd(*shape, dtype=torch.float32):
+        return _rand(shape, gen, DEVICE, dtype)
+
+    q_flash = FLASH_SERVED
+    b, s, h, kv, d = q_flash
+    bf = torch.bfloat16
+    fq, fkk, fv = rnd(b, s, h, d, dtype=bf), rnd(b, s, kv, d, dtype=bf), \
+        rnd(b, s, kv, d, dtype=bf)
+    sb, ss, nh, hd, g, n, chunk = SSD_SERVED
+    sx, sdt = rnd(sb, ss, nh, hd, dtype=bf), (0.1 * rnd(sb, ss, nh)).abs().to(
+        bf)
+    sa = -rnd(nh).abs()
+    sbm, scm = rnd(sb, ss, g, n, dtype=bf), rnd(sb, ss, g, n, dtype=bf)
+    mi, mj, md = DISPATCH_MATVEC
+    qx, zx, a = rnd(mi, md), rnd(mj, md), rnd(mj)
+    vi, vj, vd = DISPATCH_VECMAT
+    xi, xj, v = rnd(vi, vd), rnd(vj, vd), rnd(vi)
+    scal = block._op_scalars("kernel_matvec_cuda", "rbf", None)
+    cases = {
+        f"kernel_matvec (serve flush: {mi:,} x {mj:,}, D {md})": (
+            lambda: block.kernel_matvec_cuda(qx, zx, a),
+            lambda: block._matvec_body(qx, zx, a, "rbf", *scal)),
+        f"kernel_vecmat (covertype-train step: {vi:,} x {vj:,}, D {vd})": (
+            lambda: block.kernel_vecmat_cuda(xi, xj, v),
+            lambda: block._vecmat_body(xi, xj, v, "rbf", *scal)),
+        "flash_attention (serve-jamba prefill)": (
+            lambda: fk.flash_attention_cuda(fq, fkk, fv),
+            lambda: fk._body(fq, fkk, fv, True, 1 << 30)),
+        "ssd (serve-jamba prefill)": (
+            lambda: sk.ssd_cuda(sx, sdt, sa, sbm, scm, chunk=chunk),
+            lambda: sk._body(sx, sdt, sa, sbm, scm, chunk)),
+    }
+    out = {}
+    for key, (op, body) in cases.items():
+        op(), body()
+        torch.cuda.synchronize()
+        readings = {"op": [], "body": []}
+        for which in ("op", "body", "body", "op") * 2:
+            fn = op if which == "op" else body
+            t0 = time.perf_counter()
+            for _ in range(DISPATCH_CALLS):
+                fn()
+            readings[which].append((time.perf_counter() - t0)
+                                   / DISPATCH_CALLS)
+            torch.cuda.synchronize()
+        op_us = 1e6 * statistics.median(readings["op"])
+        body_us = 1e6 * statistics.median(readings["body"])
+        out[key] = {"op_us": op_us, "body_us": body_us,
+                    "added_us": op_us - body_us}
+        print(f"[dryrun] dispatch {key}: the op {op_us:.2f} us a call, the "
+              f"body {body_us:.2f} us: +{op_us - body_us:.2f} us")
+    for f, n, routes in saved:
+        f.launches, f.launches_by_route = n, routes
+    return out
+
+
+def phase_dryrun(name: str) -> dict:
+    """The production dry-run against the card: (a) three steps traced with
+    the dry-run's builders and run for real (launches by op and route
+    equal; peak within DRYRUN_PEAK_TOL); the kernel ops' dispatch cost;
+    (c) a few production cells traced on this host, each record ok, their
+    per-rank GiB beside the card's memory.  (b), jamba's decode with the
+    cache's slots over the model axis on (1, 4), runs in mesh-serve's
+    ranks (``_mesh_serve_forced``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    check(not dist.is_initialized(), "dryrun: a process group is up")
+    out = {"steps": {}}
+    cells = _dryrun_cells_start()          # (c) runs on the host meanwhile
+
+    def jamba(device):
+        return dryrun.build_cell(
+            "jamba-v0.1-52b", "prefill_32k", None, n_layers=JAMBA_LAYERS,
+            batch=JAMBA["batch"], seq_len=JAMBA["prompt_len"], device=device)
+
+    def lm_train(device):
+        return dryrun.build_cell(
+            LM_TRAIN["arch"], "train_4k", None, n_layers=LM_TRAIN["layers"],
+            batch=LM_TRAIN["batch"], seq_len=LM_TRAIN["seq"], device=device)
+
+    def seeded(cell):
+        cell.model.init(torch.Generator(device=DEVICE).manual_seed(3))
+
+    try:
+        out["steps"]["serve-jamba prefill"] = _dryrun_step(
+            "serve-jamba prefill", jamba, grad=False, init=seeded)
+        out["steps"]["dsekl mesh step (1 x 1)"] = _dryrun_dsekl()
+        out["steps"]["lm-train step"] = _dryrun_step(
+            "lm-train step", lm_train, grad=True, init=seeded)
+        out["dispatch"] = _dispatch_costs()
+        out["cells"] = _dryrun_cells(cells, name)
+    finally:
+        for _, _, proc in cells:         # none left running on a failure
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[dryrun] phase {out['seconds']:.1f} s")
+    return out
+
+
+def _dryrun_dsekl() -> dict:
+    """(a)'s DSEKL step at the covertype protocol's shape: traced on a fake
+    world of one, closed before the card's world of one (gloo) starts,
+    where the same step runs on random rows and a random plan."""
+    import gc
+
+    import torch
+    from repro_torch.launch import dryrun, mesh as mesh_lib
+    fake = mesh_lib.make_fake_mesh((1, 1), mesh_lib.MESH_AXES)
+    try:
+        meta = dryrun.build_dsekl_cell("dsekl_covtype", fake, device="meta",
+                                       **DRYRUN_DSEKL)
+        rec = dryrun.trace_cell(meta)
+        del meta
+    finally:
+        fake.close()
+    mem = rec["memory_analysis"]
+    traced = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    mesh = mesh_lib.make_local_mesh(1, 1, backend="gloo", device=DEVICE)
+    try:
+        cell = dryrun.build_dsekl_cell("dsekl_covtype", mesh, device=DEVICE,
+                                       **DRYRUN_DSEKL)
+        gen = torch.Generator(device=DEVICE).manual_seed(5)
+        x_grad, y_grad, x_exp, state, plan = cell.args
+        with torch.no_grad():
+            x_grad.normal_(generator=gen)
+            x_exp.copy_(x_grad)
+            y_grad.copy_(torch.sign(x_grad[:, 0]))
+            for idx in plan:
+                idx.copy_(torch.randint(0, x_grad.shape[0], idx.shape,
+                                        generator=gen, device=DEVICE))
+        card = _card_run(cell, grad=False)
+        del cell, x_grad, y_grad, x_exp, state, plan
+    finally:
+        mesh.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ratio = card["peak"] / traced
+    print(f"[dryrun] (a) dsekl mesh step (1 x 1, N {DRYRUN_DSEKL['n']:,}, "
+          f"D {DRYRUN_DSEKL['d']}, I = J = {DRYRUN_DSEKL['per_rank']:,}): "
+          f"traced launches {rec['kernels']}, the card's "
+          f"{card['launches']}; traced peak {traced / 2**30:.4f} GiB, the "
+          f"card's {card['peak'] / 2**30:.4f} GiB = {ratio:.4f} x traced")
+    check(rec["kernels"] == card["launches"],
+          f"dryrun (a) dsekl: traced launches {rec['kernels']} != the "
+          f"card's {card['launches']}")
+    check(abs(ratio - 1.0) <= DRYRUN_PEAK_TOL,
+          f"dryrun (a) dsekl: the card's peak is {ratio:.4f} x the traced "
+          f"one, limit 1 +- {DRYRUN_PEAK_TOL}")
+    return {"traced_launches": rec["kernels"], "launches": card["launches"],
+            "traced_peak": traced, "peak": card["peak"], "ratio": ratio,
+            "raw_peak": card["raw_peak"],
+            "flops": rec["cost_analysis"]["flops"],
+            "seconds_trace": rec["seconds_trace"]}
+
+
+def _dryrun_cells_start() -> list:
+    """(c): DRYRUN_CELLS through the dry-run's command line, one
+    subprocess each, all started at once (they run on the host while (a)
+    runs on the card)."""
+    from repro_torch.launch import dryrun
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    return [(cell, time.perf_counter(), subprocess.Popen(
+        dryrun._cell_cmd(*cell, DRYRUN_DIR), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for cell in DRYRUN_CELLS]
+
+
+def _dryrun_cells(procs: list, name: str) -> dict:
+    """(c)'s records: every one ok; per-rank GiB (arguments + temp)
+    beside the card's memory."""
+    import torch
+    from repro_torch.launch import dryrun
+    card = torch.cuda.get_device_properties(0).total_memory
+    out = {}
+    t0 = min(t for _, t, _ in procs)
+    for cell, _, proc in procs:
+        _, err = proc.communicate(timeout=600)
+        arch, shape, multi_pod = cell
+        path = dryrun.cell_path(DRYRUN_DIR, arch, shape, multi_pod)
+        check(proc.returncode == 0 and os.path.exists(path),
+              f"dryrun (c) {cell}: exit {proc.returncode}: {err[-2000:]}")
+        with open(path) as f:
+            rec = json.load(f)
+        check(rec.get("ok") is True, f"dryrun (c) {cell}: not ok")
+        gib = rec["per_rank_bytes"] / 2**30
+        key = f"{arch} x {shape} x {rec['mesh']}"
+        out[key] = {"per_rank_gib": gib, "flops": rec["cost_analysis"][
+            "flops"], "collective_bytes": rec["collectives"]["total_bytes"],
+            "kernels": rec["kernels"], "seconds": rec["seconds"]}
+        print(f"[dryrun] (c) {key}: {gib:.3f} GiB a rank (the card {name} "
+              f"holds {card / 2**30:.2f} GiB), {rec['cost_analysis']['flops']:.4e} "
+              f"flops, {rec['collectives']['total_bytes']:.4e} collective "
+              f"bytes, kernels {rec['kernels']}, {rec['seconds']:.1f} s")
+    print(f"[dryrun] (c) {len(out)} cells in {time.perf_counter() - t0:.1f} s"
+          " from their start")
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    return out
+
+
 def phase_mesh_serve(serve_f, jamba_ref: dict, smi: str,
                      device_name: str) -> dict:
     """Serving on a mesh of four gloo ranks sharing the card (``jamba_ref``:
@@ -5910,6 +6297,15 @@ def phase_mesh_serve(serve_f, jamba_ref: dict, smi: str,
           f"; bf16 with the split products' partials rounded to bf16 before "
           f"their psum (not the port's) the prefill's "
           f"{b0['forced_bf16_err']:.6f}")
+    print(f"[dryrun] (b) {label} jamba-v0.1-52b on (1, 4) under the "
+          f"decode override (kv_seq over model: {b0['kvseq_slots'][0]} of "
+          f"the cache's slots a rank), float32, the routing held fixed: max "
+          f"abs err / |ref|_inf of the prefill and {FORCED_DECODE} decode "
+          f"steps {[float(f'{e:.4g}') for e in b0['kvseq_err']]} (limit "
+          f"{F32_TOL}; max over ranks "
+          f"{max(max(x['kvseq_err']) for x in b):.4g}); the same weights "
+          f"with the caches whole over model "
+          f"{[float(f'{e:.4g}') for e in b0['f32_err']]}")
     print(f"[mesh-serve-b] {label} each layer on the single card's input "
           f"to it (teacher-forced): max abs err / |ref|_inf by layer "
           f"{[round(e, 6) for e in b0['layer_err']]} (limit {LOGITS_TOL}; "
@@ -5954,12 +6350,16 @@ def phase_mesh_serve(serve_f, jamba_ref: dict, smi: str,
 
 MESH_LM_DIR = os.path.join(ROOT, "build", "chip_smoke_mesh_lm")
 MESH_LM_TIMEOUT_S = 600
-# (a) lm-train's configuration (mamba2-780m at full width and depth, bf16,
-# f32 AdamW moments, batch 8 x 1,024, lr 1e-3) through the launcher on a
-# (2, 2) mesh of the four gloo ranks, 4 steps; no checkpoint is written
-# (lm-train drives that path on one card: a ~10-GB one would be gathered
-# whole through gloo here).
+# (a) lm-train's configuration (mamba2-780m at full width, bf16, f32 AdamW
+# moments, batch 8 x 1,024, lr 1e-3) through the launcher on a (2, 2) mesh
+# of the four gloo ranks, 4 steps; no checkpoint is written (lm-train
+# drives that path on one card: a ~10-GB one would be gathered whole
+# through gloo here).  Cut to MESH_LM_LAYERS of its 48 layers, as
+# lm-train is: at full depth the phase took up to ~235 s of the script's
+# time limit, most of it gloo's host-staged reductions, which scale with
+# the layers.
 MESH_LM_STEPS = 4
+MESH_LM_LAYERS = 12
 MESH_LM_ARGS = ["--arch", LM_TRAIN["arch"], "--full", "--steps",
                 str(MESH_LM_STEPS), "--batch", str(LM_TRAIN["batch"]),
                 "--seq", str(LM_TRAIN["seq"]), "--lr", str(LM_TRAIN["lr"]),
@@ -6044,14 +6444,14 @@ def _mesh_lm_refs_train(spec: dict) -> None:
     from repro_torch.launch import train
     from repro_torch.models.model import LanguageModel
     args = train.parser().parse_args(MESH_LM_ARGS + ["--device", DEVICE])
-    with _NoCheckpoints():
+    with _NoCheckpoints(), _Depth(LM_TRAIN["arch"], MESH_LM_LAYERS):
         res = train.train_lm(args)
     spec["a_card_bf16"] = [(h["loss"], h["grad_norm"])
                            for h in res["history"]]
     spec["a_card_bf16_ms"] = statistics.mean(
         h["seconds"] for h in res["history"][1:]) * 1e3
     _free(res)
-    cfg32 = _mesh_cfg(LM_TRAIN["arch"], dtype="float32")
+    cfg32 = _mesh_cfg(LM_TRAIN["arch"], MESH_LM_LAYERS, dtype="float32")
     model = LanguageModel(cfg32, device=DEVICE).init(
         torch.Generator(device=DEVICE).manual_seed(0))
     spec["a_card_f32"] = _loss_and_grad_norm(model, _lm_batch0(cfg32))
@@ -6216,7 +6616,8 @@ def _mesh_lm_a(spec: dict) -> dict:
     rank = ctx.mesh.rank
     _reset_lm_counters()                     # the training path starts
     t0 = time.perf_counter()
-    with _NoCheckpoints(), _AllReduceTimer() as art:
+    with _NoCheckpoints(), _AllReduceTimer() as art, \
+            _Depth(LM_TRAIN["arch"], MESH_LM_LAYERS):
         res = train.train_lm(args, ctx)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -6231,7 +6632,7 @@ def _mesh_lm_a(spec: dict) -> dict:
            "ar_s_step": s_ar / len(hist), "ar_n_step": n_ar / len(hist),
            "local_params": local, "n_params": res["n_params"]}
     _free(res)
-    cfg32 = _mesh_cfg(LM_TRAIN["arch"], dtype="float32")
+    cfg32 = _mesh_cfg(LM_TRAIN["arch"], MESH_LM_LAYERS, dtype="float32")
     t0 = time.perf_counter()
     model = LanguageModel(cfg32, device=DEVICE, ctx=ctx).init(
         torch.Generator(device=DEVICE).manual_seed(0))
@@ -6529,8 +6930,8 @@ def phase_mesh_lm(smi: str, device_name: str) -> dict:
     a = [res[r]["a"] for r in range(MESH_RANKS)]
     a0, card = a[0], spec["a_card_bf16"]
     ms = statistics.mean(h[2] for h in a0["hist"][1:]) * 1e3
-    print(f"[mesh-lm-a] {label} {LM_TRAIN['arch']} at full width and depth "
-          f"({a0['n_params']:,} parameters, {a0['local_params']:,} on rank "
+    print(f"[mesh-lm-a] {label} {LM_TRAIN['arch']} at full width, cut to "
+          f"{MESH_LM_LAYERS} layers ({a0['n_params']:,} parameters, {a0['local_params']:,} on rank "
           f"0) through the launcher on (2, 2), bf16, batch "
           f"{LM_TRAIN['batch']} x {LM_TRAIN['seq']}, {MESH_LM_STEPS} steps: "
           f"{ms:.3f} ms a step over steps 2-{MESH_LM_STEPS} (rank 0, host "
@@ -6710,6 +7111,8 @@ def main() -> int:
     jamba_ref = _jamba_layer_refs(jr)
     del jr
     elapsed("serve-jamba")
+    dry = phase_dryrun(name)
+    elapsed("dryrun")
     mesh_serve = phase_mesh_serve(serve_f, jamba_ref, smi, name)
     elapsed("mesh-serve")
     mesh_lm = phase_mesh_lm(smi, name)
@@ -6786,6 +7189,10 @@ def main() -> int:
                 "lm-readout (B %d, S %d, nh %d, hd %d, g %d, n %d, chunk %d)"
                 % readout["ssd_case"]: readout["ssd_time"],
                 **mesh_serve["times"]["ssd"]}
+        dispatch = {k.split(" ", 1)[0]: v["added_us"]
+                    for k, v in dry["dispatch"].items()}
+        if row["name"] in dispatch:
+            row["dispatch_added_us"] = dispatch[row["name"]]
         check(row["name"] in launches or row["kernel_route"] == "fp32",
               f"no main-path launch count for {row['name']}")
     train = next(r for r in rows if r["name"] == "train_pass")

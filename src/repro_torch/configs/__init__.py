@@ -5,6 +5,8 @@ from __future__ import annotations
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs import shapes as shapes_lib  # noqa: F401
+from repro_torch.configs.shapes import SHAPES, ShapeSpec, applicable  # noqa: F401
 
 from repro_torch.configs.mamba2_780m import CONFIG as _mamba2
 from repro_torch.configs.granite_20b import CONFIG as _granite

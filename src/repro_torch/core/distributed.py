@@ -52,7 +52,7 @@ import torch.distributed as dist
 
 from repro_torch.core import dsekl, losses as losses_lib
 from repro_torch.core.dsekl import DSEKLConfig, DSEKLState, PrecondBlock
-from repro_torch.distributed import compression
+from repro_torch.distributed import collectives, compression
 from repro_torch.kernels import full_fp32_matmul
 from repro_torch.kernels.dsekl import ops as kops
 
@@ -67,8 +67,10 @@ class ShardedDSEKLState(NamedTuple):
 
 
 def _sum(t: Tensor, mesh, axis: str) -> Tensor:
-    """``psum``: ``t`` summed over ``axis``'s group, in place."""
+    """``psum``: ``t`` summed over ``axis``'s group, in place (counted in
+    ``collectives.COUNTS`` / ``BYTES``)."""
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group(axis))
+    collectives.note("psum:all_reduce", t)
     return t
 
 

@@ -24,8 +24,14 @@ JAX -> ``torch.distributed``:
 
 The choice is a function of the backend and the tensor's device alone,
 never a fallback after a failure, and each call is counted in ``COUNTS``
-under ``"<op>:<method>"``.  A slot-stack gather moves n times the bytes
-of a native one.
+under ``"<op>:<method>"``, with the bytes of its result in ``BYTES``
+under the same key (JAX's dry-run convention, ``parse_collectives``:
+an all-reduce's tensor, an all-gather's output, a reduce-scatter's
+output, what a ring shift sends).  A call built from another collective
+is counted once, under its own key (the slot stack under its gather or
+shift, the all-reduce form of ``psum_scatter`` under
+``"psum_scatter:all_reduce"``).  A slot-stack gather moves n times the
+bytes of a native one.
 
 Autograd (training on the mesh).  Where a tensor that needs a gradient
 meets a collective, the collective runs as a ``torch.autograd.Function``
@@ -69,6 +75,17 @@ import torch.distributed as dist
 Tensor = torch.Tensor
 
 COUNTS: Counter = collections.Counter()
+BYTES: Counter = collections.Counter()
+
+
+def nbytes(t: Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def note(key: str, result: Tensor) -> None:
+    """Count one collective under ``key`` and the bytes of ``result``."""
+    COUNTS[key] += 1
+    BYTES[key] += nbytes(result)
 
 
 def _size(ctx, axes) -> int:
@@ -91,8 +108,8 @@ def _differentiable(*ts) -> bool:
 def _all_reduce(x: Tensor, ctx, axes, op=dist.ReduceOp.SUM) -> Tensor:
     """``x`` (contiguous) reduced over ``axes`` in place."""
     dist.all_reduce(x, op=op, group=ctx.group(axes))
-    COUNTS["psum:all_reduce" if op == dist.ReduceOp.SUM
-           else "pmax:all_reduce"] += 1
+    note("psum:all_reduce" if op == dist.ReduceOp.SUM
+         else "pmax:all_reduce", x)
     return x
 
 
@@ -214,18 +231,23 @@ def all_gather(x: Tensor, ctx, axes, dim: int = 0,
 def _gather(x: Tensor, ctx, axes, dim: int, method: str) -> Tensor:
     n = _size(ctx, axes)
     method = method or gather_method(x, ctx)
-    COUNTS[f"all_gather:{method}"] += 1
+    key = f"all_gather:{method}"
     if method == "slots":
-        return torch.cat(_slots(x, ctx, axes).unbind(0), dim=dim)
+        stack = _slots(x, ctx, axes)
+        note(key, stack)
+        return torch.cat(stack.unbind(0), dim=dim)
     group = ctx.group(axes)
     if ctx.mesh.backend == "nccl":
         src = x.movedim(dim, 0).contiguous()
         out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
         dist.all_gather_into_tensor(out, src, group=group)
+        note(key, out)
         return out.movedim(0, dim)
     parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=dim)
+    out = torch.cat(parts, dim=dim)
+    note(key, out)
+    return out
 
 
 class _AllGather(torch.autograd.Function):
@@ -275,12 +297,14 @@ def _scatter(x: Tensor, ctx, axes, dim: int) -> Tensor:
         src = x.movedim(dim, 0).contiguous()
         out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
         dist.reduce_scatter_tensor(out, src, group=ctx.group(axes))
-        COUNTS["psum_scatter:reduce_scatter"] += 1
+        note("psum_scatter:reduce_scatter", out)
         return out.movedim(0, dim)
-    total = _all_reduce(x.contiguous().clone(), ctx, axes)
-    COUNTS["psum_scatter:all_reduce"] += 1
+    total = x.contiguous().clone()
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=ctx.group(axes))
     step = x.shape[dim] // n
-    return total.narrow(dim, ctx.index(axes) * step, step).contiguous()
+    out = total.narrow(dim, ctx.index(axes) * step, step).contiguous()
+    note("psum_scatter:all_reduce", out)
+    return out
 
 
 def ring_shift(x: Tensor, ctx, axis: str, method: str = "") -> Tensor:
@@ -291,7 +315,7 @@ def ring_shift(x: Tensor, ctx, axis: str, method: str = "") -> Tensor:
         return x
     me = ctx.index(axis)
     method = method or gather_method(x, ctx)
-    COUNTS[f"ring_shift:{method}"] += 1
+    note(f"ring_shift:{method}", x)
     if method == "slots":
         return _slots(x, ctx, axis)[(me - 1) % n].clone()
     group = ctx.group(axis)

@@ -19,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch.distributed import collectives
+
 Tensor = torch.Tensor
 
 
@@ -42,10 +44,12 @@ def compressed_all_reduce(x: Tensor, group, generator: torch.Generator,
     max_q = 2 ** (bits - 1) - 1
     gmax = torch.max(torch.abs(x)).to(torch.float32).reshape(1)
     dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
+    collectives.note("pmax:all_reduce", gmax)
     scale = torch.clamp_min(gmax[0], 1e-12) / max_q
     u = torch.rand(x.shape, generator=generator, device=x.device)
     q = quantize_stochastic(x, scale, u, max_q)
     dist.all_reduce(q, op=dist.ReduceOp.SUM, group=group)
+    collectives.note("psum:all_reduce", q)
     return q.to(torch.float32) * scale
 
 

@@ -102,8 +102,6 @@ class MeshCtx:
     rules: Mapping[str, Any]
     data_axes: Tuple[str, ...] = ("data",)
     model_axis: str = "model"
-    # The dry-run's unroll flag, kept for JAX's signature; no effect yet.
-    unroll: bool = False
     # Process groups over several mesh axes, by axes (every rank builds
     # them together in ``for_mesh``).
     groups: Mapping[Axes, Any] = dataclasses.field(default_factory=dict)
@@ -113,12 +111,24 @@ class MeshCtx:
         return MeshCtx(mesh=None, rules={})
 
     @staticmethod
-    def for_mesh(mesh, shape_kind: str) -> "MeshCtx":
+    def for_mesh(mesh, shape_kind: str,
+                 overrides: Optional[Mapping[str, Any]] = None
+                 ) -> "MeshCtx":
+        """The context of ``mesh`` under ``shape_kind``'s rules, with
+        ``overrides`` (logical name -> entry) on top.  A group is built
+        for each entry of several axes (every rank, in step)."""
         multi_pod = "pod" in mesh.axis_names
         dp = ("pod", "data") if multi_pod else ("data",)
-        groups = {dp: mesh.group_over(dp)} if multi_pod else {}
-        return MeshCtx(mesh=mesh, rules=make_rules(shape_kind, multi_pod),
-                       data_axes=dp, model_axis="model", groups=groups)
+        rules = make_rules(shape_kind, multi_pod)
+        rules.update(overrides or {})
+        groups = {}
+        static = getattr(mesh, "device_mesh", True) is None  # no world
+        for entry in [dp] + sorted({as_axes(e) for e in rules.values()
+                                    if len(as_axes(e)) > 1}):
+            if len(entry) > 1 and entry not in groups and not static:
+                groups[entry] = mesh.group_over(entry)
+        return MeshCtx(mesh=mesh, rules=rules, data_axes=dp,
+                       model_axis="model", groups=groups)
 
     # --- sizes and coordinates ------------------------------------------
 
@@ -158,6 +168,15 @@ class MeshCtx:
     @property
     def n_data(self) -> int:
         return self.size(self.data_axes)
+
+    @property
+    def batch_axes(self) -> Axes:
+        """The mesh axes the "batch" rule splits a batch over."""
+        return as_axes(dict(self.rules).get("batch"))
+
+    @property
+    def n_batch(self) -> int:
+        return self.size(self.batch_axes)
 
     @property
     def sharded(self) -> bool:

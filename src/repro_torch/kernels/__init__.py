@@ -6,7 +6,9 @@ hand-written Hopper kernel (sources under ``<op>/csrc/``, built by
   * ``"ref"``  — the plain-torch version, on whatever device the tensors
                  are on;
   * ``"cuda"`` — the hand-written kernel; CUDA tensors only, it raises for
-                 CPU tensors;
+                 CPU tensors; on ``meta`` tensors (the production dry-run,
+                 ``launch/dryrun.py``) the kernel ops of ``library.py``
+                 give their outputs' shapes, the card's routes traced;
   * ``"auto"`` — ``cuda`` for CUDA tensors, ``ref`` for CPU tensors.
 
 ``"auto"`` honours the ``REPRO_TORCH_IMPL`` env override (``REPRO_IMPL``

@@ -16,8 +16,11 @@ kernels).
   only (a launch or a raise, no CPU form):
   ``kernel_matvec_cuda`` (replaces ``kernel_matvec_pallas``) and
   ``kernel_vecmat_cuda`` (the same kernels with the operands swapped,
-  replaces ``kernel_vecmat_pallas``) on two routes chosen by shape
-  (``select_matvec_route``), each counted in ``.launches_by_route``:
+  replaces ``kernel_vecmat_pallas``), the ops ``repro_torch::
+  kernel_matvec`` / ``kernel_vecmat`` (``kernels/library.py``: CUDA
+  bodies ``_matvec_body`` / ``_vecmat_body``, meta implementations for a
+  trace), on two routes chosen by shape (``select_matvec_route``), each
+  counted in ``.launches_by_route``:
   ``"sm90"`` (``csrc/dsekl_matvec_sm90.cu``: the six cross-term kinds
   with D <= ``SM90_MAX_D``, the cross term on the TF32 tensor cores split
   three ways) and ``"fp32"`` (``csrc/dsekl_matvec.cu``: the Laplacian
@@ -50,7 +53,7 @@ import torch
 
 from repro_torch.core import losses as losses_lib
 from repro_torch.core.kernels_fn import SQRT3, SQRT5, integer_pow
-from repro_torch.kernels import _build, full_fp32_matmul
+from repro_torch.kernels import _build, full_fp32_matmul, library
 
 Tensor = torch.Tensor
 
@@ -461,14 +464,14 @@ def _kind(fn: str, kernel_name: str) -> int:
     return kind
 
 
-def _check_cuda_args(fn: str, x: Tensor, z: Tensor,
+def _check_cuda_args(fn: str, x: Tensor, z: Tensor, on_card: bool = True,
                      **vecs: Tuple[Tensor, str]) -> None:
     """x (I, D), z (J, D) and each named vector, whose length must be I
     (``"I"``) or J (``"J"``): contiguous float32 CUDA tensors on one
     device, D > 0, fewer than 2**31 elements each."""
     named = [("x", x), ("z", z)] + [(k, t) for k, (t, _) in vecs.items()]
     for name, t in named:
-        if not t.is_cuda:
+        if on_card and not t.is_cuda:
             raise ValueError(f"{fn}: {name} is on {t.device}; "
                              "the CUDA kernel takes CUDA tensors only")
         if t.device != x.device:
@@ -539,6 +542,19 @@ def launch_matvec(lib: ctypes.CDLL, route: str, x: Tensor, z: Tensor,
     return out
 
 
+def _op_scalars(fn: str, kernel_name: str,
+                params: Optional[Dict[str, Any]]) -> Tuple[float, ...]:
+    """The kernel's hyperparameters, checked and with their defaults, as
+    the ops take them: (gamma, coef0, degree, length_scale)."""
+    _kind(fn, kernel_name)
+    p = tile_params(kernel_name, params)
+    return tuple(float(p.get(k, d)) for k, d in _OP_PARAMS)
+
+
+_OP_PARAMS = (("gamma", 1.0), ("coef0", 0.0), ("degree", 0.0),
+              ("length_scale", 1.0))
+
+
 def kernel_matvec_cuda(x: Tensor, z: Tensor, a: Tensor, *,
                        kernel_name: str = "rbf",
                        params: Optional[Dict[str, Any]] = None) -> Tensor:
@@ -550,20 +566,35 @@ def kernel_matvec_cuda(x: Tensor, z: Tensor, a: Tensor, *,
     x (I, D), z (J, D), a (J,): contiguous float32 CUDA tensors on one
     device.  Launches on the current stream without synchronising and
     raises if the build or the launch fails.  ``.launches`` counts every
-    launch, ``.launches_by_route`` each route's.  There is no CPU form."""
+    launch, ``.launches_by_route`` each route's.  There is no CPU form.
+    Through the op ``repro_torch::kernel_matvec``."""
+    return MATVEC_OP(x, z, a, kernel_name,
+                     *_op_scalars("kernel_matvec_cuda", kernel_name, params))
+
+
+kernel_matvec_cuda.launches = 0
+kernel_matvec_cuda.launches_by_route = dict.fromkeys(MATVEC_ROUTES, 0)
+
+
+def _op_params(gamma: float, coef0: float, degree: float,
+               length_scale: float) -> Dict[str, Any]:
+    return dict(gamma=gamma, coef0=coef0, degree=degree,
+                length_scale=length_scale)
+
+
+def _matvec_body(x: Tensor, z: Tensor, a: Tensor, kernel_name: str,
+                 gamma: float, coef0: float, degree: float,
+                 length_scale: float) -> Tensor:
+    """``repro_torch::kernel_matvec``'s CUDA body."""
     fn = "kernel_matvec_cuda"
     kind = _kind(fn, kernel_name)
-    p = tile_params(kernel_name, params)
+    p = _op_params(gamma, coef0, degree, length_scale)
     _check_cuda_args(fn, x, z, a=(a, "J"))
     route = select_matvec_route(kernel_name, x.shape[1])
     out = launch_matvec(_lib(route), route, x, z, a, kind, p, fn)
     kernel_matvec_cuda.launches += bool(x.shape[0])
     kernel_matvec_cuda.launches_by_route[route] += bool(x.shape[0])
     return out
-
-
-kernel_matvec_cuda.launches = 0
-kernel_matvec_cuda.launches_by_route = dict.fromkeys(MATVEC_ROUTES, 0)
 
 
 def kernel_vecmat_cuda(x: Tensor, z: Tensor, v: Tensor, *,
@@ -576,10 +607,23 @@ def kernel_vecmat_cuda(x: Tensor, z: Tensor, v: Tensor, *,
     ``launches`` and ``launches_by_route``.
 
     x (I, D), z (J, D), v (I,): contiguous float32 CUDA tensors on one
-    device.  There is no CPU form."""
+    device.  There is no CPU form.  Through the op
+    ``repro_torch::kernel_vecmat``."""
+    return VECMAT_OP(x, z, v, kernel_name,
+                     *_op_scalars("kernel_vecmat_cuda", kernel_name, params))
+
+
+kernel_vecmat_cuda.launches = 0
+kernel_vecmat_cuda.launches_by_route = dict.fromkeys(MATVEC_ROUTES, 0)
+
+
+def _vecmat_body(x: Tensor, z: Tensor, v: Tensor, kernel_name: str,
+                 gamma: float, coef0: float, degree: float,
+                 length_scale: float) -> Tensor:
+    """``repro_torch::kernel_vecmat``'s CUDA body."""
     fn = "kernel_vecmat_cuda"
     kind = _kind(fn, kernel_name)
-    p = tile_params(kernel_name, params)
+    p = _op_params(gamma, coef0, degree, length_scale)
     _check_cuda_args(fn, x, z, v=(v, "I"))
     route = select_matvec_route(kernel_name, x.shape[1])
     out = launch_matvec(_lib(route), route, z, x, v, kind, p, fn)
@@ -588,8 +632,41 @@ def kernel_vecmat_cuda(x: Tensor, z: Tensor, v: Tensor, *,
     return out
 
 
-kernel_vecmat_cuda.launches = 0
-kernel_vecmat_cuda.launches_by_route = dict.fromkeys(MATVEC_ROUTES, 0)
+def _matvec_meta(x: Tensor, z: Tensor, a: Tensor, kernel_name: str,
+                 *params: float) -> Tensor:
+    _check_cuda_args("kernel_matvec_cuda", x, z, on_card=False, a=(a, "J"))
+    return x.new_empty((x.shape[0],), dtype=torch.float32)
+
+
+def _vecmat_meta(x: Tensor, z: Tensor, v: Tensor, kernel_name: str,
+                 *params: float) -> Tensor:
+    _check_cuda_args("kernel_vecmat_cuda", x, z, on_card=False, v=(v, "I"))
+    return z.new_empty((z.shape[0],), dtype=torch.float32)
+
+
+def _matvec_flops(x_shape, z_shape, a_shape, kernel_name, *params,
+                  out_shape=None, **kwargs) -> int:
+    """The plain version's count: the cross term x z^T (2 I J D) of every
+    kind but the Laplacian, whose L1 distance no product computes (the
+    matrix-vector product itself is no matmul to ``FlopCounterMode``)."""
+    if kernel_name == "laplacian":
+        return 0
+    return 2 * x_shape[0] * z_shape[0] * x_shape[1]
+
+
+def _matvec_route(x: Tensor, z: Tensor, a: Tensor, kernel_name: str,
+                  *params: float) -> str:
+    return select_matvec_route(kernel_name, x.shape[1])
+
+
+_SCHEMA = ("(Tensor x, Tensor z, Tensor {v}, str kernel_name, float gamma, "
+           "float coef0, float degree, float length_scale) -> Tensor")
+MATVEC_OP = library.define("kernel_matvec" + _SCHEMA.format(v="a"),
+                           _matvec_body, _matvec_meta, _matvec_flops,
+                           _matvec_route)
+VECMAT_OP = library.define("kernel_vecmat" + _SCHEMA.format(v="v"),
+                           _vecmat_body, _vecmat_meta, _matvec_flops,
+                           _matvec_route)
 
 
 def fits_stash(n_i: int, n_j: int) -> bool:

@@ -16,6 +16,9 @@ Two routes, chosen by shape (``select_route``), never as a fallback:
 ``h // (H // Kv)`` for query head ``h``, so neither the heads nor the
 (B*H, S, D) transposes of the JAX wrapper are materialized.  CUDA tensors
 only: there is no CPU form (the plain version is ``ref.ref_attention``).
+It calls the op ``torch.ops.repro_torch.flash_attention``
+(``kernels/library.py``), whose CUDA body is ``_body``; on meta tensors
+the op gives the output's shape and dtype.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, library
 
 Tensor = torch.Tensor
 
@@ -74,10 +77,10 @@ def typed(lib: ctypes.CDLL, route: str) -> ctypes.CDLL:
     return lib
 
 
-def _check(q: Tensor, k: Tensor, v: Tensor) -> None:
+def _check(q: Tensor, k: Tensor, v: Tensor, on_card: bool = True) -> None:
     fn = "flash_attention_cuda"
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda:
+        if on_card and not t.is_cuda:
             raise ValueError(f"{fn}: {name} is on {t.device}; "
                              "the CUDA kernel takes CUDA tensors only")
         if t.device != q.device:
@@ -128,7 +131,17 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
     tensors of one dtype, float32 or bfloat16; D <= 128.  Launches on the
     current stream without synchronising and raises if the launch is
     refused.  ``.launches`` counts every launch, ``.launches_by_route``
-    each route's."""
+    each route's.  Through the op ``repro_torch::flash_attention``."""
+    return OP(q, k, v, bool(causal), int(window))
+
+
+flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def _body(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int
+          ) -> Tensor:
+    """The op's CUDA body: checks, route, launch, counters."""
     _check(q, k, v)
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
@@ -146,8 +159,28 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
     return out
 
 
-flash_attention_cuda.launches = 0
-flash_attention_cuda.launches_by_route = dict.fromkeys(ROUTES, 0)
+def _meta(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int
+          ) -> Tensor:
+    _check(q, k, v, on_card=False)
+    return torch.empty_like(q)
+
+
+def _flops(q_shape, k_shape, v_shape, causal, window, out_shape=None,
+           **kwargs) -> int:
+    """The plain version's count: two dense products, 2 B H S T D each
+    (the masked scores are computed too)."""
+    b, s, h, d = q_shape
+    return 4 * b * h * s * k_shape[1] * d
+
+
+def _route(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int
+           ) -> str:
+    return select_route(q.dtype, q.shape[3], q.shape[2], k.shape[2])
+
+
+OP = library.define(
+    "flash_attention(Tensor q, Tensor k, Tensor v, bool causal, int window)"
+    " -> Tensor", _body, _meta, _flops, _route)
 
 
 def launch(lib: ctypes.CDLL, route: str, q: Tensor, k: Tensor, v: Tensor,

@@ -16,7 +16,10 @@ Two routes, chosen by shape (``select_route``), never as a fallback:
 (B,S,nh), B/C (B,S,g,n) — and both kernels read group ``h // (nh // g)``
 for head ``h``: no head repeat and none of the JAX wrapper's
 (B*nh, S, k) transposes.  CUDA tensors only: there is no CPU form (the
-plain version is ``ref.ref_ssd``).
+plain version is ``ref.ref_ssd``).  It calls the op
+``torch.ops.repro_torch.ssd`` (``kernels/library.py``), whose CUDA body
+is ``_body``; on meta tensors the op gives the outputs' shapes and
+dtypes.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, library
 
 Tensor = torch.Tensor
 
@@ -75,11 +78,11 @@ def typed(lib: ctypes.CDLL, route: str) -> ctypes.CDLL:
 
 
 def _check(x: Tensor, dt: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor,
-           chunk: int) -> None:
+           chunk: int, on_card: bool = True) -> None:
     fn = "ssd_cuda"
     named = (("x", x), ("dt", dt), ("a", a), ("bmat", bmat), ("cmat", cmat))
     for name, t in named:
-        if not t.is_cuda:
+        if on_card and not t.is_cuda:
             raise ValueError(f"{fn}: {name} is on {t.device}; "
                              "the CUDA kernel takes CUDA tensors only")
         if t.device != x.device:
@@ -134,7 +137,18 @@ def ssd_cuda(x: Tensor, dt: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor,
     x's dtype, final (B,nh,hd,n) float32).  Launches on the current stream
     without synchronising and raises if the launch is refused.
     ``.launches`` counts every launch, ``.launches_by_route`` each
-    route's."""
+    route's.  Through the op ``repro_torch::ssd``."""
+    y, final = OP(x, dt, a, bmat, cmat, int(chunk))
+    return y, final
+
+
+ssd_cuda.launches = 0
+ssd_cuda.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+def _body(x: Tensor, dt: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor,
+          chunk: int) -> Tuple[Tensor, Tensor]:
+    """The op's CUDA body: checks, route, launch, counters."""
     _check(x, dt, a, bmat, cmat, chunk)
     b, s, nh, hd = x.shape
     n = bmat.shape[3]
@@ -151,8 +165,31 @@ def ssd_cuda(x: Tensor, dt: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor,
     return y, final
 
 
-ssd_cuda.launches = 0
-ssd_cuda.launches_by_route = dict.fromkeys(ROUTES, 0)
+def _meta(x: Tensor, dt: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor,
+          chunk: int) -> Tuple[Tensor, Tensor]:
+    _check(x, dt, a, bmat, cmat, chunk, on_card=False)
+    b, _, nh, hd = x.shape
+    return torch.empty_like(x), x.new_empty((b, nh, hd, bmat.shape[3]),
+                                            dtype=torch.float32)
+
+
+def _flops(x_shape, dt_shape, a_shape, b_shape, c_shape, chunk,
+           out_shape=None, **kwargs) -> int:
+    """The plain version's count: per step the state's read by C, 2 B nh
+    hd n (its update is an outer product, no matmul to
+    ``FlopCounterMode``)."""
+    b, s, nh, hd = x_shape
+    return 2 * b * s * nh * hd * b_shape[3]
+
+
+def _route(x: Tensor, dt: Tensor, a: Tensor, bmat: Tensor, cmat: Tensor,
+           chunk: int) -> str:
+    return select_route(x.dtype, x.shape[3], bmat.shape[3], chunk)
+
+
+OP = library.define(
+    "ssd(Tensor x, Tensor dt, Tensor a, Tensor bmat, Tensor cmat, "
+    "int chunk) -> (Tensor, Tensor)", _body, _meta, _flops, _route)
 
 
 def launch(lib: ctypes.CDLL, route: str, x: Tensor, dt: Tensor, a: Tensor,

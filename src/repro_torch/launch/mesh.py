@@ -50,35 +50,59 @@ DEFAULT_TIMEOUT_S = 600.0
 class LocalMesh:
     """This rank's view of a mesh: the ``DeviceMesh``, the rank's device
     and backend, and whether this module started the world (then
-    ``close()`` destroys it)."""
+    ``close()`` destroys it).  The mesh's shape, axis names and this
+    rank's coordinate are read from the ``DeviceMesh`` once, when the
+    mesh is made, and kept as Python ints: nothing reads the mesh's
+    tensor afterwards (under a fake-tensor trace it could not be read).
+    ``static`` makes a mesh with no world: shapes and coordinates only
+    (layouts and byte counts), no groups."""
     device_mesh: Any
     device: torch.device
     backend: str
     owns_world: bool = False
+    dims: Tuple[int, ...] = ()
+    names: Tuple[str, ...] = ()
+    coord: Tuple[int, ...] = ()
+
+    def __post_init__(self):
+        if self.device_mesh is not None and not self.dims:
+            dm = self.device_mesh
+            self.dims = tuple(int(n) for n in dm.mesh.shape)
+            self.names = tuple(dm.mesh_dim_names)
+            self.coord = tuple(int(c) for c in dm.get_coordinate())
+
+    @staticmethod
+    def static(shape: Sequence[int], names: Sequence[str],
+               coord: Optional[Sequence[int]] = None,
+               device="meta", backend: str = "nccl") -> "LocalMesh":
+        return LocalMesh(None, torch.device(device), backend,
+                         dims=tuple(shape), names=tuple(names),
+                         coord=tuple(coord or (0,) * len(shape)))
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
-        return tuple(self.device_mesh.mesh_dim_names)
+        return self.names
 
     @property
     def shape(self) -> Tuple[int, ...]:
-        return tuple(self.device_mesh.mesh.shape)
+        return self.dims
 
     def size(self, axis: str) -> int:
-        return int(self.device_mesh.size(self.axis_names.index(axis)))
+        return self.dims[self.names.index(axis)]
 
     def index(self, axis: str) -> int:
         """This rank's coordinate on ``axis`` (JAX's ``axis_index``)."""
-        return int(self.device_mesh.get_coordinate()[
-            self.axis_names.index(axis)])
+        return self.coord[self.names.index(axis)]
 
     @property
     def coordinate(self) -> Tuple[int, ...]:
-        return tuple(int(c) for c in self.device_mesh.get_coordinate())
+        return self.coord
 
     def group(self, axis: str):
         """The process group of the ranks that differ from this one only
         on ``axis``."""
+        if self.device_mesh is None:
+            raise RuntimeError("a static mesh has no process groups")
         return self.device_mesh.get_group(axis)
 
     def group_over(self, axes: Sequence[str]):
@@ -90,7 +114,7 @@ class LocalMesh:
         if len(axes) == 1:
             return self.group(axes[0])
         names = self.axis_names
-        ranks = self.device_mesh.mesh
+        ranks = torch.arange(math.prod(self.dims)).reshape(self.dims)
         keep = [names.index(a) for a in axes]
         rest = [i for i in range(len(names)) if i not in keep]
         rows = ranks.permute(*rest, *keep).reshape(
@@ -104,6 +128,9 @@ class LocalMesh:
 
     @property
     def rank(self) -> int:
+        if self.device_mesh is None:
+            return sum(c * math.prod(self.dims[i + 1:])
+                       for i, c in enumerate(self.coord))
         return dist.get_rank()
 
     def close(self) -> None:
@@ -238,14 +265,49 @@ def make_local_mesh(data: int = 1, model: int = 1, *, backend: str = "gloo",
     return _build((data, model), MESH_AXES, backend, device, timeout_s)
 
 
+def production_shape(multi_pod: bool = False
+                     ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """The JAX package's production mesh: (16, 16) ``data, model`` on one
+    pod, (2, 16, 16) ``pod, data, model`` across two."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), MESH_AXES
+
+
+def make_fake_mesh(shape: Sequence[int], names: Sequence[str], *,
+                   rank: int = 0) -> LocalMesh:
+    """A mesh of ``shape`` over a world of ``prod(shape)`` ranks of the
+    ``"fake"`` backend (``torch.testing``'s ``FakeStore``: every
+    collective returns at once and moves nothing), this process being
+    ``rank``: the dry-run's counterpart of JAX's
+    ``--xla_force_host_platform_device_count``.  Tensors live on the
+    ``meta`` device.  The mesh says backend ``"nccl"``, so the collectives
+    take the branches the cards would take.  This call starts the world
+    (there must be none) and ``close()`` destroys it."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("make_fake_mesh: a process group is already up; "
+                           "a fake world needs a process of its own")
+    n = math.prod(shape)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=n)
+    try:
+        dm = DeviceMesh("cpu", torch.arange(n).reshape(tuple(shape)),
+                        mesh_dim_names=tuple(names))
+    except BaseException:
+        dist.destroy_process_group()
+        raise
+    return LocalMesh(dm, torch.device("meta"), "nccl", owns_world=True)
+
+
 def make_production_mesh(multi_pod: bool = False, *, backend: str = "nccl",
                          device="cuda",
                          timeout_s: float = DEFAULT_TIMEOUT_S) -> LocalMesh:
-    """The JAX package's production shapes: (16, 16) ``data, model`` on one
-    pod, (2, 16, 16) ``pod, data, model`` across two.  Raises, naming the
-    world size it needs, when the world is smaller."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    names = ("pod", "data", "model") if multi_pod else MESH_AXES
+    """The JAX package's production shapes (``production_shape``) over the
+    world.  Raises, naming the world size it needs, when the world is
+    smaller."""
+    shape, names = production_shape(multi_pod)
     need = math.prod(shape)
     have = world_size()
     if have < need:

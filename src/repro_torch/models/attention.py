@@ -46,6 +46,25 @@ MLA cache, are whole over the model axis (split over data with the
 batch); the absorbed decode runs over the local heads and ``w_o``'s
 products are summed as GQA's.
 
+Caches follow JAX's specs (``Block.cache_layout``): a KV cache is laid
+out by ("batch", "kv_seq", "kv_heads", "head_dim"), an MLA cache by
+("batch", "kv_seq", "kv_lora") and ("batch", "kv_seq", None), a cross
+cache by ("batch", "frontend_seq", "kv_heads", "head_dim"), each mesh
+axis used once a spec and a dim that does not divide held whole.  So a
+cache holds every kv head where the spec leaves them whole (the rank
+computes them all: such a ``w_k`` is whole on every rank) and attends
+with its q-head groups' ones.  Where the spec splits the sequence
+(``kv_seq``: over the data axes under the ``long_decode`` rules, over
+the model axis under the dry-run's decode override) each rank holds its
+``CacheLayout`` slice of the slots: the prefill keeps its slice of the
+ring, a decode step writes the new token only on the rank that owns its
+slot, and each rank attends over its slots, the softmax combined over
+the sequence's axes as flash-decoding does (the max by ``pmax``, the sum
+of exponentials and the weighted values by ``psum``).  Where the q heads
+are split over an axis that also splits the sequence, q is gathered over
+it first (one token: tiny), every head attends over the rank's slots,
+and the rank keeps its own heads after the combine.
+
 In training each tensor replicated over the model axis that enters a
 rank's split part (the layer's input before a head-split projection, a
 replicated weight used on the local heads, MLA's c_kv, k_rope and whole
@@ -55,7 +74,7 @@ gradient over the axis.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +83,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives
 from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.models.rotary import apply_rope
+from repro_torch.distributed.sharding import as_axes
 from repro_torch.nn.module import Param, ParamTree, axes, held
 
 Tensor = torch.Tensor
@@ -127,6 +147,39 @@ class KVCache(NamedTuple):
     k: Tensor          # (B, C, Kv, Dh)
     v: Tensor          # (B, C, Kv, Dh)
     pos: Tensor        # (C,) int32 absolute position per slot, -1 = empty
+
+
+class CacheLayout(NamedTuple):
+    """How a self-attention cache lies over the mesh (``Block.cache_layout``):
+    the mesh axes that split its slots (``None``: whole), the whole
+    cache's ``c_len`` slots and this rank's ``[lo, hi)`` of them, and
+    whether it holds every kv head (the spec leaves them whole)."""
+    seq_axes: Any = None
+    c_len: int = 0
+    lo: int = 0
+    hi: int = 0
+    kv_whole: bool = False
+
+    def own(self, t: Tensor, dim: int = 1) -> Tensor:
+        """This rank's slots of a whole cache tensor ``t``."""
+        if self.seq_axes is None:
+            return t
+        return t.narrow(dim, self.lo, self.hi - self.lo).contiguous()
+
+
+
+def _slot(layout: Optional[CacheLayout], cur_pos: int, held: int
+          ) -> Optional[int]:
+    """The slot of position ``cur_pos`` in a cache of ``held`` slots laid
+    out by ``layout``, or None when another rank owns it."""
+    if layout is None or layout.seq_axes is None:
+        return cur_pos % held
+    if held != layout.hi - layout.lo:
+        raise ValueError(f"a cache of {held} slots under a layout of "
+                         f"{layout.hi - layout.lo}: decode a cache with the "
+                         "layout its prefill or init_cache left")
+    slot = cur_pos % layout.c_len
+    return slot - layout.lo if layout.lo <= slot < layout.hi else None
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, cache_len: int,
@@ -274,42 +327,137 @@ def gqa_forward(p: ParamTree, cfg: ModelConfig, x: Tensor,
     return _out_proj(p, out)
 
 
+def _cache_kv(p: ParamTree, cfg: ModelConfig, x: Tensor,
+              positions: Optional[Tensor], whole: bool
+              ) -> Tuple[Tensor, Tensor]:
+    """K / V (B,S,kv,Dh) of x over the kv heads a cache holds: every one
+    when ``whole`` (computed from a whole ``w_k``, or gathered where the
+    model axis splits it while the cache spec gave that axis to the
+    sequence), else the rank's ``w_k`` heads.  Roped at ``positions``
+    unless None (cross-attention's keys carry no rotation)."""
+    lo, hi = held(p, "w_k", 1)
+    gather = None
+    if not whole or hi - lo == cfg.n_kv_heads:
+        w_k, w_v = p.w_k, p.w_v
+    else:
+        w_k, w_v, gather = p.w_k, p.w_v, axes(p, "w_k", 1)
+    k = torch.einsum("bsd,dhk->bshk", x, w_k)
+    v = torch.einsum("bsd,dhk->bshk", x, w_v)
+    if gather is not None:
+        k = collectives.all_gather(k, p.ctx, gather, dim=2)
+        v = collectives.all_gather(v, p.ctx, gather, dim=2)
+    if positions is not None:
+        k = apply_rope(k, positions[None], cfg.rope_theta)
+    return k, v
+
+
+def _group_kv(p: ParamTree, cfg: ModelConfig, n_cached: int
+              ) -> Tuple[int, int]:
+    """The ``[start, stop)`` of this rank's q-head groups' kv heads within
+    a cache of ``n_cached`` kv heads (all of them, or the rank's ``w_k``
+    heads)."""
+    klo, khi = local_kv_heads(p, cfg)
+    off = 0 if n_cached == cfg.n_kv_heads else held(p, "w_k", 1)[0]
+    return klo - off, khi - off
+
+
+def _probs(scores: Tensor, ctx, seq_axes) -> Tensor:
+    """softmax of float32 ``scores`` over their last dim, the slots of
+    every rank on ``seq_axes`` (None: this rank's alone) included."""
+    if seq_axes is None:
+        return torch.softmax(scores, dim=-1)
+    top = collectives.pmax(scores.amax(dim=-1, keepdim=True), ctx, seq_axes)
+    e = torch.exp(scores - top)
+    return e / collectives.psum(e.sum(dim=-1, keepdim=True), ctx, seq_axes)
+
+
+def _sum_slots(o: Tensor, ctx, seq_axes) -> Tensor:
+    """A probability-weighted sum of values over this rank's slots summed
+    over ``seq_axes`` (in float32, rounded once to o's dtype)."""
+    if seq_axes is None:
+        return o
+    return collectives.psum(o.float(), ctx, seq_axes).to(o.dtype)
+
+
+def _heads_meet_slots(p: ParamTree, name: str, dim: int,
+                      layout: Optional[CacheLayout]) -> Any:
+    """The axes splitting the q heads (dim ``dim`` of ``name``) when one
+    of them also splits the cache's slots, else None: there a rank needs
+    every head's partial over its slots."""
+    if layout is None or layout.seq_axes is None:
+        return None
+    over = axes(p, name, dim)
+    if over is None:
+        return None
+    seq = set(as_axes(layout.seq_axes))
+    return over if seq & set(as_axes(over)) else None
+
+
 def gqa_prefill(p: ParamTree, cfg: ModelConfig, x: Tensor,
                 positions: Tensor, *, window: int, cache_len: int,
-                impl: str = "auto") -> Tuple[Tensor, KVCache]:
+                impl: str = "auto", layout: Optional[CacheLayout] = None
+                ) -> Tuple[Tensor, KVCache]:
     """Full-sequence causal attention through the flash-attention op, and
-    the KV cache it leaves.  x (B,S,D); positions (S,) = arange(S)."""
-    q, k, v = _qkv(p, cfg, x, positions)
-    out = flash_attention(q, k, v, causal=True, window=window, impl=impl)
-    return _out_proj(p, out), _build_kv_cache(k, v, positions, cache_len,
-                                              cfg.cdtype)
+    the KV cache it leaves (this rank's ``layout`` of it; whole off a
+    mesh).  x (B,S,D); positions (S,) = arange(S)."""
+    q = torch.einsum("bsd,dhk->bshk", _split_input(p, x), p.w_q)
+    q = apply_rope(q, positions[None], cfg.rope_theta)
+    whole = layout is not None and layout.kv_whole
+    k, v = _cache_kv(p, cfg, x, positions, whole)
+    glo, ghi = _group_kv(p, cfg, k.shape[2])
+    out = flash_attention(q, k[:, :, glo:ghi], v[:, :, glo:ghi], causal=True,
+                          window=window, impl=impl)
+    cache = _build_kv_cache(k, v, positions, cache_len, cfg.cdtype)
+    if layout is not None:
+        cache = KVCache(*(layout.own(t, dim=1 if t.dim() > 1 else 0)
+                          for t in cache))
+    return _out_proj(p, out), cache
 
 
 def gqa_decode(p: ParamTree, cfg: ModelConfig, x: Tensor, cache: KVCache,
-               cur_pos: int, *, window: int) -> Tuple[Tensor, KVCache]:
+               cur_pos: int, *, window: int,
+               layout: Optional[CacheLayout] = None
+               ) -> Tuple[Tensor, KVCache]:
     """One-token decode.  x (B,1,D); cur_pos a Python int.  Writes the new
-    K/V into ``cache`` in place and returns it."""
-    b = x.shape[0]
+    K/V into ``cache`` in place (on the rank that owns its slot, when
+    ``layout`` splits the slots) and returns it."""
+    b, hd = x.shape[0], cfg.resolved_head_dim
+    ctx = p.ctx
     pos1 = torch.tensor([cur_pos], dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _qkv(p, cfg, x, pos1)
-    h, kv, hd = q.shape[2], k_new.shape[2], cfg.resolved_head_dim
-    g = h // kv
+    q = torch.einsum("bsd,dhk->bshk", _split_input(p, x), p.w_q)
+    q = apply_rope(q, pos1[None], cfg.rope_theta)
+    k_new, v_new = _cache_kv(p, cfg, x, pos1,
+                             cache.k.shape[2] == cfg.n_kv_heads)
 
-    slot = cur_pos % cache.k.shape[1]
-    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
-    cache.pos[slot] = cur_pos
+    slot = _slot(layout, cur_pos, cache.k.shape[1])
+    if slot is not None:
+        cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+        cache.pos[slot] = cur_pos
 
-    qg = q.reshape(b, kv, g, hd)
-    scores = torch.einsum("bkgd,btkd->bkgt", qg.float(), cache.k.float())
+    seq_axes = None if layout is None else layout.seq_axes
+    meet = _heads_meet_slots(p, "w_q", 1, layout)
+    if meet is not None:        # every head over this rank's slots
+        lo, hi = held(p, "w_q", 1)
+        q = collectives.all_gather(q, ctx, meet, dim=2)
+        ck, cv = cache.k, cache.v
+    else:
+        glo, ghi = _group_kv(p, cfg, cache.k.shape[2])
+        ck, cv = cache.k[:, :, glo:ghi], cache.v[:, :, glo:ghi]
+    h, kv = q.shape[2], ck.shape[2]
+    qg = q.reshape(b, kv, h // kv, hd)
+    scores = torch.einsum("bkgd,btkd->bkgt", qg.float(), ck.float())
     scores = scores / math.sqrt(hd)
     cpos = cache.pos
     valid = (cpos >= 0) & (cpos <= cur_pos) & ((cur_pos - cpos) < window)
     scores = torch.where(valid[None, None, None], scores,
                          torch.tensor(NEG_INF, device=x.device))
-    probs = torch.softmax(scores, dim=-1)
-    o = torch.einsum("bkgt,btkd->bkgd", probs.to(cache.v.dtype), cache.v)
-    return _out_proj(p, o.reshape(b, 1, h, hd)), cache
+    probs = _probs(scores, ctx, seq_axes)
+    o = _sum_slots(torch.einsum("bkgt,btkd->bkgd", probs.to(cv.dtype), cv),
+                   ctx, seq_axes).reshape(b, 1, h, hd)
+    if meet is not None:
+        o = o[:, :, lo:hi]
+    return _out_proj(p, o), cache
 
 
 # ---------------------------------------------------------------------------
@@ -331,8 +479,12 @@ def init_cross_cache(cfg: ModelConfig, batch: int, frontend_len: int,
                       v=torch.zeros(shape, dtype=cfg.cdtype, device=device))
 
 
-def cross_kv(p: ParamTree, cfg: ModelConfig, frontend: Tensor) -> CrossCache:
-    """The frontend's K / V over this rank's kv heads."""
+def cross_kv(p: ParamTree, cfg: ModelConfig, frontend: Tensor,
+             whole: bool = False) -> CrossCache:
+    """The frontend's K / V over this rank's kv heads, or every kv head
+    when ``whole`` (a cross cache whose spec leaves them whole)."""
+    if whole:
+        return CrossCache(*_cache_kv(p, cfg, frontend, None, True))
     w_k, w_v = _kv_weights(p, cfg)
     frontend = _split_input(p, frontend)
     k = torch.einsum("btd,dhk->bthk", frontend, w_k)
@@ -347,16 +499,21 @@ def cross_forward(p: ParamTree, cfg: ModelConfig, x: Tensor,
     (JAX: ``mha_full`` with zero positions, every key valid).  ``impl``
     None runs ``mha_full`` (training, and decode's S = 1); a backend name
     runs the flash op, non-causal (prefill).  ``tanh(gate)`` scales the
-    output when ``gated``."""
+    output when ``gated``.  A cache of every kv head is read at the rank's
+    q-head groups' ones."""
     q = torch.einsum("bsd,dhk->bshk", _split_input(p, x), p.w_q)
+    ck, cv = kv_cache.k, kv_cache.v
+    if ck.shape[2] == cfg.n_kv_heads:
+        klo, khi = local_kv_heads(p, cfg)
+        ck, cv = ck[:, :, klo:khi], cv[:, :, klo:khi]
     if impl is None:
-        s, t = q.shape[1], kv_cache.k.shape[1]
-        out = mha_full(q, kv_cache.k, kv_cache.v,
+        s, t = q.shape[1], ck.shape[1]
+        out = mha_full(q, ck, cv,
                        torch.zeros(s, dtype=torch.int32, device=x.device),
                        torch.zeros(t, dtype=torch.int32, device=x.device),
                        window=GLOBAL_WINDOW, causal=False)
     else:
-        out = flash_attention(q, kv_cache.k, kv_cache.v, causal=False,
+        out = flash_attention(q, ck, cv, causal=False,
                               window=GLOBAL_WINDOW, impl=impl)
     out = _out_proj(p, out)
     if gated:
@@ -452,55 +609,76 @@ def mla_forward(p: ParamTree, cfg: ModelConfig, x: Tensor,
 
 
 def mla_prefill(p: ParamTree, cfg: ModelConfig, x: Tensor,
-                positions: Tensor, *, cache_len: int, q_chunk: int = 512
+                positions: Tensor, *, cache_len: int, q_chunk: int = 512,
+                layout: Optional[CacheLayout] = None
                 ) -> Tuple[Tensor, MLACache]:
     """Full-sequence MLA and the compressed cache it leaves: the last
     ``cache_len`` tokens in order when S >= cache_len (JAX lays them out
-    so, not by slot), else the S tokens padded with position -1."""
+    so, not by slot), else the S tokens padded with position -1; this
+    rank's ``layout`` slots of it on a mesh."""
     out, c_kv, k_rope = _mla_attend(p, cfg, x, positions, q_chunk)
     s, dtype = x.shape[1], cfg.cdtype
     if s >= cache_len:
-        return out, MLACache(c_kv=c_kv[:, -cache_len:].to(dtype),
-                             k_rope=k_rope[:, -cache_len:].to(dtype),
-                             pos=positions[-cache_len:].to(torch.int32))
-    pad = cache_len - s
+        cache = MLACache(c_kv=c_kv[:, -cache_len:].to(dtype),
+                         k_rope=k_rope[:, -cache_len:].to(dtype),
+                         pos=positions[-cache_len:].to(torch.int32))
+    else:
+        pad = cache_len - s
 
-    def padded(t):
-        return torch.cat([t.to(dtype), t.new_zeros(
-            (t.shape[0], pad, t.shape[2]), dtype=dtype)], dim=1)
+        def padded(t):
+            return torch.cat([t.to(dtype), t.new_zeros(
+                (t.shape[0], pad, t.shape[2]), dtype=dtype)], dim=1)
 
-    return out, MLACache(c_kv=padded(c_kv), k_rope=padded(k_rope),
+        cache = MLACache(c_kv=padded(c_kv), k_rope=padded(k_rope),
                          pos=torch.cat([positions.to(torch.int32),
                                         positions.new_full(
                                             (pad,), -1, dtype=torch.int32)]))
+    if layout is not None:
+        cache = MLACache(layout.own(cache.c_kv), layout.own(cache.k_rope),
+                         layout.own(cache.pos, dim=0))
+    return out, cache
 
 
 def mla_decode(p: ParamTree, cfg: ModelConfig, x: Tensor, cache: MLACache,
-               cur_pos: int) -> Tuple[Tensor, MLACache]:
+               cur_pos: int, layout: Optional[CacheLayout] = None
+               ) -> Tuple[Tensor, MLACache]:
     """One-token decode in the absorbed form: W_UK folded into the query,
     scores and context taken in c_kv space, scaled by 1 / sqrt(qk_nope +
     qk_rope).  x (B,1,D); cur_pos a Python int.  Writes the new token
-    into ``cache`` in place and returns it."""
+    into ``cache`` in place (on the rank that owns its slot, when
+    ``layout`` splits the slots) and returns it."""
+    ctx = p.ctx
     pos1 = torch.tensor([cur_pos], dtype=torch.int32, device=x.device)
     q_nope, q_rope = _mla_q(p, cfg, x, pos1)                # (B,1,H,*)
     c_new, r_new = _mla_ckv(p, cfg, x, pos1)                # (B,1,r), (B,1,p)
 
-    slot = cur_pos % cache.c_kv.shape[1]
-    cache.c_kv[:, slot] = c_new[:, 0].to(cache.c_kv.dtype)
-    cache.k_rope[:, slot] = r_new[:, 0].to(cache.k_rope.dtype)
-    cache.pos[slot] = cur_pos
+    slot = _slot(layout, cur_pos, cache.c_kv.shape[1])
+    if slot is not None:
+        cache.c_kv[:, slot] = c_new[:, 0].to(cache.c_kv.dtype)
+        cache.k_rope[:, slot] = r_new[:, 0].to(cache.k_rope.dtype)
+        cache.pos[slot] = cur_pos
 
+    seq_axes = None if layout is None else layout.seq_axes
     q_eff = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p.w_uk)
+    q_rope = q_rope[:, 0]
+    meet = _heads_meet_slots(p, "w_uk", 1, layout)
+    if meet is not None:        # every head over this rank's slots
+        lo, hi = held(p, "w_uk", 1)
+        q_eff = collectives.all_gather(q_eff, ctx, meet, dim=1)
+        q_rope = collectives.all_gather(q_rope, ctx, meet, dim=1)
     scores = (torch.einsum("bhr,btr->bht", q_eff.float(), cache.c_kv.float())
-              + torch.einsum("bhp,btp->bht", q_rope[:, 0].float(),
+              + torch.einsum("bhp,btp->bht", q_rope.float(),
                              cache.k_rope.float()))
     scores = scores / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
     cpos = cache.pos
     valid = (cpos >= 0) & (cpos <= cur_pos)
     scores = torch.where(valid[None, None], scores,
                          torch.tensor(NEG_INF, device=x.device))
-    probs = torch.softmax(scores, dim=-1)
-    ctx_c = torch.einsum("bht,btr->bhr", probs.to(cache.c_kv.dtype),
-                         cache.c_kv)
+    probs = _probs(scores, ctx, seq_axes)
+    ctx_c = _sum_slots(torch.einsum("bht,btr->bhr",
+                                    probs.to(cache.c_kv.dtype), cache.c_kv),
+                       ctx, seq_axes)
+    if meet is not None:
+        ctx_c = ctx_c[:, lo:hi]
     o = torch.einsum("bhr,rhv->bhv", ctx_c, p.w_uv)
     return _out_proj(p, o[:, None]), cache

@@ -44,7 +44,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe as moe_lib, ssm
-from repro_torch.nn.module import ParamTree
+from repro_torch.nn.module import ParamTree, held
 
 Tensor = torch.Tensor
 
@@ -89,15 +89,57 @@ def _cache_len(cfg: ModelConfig, kind: str, cache_len: int) -> int:
     return min(cache_len, cfg.window) if kind == "attn_local" else cache_len
 
 
+def _self_cache_names(cfg: ModelConfig, kind: str) -> Tuple[str, ...]:
+    if cfg.use_mla and kind != "attn_cross":
+        return ("batch", "kv_seq", "kv_lora")
+    return ("batch", "kv_seq", "kv_heads", "head_dim")
+
+
 class Block(ParamTree):
     """One layer: its parameters (JAX's names and shapes) and its three
-    serving modes."""
+    serving modes.  ``layout`` is the self-attention cache's
+    ``CacheLayout``, set by ``cache_init`` and ``prefill`` and read by
+    ``decode``."""
 
     def __init__(self, cfg: ModelConfig, kind: str, is_moe: bool, *,
                  dtype: torch.dtype, device: torch.device, ctx=None):
         super().__init__(block_specs(cfg, kind, is_moe), dtype=dtype,
                          device=device, ctx=ctx)
         self.cfg, self.kind, self.is_moe = cfg, kind, is_moe
+        self.layout: Optional[attn.CacheLayout] = None
+
+    def cache_layout(self, batch: int, cache_len: int
+                     ) -> Optional[attn.CacheLayout]:
+        """The self-attention cache's layout for a whole batch of
+        ``batch`` and ``cache_len`` (before the local window's cut): JAX's
+        spec (``block_cache_pspecs``) on the whole cache's shape.  None
+        off a mesh and for kinds without a self-attention cache."""
+        cfg, kind, ctx = self.cfg, self.kind, self.ctx
+        if ctx is None or ctx.mesh is None or kind not in (
+                "attn", "attn_local", "attn_cross"):
+            return None
+        c_len = _cache_len(cfg, kind, cache_len)
+        if cfg.use_mla and kind != "attn_cross":
+            shape: Tuple[int, ...] = (batch, c_len, cfg.kv_lora_rank)
+        else:
+            shape = (batch, c_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        spec = ctx.pspec(*_self_cache_names(cfg, kind), shape=shape)
+        ranges = ctx.local_slice(shape, spec)
+        seq = spec[1] if len(spec) > 1 else None
+        kv_whole = len(shape) == 4 and ranges[2] == (0, cfg.n_kv_heads)
+        return attn.CacheLayout(
+            seq_axes=seq if seq is not None and ctx.size(seq) > 1 else None,
+            c_len=c_len, lo=ranges[1][0], hi=ranges[1][1], kv_whole=kv_whole)
+
+    def _cross_whole(self, batch: int, frontend_len: int) -> bool:
+        """Whether the cross cache's spec holds every kv head."""
+        cfg, ctx = self.cfg, self.ctx
+        if ctx is None or ctx.mesh is None:
+            return False
+        shape = (batch, frontend_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        spec = ctx.pspec("batch", "frontend_seq", "kv_heads", "head_dim",
+                         shape=shape)
+        return ctx.local_slice(shape, spec)[2] == (0, cfg.n_kv_heads)
 
     def _ffn(self, x: Tensor, with_aux: bool = False, p=None,
              batch_split: bool = False):
@@ -158,10 +200,13 @@ class Block(ParamTree):
 
     def prefill(self, x: Tensor, positions: Tensor, cache_len: int,
                 frontend: Optional[Tensor] = None, impl: str = "auto",
-                batch_split: bool = False):
+                batch_split: bool = False, batch: Optional[int] = None):
         """(x, cache) after the full sequence x (B,S,D); ``frontend``
-        (B,Tf,D) feeds the cross-attention kinds."""
+        (B,Tf,D) feeds the cross-attention kinds; ``batch`` is the whole
+        batch's size (x's rows off a split)."""
         cfg, kind = self.cfg, self.kind
+        batch = x.shape[0] if batch is None else batch
+        self.layout = layout = self.cache_layout(batch, cache_len)
         p = self.view()
         if kind == "mamba":
             out, cache = ssm.mamba_forward(p.mixer, cfg,
@@ -169,18 +214,21 @@ class Block(ParamTree):
             return self._ffn(x + out, p=p, batch_split=batch_split), cache
         h = self._norm("ln_attn", x, p)
         if kind == "cross_attn":
-            cache = attn.cross_kv(p.xattn, cfg, frontend)
+            cache = attn.cross_kv(p.xattn, cfg, frontend, self._cross_whole(
+                batch, frontend.shape[1]))
             out = attn.cross_forward(p.xattn, cfg, h, cache, impl=impl)
         elif cfg.use_mla and kind != "attn_cross":
             out, cache = attn.mla_prefill(p.attn, cfg, h, positions,
-                                          cache_len=cache_len)
+                                          cache_len=cache_len, layout=layout)
         else:
             out, cache = attn.gqa_prefill(
                 p.attn, cfg, h, positions, window=_window(cfg, kind),
-                cache_len=_cache_len(cfg, kind, cache_len), impl=impl)
+                cache_len=_cache_len(cfg, kind, cache_len), impl=impl,
+                layout=layout)
         x = x + out
         if kind == "attn_cross":
-            kv = attn.cross_kv(p.xattn, cfg, frontend)
+            kv = attn.cross_kv(p.xattn, cfg, frontend, self._cross_whole(
+                batch, frontend.shape[1]))
             x = x + attn.cross_forward(p.xattn, cfg, self._norm("ln_x", x, p),
                                        kv, gated=False, impl=impl)
             cache = {"self": cache, "cross": kv}
@@ -199,13 +247,16 @@ class Block(ParamTree):
         if kind == "cross_attn":
             out = attn.cross_forward(p.xattn, cfg, h, cache)
         elif cfg.use_mla and kind != "attn_cross":
-            out, cache = attn.mla_decode(p.attn, cfg, h, cache, cur_pos)
+            out, cache = attn.mla_decode(p.attn, cfg, h, cache, cur_pos,
+                                         layout=self.layout)
         elif kind == "attn_cross":
             out, _ = attn.gqa_decode(p.attn, cfg, h, cache["self"],
-                                     cur_pos, window=attn.GLOBAL_WINDOW)
+                                     cur_pos, window=attn.GLOBAL_WINDOW,
+                                     layout=self.layout)
         else:
             out, cache = attn.gqa_decode(p.attn, cfg, h, cache, cur_pos,
-                                         window=_window(cfg, kind))
+                                         window=_window(cfg, kind),
+                                         layout=self.layout)
         x = x + out
         if kind == "attn_cross":
             x = x + attn.cross_forward(p.xattn, cfg, self._norm("ln_x", x, p),
@@ -213,28 +264,46 @@ class Block(ParamTree):
         return self._ffn(x, p=p, batch_split=batch_split), cache
 
     def cache_init(self, batch: int, cache_len: int, frontend_len: int,
-                   device: torch.device):
-        """An empty decode cache of this rank's heads (all off a mesh)."""
+                   device: torch.device, whole_batch: Optional[int] = None):
+        """An empty decode cache of this rank's part (all of it off a
+        mesh): ``batch`` rows (the rank's share of ``whole_batch``), its
+        heads, and the slots and kv heads of the self-attention cache's
+        spec (``cache_layout``)."""
         cfg, kind = self.cfg, self.kind
+        whole_batch = batch if whole_batch is None else whole_batch
         if kind == "mamba":
             lo, hi = ssm.local_heads(self.mixer, cfg)
             return ssm.init_mamba_cache(cfg, batch, device, n_heads=hi - lo)
         if kind == "cross_attn":
-            lo, hi = attn.local_kv_heads(self.xattn, cfg)
-            return attn.init_cross_cache(cfg, batch, frontend_len, device,
-                                         n_kv=hi - lo)
-        if kind == "attn_cross":
-            lo, hi = attn.local_kv_heads(self.attn, cfg)
-            xlo, xhi = attn.local_kv_heads(self.xattn, cfg)
-            return {"self": attn.init_kv_cache(cfg, batch, cache_len, device,
-                                               n_kv=hi - lo),
-                    "cross": attn.init_cross_cache(cfg, batch, frontend_len,
-                                                   device, n_kv=xhi - xlo)}
+            return self._cross_cache(self.xattn, batch, whole_batch,
+                                     frontend_len, device)
+        self.layout = layout = self.cache_layout(whole_batch, cache_len)
         c_len = _cache_len(cfg, kind, cache_len)
-        if cfg.use_mla:
+        if layout is not None:
+            c_len = layout.hi - layout.lo
+        if cfg.use_mla and kind != "attn_cross":
             return attn.init_mla_cache(cfg, batch, c_len, device)
-        lo, hi = attn.local_kv_heads(self.attn, cfg)
-        return attn.init_kv_cache(cfg, batch, c_len, device, n_kv=hi - lo)
+        if layout is not None and layout.kv_whole:
+            n_kv = cfg.n_kv_heads
+        else:
+            lo, hi = held(self.attn, "w_k", 1)
+            n_kv = hi - lo
+        kv = attn.init_kv_cache(cfg, batch, c_len, device, n_kv=n_kv)
+        if kind == "attn_cross":
+            return {"self": kv,
+                    "cross": self._cross_cache(self.xattn, batch, whole_batch,
+                                               frontend_len, device)}
+        return kv
+
+    def _cross_cache(self, p, batch: int, whole_batch: int,
+                     frontend_len: int, device: torch.device):
+        if self._cross_whole(whole_batch, frontend_len):
+            n_kv = self.cfg.n_kv_heads
+        else:
+            lo, hi = attn.local_kv_heads(p, self.cfg)
+            n_kv = hi - lo
+        return attn.init_cross_cache(self.cfg, batch, frontend_len, device,
+                                     n_kv=n_kv)
 
 
 def apply_stack_train(blocks: Sequence[Block], cfg: ModelConfig, x: Tensor,

@@ -27,11 +27,13 @@ a final norm; in serving their attention runs the flash op, in training
 
 On a mesh (``ctx=MeshCtx.for_mesh(mesh, "decode")``) every rank holds its
 slices of the parameters (``nn/module.py``) and serves SPMD: each rank is
-given the whole batch of tokens (and frontend), runs its data shard of it
-when the batch divides over the data axes (else all of it: JAX's rule),
-and ``prefill`` / ``decode_step`` return the whole (B, V) logits on every
-rank, gathered over the vocab's model axis and then over data, so greedy
-tokens agree on every rank.
+given the whole batch of tokens (and frontend), runs its shard of it when
+the batch divides over the axes of the rules' "batch" entry (the data
+axes; none under ``long_decode``, where the caches' slots take them;
+else all of it: JAX's rule), and ``prefill`` / ``decode_step`` return the
+whole (B, V) logits on every rank, gathered over the vocab's model axis
+and then over the batch's, so greedy tokens agree on every rank.  Decode
+caches are laid out by JAX's cache specs (``Block.cache_layout``).
 
 Training on a mesh (``ctx=MeshCtx.for_mesh(mesh, "train")``) takes the
 batch the same way: ``loss`` is the mean cross-entropy over the rank's
@@ -119,18 +121,20 @@ class LanguageModel(nn.Module):
         return self.ctx is not None and self.ctx.sharded
 
     def batch_split(self, batch: int) -> bool:
-        """Whether a batch of ``batch`` rows runs split over the data axes
-        (it divides; JAX's rule), else whole on every rank."""
-        n = self.ctx.n_data if self.sharded else 1
+        """Whether a batch of ``batch`` rows runs split over the axes of
+        the "batch" rule (the data axes, unless the rules say otherwise;
+        none under ``long_decode``) because it divides over them (JAX's
+        rule), else whole on every rank."""
+        n = self.ctx.n_batch if self.sharded else 1
         return n > 1 and batch % n == 0
 
     def _local(self, t: Optional[Tensor]) -> Optional[Tensor]:
-        """This rank's data shard of a whole batch ``t`` (dim 0)."""
+        """This rank's batch shard of a whole batch ``t`` (dim 0)."""
         if t is None or not self.batch_split(t.shape[0]):
             return t
-        n = self.ctx.n_data
+        n = self.ctx.n_batch
         step = t.shape[0] // n
-        lo = self.ctx.index(self.ctx.data_axes) * step
+        lo = self.ctx.index(self.ctx.batch_axes) * step
         return t[lo:lo + step]
 
     def _whole_logits(self, h: Tensor, batch: int) -> Tensor:
@@ -142,7 +146,7 @@ class LanguageModel(nn.Module):
         if vocab_axes is not None:
             out = collectives.all_gather(out, self.ctx, vocab_axes, dim=-1)
         if self.batch_split(batch):
-            out = collectives.all_gather(out, self.ctx, self.ctx.data_axes,
+            out = collectives.all_gather(out, self.ctx, self.ctx.batch_axes,
                                          dim=0)
         return out
 
@@ -257,10 +261,11 @@ class LanguageModel(nn.Module):
     def init_cache(self, batch: int, cache_len: int) -> List[Any]:
         """Empty decode caches for a batch of ``batch`` (this rank's data
         shard of it and its heads, on a mesh)."""
+        whole = batch
         if self.batch_split(batch):
-            batch //= self.ctx.n_data
+            batch //= self.ctx.n_batch
         return [blk.cache_init(batch, cache_len, self.cfg.n_frontend_tokens,
-                               self.device)
+                               self.device, whole_batch=whole)
                 for blk in self.layers]
 
     def _prefill_layers(self, tokens: Tensor, cache_len: int, impl: str,
@@ -268,7 +273,8 @@ class LanguageModel(nn.Module):
                         ) -> Tuple[Tensor, List[Any]]:
         """tokens (B, S) [and the frontend] through every layer's prefill:
         (x, decode cache), x of this rank's data shard of the batch."""
-        split = self.batch_split(tokens.shape[0])
+        batch = tokens.shape[0]
+        split = self.batch_split(batch)
         fe = self._frontend(self._local(frontend), impl)
         tokens = self._local(tokens)
         x = layers.embed(self.embed.view(), self.cfg, tokens)
@@ -277,7 +283,7 @@ class LanguageModel(nn.Module):
         cache = []
         for blk in self.layers:
             x, c = blk.prefill(x, positions, cache_len, fe, impl=impl,
-                               batch_split=split)
+                               batch_split=split, batch=batch)
             cache.append(c)
         return x, cache
 
@@ -304,7 +310,7 @@ class LanguageModel(nn.Module):
                                     impl or self.impl, frontend)
         h = layers.rmsnorm(self.ln_f.view(), x[:, -1, :], cfg.norm_eps)
         if self.batch_split(tokens.shape[0]):
-            h = collectives.all_gather(h, self.ctx, self.ctx.data_axes)
+            h = collectives.all_gather(h, self.ctx, self.ctx.batch_axes)
         return h
 
     @torch.no_grad()

@@ -246,13 +246,16 @@ def norm_parts(t: Tensor, p: Param, ctx):
 
 class ParamView:
     """A ``ParamTree``'s tensors as the forward uses them: each dim sharded
-    for storage gathered, every other dim as the rank holds it."""
+    for storage gathered, every other dim as the rank holds it, and each
+    floating tensor cast to the tree's ``read_dtype`` when it has one."""
 
     def __init__(self, tree: "ParamTree"):
         self.specs, self.ctx = tree.specs, tree.ctx
         for name, spec in tree.specs.items():
-            setattr(self, name, gather_storage(getattr(tree, name), spec,
-                                               tree.ctx))
+            t = getattr(tree, name)
+            if tree.read_dtype is not None and t.is_floating_point():
+                t = t.to(tree.read_dtype)
+            setattr(self, name, gather_storage(t, spec, tree.ctx))
         for name, child in tree.named_children():
             if isinstance(child, ParamTree):
                 setattr(self, name, child.view())
@@ -267,6 +270,7 @@ class ParamTree(nn.Module):
         super().__init__()
         self.specs: Dict[str, Param] = {}
         self.ctx = ctx
+        self.read_dtype: Optional[torch.dtype] = None
         self._gathers = False
         for name, spec in specs.items():
             if isinstance(spec, Param):
@@ -286,9 +290,21 @@ class ParamTree(nn.Module):
 
     def view(self):
         """The tree as the forward reads it: itself when no dim below it
-        is sharded for storage, else a ``ParamView`` of gathered tensors
-        (dropped when the caller lets it go)."""
-        return ParamView(self) if self._gathers else self
+        is sharded for storage and nothing is cast on read, else a
+        ``ParamView`` of gathered (and cast) tensors, dropped when the
+        caller lets it go."""
+        cast = self.read_dtype is not None
+        return ParamView(self) if self._gathers or cast else self
+
+
+def cast_on_read(module: nn.Module, dtype: torch.dtype) -> None:
+    """Every ``ParamTree`` under ``module`` casts its floating parameters
+    to ``dtype`` when read (``view``): weights stored narrower than they
+    are computed in (JAX's ``cast_floating`` on a step's parameters, the
+    dry-run's float8 weights)."""
+    for tree in module.modules():
+        if isinstance(tree, ParamTree):
+            tree.read_dtype = dtype
 
 
 @torch.no_grad()

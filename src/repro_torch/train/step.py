@@ -53,9 +53,9 @@ def param_shards(model: LanguageModel) -> Shards:
 
 
 def _data_split(shards: Shards, name: str) -> bool:
-    """Whether a data axis splits parameter ``name``."""
+    """Whether an axis of the batch splits parameter ``name``."""
     ctx = shards.ctx
-    return any(a in ctx.data_axes for e in split_entries(
+    return any(a in ctx.batch_axes for e in split_entries(
         shards.specs[name], ctx) for a in as_axes(e))
 
 
@@ -66,14 +66,14 @@ def finish_grads(grads: Dict[str, Tensor], shards: Shards
     them (flattened into one float32 all-reduce), then every one divided
     by the number of data shards, in its own dtype."""
     ctx = shards.ctx
-    n = ctx.n_data
+    n = ctx.n_batch
     if n == 1:
         return grads
     rep = [k for k in grads if not _data_split(shards, k)]
     out = {k: g.float() for k, g in grads.items()}
     if rep:
         flat = torch.cat([out[k].reshape(-1) for k in rep])
-        flat = collectives.psum(flat, ctx, ctx.data_axes)
+        flat = collectives.psum(flat, ctx, ctx.batch_axes)
         for k, piece in zip(rep, flat.split([out[k].numel() for k in rep])):
             out[k] = piece.view(out[k].shape)
     return {k: (out[k] / n).to(g.dtype) for k, g in grads.items()}
@@ -135,7 +135,7 @@ def make_train_step(model: LanguageModel, optimizer: Optimizer, *,
             ctx = shards.ctx
             grads = finish_grads(grads, shards)
             loss = collectives.psum(loss.clone(), ctx,
-                                    ctx.data_axes) / ctx.n_data
+                                    ctx.batch_axes) / ctx.n_batch
         new_params, new_opt = optimizer.update(grads, opt_state, params)
         metrics = {"loss": loss,
                    "grad_norm": global_norm(grads, optimizer.shards)}

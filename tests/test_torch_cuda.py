@@ -1461,13 +1461,13 @@ def test_kernel_ops_refuse_a_gradient_on_the_card(cuda):
 def test_lm_launcher_refuses_a_model_larger_than_the_card(cuda, capsys):
     """``--full granite-20b``: its bf16 parameters and gradients and f32
     AdamW moments (~240 GB) do not fit the card; the launcher exits and
-    names the mesh, ROADMAP item 6."""
+    names the production mesh to train it on (the LM trains on a mesh)."""
     from repro_torch.launch import train
     with pytest.raises(SystemExit) as exc:
         train.main(["--arch", "granite-20b", "--full", "--steps", "1"])
     assert exc.value.code != 0
     err = capsys.readouterr().err
-    assert "--full granite-20b" in err and "item 6" in err
+    assert "--full granite-20b" in err and "production mesh (16, 16)" in err
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
