@@ -650,13 +650,15 @@ def peaks(device_name: str) -> dict:
 def _device_rows(prof) -> list:
     """(self device us, name, count) of a profile's device-side events
     (kernels, copies, fills): an aten op's row would repeat the device
-    time of the kernels it launched."""
+    time of the kernels it launched, and a span's device range
+    (``repro_torch.*``, a user annotation) the kernels under it."""
     import torch
     rows = []
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0))
-        if ev.device_type != torch.autograd.DeviceType.CPU and dev_us > 0:
+        if ev.device_type != torch.autograd.DeviceType.CPU and dev_us > 0 \
+                and not getattr(ev, "is_user_annotation", False):
             rows.append((dev_us, ev.key, ev.count))
     rows.sort(reverse=True)
     return rows
@@ -2391,12 +2393,14 @@ def _union_ms(spans) -> float:
 
 
 def _streams(prof) -> dict:
-    """A profile's device events (kernels, copies, fills) by CUDA stream:
-    ``{stream: [(start ns, end ns, name), ...]}``."""
+    """A profile's device events (kernels, copies, fills; not the spans'
+    device ranges) by CUDA stream: ``{stream: [(start ns, end ns, name),
+    ...]}``."""
     import torch
     out = {}
     for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() != torch.autograd.DeviceType.CUDA:
+        if ev.device_type() != torch.autograd.DeviceType.CUDA \
+                or ev.is_user_annotation():
             continue
         out.setdefault(ev.device_resource_id(), []).append(
             (ev.start_ns(), ev.start_ns() + ev.duration_ns(), ev.name()))

@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import losses as losses_lib
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import full_fp32_matmul
@@ -351,14 +352,19 @@ def step_serial(cfg: DSEKLConfig, state: DSEKLState, x: Tensor, y: Tensor,
     gathers x and y at I (and nothing else) for its vecmat."""
     n = x.shape[0]
     if _indexed_step(cfg, x):
-        f, g = _train_pass_indexed(cfg, state, x, y, idx_i, idx_j)
+        with tracing.span("repro_torch.fit.train_pass"):
+            f, g = _train_pass_indexed(cfg, state, x, y, idx_i, idx_j)
+        with tracing.span("repro_torch.fit.update"):
+            state = apply_update(cfg, state, idx_j, g)
+            return _maybe_correct(cfg, state, x, y, f, pc, cfg.n_expand,
+                                  idx_i)
+    with tracing.span("repro_torch.fit.train_pass"):
+        xi, yi = x[idx_i], y[idx_i]
+        f, g = _grad_block_with_f(cfg, xi, yi, x[idx_j], state.alpha[idx_j],
+                                  scale_n(cfg, n))
+    with tracing.span("repro_torch.fit.update"):
         state = apply_update(cfg, state, idx_j, g)
-        return _maybe_correct(cfg, state, x, y, f, pc, cfg.n_expand, idx_i)
-    xi, yi = x[idx_i], y[idx_i]
-    f, g = _grad_block_with_f(cfg, xi, yi, x[idx_j], state.alpha[idx_j],
-                              scale_n(cfg, n))
-    state = apply_update(cfg, state, idx_j, g)
-    return _maybe_correct(cfg, state, xi, yi, f, pc, cfg.n_expand)
+        return _maybe_correct(cfg, state, xi, yi, f, pc, cfg.n_expand)
 
 
 # ---------------------------------------------------------------------------
@@ -444,14 +450,19 @@ def _parallel_inner(cfg: DSEKLConfig, state: DSEKLState, x: Tensor,
     flat_j = idx_jk.reshape(-1)
     j_union = cfg.n_workers * cfg.n_expand
     if _indexed_step(cfg, x):
-        f, g = _train_pass_indexed(cfg, state, x, y, idx_i, flat_j)
+        with tracing.span("repro_torch.fit.train_pass"):
+            f, g = _train_pass_indexed(cfg, state, x, y, idx_i, flat_j)
+        with tracing.span("repro_torch.fit.update"):
+            state = apply_update_parallel(cfg, state, flat_j, g)
+            return _maybe_correct(cfg, state, x, y, f, pc, j_union, idx_i)
+    with tracing.span("repro_torch.fit.train_pass"):
+        xi, yi = x[idx_i], y[idx_i]
+        f, g = _grad_block_parallel_with_f(cfg, xi, yi, x[idx_jk],
+                                           state.alpha[idx_jk],
+                                           scale_n(cfg, n))
+    with tracing.span("repro_torch.fit.update"):
         state = apply_update_parallel(cfg, state, flat_j, g)
-        return _maybe_correct(cfg, state, x, y, f, pc, j_union, idx_i)
-    xi, yi = x[idx_i], y[idx_i]
-    f, g = _grad_block_parallel_with_f(cfg, xi, yi, x[idx_jk],
-                                       state.alpha[idx_jk], scale_n(cfg, n))
-    state = apply_update_parallel(cfg, state, flat_j, g)
-    return _maybe_correct(cfg, state, xi, yi, f, pc, j_union)
+        return _maybe_correct(cfg, state, xi, yi, f, pc, j_union)
 
 
 def epoch_parallel(cfg: DSEKLConfig, state: DSEKLState, x: Tensor,
@@ -463,8 +474,9 @@ def epoch_parallel(cfg: DSEKLConfig, state: DSEKLState, x: Tensor,
     the EigenPro correction when ``pc`` is given)."""
     state = state._replace(epoch=state.epoch + 1)
     for b in range(i_batches.shape[0]):
-        state = _parallel_inner(cfg, state, x, y, i_batches[b], idx_jk[b],
-                                pc)
+        with tracing.span("repro_torch.fit.step"):
+            state = _parallel_inner(cfg, state, x, y, i_batches[b],
+                                    idx_jk[b], pc)
     return state
 
 

@@ -63,6 +63,14 @@ one draws.  A mesh plan checkpoints the full vectors (assembled by the
 slot-stack ``all_reduce`` of ``distributed.gather_slots``), rank 0 alone
 writes, and a restore re-splits them onto the current mesh: the elastic
 rescale.
+
+Spans (``repro_torch.tracing``, seen by any ``torch.profiler`` session):
+``fit_loop`` marks ``repro_torch.fit.plan`` (drawing or taking a plan and
+queueing it), ``.epoch`` (``run_epoch``, the truncation and the epoch's
+sync), ``.delta``, ``.eval``, ``.on_epoch`` (the caller's hooks) and
+``.snapshot``; each stochastic backend marks one ``repro_torch.fit.step``
+a step (``dsekl``'s steps mark ``.train_pass`` and ``.update`` inside
+it).  A BCD round carries ``.epoch`` alone.
 """
 from __future__ import annotations
 
@@ -75,6 +83,7 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
+from repro_torch import tracing
 from repro_torch.core import bcd, distributed, dsekl, sampler
 from repro_torch.core.dsekl import DSEKLConfig, DSEKLState
 from repro_torch.data.source import (BlockPrefetcher, MeshPrefetcher,
@@ -374,8 +383,9 @@ class SerialPlan(_InMemoryPlan):
         idx_i, idx_j = (_indices(p, self.device) for p in plan)
         state = state._replace(epoch=state.epoch + 1)
         for t in range(self.steps):
-            state = dsekl.step_serial(self.cfg, state, self.x, self.y,
-                                      idx_i[t], idx_j[t], self.precond)
+            with tracing.span("repro_torch.fit.step"):
+                state = dsekl.step_serial(self.cfg, state, self.x, self.y,
+                                          idx_i[t], idx_j[t], self.precond)
         return state
 
 
@@ -477,20 +487,22 @@ class HostedPlan(ExecutionPlan):
         idx_cur = idx_j(0)
         aj = state.alpha[idx_cur]
         for t in range(steps):
-            xi, yi, xj = loader.get()
-            if serial:
-                f, g = dsekl._grad_block_with_f(cfg, xi, yi, xj, aj, n_eff)
-            else:
-                k, j = plan_j.shape[1:]
-                f, g = dsekl._grad_block_parallel_with_f(
-                    cfg, xi, yi, xj.reshape(k, j, xj.shape[-1]),
-                    aj.reshape(k, j), n_eff)
-            delta = (None if pc is None
-                     else dsekl._delta(cfg, xi, yi, f, pc, j_union))
-            idx_next = idx_j(t + 1) if t + 1 < steps else idx_cur
-            state, aj = _apply_then_gather(cfg, state, idx_cur, g, idx_next,
-                                           idx_p, delta)
-            idx_cur = idx_next
+            with tracing.span("repro_torch.fit.step"):
+                xi, yi, xj = loader.get()
+                if serial:
+                    f, g = dsekl._grad_block_with_f(cfg, xi, yi, xj, aj,
+                                                    n_eff)
+                else:
+                    k, j = plan_j.shape[1:]
+                    f, g = dsekl._grad_block_parallel_with_f(
+                        cfg, xi, yi, xj.reshape(k, j, xj.shape[-1]),
+                        aj.reshape(k, j), n_eff)
+                delta = (None if pc is None
+                         else dsekl._delta(cfg, xi, yi, f, pc, j_union))
+                idx_next = idx_j(t + 1) if t + 1 < steps else idx_cur
+                state, aj = _apply_then_gather(cfg, state, idx_cur, g,
+                                               idx_next, idx_p, delta)
+                idx_cur = idx_next
         self._consumed_steps += steps
         return state
 
@@ -716,13 +728,15 @@ class MeshPlan(_MeshRanks, ExecutionPlan):
                                           state.step)
         pc, loader = self.precond, self._loader
         for _ in range(self.steps):
-            xi, yi, xj, idx_j = loader.get()
-            gen = self._generator()
-            if pc is None:
-                sh = self.step_fn(xi, yi, xj, idx_j, sh, generator=gen)
-            else:
-                sh = self.step_fn(xi, yi, xj, idx_j, sh, pc, generator=gen)
-            self._t += 1
+            with tracing.span("repro_torch.fit.step"):
+                xi, yi, xj, idx_j = loader.get()
+                gen = self._generator()
+                if pc is None:
+                    sh = self.step_fn(xi, yi, xj, idx_j, sh, generator=gen)
+                else:
+                    sh = self.step_fn(xi, yi, xj, idx_j, sh, pc,
+                                      generator=gen)
+                self._t += 1
         _sync(sh.alpha)                         # epoch-boundary sync
         self._consumed_steps += self.steps
         return DSEKLState(alpha=sh.alpha, accum=sh.accum, step=sh.step,
@@ -1097,32 +1111,38 @@ def fit_loop(plan: ExecutionPlan, generator: Optional[torch.Generator], *,
 
     hook_stop = False
     if start < n_epochs:
-        current = take(start)
-        plan.plan_epoch(current)
+        with tracing.span("repro_torch.fit.plan"):
+            current = take(start)
+            plan.plan_epoch(current)
     for e in range(start, n_epochs):
         gen_state = _gen_state(generator)       # draws epoch e + 1's plan
-        upcoming = take(e + 1) if e + 1 < n_epochs else None
-        if upcoming is not None:
-            plan.plan_epoch(upcoming)           # one epoch ahead
+        with tracing.span("repro_torch.fit.plan"):
+            upcoming = take(e + 1) if e + 1 < n_epochs else None
+            if upcoming is not None:
+                plan.plan_epoch(upcoming)       # one epoch ahead
         prev_alpha = state.alpha
         t0 = time.perf_counter()
-        state = plan.run_epoch(state, current)
-        if truncate_every and (e + 1) % truncate_every == 0:
-            state = plan.truncate(state, truncate_frac)
-        _sync(state.alpha)
+        with tracing.span("repro_torch.fit.epoch"):
+            state = plan.run_epoch(state, current)
+            if truncate_every and (e + 1) % truncate_every == 0:
+                state = plan.truncate(state, truncate_frac)
+            _sync(state.alpha)
         dt = time.perf_counter() - t0
-        delta = plan.delta_norm(state.alpha, prev_alpha)
+        with tracing.span("repro_torch.fit.delta"):
+            delta = plan.delta_norm(state.alpha, prev_alpha)
         converged = delta < tol
         rec: Dict[str, Any] = {"epoch": e + 1, "delta_alpha": delta,
                                "seconds": dt}
         if x_val is not None and (e % eval_every == 0 or converged
                                   or e == n_epochs - 1):
-            rec["val_error"] = plan.eval_error(state, x_val, y_val)
+            with tracing.span("repro_torch.fit.eval"):
+                rec["val_error"] = plan.eval_error(state, x_val, y_val)
         history.append(rec)
-        if callback is not None:
-            callback(e, state)
-        hook_stop = bool(on_epoch(e + 1, state, rec)) \
-            if on_epoch is not None else False
+        with tracing.span("repro_torch.fit.on_epoch"):
+            if callback is not None:
+                callback(e, state)
+            hook_stop = bool(on_epoch(e + 1, state, rec)) \
+                if on_epoch is not None else False
         if verbose and plan.is_lead:
             print(f"[dsekl] epoch {e + 1}: |dalpha|={delta:.4f} "
                   + (f"val_err={rec['val_error']:.4f}"
@@ -1131,11 +1151,12 @@ def fit_loop(plan: ExecutionPlan, generator: Optional[torch.Generator], *,
                 (e + 1) % checkpoint_every == 0 or converged or hook_stop
                 or e == n_epochs - 1):
             # Every rank of a mesh joins the gathers; rank 0 writes.
-            full, leaves = plan.snapshot_state(state), \
-                plan.snapshot_leaves(state)
-            if plan.is_lead:
-                _snapshot(manager, full, gen_state, e + 1, history,
-                          converged, snapshot_extra, leaves=leaves)
+            with tracing.span("repro_torch.fit.snapshot"):
+                full, leaves = plan.snapshot_state(state), \
+                    plan.snapshot_leaves(state)
+                if plan.is_lead:
+                    _snapshot(manager, full, gen_state, e + 1, history,
+                              converged, snapshot_extra, leaves=leaves)
         current = upcoming
         if converged or hook_stop:
             break

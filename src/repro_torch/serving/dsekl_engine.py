@@ -47,6 +47,16 @@ engine is SPMD: every rank makes the same calls with the same queries.
 The reduction is queued on the sweep's own stream, after its wait on
 the publish's event (gloo stages a CUDA tensor through the host, after
 the stream's prior work).
+
+**Spans.**  Under any ``torch.profiler`` session the engine marks its
+host work (``repro_torch.tracing``): ``repro_torch.engine.submit`` (one
+call, an auto-flush included), ``.flush`` (one sweep, pipelined or not)
+with ``.merge`` (the alpha capture and the queue's concatenation),
+``.stage`` (one pipelined tile: the slot's wait, the staging copy, the
+copy to the card), ``.serve`` (one serve call, its ``all_reduce``
+included), ``.cache_tile`` (one tile through the cache), ``.predict``
+(the direct path) and ``.handoff`` (the pipeline's concatenation and
+synchronisation).  With no profiler on a span costs one flag check.
 """
 from __future__ import annotations
 
@@ -61,6 +71,7 @@ import torch
 
 import torch.distributed as dist
 
+from repro_torch import tracing
 from repro_torch.core import dsekl
 from repro_torch.core.dsekl import DSEKLConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -184,10 +195,11 @@ class DSEKLPredictionEngine:
         return f
 
     def _serve(self, xq: Tensor, a_sv: Tensor) -> Tensor:
-        return self._reduce(kops.kernel_matvec_tiled(
-            xq, self._x_sv, a_sv, kernel_name=self.cfg.kernel,
-            kernel_params=self.cfg.kernel_params, z_block=self.sv_block,
-            impl=self.cfg.impl))
+        with tracing.span("repro_torch.engine.serve"):
+            return self._reduce(kops.kernel_matvec_tiled(
+                xq, self._x_sv, a_sv, kernel_name=self.cfg.kernel,
+                kernel_params=self.cfg.kernel_params, z_block=self.sv_block,
+                impl=self.cfg.impl))
 
     def _kmap(self, xq: Tensor) -> Tensor:
         """K(tile, X_sv) materialized, (query_block, this rank's support
@@ -250,35 +262,36 @@ class DSEKLPredictionEngine:
     def _serve_tile_cached(self, tile: np.ndarray, a_sv: Tensor) -> Tensor:
         """Serve one padded (query_block, D) host tile through the cache,
         contracting against the sweep's captured ``a_sv``."""
-        owner = self._cache_owner
-        oc = self._owner_counters(owner)
-        key = self._tile_key(tile)
-        k_tile = self._cache.get(key)
-        if k_tile is not None:
-            self._cache.move_to_end(key)
-            self._cache_hits += 1
-            oc["hits"] += 1
+        with tracing.span("repro_torch.engine.cache_tile"):
+            owner = self._cache_owner
+            oc = self._owner_counters(owner)
+            key = self._tile_key(tile)
+            k_tile = self._cache.get(key)
+            if k_tile is not None:
+                self._cache.move_to_end(key)
+                self._cache_hits += 1
+                oc["hits"] += 1
+                return self._reduce(k_tile @ a_sv)
+            self._cache_misses += 1
+            oc["misses"] += 1
+            quota = self._cache_quota.get(owner)
+            xq = _f32_copy(tile, self.device)
+            self.serve_calls += 1
+            if quota == 0:                       # admission denied: stream it
+                oc["bypasses"] += 1
+                return self._serve(xq, a_sv)
+            k_tile = self._kmap(xq)
+            self._cache[key] = k_tile
+            self._tile_owner[key] = owner
+            oc["resident"] += 1
+            if quota is not None and oc["resident"] > quota:
+                self._evict_tile(self._owner_lru_key(owner))
+            while len(self._cache) > self.engine_cfg.cache_blocks:
+                # Global pressure: prefer the inserting owner's own LRU tile.
+                victim = self._owner_lru_key(owner, exclude=key)
+                self._evict_tile(victim if victim is not None
+                                 else next(iter(self._cache)))
             return self._reduce(k_tile @ a_sv)
-        self._cache_misses += 1
-        oc["misses"] += 1
-        quota = self._cache_quota.get(owner)
-        xq = _f32_copy(tile, self.device)
-        self.serve_calls += 1
-        if quota == 0:                       # admission denied: stream it
-            oc["bypasses"] += 1
-            return self._serve(xq, a_sv)
-        k_tile = self._kmap(xq)
-        self._cache[key] = k_tile
-        self._tile_owner[key] = owner
-        oc["resident"] += 1
-        if quota is not None and oc["resident"] > quota:
-            self._evict_tile(self._owner_lru_key(owner))
-        while len(self._cache) > self.engine_cfg.cache_blocks:
-            # Global pressure: prefer the inserting owner's own LRU tile.
-            victim = self._owner_lru_key(owner, exclude=key)
-            self._evict_tile(victim if victim is not None
-                             else next(iter(self._cache)))
-        return self._reduce(k_tile @ a_sv)
 
     def cache_info(self) -> dict:
         """Hit/miss/eviction counters plus per-owner accounting under
@@ -383,23 +396,24 @@ class DSEKLPredictionEngine:
         n = int(x_query.shape[0])
         if n == 0:
             return torch.zeros((0,), dtype=torch.float32, device=self.device)
-        qb = self.engine_cfg.query_block
-        if self._cache_on:
-            merged = np.asarray(torch.as_tensor(x_query).detach().cpu(),
-                                dtype=np.float32)
+        with tracing.span("repro_torch.engine.predict"):
+            qb = self.engine_cfg.query_block
+            if self._cache_on:
+                merged = np.asarray(torch.as_tensor(x_query).detach().cpu(),
+                                    dtype=np.float32)
+                outs = []
+                for start in range(0, n, qb):
+                    tile = np.zeros((qb, self.d), np.float32)
+                    rows = merged[start:start + qb]
+                    tile[: rows.shape[0]] = rows
+                    outs.append(self._serve_tile_cached(tile, a_sv))
+                return torch.cat(outs)[:n]
+            tiles = kops.tile_rows(_f32_copy(x_query, self.device), qb)
             outs = []
-            for start in range(0, n, qb):
-                tile = np.zeros((qb, self.d), np.float32)
-                rows = merged[start:start + qb]
-                tile[: rows.shape[0]] = rows
-                outs.append(self._serve_tile_cached(tile, a_sv))
+            for b in range(tiles.shape[0]):
+                outs.append(self._serve(tiles[b], a_sv))
+                self.serve_calls += 1
             return torch.cat(outs)[:n]
-        tiles = kops.tile_rows(_f32_copy(x_query, self.device), qb)
-        outs = []
-        for b in range(tiles.shape[0]):
-            outs.append(self._serve(tiles[b], a_sv))
-            self.serve_calls += 1
-        return torch.cat(outs)[:n]
 
     # ------------------------------------------------------------------
     # Double-buffered pipeline.
@@ -434,26 +448,29 @@ class DSEKLPredictionEngine:
         outs: List[Tensor] = []
         for b in range(-(-n // qb)):
             slot = b % 2
-            if copied[slot] is not None:
-                copied[slot].synchronize()
-            buf = bufs[slot]
-            rows = torch.from_numpy(merged[b * qb:(b + 1) * qb])
-            buf[: rows.shape[0]].copy_(rows)
-            buf[rows.shape[0]:].zero_()
+            with tracing.span("repro_torch.engine.stage"):
+                if copied[slot] is not None:
+                    copied[slot].synchronize()
+                buf = bufs[slot]
+                rows = torch.from_numpy(merged[b * qb:(b + 1) * qb])
+                buf[: rows.shape[0]].copy_(rows)
+                buf[rows.shape[0]:].zero_()
+                if not self._cache_on:
+                    if cuda:
+                        xq = buf.to(self.device, non_blocking=True)
+                        copied[slot] = torch.cuda.Event()
+                        copied[slot].record(stream)
+                    else:
+                        xq = buf.clone()
             if self._cache_on:
                 outs.append(self._serve_tile_cached(buf.numpy(), a_sv))
                 continue
-            if cuda:
-                xq = buf.to(self.device, non_blocking=True)
-                copied[slot] = torch.cuda.Event()
-                copied[slot].record(stream)
-            else:
-                xq = buf.clone()
             outs.append(self._serve(xq, a_sv))
             self.serve_calls += 1
-        f = torch.cat(outs)[:n]
-        if cuda:
-            stream.synchronize()        # handoff: the serving stream alone
+        with tracing.span("repro_torch.engine.handoff"):
+            f = torch.cat(outs)[:n]
+            if cuda:
+                stream.synchronize()    # handoff: the serving stream alone
         return f
 
     # ------------------------------------------------------------------
@@ -467,34 +484,39 @@ class DSEKLPredictionEngine:
         first auto-flushes them through the pipeline (results held until
         the next explicit flush; tickets keep counting).  Serving-thread
         only."""
-        shape = tuple(x_query.shape)
-        if len(shape) != 2 or shape[1] != self.d:
-            raise ValueError(
-                f"query batch must be (n, {self.d}); got {shape}")
-        if len(self._queue) >= self.engine_cfg.max_queue:
-            self._done.extend(self._flush_queue(pipelined=True))
-        self._queue.append(_f32_copy(x_query, torch.device("cpu")))
-        return len(self._done) + len(self._queue) - 1
+        with tracing.span("repro_torch.engine.submit"):
+            shape = tuple(x_query.shape)
+            if len(shape) != 2 or shape[1] != self.d:
+                raise ValueError(
+                    f"query batch must be (n, {self.d}); got {shape}")
+            if len(self._queue) >= self.engine_cfg.max_queue:
+                self._done.extend(self._flush_queue(pipelined=True))
+            self._queue.append(_f32_copy(x_query, torch.device("cpu")))
+            return len(self._done) + len(self._queue) - 1
 
     def _flush_queue(self, pipelined: bool) -> List[Tuple[Tensor, int]]:
         """Serve the pending queue micro-batched and split per ticket; one
         sweep = one captured ``(alpha, version)``."""
         if not self._queue:
             return []
-        a_sv, version = self._capture_alpha()
-        sizes = [int(b.shape[0]) for b in self._queue]
-        merged = torch.cat(self._queue, dim=0)
-        self._queue = []
-        if pipelined:
-            self.async_flushes += 1
-            f = self._predict_pipelined(merged.numpy(), a_sv)
-        else:
-            f = self._predict(merged, a_sv)
-        outs, start = [], 0
-        for s in sizes:
-            outs.append((f[start:start + s], version))
-            start += s
-        return outs
+        with tracing.span("repro_torch.engine.flush"):
+            with tracing.span("repro_torch.engine.merge"):
+                a_sv, version = self._capture_alpha()
+                sizes = [int(b.shape[0]) for b in self._queue]
+                merged = torch.cat(self._queue, dim=0)
+                self._queue = []
+                if pipelined:
+                    merged = merged.numpy()
+            if pipelined:
+                self.async_flushes += 1
+                f = self._predict_pipelined(merged, a_sv)
+            else:
+                f = self._predict(merged, a_sv)
+            outs, start = [], 0
+            for s in sizes:
+                outs.append((f[start:start + s], version))
+                start += s
+            return outs
 
     def flush(self) -> List[Tensor]:
         """Serve every pending batch: one concatenation, one pad to
