@@ -24,13 +24,13 @@ result):
   1. device  — name, compute capability, ``nvidia-smi`` name and power
                limit; requires sm_90.
   2. build   — nvcc builds every kernel source (build seconds, ptxas);
-               the three tensor-core libraries' ptxas registers, shared
+               the four tensor-core libraries' ptxas registers, shared
                memory, spills and warnings, and their SASS counts by
                cuobjdump: HGMMA (wgmma) and, for flash and the SSD scan,
-               UTMALDG (TMA) must be > 0; the sm90 matvec must spill
-               nothing; the sm90 train kernel's wide instantiations
-               must spill nothing (the narrow ones' ptxas lines are
-               printed), no C75xx note may appear, and the wide
+               UTMALDG (TMA) must be > 0; the sm90 and sm90_wide matvecs
+               must spill nothing; the sm90 train kernel's wide
+               instantiations must spill nothing (the narrow ones' ptxas
+               lines are printed), no C75xx note may appear, and the wide
                variant's dynamic shared memory is printed.
   3. parity  — each DSEKL kernel vs its plain version on the card, 7
                kernels x D in {3, 54, 784} at ragged I=1000, J=5003:
@@ -39,8 +39,9 @@ result):
                matvec-then-vecmat fallback under a forced small stash
                budget; each launch counter must go up by one per call,
                and the matvec and vecmat on their route
-               (``block.select_matvec_route``: sm90 for the six
-               cross-term kinds at D <= 64, fp32 for the rest).  The
+               (``block.select_matvec_route``: for the six cross-term
+               kinds sm90 at D <= 64 and sm90_wide past it, fp32 for the
+               Laplacian).  The
                dual and train passes on both train routes
                (``block.select_train_route``: J = 5003 on the fp32 one,
                the ragged J = 1000 on the sm90 one with K in registers,
@@ -120,7 +121,11 @@ result):
                kernel and plain by CUDA events (the host's enqueue
                included), in ms; for row 1 also the TF32 cross-term GEMM
                (a second yardstick, not the same function) and the fp32
-               route at the same shape, on a line of its own; rows 3 and 4
+               route at the same shape, on a line of its own, and row 1's
+               sm90_wide route at MNIST's serve launch (1,024, 32,768,
+               D 784) and lm-readout's decision (2,048, 2,048, D 1,536),
+               each beside its bound, the plain version, both GEMM
+               yardsticks and the fp32 route at that shape; rows 3 and 4
                on the sm90 train route (row 4 as the step calls it: rows
                by index, lam), the contiguous sm90 train pass, and both on
                the fp32 route at the same shape, each on a line of its
@@ -788,6 +793,9 @@ def phase_build():
     _inspect_sm90(records["ssd_sm90"], "ssd sm90", ("HGMMA", "UTMALDG"))
     _inspect_sm90(records["dsekl_matvec_sm90"], "matvec sm90", ("HGMMA",))
     _check_no_spills(records["dsekl_matvec_sm90"], "matvec sm90")
+    _inspect_sm90(records["dsekl_matvec_sm90_wide"], "matvec sm90_wide",
+                  ("HGMMA", "UBLKCP"))
+    _check_no_spills(records["dsekl_matvec_sm90_wide"], "matvec sm90_wide")
     _inspect_train_sm90(records["dsekl_train_sm90"])
     return records
 
@@ -916,11 +924,12 @@ def phase_parity():
                   for w in (SM90_PARITY_J,) + SM90_WIDE_PARITY_J]
         for name, params in PARITY_CASES:
             kw = dict(kernel_name=name, params=dict(params))
-            # The matvec and vecmat: on the tensor-core route for the six
-            # cross-term kinds at D <= 64, else on the fp32 one.
+            # The matvec and vecmat: on a tensor-core route for the six
+            # cross-term kinds (sm90 at D <= 64, sm90_wide past it), on
+            # the fp32 one for the Laplacian.
             route = block.select_matvec_route(name, d)
-            check(route == ("sm90" if name != "laplacian"
-                            and d <= block.SM90_MAX_D else "fp32"),
+            check(route == ("fp32" if name == "laplacian" else "sm90"
+                            if d <= block.SM90_MAX_D else "sm90_wide"),
                   f"{name} D={d}: route {route}")
             wrappers = (block.kernel_matvec_cuda, block.kernel_vecmat_cuda)
             by_route = [dict(f.launches_by_route) for f in wrappers]
@@ -1354,12 +1363,14 @@ def _check_train_steps(counts: dict, steps: int, wrapper: str, route: str,
     on the other), no other train-pass or dual-pass launch, ``matvecs``
     matvec launches (the evals) and ``vecmats`` vecmat launches (EigenPro's
     correction, one a preconditioned step), all on the sm90 route."""
+    from repro_torch.kernels.dsekl import block
     none_t = {"sm90": 0, "fp32": 0}
     train = dict(none_t, **{route: steps})
+    none_m = dict.fromkeys(block.MATVEC_ROUTES, 0)
     want = {"train_pass_indexed_cuda": none_t, "train_pass_cuda": none_t,
             "dual_pass_cuda": none_t,
-            "kernel_matvec_cuda": {"sm90": matvecs, "fp32": 0},
-            "kernel_vecmat_cuda": {"sm90": vecmats, "fp32": 0}}
+            "kernel_matvec_cuda": dict(none_m, sm90=matvecs),
+            "kernel_vecmat_cuda": dict(none_m, sm90=vecmats)}
     want[wrapper] = train
     check(counts == want, f"{what}: launches by wrapper and route {counts}, "
           f"expected {want}")
@@ -2498,7 +2509,7 @@ def phase_online():
           "on sm90")
     check(counts["train_pass_indexed_cuda"] == none
           and counts["dual_pass_cuda"] == none
-          and counts["kernel_vecmat_cuda"] == none,
+          and not any(counts["kernel_vecmat_cuda"].values()),
           f"unexpected launches {counts}")
     mv = counts["kernel_matvec_cuda"]
     check(mv["fp32"] == 0 and mv["sm90"] >= len(set(
@@ -2687,7 +2698,7 @@ def phase_tenants():
         mv = counts["kernel_matvec_cuda"]
         print(f"[tenants] qos {qos}: launches {counts}")
         check(mv["fp32"] == 0, f"qos {qos}: fp32 matvec launches {mv}")
-        check(all(v == {"sm90": 0, "fp32": 0} for k, v in counts.items()
+        check(all(not any(v.values()) for k, v in counts.items()
                   if k != "kernel_matvec_cuda"), f"qos {qos}: {counts}")
         launches += mv["sm90"]
         everything = res["responses"] + [
@@ -3248,6 +3259,144 @@ def phase_times(res, device_name: str):
     print("[times] clocks.sm,power.draw,power.limit,temperature.gpu: "
           + nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
     return [row, row32]
+
+
+# Row 1's sm90_wide route at its main-path shapes: MNIST's serve launch (the
+# mnist-rbf.serve cell's: a 1,024-row query tile against 32,768 padded
+# support rows) and lm-readout's decision (2,048 x 2,048 at D 1,536).
+WIDE_TIMES = {"mnist serve launch": (1024, 32768, 784),
+              "lm-readout decision": (2048, 2048, 1536)}
+# The route's other callers past D 64, which no cell runs, as the kernels
+# see them (the vecmat's operands swapped): both routes' kernels launched
+# directly (KPCA's step: 65,536 query rows, four chunks of the split).
+WIDE_CALLERS = {"EigenPro correction's vecmat, m 512 x I 1,024":
+                (512, 1024, 784),
+                "EmpFix step": (1024, 1024, 784),
+                "KPCA step": (65536, 256, 784),
+                "KPCA transform": (4096, 4096, 784),
+                "one 64-row request": (64, 32768, 784),
+                "a small call at D 65": (300, 2000, 65)}
+
+
+def _wide_inputs(n_i: int, n_j: int, d: int, seed: int):
+    """MNIST-like rows (values in [0, 1], ~19% non-zero), queries near
+    support rows, alpha normal, gamma by the scale rule 1 / (D var(z))."""
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    z = torch.rand((n_j, d), generator=g, device=DEVICE)
+    z *= torch.rand((n_j, d), generator=g, device=DEVICE) < 0.19
+    x = z[torch.randint(0, n_j, (n_i,), generator=g, device=DEVICE)]
+    x = (x + 0.02 * torch.rand((n_i, d), generator=g, device=DEVICE))
+    a = torch.randn(n_j, generator=g, device=DEVICE)
+    return x.contiguous(), z, a, {"gamma": 1.0 / (d * float(z.var()))}
+
+
+def phase_wide_times(device_name: str):
+    """Row 1 on the sm90_wide route at ``WIDE_TIMES``' shapes: device time
+    a call, its bound (the products at the TF32 tensor peak, the rest at
+    fp32; the split's three products not counted), the plain version's
+    time, the fp32 and TF32 cross-term GEMM yardsticks, and the fp32 route
+    at the same shape for the record; then both routes' kernels at
+    ``WIDE_CALLERS``' shapes.  One row of the kernels line
+    (``kernel_matvec_sm90_wide``: the MNIST shape's numbers; every shape
+    in ``ms_bound_by_shape``)."""
+    import torch
+    from repro_torch.kernels.dsekl import block
+    lib32 = block._lib("fp32")
+    peak = peaks(device_name)
+    row, by_shape = None, {}
+    for seed, (tag, (n_i, n_j, d)) in enumerate(WIDE_TIMES.items(), 40):
+        x, z, a, params = _wide_inputs(n_i, n_j, d, seed)
+        check(block.select_matvec_route("rbf", d) == "sm90_wide",
+              f"{tag}: D {d} does not take the sm90_wide route")
+
+        def kernel():
+            return block.kernel_matvec_cuda(x, z, a, kernel_name="rbf",
+                                            params=params)
+
+        def plain():
+            return block.kernel_matvec_plain(x, z, a, kernel_name="rbf",
+                                             params=params)
+
+        def gemm():
+            return torch.matmul(x, z.T)
+
+        before = block.kernel_matvec_cuda.launches_by_route["sm90_wide"]
+        got = kernel()
+        check(block.kernel_matvec_cuda.launches_by_route["sm90_wide"]
+              == before + 1, f"{tag}: the launch missed the sm90_wide route")
+        want = plain()
+        err = compare(got, want)
+        t = _timed(kernel, plain)
+        t_gemm = device_ms(gemm)
+        torch.backends.cuda.matmul.allow_tf32 = True  # the TF32 yardstick
+        try:
+            t_gemm_tf32 = device_ms(gemm)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        kind, p = block.KINDS["rbf"], block.tile_params("rbf", params)
+
+        def kernel32():
+            return block.launch_matvec(lib32, "fp32", x, z, a, kind, p)
+
+        err32 = compare(kernel32(), want)
+        t32 = statistics.mean([device_ms(kernel32), device_ms(kernel32)])
+        products, ops_count, bytes_count = _matvec_work(n_i, n_j, d)
+        r = _row("kernel_matvec_sm90_wide",
+                 "src/repro_torch/kernels/dsekl/csrc/dsekl_matvec_sm90_wide.cu",
+                 "src/repro/kernels/dsekl/block.py:252", t, ops_count,
+                 bytes_count, device_name, err, t_gemm, tensor_ops=products,
+                 tensor="tf32")
+        shape = f"I={n_i} J={n_j} D={d}"
+        _print_row(r, t, shape, products + ops_count, bytes_count,
+                   "torch.matmul(x, z.T), fp32,")
+        bound32 = max((products + ops_count) / peak["fp32"],
+                      bytes_count / peak["bytes"]) * 1e3
+        print(f"[times] kernel_matvec sm90_wide route, {tag} ({shape}): "
+              f"{r['bound_ms'] / r['ms']:.1%} of its bound (the split's 3x "
+              f"products, not counted, take {3 * products / peak['tf32'] * 1e3:.4f}"
+              f" ms at the TF32 peak); the TF32 GEMM yardstick device "
+              f"{t_gemm_tf32:.4f} ms; the fp32 route (csrc/dsekl_matvec.cu) "
+              f"{t32:.4f} ms, bound {bound32:.4f} ms (all operations at the "
+              f"fp32 peak) = {bound32 / t32:.1%}, vs plain max abs err "
+              f"{err32:.3e}; sm90_wide is {t32 / r['ms']:.2f}x faster")
+        by_shape[f"{tag} (I {n_i}, J {n_j}, D {d})"] = {
+            "ms": r["ms"], "bound_ms": r["bound_ms"],
+            "plain_ms": r["plain_ms"], "gemm_tf32_ms": t_gemm_tf32,
+            "fp32_route_ms": t32}
+        if row is None:
+            row = dict(r, matvec_route="sm90_wide", kernel_route="sm90_wide",
+                       gemm_tf32_ms=t_gemm_tf32, fp32_route_ms=t32)
+        del x, z, a, got, want
+    libw = block._lib("sm90_wide")
+    for seed, (tag, (n_i, n_j, d)) in enumerate(WIDE_CALLERS.items(), 50):
+        x, z, a, params = _wide_inputs(n_i, n_j, d, seed)
+        kind, p = block.KINDS["rbf"], block.tile_params("rbf", params)
+
+        def wide():
+            return block.launch_matvec(libw, "sm90_wide", x, z, a, kind, p)
+
+        def fp32():
+            return block.launch_matvec(lib32, "fp32", x, z, a, kind, p)
+
+        err = compare(wide(), block.kernel_matvec_plain(
+            x, z, a, kernel_name="rbf", params=params))
+        t = [device_ms(wide), device_ms(fp32), device_ms(fp32),
+             device_ms(wide)]
+        tw, t32 = statistics.mean(t[::3]), statistics.mean(t[1:3])
+        route = block.select_matvec_route("rbf", d)
+        print(f"[times] kernel_matvec at {tag} (I {n_i}, J {n_j}, D {d}; "
+              f"{2 * n_i * n_j * d:.2e} products): sm90_wide {tw:.4f} ms "
+              f"({t[0]:.4f}, {t[3]:.4f}), fp32 route {t32:.4f} ms ({t[1]:.4f}"
+              f", {t[2]:.4f}), {t32 / tw:.2f}x; vs plain max abs err "
+              f"{err:.3e}; select_matvec_route takes {route}")
+        by_shape[f"{tag} (I {n_i}, J {n_j}, D {d})"] = {
+            "ms": tw, "fp32_route_ms": t32, "route": route}
+        del x, z, a
+    row["ms_bound_by_shape"] = by_shape
+    print("[times] clocks.sm,power.draw,power.limit,temperature.gpu: "
+          + nvidia_smi("clocks.sm,power.draw,power.limit,temperature.gpu"))
+    return row
 
 
 def phase_rbf_times(res, device_name: str):
@@ -4621,8 +4770,8 @@ def phase_lm_readout(model, device_name: str):
     sequences through the SSD kernel (one launch a layer a batch, sm90; the last
     batch's held against the plain version on its activations), then
     ``KernelReadout.fit`` by Algorithm 2 (every step one launch of the
-    sm90 train kernel's wide variant) and its decision through the fp32
-    matvec route (D 1,536); gates as tests/test_readout.py."""
+    sm90 train kernel's wide variant) and its decision through the
+    sm90_wide matvec route (D 1,536); gates as tests/test_readout.py."""
     import torch
     from repro_torch.core.dsekl import (DSEKLConfig, decision_function_ref)
     from repro_torch.core.readout import KernelReadout, extract_features
@@ -4711,8 +4860,10 @@ def phase_lm_readout(model, device_name: str):
           f"for the decisions {matvec}, in the fit {matvec_fit}")
     check(err <= 0.35 and tr_err <= 0.05,
           f"lm-readout: held-out error {err}, train error {tr_err}")
-    route = block.select_matvec_route("rbf", d)     # fp32 at D 1,536
-    check(matvec == dict({"sm90": 0, "fp32": 0}, **{route: 2})
+    route = block.select_matvec_route("rbf", d)
+    check(route == "sm90_wide"
+          and matvec == dict(dict.fromkeys(block.MATVEC_ROUTES, 0),
+                             **{route: 2})
           and sum(matvec_fit.values()) == 0,
           f"lm-readout: decision matvecs by route {matvec}, expected 2 on "
           f"the {route} route; in the fit {matvec_fit}")
@@ -4745,12 +4896,13 @@ def phase_lm_readout(model, device_name: str):
     peak = peaks(device_name)
     products, ops_count, bytes_count = _matvec_work(test_feats.shape[0],
                                                     n_sv, d)
-    mv_bound = max((products + ops_count) / peak["fp32"],
+    mv_bound = max(products / peak["tf32"] + ops_count / peak["fp32"],
                    bytes_count / peak["bytes"]) * 1e3
-    print(f"[lm-readout] kernel_matvec fp32 route at (I {test_feats.shape[0]}"
-          f", J {n_sv}, D {d}): device {mv_ms:.4f} ms a call, bound "
-          f"{mv_bound:.6f} ms = {mv_bound / mv_ms:.1%} (all operations at the "
-          f"fp32 peak); vs plain max abs err {mv_err:.3e}")
+    print(f"[lm-readout] kernel_matvec sm90_wide route at (I "
+          f"{test_feats.shape[0]}, J {n_sv}, D {d}): device {mv_ms:.4f} ms a "
+          f"call, bound {mv_bound:.6f} ms = {mv_bound / mv_ms:.1%} (the "
+          f"products at the TF32 tensor peak, the rest at fp32); vs plain "
+          f"max abs err {mv_err:.3e}")
     # The wide sm90 train variant alone at the fit's step (I n_grad, a J
     # union of 2,048, D 1,536), as the step calls it (rows by index, lam),
     # counted as phase_parallel_times counts the step at D 54.
@@ -5179,6 +5331,7 @@ def phase_mesh(prob, smi: str, covertype_err: float) -> dict:
     import torch
     import torch.distributed as dist
     from repro_torch.core import fit
+    from repro_torch.kernels.dsekl import block
     from repro_torch.launch import train
     t0 = time.perf_counter()
     shutil.rmtree(MESH_DIR, ignore_errors=True)
@@ -5195,10 +5348,11 @@ def phase_mesh(prob, smi: str, covertype_err: float) -> dict:
     steps = MESH_PARITY["steps"]
     for arm, vec in (("plain", 1), ("compress", 1), ("precond", 2)):
         got = r0["parity"][arm]["launches"]
-        want = {"sm90": MESH_RANKS * steps, "fp32": 0}
+        none_m = dict.fromkeys(block.MATVEC_ROUTES, 0)
+        want = dict(none_m, sm90=MESH_RANKS * steps)
         check(got["kernel_matvec_cuda"] == want
-              and got["kernel_vecmat_cuda"] == {"sm90": vec * MESH_RANKS
-                                                * steps, "fp32": 0}
+              and got["kernel_vecmat_cuda"] == dict(
+                  none_m, sm90=vec * MESH_RANKS * steps)
               and all(sum(got[w].values()) == 0 for w in (
                   "train_pass_cuda", "train_pass_indexed_cuda",
                   "dual_pass_cuda")),
@@ -5719,6 +5873,7 @@ def _mesh_serve_engine(spec: dict) -> dict:
     one a serve call."""
     import numpy as np
     import torch
+    from repro_torch.kernels.dsekl import block
     from repro_torch.launch import serve
     from repro_torch.serving import DSEKLPredictionEngine
     f_ref = torch.from_numpy(np.load(spec["f_ref"]))
@@ -5734,7 +5889,8 @@ def _mesh_serve_engine(spec: dict) -> dict:
         eng = run["engine"]
         check(eng.n_shards == d, f"(a) {d} x {m}: {eng.n_shards} shards")
         mv = counts["kernel_matvec_cuda"]
-        check(mv == {"sm90": eng.serve_calls, "fp32": 0} and all(
+        check(mv == dict(dict.fromkeys(block.MATVEC_ROUTES, 0),
+                         sm90=eng.serve_calls) and all(
             sum(counts[w].values()) == 0 for w in counts
             if w != "kernel_matvec_cuda"),
             f"(a) {d} x {m}: launches {counts}, serve calls "
@@ -7100,6 +7256,7 @@ def main() -> int:
     train_paths = {"train": trained["launches"],
                    "online fit": online["train_launches"]}
     rows = phase_times(res, name) + [phase_rbf_times(res, name)]
+    rows.append(phase_wide_times(name))
     rows += phase_train_times(trained["out"], name)
     rows += phase_parallel_times(parallel["out"], name)
     rows.append(phase_precond_times(
@@ -7131,11 +7288,10 @@ def main() -> int:
     elapsed("lm-readout")
     rows += phase_lm_times(name)
     elapsed("lm-times")
-    # Launches on the main paths; every fp32 route but the matvec's (the
-    # readout's decision at D 1,536) has none there.
+    # Launches on the main paths; no fp32 route has any there.
     wide_paths["lm-readout fit (J union 2,048)"] = readout["train"]
-    # The readout's decisions at D 1,536 take the matvec's fp32 route.
-    matvec_fp32_paths = {"lm-readout decisions (D 1,536)": readout["matvec"]}
+    # The readout's decisions at D 1,536 take the matvec's sm90_wide route.
+    matvec_wide_paths = {"lm-readout decisions (D 1,536)": readout["matvec"]}
     # Flash: causal prefills (jamba, llama-3.2-vision's self-attention,
     # whisper's decoder) and, since the frontend slice, non-causal ones
     # (the cross layers, whisper's encoder); none in deepseek's (MLA).
@@ -7154,11 +7310,12 @@ def main() -> int:
                "train_pass_sm90_j4096": wide_paths,
                "kernel_vecmat": vecmat_paths, "ssd": ssd_paths,
                "flash_attention": flash_paths,
-               "kernel_matvec_fp32": matvec_fp32_paths}
+               "kernel_matvec_sm90_wide": matvec_wide_paths}
     # kernel_vecmat_precond times kernel_vecmat at the correction's shape;
     # its launches are counted once, in kernel_vecmat's row.
     launches = {"kernel_matvec": sum(matvec_paths.values()), "rbf_matvec": 0,
-                "kernel_matvec_fp32": sum(matvec_fp32_paths.values()),
+                "kernel_matvec_fp32": 0,
+                "kernel_matvec_sm90_wide": sum(matvec_wide_paths.values()),
                 "kernel_vecmat": sum(vecmat_paths.values()),
                 "kernel_vecmat_precond": 0,
                 "dual_pass": trained["dual_launches"],
@@ -7175,10 +7332,10 @@ def main() -> int:
             row["ms_bound_by_shape"] = {
                 k[: -len(kind) - 1]: v for k, v in shape_times.items()
                 if k.endswith(kind)}
-        if row["name"] == "kernel_matvec_fp32":
-            row["ms_bound_by_shape"] = {
-                "lm-readout decision (I %d, J %d, D %d)"
-                % readout["matvec_shape"]: readout["matvec_time"]}
+        if row["name"] == "kernel_matvec_sm90_wide":
+            row["ms_bound_by_shape"][
+                "lm-readout decision, the trained head (I %d, J %d, D %d)"
+                % readout["matvec_shape"]] = readout["matvec_time"]
         if row["name"] == "flash_attention":
             row["ms_bound_by_shape"] = dict(
                 llama["times"], **whisper["times"],

@@ -19,14 +19,17 @@ kernels).
   replaces ``kernel_vecmat_pallas``), the ops ``repro_torch::
   kernel_matvec`` / ``kernel_vecmat`` (``kernels/library.py``: CUDA
   bodies ``_matvec_body`` / ``_vecmat_body``, meta implementations for a
-  trace), on two routes chosen by shape (``select_matvec_route``), each
+  trace), on three routes chosen by shape (``select_matvec_route``), each
   counted in ``.launches_by_route``:
   ``"sm90"`` (``csrc/dsekl_matvec_sm90.cu``: the six cross-term kinds
   with D <= ``SM90_MAX_D``, the cross term on the TF32 tensor cores split
-  three ways) and ``"fp32"`` (``csrc/dsekl_matvec.cu``: the Laplacian
-  and wider D, fp32 CUDA cores); ``dual_pass_cuda``, ``train_pass_cuda``
-  and ``train_pass_indexed_cuda`` (replace ``dual_pass_pallas`` and
-  ``train_pass_pallas``) on two routes chosen by shape
+  three ways, the query rows in registers), ``"sm90_wide"``
+  (``csrc/dsekl_matvec_sm90_wide.cu``: the same kinds at wider D, the same
+  split in a loop over D) and ``"fp32"`` (``csrc/dsekl_matvec.cu``: the
+  Laplacian, fp32 CUDA cores);
+  ``dual_pass_cuda``, ``train_pass_cuda`` and ``train_pass_indexed_cuda``
+  (replace ``dual_pass_pallas`` and ``train_pass_pallas``) on two routes
+  chosen by shape
   (``select_train_route``), each counted in ``.launches_by_route``:
   ``"sm90"`` (``csrc/dsekl_train_sm90.cu``: |J| <= ``SM90_TRAIN_MAX_J``,
   one cluster launch that keeps K on chip, in registers up to 1,024
@@ -47,7 +50,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import inspect
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -294,31 +297,59 @@ def train_pass_indexed_plain(x: Tensor, y: Tensor, alpha: Tensor,
 # ---------------------------------------------------------------------------
 
 # The matvec's routes (select_matvec_route) and their sources, csrc/<name>.cu.
-MATVEC_ROUTES = ("sm90", "fp32")
-MATVEC_LIBS = {"sm90": "dsekl_matvec_sm90", "fp32": "dsekl_matvec"}
+MATVEC_ROUTES = ("sm90", "sm90_wide", "fp32")
+MATVEC_LIBS = {"sm90": "dsekl_matvec_sm90",
+               "sm90_wide": "dsekl_matvec_sm90_wide", "fp32": "dsekl_matvec"}
+
+
+class _MatvecEntries(NamedTuple):
+    """A matvec library's C entry points.  Every route's launch takes the
+    same arguments; blocks an SM takes the kind, and D where
+    ``per_sm_takes_d``; ``scratch_floats``, where the library has one,
+    sizes the launch's scratch from (I, J, D, n_split), which is otherwise
+    n_split I + I + J floats."""
+    launch: str
+    blocks_per_sm: str
+    error_string: str
+    per_sm_takes_d: bool
+    scratch_floats: Optional[str] = None
+
+
+_MATVEC_ENTRIES = {
+    "sm90": _MatvecEntries("dsekl_matvec_sm90",
+                           "dsekl_matvec_sm90_blocks_per_sm",
+                           "dsekl_matvec_sm90_error_string", True),
+    "sm90_wide": _MatvecEntries("dsekl_matvec_sm90_wide",
+                                "dsekl_matvec_sm90_wide_blocks_per_sm",
+                                "dsekl_matvec_sm90_wide_error_string", False,
+                                "dsekl_matvec_sm90_wide_scratch_floats"),
+    "fp32": _MatvecEntries("dsekl_kernel_matvec", "dsekl_blocks_per_sm",
+                           "dsekl_error_string", False)}
 # Support (and query) rows a tile of each route's kernel.
-MATVEC_TILE = {"sm90": 128, "fp32": 64}
+MATVEC_TILE = {"sm90": 128, "sm90_wide": 128, "fp32": 64}
 # The kinds whose tile is a function of the cross term x.z: the sm90
-# kernel runs their products on the tensor cores.  The Laplacian's L1 sum
+# kernels run their products on the tensor cores.  The Laplacian's L1 sum
 # has no product.
 CROSS_TERM_KINDS = ("rbf", "linear", "polynomial", "sigmoid", "matern32",
                     "matern52")
 # The widest D of the sm90 kernel: two 128-byte panels of 32 floats, which
-# its three-stage ring of split support tiles fits in shared memory.
+# its three-stage ring of split support tiles fits in shared memory.  Wider
+# D takes the sm90_wide kernel, which loops over D.
 SM90_MAX_D = 64
 
 
 def select_matvec_route(kernel_name: str, d: int) -> str:
     """The kernel that computes ``K(x, z) @ a`` for ``kernel_name`` at
-    width ``d``: ``"sm90"`` for the six cross-term kinds with 1 <= d <=
-    ``SM90_MAX_D``, else ``"fp32"``.  Chosen by shape, never as a
-    fallback; raises for an unknown kernel."""
+    width ``d``: for the six cross-term kinds ``"sm90"`` with 1 <= d <=
+    ``SM90_MAX_D`` and ``"sm90_wide"`` past it; ``"fp32"`` for the
+    Laplacian.  Chosen by shape, never as a fallback; raises for an
+    unknown kernel."""
     if kernel_name not in KINDS:
         raise ValueError(f"select_matvec_route: no CUDA kernel for "
                          f"{kernel_name!r}; available: {sorted(KINDS)}")
-    if kernel_name in CROSS_TERM_KINDS and 1 <= d <= SM90_MAX_D:
-        return "sm90"
-    return "fp32"
+    if kernel_name not in CROSS_TERM_KINDS or d < 1:
+        return "fp32"
+    return "sm90" if d <= SM90_MAX_D else "sm90_wide"
 
 
 def _lib(route: str) -> ctypes.CDLL:
@@ -329,25 +360,22 @@ def _lib(route: str) -> ctypes.CDLL:
 
 def typed_matvec_lib(lib: ctypes.CDLL, route: str) -> ctypes.CDLL:
     """``lib``, a library built from ``route``'s source, with its C
-    functions' argument types set.  Both routes take the same arguments."""
+    functions' argument types set (``_MATVEC_ENTRIES``)."""
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if route == "sm90":
-        fn, per_sm, err = (lib.dsekl_matvec_sm90,
-                           lib.dsekl_matvec_sm90_blocks_per_sm,
-                           lib.dsekl_matvec_sm90_error_string)
-        per_sm_args = [i, i]                     # kind, D
-    else:
-        fn, per_sm, err = (lib.dsekl_kernel_matvec, lib.dsekl_blocks_per_sm,
-                           lib.dsekl_error_string)
-        per_sm_args = [i]                        # kind
+    e = _MATVEC_ENTRIES[route]
+    fn, per_sm, err = (getattr(lib, name) for name in e[:3])
     if fn.argtypes is None:
         fn.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, f, f, f, i, i, f,
                        i, i, vp]
         fn.restype = ctypes.c_int
-        per_sm.argtypes = per_sm_args
+        per_sm.argtypes = [i, i] if e.per_sm_takes_d else [i]
         per_sm.restype = ctypes.c_int
         err.argtypes = [i]
         err.restype = ctypes.c_char_p
+        if e.scratch_floats:
+            sizer = getattr(lib, e.scratch_floats)
+            sizer.argtypes = [i, i, i, i]
+            sizer.restype = ctypes.c_longlong
     return lib
 
 
@@ -443,13 +471,13 @@ def split_support(n_rows: int, n_cols: int, resident_blocks: int,
 
 @functools.lru_cache(maxsize=None)
 def _resident_blocks(route: str, kind: int, d: int, device_index: int) -> int:
-    """Blocks of the ``route`` kernel for ``kind`` (and, on sm90, width
-    ``d``) resident on the whole card at once."""
+    """Blocks of the ``route`` kernel for ``kind`` (and, where its
+    library takes it, width ``d``) resident on the whole card at once."""
     n_sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    e = _MATVEC_ENTRIES[route]
     with torch.cuda.device(device_index):
-        lib = _lib(route)
-        per_sm = (lib.dsekl_matvec_sm90_blocks_per_sm(kind, d)
-                  if route == "sm90" else lib.dsekl_blocks_per_sm(kind))
+        per_sm_fn = getattr(_lib(route), e.blocks_per_sm)
+        per_sm = per_sm_fn(kind, d) if e.per_sm_takes_d else per_sm_fn(kind)
     if per_sm <= 0:
         raise RuntimeError(f"blocks per SM of the {route} matvec kernel "
                            f"(kind {kind}, D {d}) failed: {per_sm}")
@@ -525,12 +553,12 @@ def launch_matvec(lib: ctypes.CDLL, route: str, x: Tensor, z: Tensor,
     n_split, per = split_support(n_i, n_j,
                                  _resident_blocks(route, kind, d, dev),
                                  MATVEC_TILE[route])
-    scratch = torch.empty((n_split * n_i + n_i + n_j,), dtype=torch.float32,
+    e = _MATVEC_ENTRIES[route]
+    n_scratch = (getattr(lib, e.scratch_floats)(n_i, n_j, d, n_split)
+                 if e.scratch_floats else n_split * n_i + n_i + n_j)
+    scratch = torch.empty((n_scratch,), dtype=torch.float32,
                           device=x.device)
-    entry, err_string = ((lib.dsekl_matvec_sm90,
-                          lib.dsekl_matvec_sm90_error_string)
-                         if route == "sm90" else
-                         (lib.dsekl_kernel_matvec, lib.dsekl_error_string))
+    entry, err_string = getattr(lib, e.launch), getattr(lib, e.error_string)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = entry(x.data_ptr(), z.data_ptr(), a.data_ptr(), out.data_ptr(),
@@ -559,9 +587,9 @@ def kernel_matvec_cuda(x: Tensor, z: Tensor, a: Tensor, *,
                        kernel_name: str = "rbf",
                        params: Optional[Dict[str, Any]] = None) -> Tensor:
     """f = K(x, z) @ a by the hand-written Hopper kernel of
-    ``select_matvec_route``: the six cross-term kinds with D <=
-    ``SM90_MAX_D`` on the ``sm90`` tensor-core kernel, the Laplacian and
-    wider D on the ``fp32`` one.
+    ``select_matvec_route``: the six cross-term kinds on the tensor cores,
+    by the ``sm90`` kernel with D <= ``SM90_MAX_D`` and the ``sm90_wide``
+    one past it, the Laplacian on the ``fp32`` one.
 
     x (I, D), z (J, D), a (J,): contiguous float32 CUDA tensors on one
     device.  Launches on the current stream without synchronising and

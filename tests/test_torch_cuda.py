@@ -18,10 +18,11 @@ bfloat16 inputs they are held against the plain version on the same
 values in float32 at rtol 8e-3, one bfloat16 rounding of the output.
 bf16 flash with head dim 64 or 128 runs on the sm90 tensor-core route,
 every other flash call on the fp32 route (``kernel.select_route``).  The
-matvec and vecmat of the six cross-term kinds with D <= 64 run on the sm90
-TF32 tensor-core route (the cross term split three ways), the Laplacian
-and wider D on the fp32 route (``block.select_matvec_route``), held to
-the same float32 tolerance.  The train pass's sm90 route keeps K in
+matvec and vecmat of the six cross-term kinds run on the TF32 tensor
+cores (the cross term split three ways): with D <= 64 on the sm90 route,
+at wider D on the sm90_wide route (a loop over D); the Laplacian on the
+fp32 route (``block.select_matvec_route``), held to the same float32
+tolerance.  The train pass's sm90 route keeps K in
 registers up to J = 1,024 and in shared memory past it (the wide
 variant, up to 4,096), and the fp32 route takes wider J; Algorithm 2's
 step at the protocol's shape (J union 4,096) takes the wide variant,
@@ -229,10 +230,146 @@ def test_matvec_sm90_route_matches_plain(cuda, case, shape):
     got_t = block.kernel_vecmat_cuda(x, z, v, **kw)
     torch.cuda.synchronize()
     for f, b in zip(fns, before):
-        assert f.launches_by_route == {"sm90": b["sm90"] + 1,
-                                       "fp32": b["fp32"]}
+        assert f.launches_by_route == dict(b, sm90=b["sm90"] + 1)
     _close(got, block.kernel_matvec_plain(x, z, a, **kw))
     _close(got_t, block.kernel_vecmat_plain(x, z, v, **kw))
+
+
+# The sm90_wide route: I below, at and past one 128-row query tile, ragged
+# (I % 128 in 1, 37, 104, 1, 44, 0 and J % 128 in 1, 1, 11, 75, 104, 0), D
+# past the sm90 route's limit with a ragged last slab (65; 784 = 24.5
+# slabs) and whole slabs (1,536, lm-readout's).
+WIDE_SHAPES = [(1, 1, 65), (37, 129, 65), (1000, 5003, 784),
+               (257, 331, 784), (300, 1000, 1536), (1024, 2048, 1536)]
+
+
+@pytest.mark.parametrize("shape", WIDE_SHAPES, ids=str)
+@pytest.mark.parametrize("case", SM90_IDS,
+                         ids=[IDS[i] for i in SM90_IDS])
+def test_matvec_sm90_wide_route_matches_plain(cuda, case, shape):
+    """The D-looped tensor-core kernel for the six cross-term kinds at D >
+    64, matvec and vecmat (operands swapped), meets the float32 tolerance;
+    the wrappers launch it once a call on that route."""
+    kernel, params = KERNEL_CASES[case]
+    kw = dict(kernel_name=kernel, params=dict(params))
+    x, z, a = _data(shape, cuda)
+    v = torch.tensor(np.random.default_rng(6).standard_normal(shape[0]),
+                     dtype=torch.float32, device=cuda)
+    assert block.select_matvec_route(kernel, shape[2]) == "sm90_wide"
+    fns = (block.kernel_matvec_cuda, block.kernel_vecmat_cuda)
+    before = [(f.launches, dict(f.launches_by_route)) for f in fns]
+    got = block.kernel_matvec_cuda(x, z, a, **kw)
+    got_t = block.kernel_vecmat_cuda(x, z, v, **kw)
+    torch.cuda.synchronize()
+    for f, (n, b) in zip(fns, before):
+        assert f.launches == n + 1
+        assert f.launches_by_route == dict(b, sm90_wide=b["sm90_wide"] + 1)
+    _close(got, block.kernel_matvec_plain(x, z, a, **kw))
+    _close(got_t, block.kernel_vecmat_plain(x, z, v, **kw))
+
+
+def test_matvec_sm90_wide_route_on_mnist_like_data(cuda):
+    """RBF at MNIST's width and gamma rule (values in [0, 1], ~19%
+    non-zero, gamma 1 / (D var)), queries near support rows: the serving
+    cell's numbers."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    z = torch.rand((20000, 784), generator=g, device=cuda)
+    z = z * (torch.rand((20000, 784), generator=g, device=cuda) < 0.19)
+    x = z[torch.randint(0, 20000, (1024,), generator=g, device=cuda)].clone()
+    x += 0.05 * torch.rand((1024, 784), generator=g, device=cuda)
+    a = torch.randn(20000, generator=g, device=cuda)
+    kw = dict(kernel_name="rbf",
+              params={"gamma": 1.0 / (784 * float(z.var()))})
+    before = block.kernel_matvec_cuda.launches_by_route["sm90_wide"]
+    got = block.kernel_matvec_cuda(x, z, a, **kw)
+    assert (block.kernel_matvec_cuda.launches_by_route["sm90_wide"]
+            == before + 1)
+    _close(got, block.kernel_matvec_plain(x, z, a, **kw))
+
+
+def test_matvec_sm90_wide_route_is_bit_stable(cuda):
+    """Partials in a fixed order, no float atomics: two launches, and the
+    vecmat against the matvec on the swapped operands, bit for bit."""
+    x, z, a = _data((1024, 9000, 784), cuda)
+    v = torch.tensor(np.random.default_rng(8).standard_normal(1024),
+                     dtype=torch.float32, device=cuda)
+    first = block.kernel_matvec_cuda(x, z, a)
+    assert torch.equal(block.kernel_matvec_cuda(x, z, a), first)
+    assert torch.equal(block.kernel_vecmat_cuda(x, z, v),
+                       block.kernel_matvec_cuda(z, x, v))
+
+
+def test_matvec_sm90_wide_refuses_what_it_cannot_launch(cuda):
+    """The Laplacian (no product) and a support split that does not cover
+    J are refused by the library with an error, and raise through
+    launch_matvec; nothing is counted."""
+    lib = block._lib("sm90_wide")
+    x, z, a = _data((64, 300, 784), cuda)
+    out = torch.empty(64, device=cuda)
+    scratch = torch.empty(
+        (lib.dsekl_matvec_sm90_wide_scratch_floats(64, 300, 784, 1),),
+        device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (x.data_ptr(), z.data_ptr(), a.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), 64, 300, 784)
+    scalars = (1.0, 0.0, 0.0, 1, 0, 1.0)
+    err = lib.dsekl_matvec_sm90_wide(*args, block.KINDS["laplacian"],
+                                     *scalars, 1, 3, stream)
+    assert err != 0
+    assert b"Laplacian" in lib.dsekl_matvec_sm90_wide_error_string(err)
+    assert lib.dsekl_matvec_sm90_wide(*args, block.KINDS["rbf"], *scalars,
+                                      1, 2, stream) == -1   # 256 rows < J
+    assert lib.dsekl_matvec_sm90_wide_blocks_per_sm(
+        block.KINDS["laplacian"]) == -1
+    fns = (block.kernel_matvec_cuda, block.kernel_vecmat_cuda)
+    before = [(f.launches, dict(f.launches_by_route)) for f in fns]
+    with pytest.raises(RuntimeError):
+        block.launch_matvec(lib, "sm90_wide", x, z, a,
+                            block.KINDS["laplacian"], {})
+    assert [(f.launches, f.launches_by_route) for f in fns] == before
+    assert lib.dsekl_matvec_sm90_wide_blocks_per_sm(block.KINDS["rbf"]) == 1
+
+
+def test_matvec_sm90_wide_scratch_is_bounded_at_many_queries(cuda):
+    """The vecmat over a support set of 200,000 rows at D 784 (the
+    kernel's query side, operands swapped) splits 16,384 rows at a time:
+    the scratch's split copy does not grow with the row count, the call
+    allocates no more than its scratch and output, and the chunked result
+    meets the float32 tolerance, its rows past the first chunk bit for bit
+    those of a call on them alone."""
+    lib = block._lib("sm90_wide")
+    n_big, n_small, d = 200000, 256, 784
+    split = 2 * 16384 * 800                     # 128 tiles x 25 slabs x 2
+    for n in (n_big, 10 ** 7):
+        assert lib.dsekl_matvec_sm90_wide_scratch_floats(
+            n, n_small, d, 1) == split + 2 * n + n_small
+    assert lib.dsekl_matvec_sm90_wide_scratch_floats(
+        1024, 32768, d, 16) == 2 * 1024 * 800 + 17 * 1024 + 32768
+    g = torch.Generator(device=cuda).manual_seed(9)
+    sv = torch.rand((n_big, d), generator=g, device=cuda)
+    q = sv[:n_small] + 0.02 * torch.rand((n_small, d), generator=g,
+                                         device=cuda)
+    v = torch.randn(n_small, generator=g, device=cuda)
+    kw = dict(kernel_name="rbf", params={"gamma": 1.0 / d})
+    block.kernel_vecmat_cuda(q, sv[:1000], v, **kw)   # built, resident
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = block.kernel_vecmat_cuda(q, sv, v, **kw)
+    torch.cuda.synchronize()
+    n_split, _ = block.split_support(
+        n_big, n_small, block._resident_blocks(
+            "sm90_wide", block.KINDS["rbf"], d, torch.cuda.current_device()),
+        block.MATVEC_TILE["sm90_wide"])
+    scratch = lib.dsekl_matvec_sm90_wide_scratch_floats(n_big, n_small, d,
+                                                        n_split)
+    assert scratch < split + 8 * n_big
+    assert torch.cuda.max_memory_allocated() - base <= \
+        4 * (scratch + n_big) + (4 << 20)
+    _close(got, block.kernel_vecmat_plain(q, sv, v, **kw))
+    tail = sv[16384:].contiguous()
+    assert torch.equal(got[16384:],
+                       block.kernel_vecmat_cuda(q, tail, v, **kw))
 
 
 def test_matvec_sm90_route_on_covertype_like_data(cuda):
@@ -252,15 +389,20 @@ def test_matvec_sm90_route_on_covertype_like_data(cuda):
 
 
 @pytest.mark.parametrize("kernel,d", [("laplacian", 54), ("laplacian", 3),
-                                      ("rbf", 65), ("polynomial", 784)])
+                                      ("laplacian", 65),
+                                      ("laplacian", 784), ("rbf", 65),
+                                      ("polynomial", 784)])
 def test_matvec_fp32_route_takes_the_rest(cuda, kernel, d):
+    """The Laplacian takes the fp32 route at every D; the cross-term kinds
+    at D > 64, small calls too, take sm90_wide."""
+    route = "fp32" if kernel == "laplacian" else "sm90_wide"
     x, z, a = _data((100, 300, d), cuda)
-    assert block.select_matvec_route(kernel, d) == "fp32"
+    assert block.select_matvec_route(kernel, d) == route
     before = dict(block.kernel_matvec_cuda.launches_by_route)
     got = block.kernel_matvec_cuda(x, z, a, kernel_name=kernel)
     torch.cuda.synchronize()
-    assert block.kernel_matvec_cuda.launches_by_route == {
-        "sm90": before["sm90"], "fp32": before["fp32"] + 1}
+    assert block.kernel_matvec_cuda.launches_by_route == dict(
+        before, **{route: before[route] + 1})
     _close(got, block.kernel_matvec_plain(x, z, a, kernel_name=kernel))
 
 

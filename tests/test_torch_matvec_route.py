@@ -1,22 +1,29 @@
-"""The matvec wrappers' route choice and refusals, and the sm90 kernel's
+"""The matvec wrappers' route choice and refusals, and the sm90 kernels'
 numerics, on the CPU.
 
 ``block.select_matvec_route`` is a pure function of (kernel, D): the six
 cross-term kinds with 1 <= D <= ``SM90_MAX_D`` go to the sm90 tensor-core
-kernel (``csrc/dsekl_matvec_sm90.cu``), the Laplacian and wider D to the
-fp32-core kernel (``csrc/dsekl_matvec.cu``).  Both wrappers take CUDA
-tensors only and refuse CPU ones before they count a launch.
+kernel (``csrc/dsekl_matvec_sm90.cu``), the same kinds at wider D to the
+sm90_wide one (``csrc/dsekl_matvec_sm90_wide.cu``, a loop over D), the
+Laplacian at every D to the fp32-core kernel (``csrc/dsekl_matvec.cu``).
+Each route's C entry points, as ``block._MATVEC_ENTRIES`` names them, are
+in its source with the arguments the wrappers pass.  The wrappers take
+CUDA tensors only and refuse CPU ones before they count a launch.
 
-The sm90 kernel's arithmetic, emulated in plain torch (its 3xTF32 split of
-the cross term, hi = tf32_rna(v), lo = tf32_rna(v - hi), and its RBF by
-exp2f of the pre-scaled distance), is held against the JAX oracle
+The tensor-core kernels' arithmetic, emulated in plain torch (the 3xTF32
+split of the cross term, hi = tf32_rna(v), lo = tf32_rna(v - hi); the RBF
+by exp2f of the pre-scaled distance; the sm90_wide kernel's sum over
+32-feature slabs, each slab's three products added into the float32
+total), is held against the JAX oracle
 (``kernel_matvec`` with ``impl="ref"``) at the JAX suite's float32
 tolerance, rtol 2e-4 and atol 1e-5 x max(1, |oracle|_inf), on
 covertype-like data with gamma 1; one TF32 product misses it, which is why
-the kernel splits.  The kernels themselves run in
+the kernels split.  The kernels themselves run in
 ``tests/test_torch_cuda.py`` on the card.
 """
 import math
+import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,10 +36,12 @@ from repro_torch.kernels.dsekl import block, ops
 CROSS = ["rbf", "linear", "polynomial", "sigmoid", "matern32", "matern52"]
 LIMIT = block.SM90_MAX_D
 
+WIDE = (LIMIT + 1, 784, 1536)       # MNIST's D, lm-readout's decision
+
 ROUTE_CASES = (
     [(k, d, "sm90") for k in CROSS for d in (1, 3, 54, LIMIT)]
-    + [("laplacian", d, "fp32") for d in (1, 3, 54, LIMIT, LIMIT + 1, 784)]
-    + [(k, d, "fp32") for k in CROSS for d in (LIMIT + 1, 784)])
+    + [("laplacian", d, "fp32") for d in (1, 3, 54, LIMIT) + WIDE]
+    + [(k, d, "sm90_wide") for k in CROSS for d in WIDE])
 
 
 @pytest.mark.parametrize("kernel,d,route", ROUTE_CASES,
@@ -53,6 +62,37 @@ def test_route_table_names_the_kernels():
     assert set(block.CROSS_TERM_KINDS) | {"laplacian"} == set(block.KINDS)
     assert LIMIT >= 64
     assert set(block.MATVEC_LIBS) == set(block.MATVEC_ROUTES)
+
+
+CSRC = pathlib.Path(block.__file__).parent / "csrc"
+# Arguments of each C entry point as the wrappers call it: the launch (x, z,
+# a, out, scratch, I, J, D, kind, six kernel scalars, n_split,
+# tiles_per_split, stream), blocks an SM (kind [, D]), the error text
+# (code), the scratch size (I, J, D, n_split).
+ENTRY_FIELDS = ("launch", "blocks_per_sm", "error_string", "scratch_floats")
+
+
+@pytest.mark.parametrize("field", ENTRY_FIELDS)
+@pytest.mark.parametrize("route", block.MATVEC_ROUTES)
+def test_route_entry_points_are_in_its_source(route, field):
+    """``_MATVEC_ENTRIES[route]``'s C function is defined in the route's
+    source with as many arguments as the wrappers pass; a library without
+    a scratch sizer has none, and its scratch is n_split I + I + J."""
+    e = block._MATVEC_ENTRIES[route]
+    src = (CSRC / f"{block.MATVEC_LIBS[route]}.cu").read_text()
+    name = getattr(e, field)
+    if name is None:
+        assert field == "scratch_floats"
+        assert "scratch_floats" not in src
+        return
+    defs = re.findall(
+        r"^(?:int|long long|const char\*)\s+" + name + r"\(([^)]*)\)",
+        src, re.M)
+    assert len(defs) == 1, name
+    n_args = len([a for a in defs[0].split(",") if a.strip()])
+    want = {"launch": 18, "blocks_per_sm": 1 + e.per_sm_takes_d,
+            "error_string": 1, "scratch_floats": 4}[field]
+    assert n_args == want, (name, defs[0])
 
 
 def _t(*arrs):
@@ -84,7 +124,7 @@ def test_wrappers_refuse_cpu_tensors_without_counting(kernel, d):
 @pytest.mark.parametrize("fn", ["kernel_matvec_cuda", "kernel_vecmat_cuda"])
 def test_route_counters_cover_every_route(fn):
     assert set(getattr(block, fn).launches_by_route) == set(
-        block.MATVEC_ROUTES)
+        block.MATVEC_ROUTES) == {"sm90", "sm90_wide", "fp32"}
 
 
 # ---------------------------------------------------------------------------
@@ -106,6 +146,19 @@ def _cross_3xtf32(xi, xj):
     return (xl @ zh.T + xh @ zl.T) + xh @ zh.T
 
 
+def _cross_3xtf32_slabs(xi, xj, slab=32):
+    """The sm90_wide kernel's cross term: for each 32-feature slab, x_lo
+    z_hi, x_hi z_lo and x_hi z_hi summed in turn, then added into the
+    float32 total."""
+    acc = torch.zeros((xi.shape[0], xj.shape[0]), dtype=torch.float32)
+    for k in range(0, xi.shape[1], slab):
+        xs, zs = xi[:, k:k + slab], xj[:, k:k + slab]
+        xh, zh = tf32_rna(xs), tf32_rna(zs)
+        xl, zl = tf32_rna(xs - xh), tf32_rna(zs - zh)
+        acc = acc + ((xl @ zh.T + xh @ zl.T) + xh @ zh.T)
+    return acc
+
+
 def _cross_1xtf32(xi, xj):
     """One TF32 product: both operands rounded once."""
     return tf32_rna(xi) @ tf32_rna(xj).T
@@ -125,6 +178,11 @@ def _emulated(monkeypatch, cross, x, z, a, kernel, params):
     monkeypatch.setitem(block.TILE_FNS, "rbf", _rbf_exp2)
     return block.kernel_matvec_plain(x, z, a, kernel_name=kernel,
                                      params=params, block=256)
+
+
+def _kernel_cross(d):
+    """The 3xTF32 cross term of the route that takes width ``d``."""
+    return _cross_3xtf32 if d <= LIMIT else _cross_3xtf32_slabs
 
 
 def covertype_like(n: int, d: int, rng) -> np.ndarray:
@@ -166,16 +224,16 @@ def _misses(got, want) -> int:
     return int((np.abs(got - want) > atol + 2e-4 * np.abs(want)).sum())
 
 
-@pytest.mark.parametrize("d", [3, 54])
+@pytest.mark.parametrize("d", [3, 54, 784, 1536])
 @pytest.mark.parametrize("kernel", CROSS)
 def test_3xtf32_numerics_meet_the_float32_tolerance(monkeypatch, kernel, d):
     (x, z, a), params, want = _case(kernel, d)
-    got = _emulated(monkeypatch, _cross_3xtf32, x, z, a, kernel, params)
+    got = _emulated(monkeypatch, _kernel_cross(d), x, z, a, kernel, params)
     assert bool(torch.isfinite(got).all())
     assert _misses(got, want) == 0
 
 
-@pytest.mark.parametrize("d", [3, 54])
+@pytest.mark.parametrize("d", [3, 54, 784, 1536])
 def test_one_tf32_product_misses_the_tolerance_for_rbf(monkeypatch, d):
     """Why the kernel splits: with one TF32 product the squared distance
     errs ~1e-3 relative, and most RBF sums miss the float32 check."""
